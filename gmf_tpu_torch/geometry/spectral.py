@@ -1,0 +1,32 @@
+"""Spectral matching: leading eigenvector of compatibility matrices.
+
+Counterpart of ``gmf_tpu/geometry/spectral.py::leading_eigenvector``:
+power iteration capped at ``num_iters`` with the reference's early exit.
+The convergence test is global over every block of the batch (one
+``all``), so a converged block keeps iterating while any other block is
+still moving; per-block exits would be a different result. The test
+costs one host sync per round on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _safe_norm(v):
+    return torch.sqrt((v * v).sum(-1, keepdim=True) + 1e-24)
+
+
+def leading_eigenvector(M, num_iters: int = 10, rtol: float = 1e-5,
+                        atol: float = 1e-8):
+    """M [..., N, N] nonnegative -> [..., N] leading eigenvector."""
+    v = torch.ones(M.shape[:-1], dtype=M.dtype, device=M.device)
+    # large finite sentinel: the first round always runs
+    v_last = torch.full_like(v, -1e30)
+    for _ in range(num_iters):
+        if bool(((v - v_last).abs() <= atol + rtol * v_last.abs()).all()):
+            break
+        v_new = torch.matmul(M, v[..., None])[..., 0]
+        v_new = v_new / (_safe_norm(v_new) + 1e-6)
+        v, v_last = v_new, v
+    return v

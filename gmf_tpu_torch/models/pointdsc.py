@@ -1,0 +1,285 @@
+"""PointDSC + GMF, test-mode forward, in PyTorch with CUDA kernels.
+
+Counterpart of ``gmf_tpu/models/pointdsc.py`` on its fused eval path
+(``fused_attention=True, compat_cache="off", knn_topk="fused",
+hypo_scoring="fused", seed_solver="xla"``), ``testing=True`` only:
+
+1. ResNet-34/8 image tokens of both frames, Fusion-1.
+2. num_layers x [PointCN -> NonLocalBlock]: compat-modulated attention
+   (streaming kernel, ops/fused_attention.py), message MLP, and Fusion-2
+   with LCPE added to the message.
+3. Confidence MLP; NMS seeds (ops/fused_nms.py).
+4. Seed kNN (ops/fused_topk.py), seed spectral matching with the
+   batch-global early exit, Horn-quaternion Kabsch per seed.
+5. Hypothesis scoring (ops/fused_scoring.py); best seed by first argmax.
+6. Post-refinement with the batch-global stopping rule: every pair is
+   refitted while ANY pair's inlier count still changes.
+
+Module names are the reference's torch names, the ones
+``gmf_tpu/utils/convert_torch.py::convert_pointdsc`` reads, so
+``utils/bridge.py`` maps flax variables onto ``state_dict`` keys one to
+one. Modules run in ``dtype`` (bf16 on the card is fine); geometry from
+the normalised features on is f32. Only ``compat_cache="off"`` is ported:
+the int8 compat-cache kernels come in the next slice, and the train
+branch (M matrix, argsort seeds) with training.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from gmf_tpu_torch.geometry.kabsch import rigid_transform_3d
+from gmf_tpu_torch.geometry.se3 import transform
+from gmf_tpu_torch.geometry.spectral import leading_eigenvector
+from gmf_tpu_torch.nn.fusion import FusionLayer
+from gmf_tpu_torch.nn.resnet import ImageEncoder
+from gmf_tpu_torch.ops.fused_attention import compat_flash_attention
+from gmf_tpu_torch.ops.fused_nms import pick_seeds_nms_fused
+from gmf_tpu_torch.ops.fused_scoring import seed_hypothesis_counts
+from gmf_tpu_torch.ops.fused_topk import seed_knn_topk
+from gmf_tpu_torch.utils.device import resolve_device
+
+
+class TokenBatchNorm(nn.BatchNorm1d):
+    """BatchNorm1d over the channel axis of [..., C] tokens."""
+
+    def forward(self, x):
+        return super().forward(x.reshape(-1, x.shape[-1])).reshape(x.shape)
+
+
+def _fusion(C: int, pe: bool) -> FusionLayer:
+    return FusionLayer(dim=C, latent_dim=C, cross_heads=1,
+                       cross_dim_head=C // 2, pe=pe)
+
+
+class NonLocalBlock(nn.Module):
+    """Compat-modulated self-attention, message MLP, Fusion-2 injection."""
+
+    def __init__(self, num_channels: int = 128, sigma_d: float = 0.10):
+        super().__init__()
+        C = num_channels
+        self.sigma_d = sigma_d
+        self.projection_q = nn.Linear(C, C)
+        self.projection_k = nn.Linear(C, C)
+        self.projection_v = nn.Linear(C, C)
+        self.fc_message = nn.Sequential(
+            nn.Linear(C, C // 2), TokenBatchNorm(C // 2, eps=1e-5), nn.ReLU(),
+            nn.Linear(C // 2, C // 2), TokenBatchNorm(C // 2, eps=1e-5),
+            nn.ReLU(), nn.Linear(C // 2, C))
+        self.fusion_layer_2 = _fusion(C, pe=True)
+
+    def forward(self, feat, image_feat, corr_mask, src_keypts, tgt_keypts):
+        """feat [B, N, C], image_feat [B, T, C] -> [B, N, C]."""
+        message = compat_flash_attention(
+            self.projection_q(feat), self.projection_k(feat),
+            self.projection_v(feat), src_keypts, tgt_keypts, mask=corr_mask,
+            sigma_d=self.sigma_d)
+        fused = self.fusion_layer_2(image_feat, queries_encoder=feat)
+        return self.fc_message(message) + fused
+
+
+class NonLocalNet(nn.Module):
+    """Image fusion + num_layers x [PointCN, NonLocalBlock]."""
+
+    def __init__(self, in_dim: int = 6, num_layers: int = 12,
+                 num_channels: int = 128, sigma_d: float = 0.10):
+        super().__init__()
+        C = num_channels
+        self.num_layers = num_layers
+        self.image_encoder = ImageEncoder(base_width=C // 2)
+        self.fusion_layer_1 = _fusion(C, pe=False)
+        self.layer0 = nn.Linear(in_dim, C)
+        self.blocks = nn.ModuleDict()
+        for i in range(num_layers):
+            self.blocks[f"PointCN_layer_{i}"] = nn.Sequential(
+                nn.Linear(C, C), TokenBatchNorm(C, eps=1e-5), nn.ReLU())
+            self.blocks[f"NonLocal_layer_{i}"] = NonLocalBlock(C, sigma_d)
+
+    def forward(self, corr_feat, p_image, q_image, corr_mask, src_keypts,
+                tgt_keypts):
+        """corr_feat [B, N, 6], images [B, H, W, 3] -> [B, N, C]."""
+        image_feat = self.fusion_layer_1(
+            self.image_encoder.tokens(p_image),
+            queries_encoder=self.image_encoder.tokens(q_image))
+        feat = self.layer0(corr_feat)
+        for i in range(self.num_layers):
+            feat = self.blocks[f"PointCN_layer_{i}"](feat)
+            feat = self.blocks[f"NonLocal_layer_{i}"](
+                feat, image_feat, corr_mask, src_keypts, tgt_keypts)
+        return feat
+
+
+class PointDSC(nn.Module):
+    """PointDSC+GMF (defaults from the reference's config_3DMatch.py).
+
+    ``device`` defaults to the card and raises without one unless
+    ``device="cpu"``. Weights are drawn from a ``torch.Generator`` seeded
+    with ``seed``: xavier-normal where the JAX model uses ``_xavier``,
+    LeCun-normal for the image encoder and fusion layers, zero biases.
+    """
+
+    def __init__(self, in_dim: int = 6, num_layers: int = 12,
+                 num_channels: int = 128, num_iterations: int = 10,
+                 ratio: float = 0.1, inlier_threshold: float = 0.10,
+                 sigma_d: float = 0.10, k: int = 40, nms_radius: float = 0.10,
+                 compat_cache: str = "off",
+                 dtype: torch.dtype = torch.float32, device=None,
+                 seed: int = 0):
+        super().__init__()
+        if compat_cache != "off":
+            raise NotImplementedError(
+                f"compat_cache={compat_cache!r}: only the streaming path "
+                "('off') is ported; the f32/bf16/int8 compat-cache kernels "
+                "(build+attend, cached flash) come in the next slice")
+        device = resolve_device(device)
+        self.num_iterations = num_iterations
+        self.ratio = ratio
+        self.inlier_threshold = inlier_threshold
+        self.sigma_d = sigma_d
+        self.k = k
+        self.nms_radius = nms_radius
+        self.sigma = nn.Parameter(torch.ones(1))
+        self.encoder = NonLocalNet(in_dim, num_layers, num_channels, sigma_d)
+        self.classification = nn.Sequential(
+            nn.Linear(num_channels, 32), nn.ReLU(), nn.Linear(32, 32),
+            nn.ReLU(), nn.Linear(32, 1))
+        self._init_weights(seed)
+        self.to(device=device, dtype=dtype)
+        self.eval()
+
+    def _init_weights(self, seed: int):
+        g = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            for name, mod in self.named_modules():
+                if not isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+                    continue
+                w = mod.weight  # [out, in / groups, *kernel]
+                fan_in = w[0].numel()
+                fan_out = w.shape[0] * w[0, 0].numel()
+                if "fusion_layer" in name or "image_encoder" in name:
+                    std = math.sqrt(1.0 / fan_in)
+                else:
+                    std = math.sqrt(2.0 / (fan_in + fan_out))
+                w.normal_(0.0, std, generator=g)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+
+    @property
+    def device(self):
+        return self.sigma.device
+
+    @property
+    def dtype(self):
+        return self.sigma.dtype
+
+    @torch.no_grad()
+    def forward(self, corr_pos, src_keypts, tgt_keypts, p_image, q_image,
+                testing: bool = False, corr_mask=None):
+        """corr_pos [B, N, 6], keypoints [B, N, 3], images [B, H, W, 3]
+        (NHWC), corr_mask optional [B, N]. Returns final_trans [B, 4, 4],
+        final_labels [B, N], M (None), seed_trans, seed_fitness,
+        confidence."""
+        if not testing or self.training:
+            raise NotImplementedError(
+                "only the test-mode forward (testing=True, eval mode) is "
+                "ported; the train branch comes with training")
+        B, N, _ = corr_pos.shape
+        src = src_keypts.float()
+        tgt = tgt_keypts.float()
+        mask = None if corr_mask is None else corr_mask.float()
+        feats = self.encoder(corr_pos.to(self.dtype), p_image.to(self.dtype),
+                             q_image.to(self.dtype), mask, src, tgt)
+        f32 = feats.float()
+        normed = f32 / torch.sqrt((f32 * f32).sum(-1, keepdim=True) + 1e-12)
+        confidence = self.classification(feats)[..., 0].float()
+
+        num_seeds = max(int(N * self.ratio), 1)
+        seeds = pick_seeds_nms_fused(src, confidence, self.nms_radius,
+                                     num_seeds, mask=mask)
+        seed_trans, seed_fitness, final_trans, final_labels = (
+            self._cal_seed_trans(seeds, normed, src, tgt, mask))
+        final_trans = self._post_refinement(final_trans, src, tgt, mask)
+        return {
+            "final_trans": final_trans,
+            "final_labels": final_labels,
+            "M": None,
+            "seed_trans": seed_trans,
+            "seed_fitness": seed_fitness,
+            "confidence": confidence,
+        }
+
+    def _cal_seed_trans(self, seeds, feats, src, tgt, mask):
+        """Seed-row kNN (fused kernel; column 0, the seed itself, dropped)."""
+        B, N, C = feats.shape
+        k = min(self.k, N - 1)
+        seed_feats = torch.gather(feats, 1, seeds[..., None].expand(-1, -1, C))
+        knn_idx, _ = seed_knn_topk(seed_feats, feats, k + 1, mask=mask)
+        return self._seed_trans_from_knn(feats, src, tgt, mask,
+                                         knn_idx[..., 1:].long())
+
+    def _seed_trans_from_knn(self, feats, src, tgt, mask, knn_idx):
+        """Seed-local spectral matching, weighted Kabsch, scoring."""
+        B, N, C = feats.shape
+        S, k = knn_idx.shape[1:]
+        rows = (knn_idx + (torch.arange(B, device=feats.device) * N)[
+            :, None, None]).reshape(-1)
+        knn_feats = feats.reshape(B * N, C)[rows].reshape(B, S, k, C)
+        src_knn = src.reshape(B * N, 3)[rows].reshape(B, S, k, 3)
+        tgt_knn = tgt.reshape(B * N, 3)[rows].reshape(B, S, k, 3)
+
+        sigma = self.sigma.float()
+        feat_M = torch.matmul(knn_feats, knn_feats.transpose(-1, -2))
+        feat_M = torch.clamp(1.0 - (1.0 - feat_M) / sigma ** 2, min=0.0)
+        src_d = torch.linalg.vector_norm(
+            src_knn[:, :, :, None] - src_knn[:, :, None], dim=-1)
+        tgt_d = torch.linalg.vector_norm(
+            tgt_knn[:, :, :, None] - tgt_knn[:, :, None], dim=-1)
+        spatial_M = torch.clamp(
+            1.0 - (src_d - tgt_d) ** 2 / self.sigma_d ** 2, min=0.0)
+        total_M = feat_M * spatial_M * (
+            1.0 - torch.eye(k, device=feats.device))
+        weight = leading_eigenvector(total_M.reshape(B * S, k, k),
+                                     num_iters=self.num_iterations)
+        weight = weight.reshape(B, S, k)
+        weight = weight / (weight.sum(-1, keepdim=True) + 1e-6)
+        seed_trans = rigid_transform_3d(
+            src_knn.reshape(B * S, k, 3), tgt_knn.reshape(B * S, k, 3),
+            weight.reshape(B * S, k)).reshape(B, S, 4, 4)
+
+        counts = seed_hypothesis_counts(seed_trans, src, tgt,
+                                        self.inlier_threshold, mask=mask)
+        if mask is None:
+            fitness = counts.float() / N
+        else:
+            fitness = counts.float() / (mask.sum(-1)[:, None] + 1e-6)
+        best = fitness.argmax(-1)  # first maximum, as jnp.argmax
+        final_trans = seed_trans[torch.arange(B, device=feats.device), best]
+        final_L2 = torch.linalg.vector_norm(transform(src, final_trans) - tgt,
+                                            dim=-1)
+        labels = (final_L2 < self.inlier_threshold).float()
+        if mask is not None:
+            labels = labels * mask
+        return seed_trans, fitness, final_trans, labels
+
+    def _post_refinement(self, trans, src, tgt, mask):
+        """Up to 20 weighted refits with weights inlier/(1+(d/tau)^2); the
+        loop stops when NO pair's inlier count changed, and while any did,
+        every pair is refitted."""
+        tau = 0.10 if self.inlier_threshold == 0.10 else 1.2
+        prev = torch.zeros(trans.shape[0], dtype=torch.int32,
+                           device=trans.device)
+        for _ in range(20):
+            L2 = torch.linalg.vector_norm(transform(src, trans) - tgt, dim=-1)
+            inlier = (L2 < tau).float()
+            if mask is not None:
+                inlier = inlier * mask
+            num = inlier.sum(-1).int()
+            if not bool(((num - prev).abs() >= 1).any()):
+                break
+            w = inlier * (1.0 / (1.0 + (L2 / tau) ** 2))
+            trans = rigid_transform_3d(src, tgt, w)
+            prev = num
+        return trans

@@ -1,0 +1,133 @@
+"""Flax PointDSC variables -> the port's ``state_dict``.
+
+The exact inverse of ``gmf_tpu/utils/convert_torch.py::convert_pointdsc``:
+the port's module names are the reference's torch names that converter
+reads, so weights cross one to one:
+
+- Dense kernel [in, out]          -> Linear weight [out, in]
+- Conv kernel HWIO                -> Conv2d weight OIHW
+- depthwise Conv1d kernel [k,1,C] -> Conv1d weight [C, 1, k] (no flip)
+- BatchNorm scale/bias, mean/var  -> weight/bias, running_mean/var
+- LayerNorm scale/bias            -> weight/bias
+- sigma                           -> sigma
+
+Input arrays are NumPy (``jax.device_get`` of the flax variables); the
+result loads with ``PointDSC.load_state_dict(..., strict=True)``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32, order="C",
+                                     copy=True))
+
+
+def _dense(sd, name, p):
+    sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).T)
+    if "bias" in p:
+        sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def _conv2d(sd, name, p):
+    sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+
+
+def _depthwise_conv1d(sd, name, p):
+    sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).transpose(2, 1, 0))
+    if "bias" in p:
+        sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def _bn(sd, name, p, s):
+    sd[f"{name}.weight"] = _t(p["scale"])
+    sd[f"{name}.bias"] = _t(p["bias"])
+    sd[f"{name}.running_mean"] = _t(s["mean"])
+    sd[f"{name}.running_var"] = _t(s["var"])
+    sd[f"{name}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+
+
+def _ln(sd, name, p):
+    sd[f"{name}.weight"] = _t(p["scale"])
+    sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def _resnet_trunk(sd, prefix, p, s):
+    _conv2d(sd, f"{prefix}conv1", p["conv1"])
+    _bn(sd, f"{prefix}bn1", p["bn1"], s["bn1"])
+    for stage, blocks in (("layer1", 3), ("layer2", 4)):
+        for i in range(blocks):
+            src, dst = f"{stage}_{i}", f"{prefix}{stage}.{i}"
+            bp, bs = p[src], s[src]
+            _conv2d(sd, f"{dst}.conv1", bp["conv1"])
+            _bn(sd, f"{dst}.bn1", bp["bn1"], bs["bn1"])
+            _conv2d(sd, f"{dst}.conv2", bp["conv2"])
+            _bn(sd, f"{dst}.bn2", bp["bn2"], bs["bn2"])
+            if "downsample_conv" in bp:
+                _conv2d(sd, f"{dst}.downsample.0", bp["downsample_conv"])
+                _bn(sd, f"{dst}.downsample.1", bp["downsample_bn"],
+                    bs["downsample_bn"])
+
+
+def image_encoder_to_state_dict(p, s, prefix: str = "") -> Dict[str, Any]:
+    """ImageEncoder variables (``{"backbone": ...}``) -> state_dict."""
+    sd: Dict[str, Any] = {}
+    _resnet_trunk(sd, f"{prefix}backbone.", p["backbone"], s["backbone"])
+    return sd
+
+
+def fusion_layer_to_state_dict(p, prefix: str = "") -> Dict[str, Any]:
+    """FusionLayer params (depth 0) -> state_dict."""
+    sd: Dict[str, Any] = {}
+    if "cpe" in p:
+        _depthwise_conv1d(sd, f"{prefix}cpe.proj_q", p["cpe"]["proj_q"])
+        _depthwise_conv1d(sd, f"{prefix}cpe.proj_content",
+                          p["cpe"]["proj_content"])
+    cab = f"{prefix}cross_attend_blocks"
+    _ln(sd, f"{cab}.0.norm", p["cross_norm_q"])
+    _ln(sd, f"{cab}.0.norm_context", p["cross_norm_ctx"])
+    for name in ("to_q", "to_kv", "to_out"):
+        _dense(sd, f"{cab}.0.fn.{name}", p["cross_attn"][name])
+    _ln(sd, f"{cab}.1.norm", p["cross_ff_norm"])
+    _dense(sd, f"{cab}.1.fn.net.0", p["cross_ff"]["proj_in"])
+    _dense(sd, f"{cab}.1.fn.net.2", p["cross_ff"]["proj_out"])
+    return sd
+
+
+def flax_to_state_dict(variables, num_layers: int) -> Dict[str, Any]:
+    """``{"params", "batch_stats"}`` of gmf_tpu's PointDSC -> state_dict
+    of gmf_tpu_torch's PointDSC."""
+    p, s = variables["params"], variables["batch_stats"]
+    ep, es = p["encoder"], s["encoder"]
+    sd: Dict[str, Any] = {"sigma": _t(np.asarray(p["sigma"]).reshape(1))}
+    _dense(sd, "encoder.layer0", ep["layer0"])
+    sd.update(image_encoder_to_state_dict(
+        ep["image_encoder"], es["image_encoder"], "encoder.image_encoder."))
+    sd.update(fusion_layer_to_state_dict(ep["fusion_layer_1"],
+                                         "encoder.fusion_layer_1."))
+    for i in range(num_layers):
+        pcn = f"encoder.blocks.PointCN_layer_{i}"
+        _dense(sd, f"{pcn}.0", ep[f"PointCN_layer_{i}"])
+        _bn(sd, f"{pcn}.1", ep[f"PointCN_bn_{i}"], es[f"PointCN_bn_{i}"])
+        nl = f"encoder.blocks.NonLocal_layer_{i}"
+        bp, bs = ep[f"NonLocal_layer_{i}"], es[f"NonLocal_layer_{i}"]
+        for name in ("projection_q", "projection_k", "projection_v"):
+            _dense(sd, f"{nl}.{name}", bp[name])
+        _dense(sd, f"{nl}.fc_message.0", bp["fc_message_0"])
+        _bn(sd, f"{nl}.fc_message.1", bp["fc_message_bn0"],
+            bs["fc_message_bn0"])
+        _dense(sd, f"{nl}.fc_message.3", bp["fc_message_1"])
+        _bn(sd, f"{nl}.fc_message.4", bp["fc_message_bn1"],
+            bs["fc_message_bn1"])
+        _dense(sd, f"{nl}.fc_message.6", bp["fc_message_2"])
+        sd.update(fusion_layer_to_state_dict(bp["fusion_layer_2"],
+                                             f"{nl}.fusion_layer_2."))
+    _dense(sd, "classification.0", p["classification_0"])
+    _dense(sd, "classification.2", p["classification_1"])
+    _dense(sd, "classification.4", p["classification_2"])
+    return sd

@@ -1,0 +1,123 @@
+"""gmf_tpu_torch geometry vs gmf_tpu on the same NumPy inputs (CPU, f32).
+
+Tolerance 1e-5 absolute: both sides run the same f32 formulas; only the
+summation order of tiny matmuls differs.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gmf_tpu.geometry import kabsch as jkabsch
+from gmf_tpu.geometry import nms as jnms
+from gmf_tpu.geometry import se3 as jse3
+from gmf_tpu.geometry import spectral as jspectral
+from gmf_tpu_torch.geometry import kabsch, nms, se3, spectral
+
+torch.set_num_threads(1)
+ATOL = 1e-5
+
+
+def _t(x):
+    return torch.tensor(np.asarray(x, np.float32))
+
+
+def _random_trans(rng, B):
+    T = np.tile(np.eye(4, dtype=np.float32), (B, 1, 1))
+    for b in range(B):
+        T[b, :3, :3] = jse3.random_rotation_matrix(3, 1.0, rng)
+        T[b, :3, 3] = rng.rand(3)
+    return T
+
+
+def _alignment_problem(rng, B=8, K=40):
+    A = rng.rand(B, K, 3).astype(np.float32) * 2.5
+    T = _random_trans(rng, B)
+    Bp = (A @ T[:, :3, :3].transpose(0, 2, 1) + T[:, None, :3, 3]
+          + 0.01 * rng.randn(B, K, 3)).astype(np.float32)
+    w = rng.rand(B, K).astype(np.float32)
+    w[:, :5] = 0.0
+    return A, Bp, w
+
+
+def test_se3_transform_and_integrate(rng):
+    pts = rng.rand(4, 50, 3).astype(np.float32) * 3
+    T = _random_trans(rng, 4)
+    np.testing.assert_allclose(se3.transform(_t(pts), _t(T)).numpy(),
+                               np.asarray(jse3.transform(pts, T)), atol=ATOL)
+    R, t = T[:, :3, :3], T[:, :3, 3]
+    np.testing.assert_array_equal(
+        se3.integrate_trans(_t(R), _t(t)).numpy(),
+        np.asarray(jse3.integrate_trans(R, t)))
+
+
+def test_se3_host_sampling_same_draws():
+    a, b = np.random.RandomState(3), np.random.RandomState(3)
+    for axes in (1, 3):
+        np.testing.assert_array_equal(se3.random_rotation_matrix(axes, 1, a),
+                                      jse3.random_rotation_matrix(axes, 1, b))
+    np.testing.assert_array_equal(se3.random_translation(1.0, a),
+                                  jse3.random_translation(1.0, b))
+
+
+@pytest.mark.parametrize("method", ["quat", "svd"])
+def test_rigid_transform_3d(rng, method):
+    A, Bp, w = _alignment_problem(rng)
+    got = kabsch.rigid_transform_3d(_t(A), _t(Bp), _t(w), method=method)
+    ref = jkabsch.rigid_transform_3d(A, Bp, w, method=method)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
+
+
+def test_leading_eigvec_4x4(rng):
+    A, Bp, w = _alignment_problem(rng)
+    H, _, _ = jkabsch._weighted_cross_covariance(A, Bp, w)
+    Nm = np.asarray(jkabsch._horn_quaternion_matrix(H))
+    np.testing.assert_allclose(
+        kabsch._horn_quaternion_matrix(_t(np.asarray(H))).numpy(), Nm,
+        atol=ATOL)
+    np.testing.assert_allclose(
+        kabsch._leading_eigvec_4x4(_t(Nm)).numpy(),
+        np.asarray(jkabsch._leading_eigvec_4x4(Nm)), atol=ATOL)
+
+
+def test_kabsch_quat_matches_svd(rng):
+    A, Bp, w = _alignment_problem(rng)
+    np.testing.assert_allclose(
+        kabsch.kabsch_quat(_t(A), _t(Bp), _t(w)).numpy(),
+        kabsch.kabsch_svd(_t(A), _t(Bp), _t(w)).numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize("num_iters", [2, 10])
+def test_leading_eigenvector_global_exit(rng, num_iters):
+    """Blocks converge at different rates; the loop stops only when ALL
+    blocks have, so fast blocks keep iterating (spectral.py:45)."""
+    M = rng.rand(12, 20, 20).astype(np.float32)
+    M = M + M.transpose(0, 2, 1)
+    M[:4] = np.eye(20, dtype=np.float32)[None] + 0.01 * M[:4]  # fast blocks
+    got = spectral.leading_eigenvector(_t(M), num_iters=num_iters)
+    ref = jspectral.leading_eigenvector(jnp.asarray(M), num_iters=num_iters)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
+
+
+def test_pick_seeds_nms_dense(rng):
+    B, N = 2, 200
+    pts = rng.rand(B, N, 3).astype(np.float32) * 2
+    scores = rng.randn(B, N).astype(np.float32)
+    mask = np.ones((B, N), np.float32)
+    mask[1, 150:] = 0
+    d = np.linalg.norm(pts[:, :, None] - pts[:, None], axis=-1)
+    got = nms.pick_seeds_nms(_t(d), _t(scores), 0.15, 60, mask=_t(mask))
+    ref = jnms.pick_seeds_nms(jnp.asarray(d), jnp.asarray(scores), 0.15, 60,
+                              mask=jnp.asarray(mask))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_topk_total_order_signed_zeros():
+    x = np.array([[-0.0, 0.0, -0.0, 0.0, -1.0, 0.5, -np.inf, 0.5]],
+                 np.float32)
+    got = nms.topk_total_order(_t(x), 8).numpy()
+    _, ref = jax.lax.top_k(jnp.asarray(x), 8)
+    np.testing.assert_array_equal(got, np.asarray(ref))
+    np.testing.assert_array_equal(got[0, :6], [5, 7, 1, 3, 0, 2])

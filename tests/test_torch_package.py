@@ -1,0 +1,80 @@
+"""Package rules of gmf_tpu_torch: no JAX anywhere, the card by default."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from gmf_tpu_torch.data.synthetic import make_correspondence_problem
+from gmf_tpu_torch.eval.registration import PointDSCRegistrar
+from gmf_tpu_torch.models import PointDSC
+from gmf_tpu_torch.ops import fused_attention
+
+torch.set_num_threads(1)
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gmf_tpu")
+
+
+def test_importing_the_port_loads_no_jax():
+    """Every gmf_tpu_torch module, and chip_smoke.py, imported in a fresh
+    interpreter, leaves no jax/flax/gmf_tpu module behind."""
+    code = (
+        "import importlib, pkgutil, sys, runpy\n"
+        "import gmf_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(\n"
+        "    gmf_tpu_torch.__path__, 'gmf_tpu_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "print(len(mods), bad)\n"
+        "sys.exit(1 if bad or len(mods) < 15 else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_no_jax_import_statements():
+    files = sorted((ROOT / "gmf_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for n in names:
+                assert n.split(".")[0] not in FORBIDDEN, (f, n)
+
+
+def test_entry_points_default_to_cuda():
+    """Without CUDA the entry points raise unless device="cpu"; with it,
+    the default is the card."""
+    kw = dict(num_layers=1, num_channels=16, k=5)
+    if torch.cuda.is_available():
+        assert PointDSC(**kw).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PointDSC(**kw)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PointDSC(device="cuda", **kw)
+    model = PointDSC(device="cpu", **kw)
+    assert model.device.type == "cpu"
+    prob = make_correspondence_problem(np.random.RandomState(0), num_corr=60,
+                                       image_hw=(16, 16))
+    trans, labels = PointDSCRegistrar(model, buckets=(64,))(
+        {k: v[0] for k, v in prob.items()})
+    assert trans.shape == (4, 4) and labels.shape == (60,)
+    assert np.isfinite(trans).all()
+
+
+def test_wrappers_take_plain_version_only_on_cpu():
+    x = torch.zeros(1, 4, 32, device="meta")
+    kp = torch.zeros(1, 4, 3, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_attention.compat_flash_attention(x, x, x, kp, kp)
