@@ -7,20 +7,36 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
 
 1. Print the card's name and power limit (nvidia-smi).
 2. Build the kernels (one nvcc per source, in parallel).
-3. Hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes: B=8 pairs, N=5000 (4000 valid rows in pair 0),
-   D=128, S=500 seeds, k+1=41. Attention runs in f32 and bf16.
-4. Serve 3 register_batch requests of 8 synthetic pairs each through
-   PointDSCRegistrar at full width (12 layers, 128 channels, k=40,
-   ratio 0.1, 120x160 images, bucket 5000; bf16 modules, f32 geometry).
-   Launch counts are reset just before and read just after: each forward
-   must launch 12 attention kernels and one of each other kernel.
-5. Serve one request with f32 modules twice, on the card through the
+3. Hold each of the eight kernels against its plain PyTorch version on the
+   card at the main path's shapes: B=8 pairs, N=5000 (4000 valid rows in
+   pair 0), D=128, S=500 seeds, k=40. Attention runs in f32 and bf16, the
+   compat cache in f32, bf16 and int8. The int8 cache of the build+attend
+   kernel, of the standalone cache kernel and of the plain version must agree
+   in every byte, and the build+attend output must equal the cached
+   kernel's on that cache. Then the five kernels of the main path once
+   more at that path's B=64 (bf16 attention, every pair with its own
+   count of valid rows), with the same limits, their plain versions run
+   in slices of 8 pairs.
+4. Serve register_batch requests through PointDSCRegistrar at full width
+   (12 layers, 128 channels, k=40, ratio 0.1, 120x160 images, bucket 5000;
+   bf16 modules, f32 geometry). Launch counts are reset just before each
+   path and read just after it:
+   - main path, the bench default: 3 requests of 64 pairs with the int8
+     compat cache (1 build+attend and 11 cached attention launches per
+     forward, no streaming launch, one of NMS, kNN and counts);
+   - compat_cache="auto" at 8 pairs, which resolves to the f32 cache
+     (1 standalone cache build and 12 cached launches);
+   - compat_cache="off" at 8 pairs (12 streaming launches);
+   - compat_cache="int8" with seed_solver="fused" at 8 pairs (1 solver
+     launch), its transforms held against seed_solver="xla" on every pair
+     where the same seed won.
+5. Serve one request of 8 pairs with f32 modules on the card through the
    kernels and on the CPU through the plain versions, with the same
-   weights and inputs, and compare final transforms and labels.
-6. Print a JSON line with every kernel's launches, time, plain time,
-   bound and error; a line with the registrar's time per request; and, as
-   the last line, {"ok": true, "device": {...}}.
+   weights and inputs, and compare final transforms and labels: with the
+   int8 cache and with compat_cache="off".
+6. Print a JSON line with every path's time per request, a JSON line with
+   every kernel's launches, time, plain time, bound and error, and, as the
+   last line, {"ok": true, "device": {...}}.
 
 Times are CUDA-event means after warm-up (kernels) and host-clock means
 of synchronised requests (registrar).
@@ -40,19 +56,61 @@ import numpy as np
 import torch
 
 B, N, N_VALID0, D, S, K1 = 8, 5000, 4000, 128, 500, 41
+B_MAIN = 64  # pairs per request on the main path (the bench default)
 IMAGE_HW = (120, 160)
 SEED = 0
-KERNELS = ("compat_flash_attention", "nms_local_max", "seed_knn_topk",
-           "seed_hypothesis_counts")
+SEED_SIGMA = 1.2  # feature sigma of the seed-solver check (learned, ~1)
+NUM_ITERS = 10
+KERNELS = ("compat_flash_attention", "build_compat_cache",
+           "compat_flash_attention_build", "compat_flash_attention_cached",
+           "nms_local_max", "seed_knn_topk", "seed_hypothesis_counts",
+           "fused_seed_weights")
 SOURCES = {name: f"gmf_tpu_torch/ops/csrc/{name}.cu" for name in KERNELS}
 REPLACES = {
     "compat_flash_attention": "gmf_tpu/ops/fused_attention.py:241",
+    "build_compat_cache": "gmf_tpu/ops/fused_attention.py:625",
+    "compat_flash_attention_build": "gmf_tpu/ops/fused_attention.py:766",
+    "compat_flash_attention_cached": "gmf_tpu/ops/fused_attention.py:847",
     "nms_local_max": "gmf_tpu/ops/fused_nms.py:69",
     "seed_knn_topk": "gmf_tpu/ops/fused_topk.py:108",
     "seed_hypothesis_counts": "gmf_tpu/ops/fused_scoring.py:138",
+    "fused_seed_weights": "gmf_tpu/ops/fused_seed_solver.py:163",
 }
-PER_FORWARD = {"compat_flash_attention": 12, "nms_local_max": 1,
-               "seed_knn_topk": 1, "seed_hypothesis_counts": 1}
+_COMMON = {"nms_local_max": 1, "seed_knn_topk": 1,
+           "seed_hypothesis_counts": 1}
+# the served paths: model modes, pairs per request, and the launches each
+# forward must make (kernels not named: none)
+PATHS = {
+    "int8_b64": dict(compat_cache="int8", seed_solver="auto", pairs=B_MAIN,
+                     per_forward={"compat_flash_attention_build": 1,
+                                  "compat_flash_attention_cached": 11,
+                                  **_COMMON}),
+    "auto_b8": dict(compat_cache="auto", seed_solver="auto", pairs=B,
+                    per_forward={"build_compat_cache": 1,
+                                 "compat_flash_attention_cached": 12,
+                                 **_COMMON}),
+    "off_b8": dict(compat_cache="off", seed_solver="auto", pairs=B,
+                   per_forward={"compat_flash_attention": 12, **_COMMON}),
+    "int8_fused_b8": dict(compat_cache="int8", seed_solver="fused", pairs=B,
+                          per_forward={"compat_flash_attention_build": 1,
+                                       "compat_flash_attention_cached": 11,
+                                       "fused_seed_weights": 1, **_COMMON}),
+    "int8_b8": dict(compat_cache="int8", seed_solver="xla", pairs=B,
+                    per_forward={"compat_flash_attention_build": 1,
+                                 "compat_flash_attention_cached": 11,
+                                 **_COMMON}),
+}
+# the path whose run gives each kernel's launch count in the result
+KERNEL_PATH = {
+    "compat_flash_attention": "off_b8",
+    "build_compat_cache": "auto_b8",
+    "compat_flash_attention_build": "int8_b64",
+    "compat_flash_attention_cached": "int8_b64",
+    "nms_local_max": "int8_b64",
+    "seed_knn_topk": "int8_b64",
+    "seed_hypothesis_counts": "int8_b64",
+    "fused_seed_weights": "int8_fused_b8",
+}
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 tensor-core
 # FLOP/s, f32 FLOP/s outside the tensor cores (an FMA is 2 FLOP).
@@ -129,10 +187,265 @@ def make_inputs(dev):
     return prob, src, tgt, mask
 
 
+def attention_bound(rates, dtype, cache_dtype=None, build=False):
+    """(bound_ms, bound_by) of one attention call at [B, N, D].
+
+    Bytes: q, k, v, out and the mask, plus the keypoints where compat is
+    computed and the cache where one is read or written. Operations per
+    (i, j): the two products (4 D flop); compat: ~20 ALU ops and 2 sqrt
+    when streamed, ~29 ALU ops, 1 sqrt and 1 division when the int8 code is
+    built and dequantized, 3 ALU ops (dequantize, multiply, mask) when a
+    cache is read; one exp2 everywhere."""
+    from gmf_tpu_torch.ops.fused_attention import cache_row_stride
+
+    pairs = B * N * N
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = 4 * B * N * D * esize + B * N * 4
+    if cache_dtype is None or build:
+        nbytes += B * N * 6 * 4
+    if build:
+        cache_dtype = torch.int8
+    if cache_dtype is not None:
+        nbytes += (B * N * cache_row_stride(N, cache_dtype)
+                   * torch.empty((), dtype=cache_dtype).element_size())
+    alu, sfu = (29, 3) if build else (20, 3) if cache_dtype is None else (3, 1)
+    mm_rate = BF16_TC_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    return rates.bound(nbytes, {
+        "products": 4 * D * pairs / mm_rate,
+        "compat_alu": alu * pairs / rates.alu,
+        "sfu": sfu * pairs / rates.sfu,
+    })
+
+
+def attention_tol(ref, dtype):
+    """f32: the kernel and its plain version differ by summation order and
+    the running max only. bf16: the plain version rounds q*scale and p as
+    the kernel does, and both round the output to bf16, so an output may
+    land on the neighbouring bf16 value: 2 ulps at the largest output hold
+    that and the f32 differences beneath it."""
+    ref_max = ref.float().abs().max().item()
+    return (1e-5 if dtype == torch.float32 else 2 * bf16_ulp(ref_max)), ref_max
+
+
+def attention_phase(dev, rates, gen, src, tgt, mask):
+    """Kernels 1, 4, 5 and 6: streaming, standalone cache, build+attend,
+    cached."""
+    from gmf_tpu_torch.ops.fused_attention import (
+        build_compat_cache, build_compat_cache_plain, cache_row_stride,
+        compat_attention_cached_plain, compat_attention_plain,
+        compat_flash_attention, compat_flash_attention_build)
+
+    f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
+    names = {f32: "f32", bf16: "bf16", i8: "int8"}
+    rows = {}
+
+    # -- kernel 4: the standalone cache, every byte against plain -------
+    caches, cache_row = {}, {}
+    for cdt in (i8, bf16, f32):
+        got = build_compat_cache(src, tgt, 0.10, cdt)
+        ref = build_compat_cache_plain(src, tgt, 0.10, cdt)
+        if not torch.equal(got, ref):
+            diff = (got.float() - ref.float()).abs()
+            fail(f"build_compat_cache {names[cdt]}: differs from its plain "
+                 f"version on {(diff > 0).float().mean().item():.2e} of the "
+                 f"entries, by at most {diff.max().item()}")
+        del ref
+        caches[cdt] = got
+        ld = cache_row_stride(N, cdt)
+        two_sqrt = cdt != i8
+        bound_ms, bound_by = rates.bound(
+            B * N * ld * got.element_size() + B * N * 6 * 4,
+            {"alu": (20 if two_sqrt else 26) * B * N * N / rates.alu,
+             "sfu": (3 if two_sqrt else 2) * B * N * N / rates.sfu})
+        cache_row[cdt] = dict(
+            ms=cuda_ms(lambda: build_compat_cache(src, tgt, 0.10, cdt),
+                       reps=5),
+            plain_ms=cuda_ms(lambda: build_compat_cache_plain(
+                src, tgt, 0.10, cdt), reps=2, warmup=1),
+            bound_ms=bound_ms, bound_by=bound_by)
+        torch.cuda.empty_cache()
+    rows["build_compat_cache"] = dict(
+        dtype="f32", max_abs_err=0.0, tolerance=0.0, **cache_row[f32],
+        **{f"{names[c]}_{k}": v for c in (bf16, i8)
+           for k, v in cache_row[c].items()},
+        int8_share_above_minus127=(caches[i8][:, :, :N] > -127).float()
+        .mean().item())
+
+    # -- kernels 1, 5, 6 in f32 and bf16 ------------------------------------
+    att = {name: {} for name in ("compat_flash_attention",
+                                 "compat_flash_attention_build",
+                                 "compat_flash_attention_cached")}
+    for dtype in (f32, bf16):
+        q, k, v = (torch.randn(B, N, D, generator=gen, device=dev).to(dtype)
+                   for _ in range(3))
+
+        def check(name, got, ref):
+            tol, ref_max = attention_tol(ref, dtype)
+            err = (got.float() - ref.float()).abs().max().item()
+            if not err <= tol:
+                fail(f"{name} {names[dtype]}: max abs err {err} > {tol}")
+            return dict(max_abs_err=err, tol=tol, ref_max=ref_max)
+
+        # kernel 1, streaming
+        r = check("compat_flash_attention",
+                  compat_flash_attention(q, k, v, src, tgt, mask=mask),
+                  compat_attention_plain(q, k, v, src, tgt, mask=mask))
+        r["ms"] = cuda_ms(lambda: compat_flash_attention(
+            q, k, v, src, tgt, mask=mask), reps=5)
+        r["plain_ms"] = cuda_ms(lambda: compat_attention_plain(
+            q, k, v, src, tgt, mask=mask), reps=2, warmup=1)
+        r["bound_ms"], r["bound_by"] = attention_bound(rates, dtype)
+        att["compat_flash_attention"][dtype] = r
+
+        # kernel 5, build+attend: the cache in every byte, the output
+        out5, cache5 = compat_flash_attention_build(q, k, v, src, tgt,
+                                                    mask=mask)
+        if not torch.equal(cache5, caches[i8]):
+            fail("compat_flash_attention_build: its int8 cache differs from "
+                 "build_compat_cache's")
+        ref_i8 = compat_attention_cached_plain(q, k, v, caches[i8],
+                                               mask=mask)
+        r = check("compat_flash_attention_build", out5, ref_i8)
+        del cache5
+        r["ms"] = cuda_ms(lambda: compat_flash_attention_build(
+            q, k, v, src, tgt, mask=mask), reps=5)
+        r["plain_ms"] = cuda_ms(lambda: compat_attention_cached_plain(
+            q, k, v, build_compat_cache_plain(src, tgt, 0.10, i8),
+            mask=mask), reps=2, warmup=1)
+        r["bound_ms"], r["bound_by"] = attention_bound(rates, dtype,
+                                                       build=True)
+        att["compat_flash_attention_build"][dtype] = r
+
+        # kernel 6, cached, on each cache type
+        per_cache = {}
+        for cdt in (i8, bf16, f32):
+            got = compat_flash_attention(q, k, v, None, None, mask=mask,
+                                         compat=caches[cdt])
+            if cdt == i8 and not torch.equal(got, out5):
+                fail("compat_flash_attention_cached: differs from the "
+                     "build+attend output on the int8 cache")
+            ref = ref_i8 if cdt == i8 else compat_attention_cached_plain(
+                q, k, v, caches[cdt], mask=mask)
+            r = check(f"compat_flash_attention_cached[{names[cdt]} cache]",
+                      got, ref)
+            r["ms"] = cuda_ms(lambda: compat_flash_attention(
+                q, k, v, None, None, mask=mask, compat=caches[cdt]), reps=5)
+            r["bound_ms"], r["bound_by"] = attention_bound(rates, dtype, cdt)
+            if cdt == i8:
+                r["plain_ms"] = cuda_ms(
+                    lambda: compat_attention_cached_plain(
+                        q, k, v, caches[i8], mask=mask), reps=2, warmup=1)
+            per_cache[cdt] = r
+            del got, ref
+        att["compat_flash_attention_cached"][dtype] = per_cache
+        del q, k, v, out5, ref_i8
+        torch.cuda.empty_cache()
+
+    main = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    for name in ("compat_flash_attention", "compat_flash_attention_build"):
+        b, f = att[name][bf16], att[name][f32]
+        rows[name] = dict(
+            dtype="bf16", **{k: b[k] for k in main}, tolerance=b["tol"],
+            max_abs_ref=b["ref_max"], f32_max_abs_err=f["max_abs_err"],
+            f32_ms=f["ms"], f32_plain_ms=f["plain_ms"],
+            f32_bound_ms=f["bound_ms"], f32_tolerance=f["tol"])
+    c = att["compat_flash_attention_cached"]
+    rows["compat_flash_attention_cached"] = dict(
+        dtype="bf16", cache="int8", **{k: c[bf16][i8][k] for k in main},
+        tolerance=c[bf16][i8]["tol"], max_abs_ref=c[bf16][i8]["ref_max"],
+        equals_build_attend_output=True,
+        **{f"{names[qd]}_{names[cd]}cache_{k}": c[qd][cd][k]
+           for qd in (bf16, f32) for cd in (i8, bf16, f32)
+           for k in ("max_abs_err", "ms", "bound_ms", "tol")
+           if (qd, cd) != (bf16, i8)})
+    return rows
+
+
+def seed_solver_phase(rates, feats, src, tgt, knn_idx):
+    """Kernel 12 on the neighbourhoods the kNN kernel chose."""
+    from gmf_tpu_torch.geometry.kabsch import rigid_transform_3d
+    from gmf_tpu_torch.ops.fused_seed_solver import (
+        fused_seed_weights, fused_seed_weights_plain)
+
+    k = K1 - 1
+    rows_idx = (knn_idx[..., 1:].long() + (
+        torch.arange(B, device=feats.device) * N)[:, None, None]).reshape(-1)
+    knn_feats = feats.reshape(B * N, D)[rows_idx].reshape(B, S, k, D)
+    src_knn = src.reshape(B * N, 3)[rows_idx].reshape(B, S, k, 3)
+    tgt_knn = tgt.reshape(B * N, 3)[rows_idx].reshape(B, S, k, 3)
+    sigma = torch.tensor([SEED_SIGMA], device=feats.device)
+    args = (knn_feats, src_knn, tgt_knn, sigma, 0.10)
+    got = fused_seed_weights(*args, num_iters=NUM_ITERS)
+    ref = fused_seed_weights_plain(*args, num_iters=NUM_ITERS)
+    err = (got - ref).abs().max().item()
+    # weights are ~1/k. The kernel rescales by the largest entry per round
+    # where the plain version divides by the norm, and sums in another
+    # order; the iteration amplifies that where the two leading
+    # eigenvalues are close, so the transforms are compared too, with the
+    # bounds of the reference's own test (eigenvector conditioning).
+    if not err <= 1e-5:
+        fail(f"fused_seed_weights: weights differ by {err} > 1e-5")
+
+    def trans(w):
+        return rigid_transform_3d(src_knn.reshape(-1, k, 3),
+                                  tgt_knn.reshape(-1, k, 3),
+                                  w.reshape(-1, k))
+
+    Tg, Tr = trans(got), trans(ref)
+    rot_err = (Tg[:, :3, :3] - Tr[:, :3, :3]).abs().max().item()
+    trn_err = (Tg[:, :3, 3] - Tr[:, :3, 3]).abs().max().item()
+    if not (rot_err <= 5e-4 and trn_err <= 5e-3):
+        fail(f"fused_seed_weights: transforms differ, rotation {rot_err} "
+             f"(> 5e-4) or translation {trn_err} (> 5e-3)")
+    seeds = B * S
+    bound_ms, bound_by = rates.bound(
+        seeds * k * (D * 4 + 24 + 4),
+        {"gram": 2 * seeds * k * k * D / F32_FLOPS,
+         "alu": seeds * k * k * (25 + 2 * NUM_ITERS) / rates.alu,
+         "sfu": 4 * seeds * k * k / rates.sfu})  # 2 sqrt, 2 divisions
+    return dict(
+        max_abs_err=err, tolerance=1e-5, rotation_err=rot_err,
+        translation_err=trn_err, mean_weight=got.mean().item(),
+        ms=cuda_ms(lambda: fused_seed_weights(*args, num_iters=NUM_ITERS),
+                   reps=10),
+        plain_ms=cuda_ms(lambda: fused_seed_weights_plain(
+            *args, num_iters=NUM_ITERS), reps=3, warmup=1),
+        bound_ms=bound_ms, bound_by=bound_by)
+
+
+def perturbed_hypotheses(gt_trans, dev):
+    """[batch, S, 4, 4] hypotheses: each pair's true transform turned by
+    ~0.02 rad about x and z and shifted by ~2 cm, so the inlier counts
+    spread."""
+    rng = np.random.RandomState(SEED + 1)
+    batch = gt_trans.shape[0]
+    a = 0.02 * rng.randn(batch, S, 3)
+    c, sn = np.cos(a), np.sin(a)
+    Rx = np.tile(np.eye(3), (batch, S, 1, 1))
+    Rz = Rx.copy()
+    Rx[..., 1, 1], Rx[..., 1, 2] = c[..., 0], -sn[..., 0]
+    Rx[..., 2, 1], Rx[..., 2, 2] = sn[..., 0], c[..., 0]
+    Rz[..., 0, 0], Rz[..., 0, 1] = c[..., 2], -sn[..., 2]
+    Rz[..., 1, 0], Rz[..., 1, 1] = sn[..., 2], c[..., 2]
+    T = np.repeat(gt_trans[:, None], S, axis=1).copy()
+    T[..., :3, :3] = (Rx @ Rz) @ T[..., :3, :3]
+    T[..., :3, 3] += 0.02 * rng.randn(batch, S, 3)
+    return torch.tensor(T.astype(np.float32), device=dev)
+
+
+def knn_score_err(seeds, feats, mask, got_i, ref_v):
+    """Largest gap between the scores of the neighbours the kernel chose
+    and the plain version's. Near-ties (score gaps below f32
+    summation-order error) may swap neighbours between the two; the
+    chosen scores must agree."""
+    full = torch.matmul(seeds, feats.transpose(-1, -2))
+    full = torch.where(mask[:, None] > 0, full,
+                       torch.full_like(full, -math.inf))
+    return (full.gather(-1, got_i.long()) - ref_v).abs().max().item()
+
+
 def kernel_phase(dev, rates):
     """Phase 3: every kernel vs its plain version at main-path shapes."""
-    from gmf_tpu_torch.ops.fused_attention import (compat_attention_plain,
-                                                   compat_flash_attention)
     from gmf_tpu_torch.ops.fused_nms import (nms_local_max,
                                              nms_local_max_plain)
     from gmf_tpu_torch.ops.fused_scoring import (
@@ -142,51 +455,7 @@ def kernel_phase(dev, rates):
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     prob, src, tgt, mask = make_inputs(dev)
-    rows = {}
-
-    # -- attention, f32 and bf16 ---------------------------------------
-    pairs = B * N * N
-    att = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = (torch.randn(B, N, D, generator=gen, device=dev).to(dtype)
-                   for _ in range(3))
-        got = compat_flash_attention(q, k, v, src, tgt, mask=mask)
-        ref = compat_attention_plain(q, k, v, src, tgt, mask=mask)
-        err = (got.float() - ref.float()).abs().max().item()
-        ref_max = ref.float().abs().max().item()
-        # f32: the two differ by summation order and the running max only.
-        # bf16: the plain version rounds q*scale and p as the kernel does,
-        # and both round the output to bf16, so an output may land on the
-        # neighbouring bf16 value: 2 ulps at the largest output hold that
-        # and the f32 differences beneath it.
-        tol = 1e-5 if dtype == torch.float32 else 2 * bf16_ulp(ref_max)
-        if not err <= tol:
-            fail(f"compat_flash_attention {dtype}: max abs err {err} > {tol}")
-        ms = cuda_ms(lambda: compat_flash_attention(q, k, v, src, tgt,
-                                                    mask=mask), reps=5)
-        plain_ms = cuda_ms(lambda: compat_attention_plain(
-            q, k, v, src, tgt, mask=mask), reps=2, warmup=1)
-        esize = torch.finfo(dtype).bits // 8
-        nbytes = 4 * B * N * D * esize + B * N * (3 + 3 + 1) * 4
-        mm_rate = BF16_TC_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
-        bound_ms, bound_by = rates.bound(nbytes, {
-            "products": 4 * D * pairs / mm_rate,      # q.k and p.v
-            "compat_alu": 20 * pairs / rates.alu,     # ~20 f32 ops / pair
-            "sfu": 3 * pairs / rates.sfu,             # 2 sqrt + 1 exp2
-        })
-        att[dtype] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, bound_by=bound_by, tol=tol,
-                          ref_max=ref_max)
-        del q, k, v, got, ref
-        torch.cuda.empty_cache()
-    b16, f32 = att[torch.bfloat16], att[torch.float32]
-    rows["compat_flash_attention"] = dict(
-        dtype="bf16", **{k: b16[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                             "bound_ms", "bound_by")},
-        tolerance=b16["tol"], max_abs_ref=b16["ref_max"],
-        f32_max_abs_err=f32["max_abs_err"],
-        f32_ms=f32["ms"], f32_plain_ms=f32["plain_ms"],
-        f32_bound_ms=f32["bound_ms"], f32_tolerance=f32["tol"])
+    rows = attention_phase(dev, rates, gen, src, tgt, mask)
 
     # -- NMS -------------------------------------------------------------
     scores = torch.randn(B, N, generator=gen, device=dev)
@@ -213,12 +482,7 @@ def kernel_phase(dev, rates):
     seeds = feats[:, seed_idx].contiguous()
     got_i, got_v = seed_knn_topk(seeds, feats, K1, mask=mask)
     ref_i, ref_v = seed_knn_topk_plain(seeds, feats, K1, mask=mask)
-    # near-ties (score gaps below f32 summation-order error) may swap
-    # neighbours between the two; the chosen scores must agree
-    full = torch.matmul(seeds, feats.transpose(-1, -2))
-    full = torch.where(mask[:, None] > 0, full, torch.full_like(full,
-                                                               -math.inf))
-    err = (full.gather(-1, got_i.long()) - ref_v).abs().max().item()
+    err = knn_score_err(seeds, feats, mask, got_i, ref_v)
     if not err <= 1e-5:
         fail(f"seed_knn_topk: chosen scores differ by {err}")
     rows["seed_knn_topk"] = dict(
@@ -233,21 +497,12 @@ def kernel_phase(dev, rates):
             (B * S * D + B * N * D + B * N) * 4 + B * S * K1 * 8,
             {"products": 2 * B * S * N * D / F32_FLOPS,
              "select": B * S * N / rates.alu}))))
-    del full, feats, seeds
+    rows["fused_seed_weights"] = seed_solver_phase(rates, feats, src, tgt,
+                                                   got_i)
+    del feats, seeds
 
     # -- hypothesis scoring ------------------------------------------------
-    rng = np.random.RandomState(SEED + 1)
-    T = np.repeat(prob["gt_trans"][:, None], S, axis=1).copy()
-    for b in range(B):
-        for s in range(S):
-            a = 0.02 * rng.randn(3)
-            Rx = np.array([[1, 0, 0], [0, np.cos(a[0]), -np.sin(a[0])],
-                           [0, np.sin(a[0]), np.cos(a[0])]])
-            Rz = np.array([[np.cos(a[2]), -np.sin(a[2]), 0],
-                           [np.sin(a[2]), np.cos(a[2]), 0], [0, 0, 1]])
-            T[b, s, :3, :3] = (Rx @ Rz) @ T[b, s, :3, :3]
-            T[b, s, :3, 3] += 0.02 * rng.randn(3)
-    trans = torch.tensor(T.astype(np.float32), device=dev)
+    trans = perturbed_hypotheses(prob["gt_trans"], dev)
     got = seed_hypothesis_counts(trans, src, tgt, 0.10, mask=mask)
     ref = seed_hypothesis_counts_plain(trans, src, tgt, 0.10, mask=mask)
     err = (got - ref).abs().max().item()
@@ -266,30 +521,132 @@ def kernel_phase(dev, rates):
     return rows
 
 
-def main_path_registrar(dev, dtype=torch.bfloat16):
-    """The main path's model at full width (random weights from SEED)
-    behind a registrar with the one bucket N."""
+def main_shape_phase(dev):
+    """Phase 3, second part: the main path's five kernels at the shapes
+    that path gives them, B_MAIN pairs in one launch, attention in bf16,
+    every pair with its own count of valid rows. The pairs are independent,
+    so the plain versions run in slices of B pairs and their [B, N, N]
+    temporaries stay as large as in the first part. Same limits as there.
+    Returns each kernel's largest error."""
+    from gmf_tpu_torch.data.synthetic import make_correspondence_problem
+    from gmf_tpu_torch.ops.fused_attention import (
+        build_compat_cache_plain, compat_attention_cached_plain,
+        compat_flash_attention, compat_flash_attention_build)
+    from gmf_tpu_torch.ops.fused_nms import (nms_local_max,
+                                             nms_local_max_plain)
+    from gmf_tpu_torch.ops.fused_scoring import (
+        seed_hypothesis_counts, seed_hypothesis_counts_plain)
+    from gmf_tpu_torch.ops.fused_topk import (seed_knn_topk,
+                                              seed_knn_topk_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    prob = make_correspondence_problem(np.random.RandomState(SEED + 2),
+                                       num_corr=N, inlier_ratio=0.4,
+                                       image_hw=(8, 8), batch=B_MAIN)
+    src = torch.tensor(prob["src_keypts"], device=dev)
+    tgt = torch.tensor(prob["tgt_keypts"], device=dev)
+    valid = N - (torch.arange(B_MAIN, device=dev) * 37) % 1000
+    mask = (torch.arange(N, device=dev)[None] < valid[:, None]).float()
+    slices = [slice(s0, s0 + B) for s0 in range(0, B_MAIN, B)]
+    errs = {}
+
+    # build+attend and cached: every byte of the cache, the two outputs
+    # equal, the output against the plain version
+    q, k, v = (torch.randn(B_MAIN, N, D, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    out5, cache5 = compat_flash_attention_build(q, k, v, src, tgt, mask=mask)
+    out6 = compat_flash_attention(q, k, v, None, None, mask=mask,
+                                  compat=cache5)
+    if not torch.equal(out6, out5):
+        fail(f"B={B_MAIN}: compat_flash_attention_cached differs from the "
+             "build+attend output on the int8 cache")
+    worst = 0.0
+    for sl in slices:
+        where = f"B={B_MAIN}, pairs {sl.start}..{sl.stop - 1}"
+        ref_cache = build_compat_cache_plain(src[sl], tgt[sl], 0.10,
+                                             torch.int8)
+        if not torch.equal(cache5[sl], ref_cache):
+            fail(f"{where}: the build+attend int8 cache differs from the "
+                 "plain version's")
+        ref = compat_attention_cached_plain(q[sl], k[sl], v[sl], ref_cache,
+                                            mask=mask[sl])
+        tol, _ = attention_tol(ref, torch.bfloat16)
+        err = (out5[sl].float() - ref.float()).abs().max().item()
+        if not err <= tol:
+            fail(f"{where}: compat_flash_attention_build max abs err "
+                 f"{err} > {tol}")
+        worst = max(worst, err)
+        del ref_cache, ref
+    errs["compat_flash_attention_build"] = worst
+    errs["compat_flash_attention_cached"] = worst
+    del q, k, v, out5, out6, cache5
+    torch.cuda.empty_cache()
+
+    scores = torch.randn(B_MAIN, N, generator=gen, device=dev)
+    got = nms_local_max(src, scores, 0.10)
+    ref = torch.cat([nms_local_max_plain(src[sl], scores[sl], 0.10)
+                     for sl in slices])
+    errs["nms_local_max"] = (got - ref).abs().max().item()
+    if errs["nms_local_max"] != 0:
+        fail(f"B={B_MAIN}: nms_local_max disagrees with its plain version")
+
+    feats = torch.randn(B_MAIN, N, D, generator=gen, device=dev)
+    feats = feats / feats.norm(dim=-1, keepdim=True)
+    seed_idx = torch.randperm(int(valid.min()), generator=gen,
+                              device=dev)[:S]
+    seeds = feats[:, seed_idx].contiguous()
+    got_i, _ = seed_knn_topk(seeds, feats, K1, mask=mask)
+    errs["seed_knn_topk"] = max(
+        knn_score_err(seeds[sl], feats[sl], mask[sl], got_i[sl],
+                      seed_knn_topk_plain(seeds[sl], feats[sl], K1,
+                                          mask=mask[sl])[1])
+        for sl in slices)
+    if not errs["seed_knn_topk"] <= 1e-5:
+        fail(f"B={B_MAIN}: seed_knn_topk: chosen scores differ by "
+             f"{errs['seed_knn_topk']}")
+    del feats, seeds
+
+    trans = perturbed_hypotheses(prob["gt_trans"], dev)
+    got = seed_hypothesis_counts(trans, src, tgt, 0.10, mask=mask)
+    ref = torch.cat([seed_hypothesis_counts_plain(
+        trans[sl], src[sl], tgt[sl], 0.10, mask=mask[sl]) for sl in slices])
+    errs["seed_hypothesis_counts"] = (got - ref).abs().max().item()
+    if not errs["seed_hypothesis_counts"] <= 2:
+        fail(f"B={B_MAIN}: seed_hypothesis_counts: counts differ by "
+             f"{errs['seed_hypothesis_counts']}")
+    return errs
+
+
+def make_registrar(dev, dtype=torch.bfloat16, compat_cache="int8",
+                   seed_solver="auto", num_corr=N):
+    """A model at full width and depth (12 layers; random weights from
+    SEED, the same in every mode) behind a registrar with the one bucket
+    ``num_corr``."""
     from gmf_tpu_torch.eval.registration import PointDSCRegistrar
     from gmf_tpu_torch.models import PointDSC
 
-    model = PointDSC(num_layers=12, num_channels=128, k=40, ratio=0.1,
-                     compat_cache="off", dtype=dtype, device=dev, seed=SEED)
-    return PointDSCRegistrar(model, buckets=(N,))
+    model = PointDSC(num_layers=12, num_channels=128, k=40,
+                     ratio=0.1, compat_cache=compat_cache,
+                     seed_solver=seed_solver, dtype=dtype, device=dev,
+                     seed=SEED)
+    return PointDSCRegistrar(model, buckets=(num_corr,))
 
 
-def make_requests():
-    """3 requests of 8 synthetic pairs; request 1 has N from 4000-5000."""
+def make_requests(pairs, num_corr=N):
+    """3 requests of ``pairs`` synthetic pairs of ``num_corr``
+    correspondences; request 1 has between 4/5 of that and all of it."""
     from gmf_tpu_torch.data.synthetic import make_correspondence_problem
 
     rng = np.random.RandomState(SEED)
     requests = []
     for r in range(3):
-        prob = make_correspondence_problem(rng, num_corr=N, inlier_ratio=0.4,
-                                           image_hw=IMAGE_HW, batch=B)
-        samples = [{k: v[b] for k, v in prob.items()} for b in range(B)]
+        prob = make_correspondence_problem(rng, num_corr=num_corr,
+                                           inlier_ratio=0.4,
+                                           image_hw=IMAGE_HW, batch=pairs)
+        samples = [{k: v[b] for k, v in prob.items()} for b in range(pairs)]
         if r == 1:
             for s in samples:
-                n = int(rng.randint(4 * N // 5, N + 1))
+                n = int(rng.randint(4 * num_corr // 5, num_corr + 1))
                 for key in ("corr_pos", "src_keypts", "tgt_keypts",
                             "labels"):
                     s[key] = s[key][:n]
@@ -302,6 +659,100 @@ def rot_err_deg(Ta, Tb):
     return math.degrees(math.acos(min(1.0, max(-1.0, c))))
 
 
+def serve_path(name, dev, requests, timed=True):
+    """Drive one path of PATHS: its requests once with the launch counts
+    reset just before and read just after, then (``timed``) once more for
+    the time per request. Fails on a wrong launch count, a malformed
+    result or a registration recall under 0.9. Also returns, per counted
+    request, the index of the seed that won each pair and the confidences
+    the seeds were picked from (read from the model's output by a hook)."""
+    from gmf_tpu_torch.ops import _build
+
+    spec = PATHS[name]
+    reg = make_registrar(dev, compat_cache=spec["compat_cache"],
+                         seed_solver=spec["seed_solver"])
+    winners = []
+    hook = reg.model.register_forward_hook(
+        lambda mod, args, out: winners.append(dict(
+            seed=out["seed_fitness"].argmax(-1).cpu().numpy(),
+            confidence=out["confidence"].cpu().numpy())))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    results = [reg.register_batch(req) for req in requests]
+    torch.cuda.synchronize()
+    hook.remove()
+    launches = {k: _build.launches[k] for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    for k in KERNELS:
+        want = spec["per_forward"].get(k, 0) * len(requests)
+        if launches[k] != want:
+            fail(f"path {name}: {k} launched {launches[k]} times, "
+                 f"expected {want}")
+    rot, trn, ok = [], [], 0
+    for req, res in zip(requests, results):
+        if len(res) != len(req):
+            fail(f"path {name}: {len(res)} results for {len(req)} pairs")
+        for s, (trans, labels) in zip(req, res):
+            if trans.shape != (4, 4) or not np.isfinite(trans).all():
+                fail(f"path {name}: non-finite or misshapen transform")
+            if labels.shape != (s["corr_pos"].shape[0],):
+                fail(f"path {name}: labels of the wrong length")
+            re_ = rot_err_deg(trans, s["gt_trans"])
+            te = float(np.linalg.norm(trans[:3, 3] - s["gt_trans"][:3, 3]))
+            rot.append(re_)
+            trn.append(te)
+            ok += re_ < 15.0 and te < 0.30
+    if ok < 0.9 * len(rot):
+        fail(f"path {name}: registration recall {ok}/{len(rot)}")
+    out = dict(compat_cache=spec["compat_cache"],
+               seed_solver=spec["seed_solver"],
+               pairs_per_request=spec["pairs"], requests=len(requests),
+               launches=launches, recall=f"{ok}/{len(rot)}",
+               median_rot_err_deg=float(np.median(rot)),
+               median_trans_err_m=float(np.median(trn)),
+               peak_memory_bytes=peak)
+    if timed:
+        times = []
+        for req in requests:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reg.register_batch(req)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out["ms_per_request"] = 1e3 * float(np.mean(times))
+        out["pairs_per_s"] = spec["pairs"] / float(np.mean(times))
+    print(f"path {name}: " + json.dumps(
+        {k: v for k, v in out.items() if k != "launches"}), flush=True)
+    return out, results, winners
+
+
+def f32_slice_check(dev, request, compat_cache):
+    """Phase 5: f32 modules, the card through the kernels against the CPU
+    through the plain versions. Bounds of the CPU parity tests
+    (tests/test_torch_model.py, tests/test_fused_model.py): final_trans
+    atol 1e-3, labels >= 0.99."""
+    from gmf_tpu_torch.eval.registration import PointDSCRegistrar
+
+    reg32 = make_registrar(dev, torch.float32, compat_cache=compat_cache)
+    cpu_model = copy.deepcopy(reg32.model).to("cpu")
+    t0 = time.perf_counter()
+    got = reg32.register_batch(request)
+    ref = PointDSCRegistrar(cpu_model, buckets=(N,)).register_batch(request)
+    seconds = time.perf_counter() - t0
+    trans_err = [float(np.abs(g[0] - r[0]).max()) for g, r in zip(got, ref)]
+    agree = [float((g[1] == r[1]).mean()) for g, r in zip(got, ref)]
+    print(f"f32 slice, compat_cache={compat_cache}, kernels (card) vs "
+          f"plain (CPU), {seconds:.1f} s: max |dT| per "
+          f"pair {trans_err}, label agreement {agree}", flush=True)
+    if max(trans_err) > 1e-3 or min(agree) < 0.99:
+        fail(f"f32 slice (compat_cache={compat_cache}) through the kernels "
+             "disagrees with the plain versions")
+    return dict(compat_cache=compat_cache, max_trans_err=max(trans_err),
+                min_label_agreement=min(agree),
+                seconds=seconds)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the result JSON here")
@@ -309,15 +760,17 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
 
-    from gmf_tpu_torch.eval.registration import PointDSCRegistrar
     from gmf_tpu_torch.ops import _build
+    from gmf_tpu_torch.utils.device import resolve_device
 
     # 1. the card
     card = nvidia_smi("name,power.limit")
     print(card, flush=True)
-    dev = torch.device("cuda")
+    dev = resolve_device("cuda")  # also keeps TF32 off for f32 products
     kind = torch.cuda.get_device_name(0)
     rates = Rates()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
 
     # 2. build
     t0 = time.perf_counter()
@@ -328,85 +781,84 @@ def main():
 
     # 3. kernels vs plain
     rows = kernel_phase(dev, rates)
+    torch.cuda.empty_cache()
+    for name, err in main_shape_phase(dev).items():
+        rows[name][f"b{B_MAIN}_max_abs_err"] = err
+    torch.cuda.empty_cache()
     print("kernel checks passed", flush=True)
 
-    # 4. the main path at full width
-    reg = main_path_registrar(dev)
-    assert not torch.backends.cuda.matmul.allow_tf32
-    assert not torch.backends.cudnn.allow_tf32
-    requests = make_requests()
-    _build.reset_launches()
-    results = [reg.register_batch(req) for req in requests]
-    torch.cuda.synchronize()
-    launches = {name: _build.launches[name] for name in KERNELS}
-    for name in KERNELS:
-        want = PER_FORWARD[name] * len(requests)
-        if launches[name] != want:
-            fail(f"{name}: {launches[name]} launches on the main path, "
-                 f"expected {want}")
-    rot, trn, ok = [], [], 0
-    for req, res in zip(requests, results):
-        for s, (trans, labels) in zip(req, res):
-            if trans.shape != (4, 4) or not np.isfinite(trans).all():
-                fail("non-finite or misshapen transform")
-            if labels.shape != (s["corr_pos"].shape[0],):
-                fail("labels of the wrong length")
-            re_ = rot_err_deg(trans, s["gt_trans"])
-            te = float(np.linalg.norm(trans[:3, 3] - s["gt_trans"][:3, 3]))
-            rot.append(re_)
-            trn.append(te)
-            ok += re_ < 15.0 and te < 0.30
-    print(f"main path: {len(rot)} pairs, registration recall "
-          f"{ok}/{len(rot)}, median rot err {np.median(rot):.4f} deg, "
-          f"median trans err {np.median(trn):.5f} m", flush=True)
-
-    # registrar time per request, after the counted (warm-up) run
-    times = []
-    for req in requests:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        reg.register_batch(req)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    ms_req = 1e3 * float(np.mean(times))
+    # 4. the served paths at full width; the main path first
+    paths, results, winners = {}, {}, {}
+    requests8 = make_requests(B)
+    for name, spec in PATHS.items():
+        reqs = make_requests(B_MAIN) if spec["pairs"] == B_MAIN else requests8
+        if name == "auto_b8":
+            reqs = reqs[:1]
+        paths[name], results[name], winners[name] = serve_path(
+            name, dev, reqs, timed=name != "auto_b8")
+        del reqs
+        torch.cuda.empty_cache()
+    # the fused solver runs a fixed count of iterations, the plain chain
+    # exits early: equal at convergence. A pair has the same seed under
+    # both when both picked their seeds from equal confidences and the seed
+    # of the same index won; those pairs are held to the seed solver's
+    # bounds, the others are counted.
+    same, rot_gap, trn_gap = 0, 0.0, 0.0
+    for res_f, res_x, win_f, win_x in zip(
+            results["int8_fused_b8"], results["int8_b8"],
+            winners["int8_fused_b8"], winners["int8_b8"]):
+        for i, ((tf, _), (tx, _)) in enumerate(zip(res_f, res_x)):
+            if win_f["seed"][i] != win_x["seed"][i] or not np.array_equal(
+                    win_f["confidence"][i], win_x["confidence"][i]):
+                continue
+            same += 1
+            rot_gap = max(rot_gap,
+                          float(np.abs(tf[:3, :3] - tx[:3, :3]).max()))
+            trn_gap = max(trn_gap, float(np.abs(tf[:3, 3] - tx[:3, 3]).max()))
+    total = sum(len(r) for r in results["int8_b8"])
+    print(f"seed_solver fused vs xla on {total} pairs: the same seed won "
+          f"{same}, largest gap of their transforms: rotation "
+          f"{rot_gap:.2e} (limit 5e-4), translation {trn_gap:.2e} (limit "
+          f"5e-3); another seed won {total - same}", flush=True)
+    if rot_gap > 5e-4 or trn_gap > 5e-3:
+        fail("seed_solver='fused' and 'xla' disagree on a pair whose "
+             "winning seed is the same")
+    if same < 0.75 * total:
+        fail("seed_solver='fused' and 'xla' chose different seeds on more "
+             "than a quarter of the pairs")
+    del results, winners
 
     # 5. f32 slice: kernels on the card vs plain versions on the CPU
-    reg32 = main_path_registrar(dev, torch.float32)
-    cpu_model = copy.deepcopy(reg32.model).to("cpu")
     torch.set_num_threads(8)
-    t0 = time.perf_counter()
-    got = reg32.register_batch(requests[0])
-    ref = PointDSCRegistrar(cpu_model, buckets=(N,)).register_batch(
-        requests[0])
-    cpu_s = time.perf_counter() - t0
-    trans_err = [float(np.abs(g[0] - r[0]).max()) for g, r in zip(got, ref)]
-    agree = [float((g[1] == r[1]).mean()) for g, r in zip(got, ref)]
-    print(f"f32 slice, kernels (card) vs plain (CPU), {cpu_s:.1f} s: "
-          f"max |dT| per pair {trans_err}, label agreement {agree}",
-          flush=True)
-    # bound of the CPU parity tests (tests/test_torch_model.py,
-    # tests/test_fused_model.py): final_trans atol 1e-3, labels >= 0.99
-    if max(trans_err) > 1e-3 or min(agree) < 0.99:
-        fail("f32 slice through the kernels disagrees with the plain "
-             "versions")
+    slices = [f32_slice_check(dev, requests8[0], "int8"),
+              f32_slice_check(dev, requests8[0], "off")]
 
     kernels = []
     for name in KERNELS:
         r = rows[name]
+        path = KERNEL_PATH[name]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
-            replaces=REPLACES[name], launches=launches[name],
-            launches_per_forward=PER_FORWARD[name],
-            max_abs_err=r.pop("max_abs_err"), ms=r.pop("ms"),
+            replaces=REPLACES[name], launches=paths[path]["launches"][name],
+            launches_per_forward=PATHS[path]["per_forward"][name],
+            path=path, max_abs_err=r.pop("max_abs_err"), ms=r.pop("ms"),
             plain_ms=r.pop("plain_ms"), bound_ms=r.pop("bound_ms"),
-            bound_by=r.pop("bound_by"), library_ms=None, **r))
+            bound_by=r.pop("bound_by"),
+            library_ms=None,  # no single PyTorch call computes any of them
+            **r))
+        if kernels[-1]["launches"] < 1:
+            fail(f"{name} was not launched on path {path}")
     result = {"kernels": kernels}
-    serve = {"registrar_ms_per_request": ms_req,
-             "pairs_per_s": B * 1e3 / ms_req, "pairs_per_request": B,
-             "bucket": N, "build_s": build_s,
-             "f32_slice_max_trans_err": max(trans_err),
-             "f32_slice_min_label_agreement": min(agree),
-             "card": card, "sm_clock_max_hz": rates.clock_hz}
+    main_path = paths["int8_b64"]
+    serve = {"registrar_ms_per_request": main_path["ms_per_request"],
+             "pairs_per_s": main_path["pairs_per_s"],
+             "pairs_per_request": B_MAIN, "bucket": N, "build_s": build_s,
+             "peak_memory_bytes": main_path["peak_memory_bytes"],
+             "paths": paths, "f32_slices": slices, "card": card,
+             "sm_clock_max_hz": rates.clock_hz,
+             "seed_solver_fused_vs_xla": {
+                 "pairs": total, "same_seed": same,
+                 "max_rotation_gap": rot_gap, "max_translation_gap": trn_gap}}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({**result, "serve": serve}, f, indent=1)

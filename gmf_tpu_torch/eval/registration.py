@@ -2,9 +2,11 @@
 
 Counterpart of ``gmf_tpu/eval/registration.py::PointDSCRegistrar`` for
 samples with precomputed correspondences (``corr_pos``, keypoints and
-both images). Each request pads its samples to one shared bucket, runs
-one batched forward on the model's device, and returns per-sample
-``(trans [4, 4], labels [n])``. The JAX registrar's mesh sharding,
+both images). Each request, of any number of samples (the reference's
+bench sends 64), pads its samples to one shared bucket, runs one batched
+forward on the model's device in the model's ``compat_cache`` and
+``seed_solver`` modes, and returns per-sample ``(trans [4, 4], labels
+[n])``. The JAX registrar's mesh sharding,
 raw-descriptor matching and fragment cache are not ported.
 """
 

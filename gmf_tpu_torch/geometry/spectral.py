@@ -1,11 +1,13 @@
 """Spectral matching: leading eigenvector of compatibility matrices.
 
-Counterpart of ``gmf_tpu/geometry/spectral.py::leading_eigenvector``:
-power iteration capped at ``num_iters`` with the reference's early exit.
-The convergence test is global over every block of the batch (one
+Counterpart of ``gmf_tpu/geometry/spectral.py``. ``leading_eigenvector``
+is the power iteration capped at ``num_iters`` with the reference's early
+exit. The convergence test is global over every block of the batch (one
 ``all``), so a converged block keeps iterating while any other block is
 still moving; per-block exits would be a different result. The test
-costs one host sync per round on the card.
+costs one host sync per round on the card. ``leading_eigenvector_fixed``
+runs exactly ``num_iters`` rounds with no test; the two agree at
+convergence.
 """
 
 from __future__ import annotations
@@ -29,4 +31,15 @@ def leading_eigenvector(M, num_iters: int = 10, rtol: float = 1e-5,
         v_new = torch.matmul(M, v[..., None])[..., 0]
         v_new = v_new / (_safe_norm(v_new) + 1e-6)
         v, v_last = v_new, v
+    return v
+
+
+def leading_eigenvector_fixed(M, num_iters: int = 10):
+    """M [..., N, N] nonnegative -> [..., N]: ``num_iters`` power
+    iterations from the all-ones vector, no convergence test (and so no
+    host sync)."""
+    v = torch.ones(M.shape[:-1], dtype=M.dtype, device=M.device)
+    for _ in range(num_iters):
+        v = torch.matmul(M, v[..., None])[..., 0]
+        v = v / (_safe_norm(v) + 1e-6)
     return v

@@ -1,16 +1,23 @@
 """PointDSC + GMF, test-mode forward, in PyTorch with CUDA kernels.
 
 Counterpart of ``gmf_tpu/models/pointdsc.py`` on its fused eval path
-(``fused_attention=True, compat_cache="off", knn_topk="fused",
-hypo_scoring="fused", seed_solver="xla"``), ``testing=True`` only:
+(``fused_attention=True, knn_topk="fused", hypo_scoring="fused"``, every
+``compat_cache`` and ``seed_solver`` mode), ``testing=True`` only:
 
 1. ResNet-34/8 image tokens of both frames, Fusion-1.
 2. num_layers x [PointCN -> NonLocalBlock]: compat-modulated attention
-   (streaming kernel, ops/fused_attention.py), message MLP, and Fusion-2
-   with LCPE added to the message.
+   (ops/fused_attention.py), message MLP, and Fusion-2 with LCPE added to
+   the message. The spatial-consistency matrix depends on the keypoints
+   only, so it can be computed once and shared by the layers:
+   ``compat_cache="int8"`` lets layer 0 build the int8 cache while it
+   attends and layers 1.. stream it; ``"f32"`` and ``"bf16"`` build the
+   cache before the layers; ``"off"`` rebuilds compat in every layer;
+   ``"auto"`` chooses by the cache's size (``_auto_compat_cache_dtype``).
 3. Confidence MLP; NMS seeds (ops/fused_nms.py).
-4. Seed kNN (ops/fused_topk.py), seed spectral matching with the
-   batch-global early exit, Horn-quaternion Kabsch per seed.
+4. Seed kNN (ops/fused_topk.py), seed spectral matching (the plain chain
+   with the batch-global early exit, or the fused fixed-count kernel of
+   ops/fused_seed_solver.py under ``seed_solver="fused"``),
+   Horn-quaternion Kabsch per seed.
 5. Hypothesis scoring (ops/fused_scoring.py); best seed by first argmax.
 6. Post-refinement with the batch-global stopping rule: every pair is
    refitted while ANY pair's inlier count still changes.
@@ -19,9 +26,8 @@ Module names are the reference's torch names, the ones
 ``gmf_tpu/utils/convert_torch.py::convert_pointdsc`` reads, so
 ``utils/bridge.py`` maps flax variables onto ``state_dict`` keys one to
 one. Modules run in ``dtype`` (bf16 on the card is fine); geometry from
-the normalised features on is f32. Only ``compat_cache="off"`` is ported:
-the int8 compat-cache kernels come in the next slice, and the train
-branch (M matrix, argsort seeds) with training.
+the normalised features on is f32. The dense unfused attention and the
+train branch (M matrix, argsort seeds) are not ported yet.
 """
 
 from __future__ import annotations
@@ -36,9 +42,12 @@ from gmf_tpu_torch.geometry.se3 import transform
 from gmf_tpu_torch.geometry.spectral import leading_eigenvector
 from gmf_tpu_torch.nn.fusion import FusionLayer
 from gmf_tpu_torch.nn.resnet import ImageEncoder
-from gmf_tpu_torch.ops.fused_attention import compat_flash_attention
+from gmf_tpu_torch.ops.fused_attention import (
+    build_compat_cache, cache_row_stride, compat_flash_attention,
+    compat_flash_attention_build)
 from gmf_tpu_torch.ops.fused_nms import pick_seeds_nms_fused
 from gmf_tpu_torch.ops.fused_scoring import seed_hypothesis_counts
+from gmf_tpu_torch.ops.fused_seed_solver import fused_seed_weights
 from gmf_tpu_torch.ops.fused_topk import seed_knn_topk
 from gmf_tpu_torch.utils.device import resolve_device
 
@@ -71,14 +80,26 @@ class NonLocalBlock(nn.Module):
             nn.ReLU(), nn.Linear(C // 2, C))
         self.fusion_layer_2 = _fusion(C, pe=True)
 
-    def forward(self, feat, image_feat, corr_mask, src_keypts, tgt_keypts):
-        """feat [B, N, C], image_feat [B, T, C] -> [B, N, C]."""
-        message = compat_flash_attention(
-            self.projection_q(feat), self.projection_k(feat),
-            self.projection_v(feat), src_keypts, tgt_keypts, mask=corr_mask,
-            sigma_d=self.sigma_d)
+    def forward(self, feat, image_feat, corr_mask, src_keypts, tgt_keypts,
+                compat_cache=None, build_cache: bool = False):
+        """feat [B, N, C], image_feat [B, T, C] -> [B, N, C]; with
+        ``build_cache`` the attention also emits the int8 compat cache
+        and the result is ``(out, cache)``. With ``compat_cache`` the
+        attention streams that cache instead of rebuilding compat."""
+        q, k, v = (self.projection_q(feat), self.projection_k(feat),
+                   self.projection_v(feat))
+        built = None
+        if build_cache:
+            message, built = compat_flash_attention_build(
+                q, k, v, src_keypts, tgt_keypts, mask=corr_mask,
+                sigma_d=self.sigma_d)
+        else:
+            message = compat_flash_attention(
+                q, k, v, src_keypts, tgt_keypts, mask=corr_mask,
+                sigma_d=self.sigma_d, compat=compat_cache)
         fused = self.fusion_layer_2(image_feat, queries_encoder=feat)
-        return self.fc_message(message) + fused
+        out = self.fc_message(message) + fused
+        return (out, built) if build_cache else out
 
 
 class NonLocalNet(nn.Module):
@@ -99,21 +120,71 @@ class NonLocalNet(nn.Module):
             self.blocks[f"NonLocal_layer_{i}"] = NonLocalBlock(C, sigma_d)
 
     def forward(self, corr_feat, p_image, q_image, corr_mask, src_keypts,
-                tgt_keypts):
-        """corr_feat [B, N, 6], images [B, H, W, 3] -> [B, N, C]."""
+                tgt_keypts, compat_cache=None, build_cache: bool = False):
+        """corr_feat [B, N, 6], images [B, H, W, 3] -> [B, N, C].
+
+        ``compat_cache``: a [B, N, ld] cache that every layer streams.
+        ``build_cache``: layer 0 builds the int8 cache while it attends
+        and layers 1.. stream it. The cache lives only inside this call,
+        so its memory is free again for the seed stage."""
         image_feat = self.fusion_layer_1(
             self.image_encoder.tokens(p_image),
             queries_encoder=self.image_encoder.tokens(q_image))
         feat = self.layer0(corr_feat)
+        cache = compat_cache
         for i in range(self.num_layers):
             feat = self.blocks[f"PointCN_layer_{i}"](feat)
-            feat = self.blocks[f"NonLocal_layer_{i}"](
-                feat, image_feat, corr_mask, src_keypts, tgt_keypts)
+            block = self.blocks[f"NonLocal_layer_{i}"]
+            if build_cache and i == 0:
+                feat, cache = block(feat, image_feat, corr_mask, src_keypts,
+                                    tgt_keypts, build_cache=True)
+            else:
+                feat = block(feat, image_feat, corr_mask, src_keypts,
+                             tgt_keypts, compat_cache=cache)
         return feat
+
+
+COMPAT_CACHE_MODES = ("auto", "off", "f32", "bf16", "int8")
+SEED_SOLVER_MODES = ("auto", "xla", "fused")
+_CACHE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+                 "int8": torch.int8}
+
+# Ceilings of the "auto" compat-cache gate, in bytes of the whole
+# [B, N, ld] cache. The f32 ceiling is the reference's: take the exact
+# cache where it is small. The int8 ceiling covers the three bench presets
+# (64 x 5000, 8 x 12000, 2 x 30000: at most 1.8e9 bytes) and is the size
+# of the largest cache whose whole forward was run on an 80 GB H100
+# (PERF.md has the run and its peak memory).
+AUTO_F32_CACHE_MAX_BYTES = 1.5e9
+AUTO_INT8_CACHE_MAX_BYTES = 2.0e9
+
+
+def _auto_compat_cache_dtype(B: int, N: int):
+    """The cache type "auto" takes for B pairs of N correspondences on the
+    card: f32 while that cache fits ``AUTO_F32_CACHE_MAX_BYTES``, else
+    int8 while it fits ``AUTO_INT8_CACHE_MAX_BYTES``, else None (stream).
+
+    A function of the request's shape alone, never of the memory free at
+    the time, so the same request always takes the same numerics.
+    """
+    if B * N * cache_row_stride(N, torch.float32) * 4 <= \
+            AUTO_F32_CACHE_MAX_BYTES:
+        return torch.float32
+    if B * N * cache_row_stride(N, torch.int8) <= AUTO_INT8_CACHE_MAX_BYTES:
+        return torch.int8
+    return None
 
 
 class PointDSC(nn.Module):
     """PointDSC+GMF (defaults from the reference's config_3DMatch.py).
+
+    ``compat_cache``: "auto" | "off" | "f32" | "bf16" | "int8" (module
+    docstring). "auto" resolves by ``_auto_compat_cache_dtype`` for CUDA
+    tensors and to "off" for CPU tensors, which keeps small CPU runs on
+    the exact path; a named type is taken on either device.
+    ``seed_solver``: "auto" | "xla" | "fused"; "auto" and "xla" run the
+    plain chain with the early-exit iteration ("xla" is the reference's
+    name for it), "fused" the fixed-count kernel.
 
     ``device`` defaults to the card and raises without one unless
     ``device="cpu"``. Weights are drawn from a ``torch.Generator`` seeded
@@ -125,16 +196,17 @@ class PointDSC(nn.Module):
                  num_channels: int = 128, num_iterations: int = 10,
                  ratio: float = 0.1, inlier_threshold: float = 0.10,
                  sigma_d: float = 0.10, k: int = 40, nms_radius: float = 0.10,
-                 compat_cache: str = "off",
+                 compat_cache: str = "auto", seed_solver: str = "auto",
                  dtype: torch.dtype = torch.float32, device=None,
                  seed: int = 0):
         super().__init__()
-        if compat_cache != "off":
-            raise NotImplementedError(
-                f"compat_cache={compat_cache!r}: only the streaming path "
-                "('off') is ported; the f32/bf16/int8 compat-cache kernels "
-                "(build+attend, cached flash) come in the next slice")
+        if compat_cache not in COMPAT_CACHE_MODES:
+            raise ValueError(f"unknown compat_cache mode {compat_cache!r}")
+        if seed_solver not in SEED_SOLVER_MODES:
+            raise ValueError(f"unknown seed_solver mode {seed_solver!r}")
         device = resolve_device(device)
+        self.compat_cache = compat_cache
+        self.seed_solver = seed_solver
         self.num_iterations = num_iterations
         self.ratio = ratio
         self.inlier_threshold = inlier_threshold
@@ -190,8 +262,11 @@ class PointDSC(nn.Module):
         src = src_keypts.float()
         tgt = tgt_keypts.float()
         mask = None if corr_mask is None else corr_mask.float()
+        cache, build_cache = self._build_compat_cache(src, tgt)
         feats = self.encoder(corr_pos.to(self.dtype), p_image.to(self.dtype),
-                             q_image.to(self.dtype), mask, src, tgt)
+                             q_image.to(self.dtype), mask, src, tgt,
+                             compat_cache=cache, build_cache=build_cache)
+        del cache
         f32 = feats.float()
         normed = f32 / torch.sqrt((f32 * f32).sum(-1, keepdim=True) + 1e-12)
         confidence = self.classification(feats)[..., 0].float()
@@ -210,6 +285,25 @@ class PointDSC(nn.Module):
             "seed_fitness": seed_fitness,
             "confidence": confidence,
         }
+
+    def _build_compat_cache(self, src, tgt):
+        """Resolve ``compat_cache`` for this request: ``(cache,
+        build_cache)``. An int8 cache is not built here: layer 0 of the
+        encoder builds it while it attends (``build_cache`` True). f32 and
+        bf16 caches are built now; "off" gives ``(None, False)``."""
+        B, N, _ = src.shape
+        if self.compat_cache == "off":
+            return None, False
+        if self.compat_cache == "auto":
+            dtype = (None if src.device.type == "cpu"
+                     else _auto_compat_cache_dtype(B, N))
+            if dtype is None:
+                return None, False
+        else:
+            dtype = _CACHE_DTYPES[self.compat_cache]
+        if dtype == torch.int8:
+            return None, True
+        return build_compat_cache(src, tgt, self.sigma_d, dtype), False
 
     def _cal_seed_trans(self, seeds, feats, src, tgt, mask):
         """Seed-row kNN (fused kernel; column 0, the seed itself, dropped)."""
@@ -231,20 +325,25 @@ class PointDSC(nn.Module):
         tgt_knn = tgt.reshape(B * N, 3)[rows].reshape(B, S, k, 3)
 
         sigma = self.sigma.float()
-        feat_M = torch.matmul(knn_feats, knn_feats.transpose(-1, -2))
-        feat_M = torch.clamp(1.0 - (1.0 - feat_M) / sigma ** 2, min=0.0)
-        src_d = torch.linalg.vector_norm(
-            src_knn[:, :, :, None] - src_knn[:, :, None], dim=-1)
-        tgt_d = torch.linalg.vector_norm(
-            tgt_knn[:, :, :, None] - tgt_knn[:, :, None], dim=-1)
-        spatial_M = torch.clamp(
-            1.0 - (src_d - tgt_d) ** 2 / self.sigma_d ** 2, min=0.0)
-        total_M = feat_M * spatial_M * (
-            1.0 - torch.eye(k, device=feats.device))
-        weight = leading_eigenvector(total_M.reshape(B * S, k, k),
-                                     num_iters=self.num_iterations)
-        weight = weight.reshape(B, S, k)
-        weight = weight / (weight.sum(-1, keepdim=True) + 1e-6)
+        if self.seed_solver == "fused":
+            weight = fused_seed_weights(knn_feats, src_knn, tgt_knn, sigma,
+                                        self.sigma_d,
+                                        num_iters=self.num_iterations)
+        else:
+            feat_M = torch.matmul(knn_feats, knn_feats.transpose(-1, -2))
+            feat_M = torch.clamp(1.0 - (1.0 - feat_M) / sigma ** 2, min=0.0)
+            src_d = torch.linalg.vector_norm(
+                src_knn[:, :, :, None] - src_knn[:, :, None], dim=-1)
+            tgt_d = torch.linalg.vector_norm(
+                tgt_knn[:, :, :, None] - tgt_knn[:, :, None], dim=-1)
+            spatial_M = torch.clamp(
+                1.0 - (src_d - tgt_d) ** 2 / self.sigma_d ** 2, min=0.0)
+            total_M = feat_M * spatial_M * (
+                1.0 - torch.eye(k, device=feats.device))
+            weight = leading_eigenvector(total_M.reshape(B * S, k, k),
+                                         num_iters=self.num_iterations)
+            weight = weight.reshape(B, S, k)
+            weight = weight / (weight.sum(-1, keepdim=True) + 1e-6)
         seed_trans = rigid_transform_3d(
             src_knn.reshape(B * S, k, 3), tgt_knn.reshape(B * S, k, 3),
             weight.reshape(B * S, k)).reshape(B, S, 4, 4)

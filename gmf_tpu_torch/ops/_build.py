@@ -2,7 +2,8 @@
 
 Every ``csrc/*.cu`` is compiled by its own ``nvcc`` (all started
 together) for ``sm_90a`` and linked into one shared library with a plain
-C interface, loaded with ``ctypes``. Nothing includes PyTorch's headers,
+C interface, loaded with ``ctypes``; ``csrc/*.cuh`` holds what several
+sources share. Nothing includes PyTorch's headers,
 so a cold build takes seconds. The library lands in ``ops/build/``
 (git-ignored), named by a hash of the sources, and is built on first use
 only: importing this module builds nothing, so the CPU tests import every
@@ -41,6 +42,19 @@ F = ctypes.c_float
 SIGNATURES = {
     # q, k, v, src, tgt, mask, out, B, N, D, is_bf16, sigma_sq, qscale, stream
     "gmf_compat_flash_attention": [P, P, P, P, P, P, P, I, I, I, I, F, F, P],
+    # q, k, v, src, tgt, mask, out, cache, B, N, D, ld, is_bf16, sigma_sq,
+    # qscale, stream
+    "gmf_compat_flash_attention_build": [P, P, P, P, P, P, P, P, I, I, I, I,
+                                         I, F, F, P],
+    # q, k, v, cache, mask, out, B, N, D, ld, is_bf16, cache_type, qscale,
+    # stream
+    "gmf_compat_flash_attention_cached": [P, P, P, P, P, P, I, I, I, I, I, I,
+                                          F, P],
+    # src, tgt, cache, B, N, ld, cache_type, sigma_sq, stream
+    "gmf_build_compat_cache": [P, P, P, I, I, I, I, F, P],
+    # feats, src_knn, tgt_knn, sigma, out, n_seeds, k, C, is_bf16,
+    # sigma_d_sq, num_iters, stream
+    "gmf_fused_seed_weights": [P, P, P, P, P, I, I, I, I, F, I, P],
     # keypts, scores, out, B, N, radius_sq, stream
     "gmf_nms_local_max": [P, P, P, I, I, F, P],
     # seeds, feats, mask, idx, val, B, S, N, C, K, stream

@@ -1,15 +1,33 @@
-"""Compat-modulated attention: streaming CUDA kernel and its plain version.
+"""Compat-modulated attention: CUDA kernels and their plain versions.
 
-Counterpart of ``gmf_tpu/ops/fused_attention.py::compat_flash_attention``
-(streaming mode, forward only), batched over pairs:
+Counterpart of ``gmf_tpu/ops/fused_attention.py`` (forward only), batched
+over pairs:
 
     compat[i,j] = max(0, 1 - (|s_i - s_j| - |t_i - t_j|)^2 / sigma^2)
     out         = softmax(compat * (q . k) / sqrt(D), masked keys -1e9) @ v
 
-``compat_flash_attention`` launches ``csrc/compat_flash_attention.cu`` on
-CUDA tensors and uses ``compat_attention_plain`` only for CPU tensors.
-The backward (training) and the int8 compat-cache kernels are not ported
-yet.
+Four functions, each launching its kernel on CUDA tensors and using its
+plain version (``*_plain``) only for CPU tensors:
+
+- ``compat_flash_attention``: streaming mode rebuilds compat from the
+  keypoints in every call (``csrc/compat_flash_attention.cu``); with
+  ``compat=cache`` it streams a precomputed cache instead
+  (``csrc/compat_flash_attention_cached.cu``).
+- ``build_compat_cache``: the cache on its own, f32, bf16 or int8
+  (``csrc/build_compat_cache.cu``).
+- ``compat_flash_attention_build``: the first layer's attention, which
+  also emits the int8 cache for the layers after it
+  (``csrc/compat_flash_attention_build.cu``).
+
+The int8 cache holds ``round(254 c - 127)`` and is read as
+``code / 254 + 0.5``; its codes come from the one-sqrt form
+``ds2 + dt2 - 2 sqrt(ds2 dt2)``, the f32 and bf16 caches from the two-sqrt
+difference, as in the reference.
+
+Cache layout (the port's own): ``[B, N, ld]``, exactly N valid entries
+per row and a row stride ``ld = cache_row_stride(N, dtype)`` that keeps
+every row 16-byte aligned; entries past column N are zero and are never
+read as keys. The backward kernels (training) are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,16 +41,51 @@ from gmf_tpu_torch.ops import _build
 NEG_INF = -1e9
 _LOG2E = 1.4426950408889634
 KERNEL = "compat_flash_attention"
+KERNEL_CACHED = "compat_flash_attention_cached"
+KERNEL_BUILD = "compat_flash_attention_build"
+KERNEL_CACHE = "build_compat_cache"
+
+_I8_SCALE = 254.0
+_I8_BIAS = 127.0
+# cache element types, numbered as the C entry points number them
+_CACHE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
-def _pairwise_dist(x):
-    """[B, N, 3] -> [B, N, N] Euclidean distances, per-coordinate
-    differences (no norm-identity cancellation)."""
+def cache_row_stride(N: int, dtype: torch.dtype) -> int:
+    """Row stride ``ld`` (in elements) of a compat cache for N
+    correspondences: N rounded up so that a row spans a multiple of 16
+    bytes. The cache kernels and their plain versions all take it from
+    here."""
+    if dtype not in _CACHE_TYPES:
+        raise TypeError(f"compat cache dtype {dtype} not in f32/bf16/int8")
+    per16 = 16 // torch.empty((), dtype=dtype).element_size()
+    return -(-N // per16) * per16
+
+
+def _pairwise_sqdist(x):
+    """[B, N, 3] -> [B, N, N] squared Euclidean distances, from
+    per-coordinate differences (no norm-identity cancellation), summed
+    as (x^2 + y^2) + z^2."""
     d2 = None
     for c in range(3):
         diff = x[:, :, None, c] - x[:, None, :, c]
         d2 = diff * diff if d2 is None else d2 + diff * diff
-    return torch.sqrt(d2)
+    return d2
+
+
+def _sqrt(x):
+    """Correctly rounded f32 square root, as CUDA's ``sqrtf`` and the
+    reference's are. PyTorch's vectorised CPU sqrt can land one ulp low,
+    which the one-sqrt int8 form amplifies into other codes; through f64
+    the result is exact (for a square root the second rounding cannot
+    change it)."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
+def _pairwise_dist(x):
+    return _sqrt(_pairwise_sqdist(x))
 
 
 def _qscale(D: int) -> float:
@@ -41,21 +94,17 @@ def _qscale(D: int) -> float:
     return (1.0 / math.sqrt(D)) * _LOG2E
 
 
-def compat_attention_plain(q, k, v, src_keypts, tgt_keypts, mask=None,
-                           sigma_d: float = 0.10):
-    """Dense version: materialises the [B, N, N] compat and logits in f32.
-    q, k, v [B, N, D]; keypoints [B, N, 3]; mask [B, N] -> [B, N, D].
+def _attend_plain(q, k, v, compat, mask):
+    """softmax(compat * q.k, masked) @ v with a dense f32 compat
+    [B, N, N].
 
     The softmax is base 2 with scale * log2(e) folded into q, as in the
-    kernel. Under bf16 the scaled q and the probabilities are rounded to
-    bf16 before their products, as the kernel does, so the two differ only
-    by f32 summation order and the kernel's running max.
+    kernels. Under bf16 the scaled q and the probabilities are rounded to
+    bf16 before their products, as the kernels do, so the two differ only
+    by f32 summation order and the kernels' running max.
     """
     D = q.shape[-1]
     rounded = q.dtype == torch.bfloat16
-    compat = _pairwise_dist(src_keypts.float()) - _pairwise_dist(
-        tgt_keypts.float())
-    compat = torch.clamp(1.0 - compat * compat / sigma_d ** 2, min=0.0)
     qs = q.float() * _qscale(D)
     if rounded:
         qs = qs.to(torch.bfloat16).float()
@@ -71,37 +120,131 @@ def compat_attention_plain(q, k, v, src_keypts, tgt_keypts, mask=None,
     return out.to(q.dtype)
 
 
-def compat_flash_attention(q, k, v, src_keypts, tgt_keypts, mask=None,
+def compat_attention_plain(q, k, v, src_keypts, tgt_keypts, mask=None,
                            sigma_d: float = 0.10):
+    """Dense version of the streaming mode: materialises the [B, N, N]
+    compat and logits in f32. q, k, v [B, N, D]; keypoints [B, N, 3];
+    mask [B, N] -> [B, N, D]."""
+    compat = _pairwise_dist(src_keypts.float()) - _pairwise_dist(
+        tgt_keypts.float())
+    compat = torch.clamp(1.0 - compat * compat / sigma_d ** 2, min=0.0)
+    return _attend_plain(q, k, v, compat, mask)
+
+
+def _load_compat(cache, N: int):
+    """The valid [B, N, N] part of a cache as f32; int8 codes are read as
+    ``code * (1 / 254) + 0.5``."""
+    c = cache[:, :, :N]
+    if cache.dtype == torch.int8:
+        return c.float() * (1.0 / _I8_SCALE) + 0.5
+    return c.float()
+
+
+def compat_attention_cached_plain(q, k, v, compat, mask=None):
+    """Dense version of the cached mode; ``compat`` is a [B, N, ld]
+    cache."""
+    return _attend_plain(q, k, v, _load_compat(compat, q.shape[1]), mask)
+
+
+def build_compat_cache_plain(src_keypts, tgt_keypts, sigma_d: float = 0.10,
+                             dtype: torch.dtype = torch.bfloat16):
+    """Plain version of ``build_compat_cache``: the same operations in
+    the same order, one rounding each, on dense [B, N, N] tensors."""
+    B, N, _ = src_keypts.shape
+    ld = cache_row_stride(N, dtype)
+    # a tensor, not a Python scalar: PyTorch turns a division by a scalar
+    # into a multiplication by its reciprocal on CUDA, one rounding more
+    sigma_sq = torch.tensor(float(sigma_d) ** 2, dtype=torch.float32,
+                            device=src_keypts.device)
+    ds2 = _pairwise_sqdist(src_keypts.float())
+    dt2 = _pairwise_sqdist(tgt_keypts.float())
+    if dtype == torch.int8:
+        dd2 = torch.clamp(ds2 + dt2 - 2.0 * _sqrt(ds2 * dt2), min=0.0)
+        c = torch.clamp(1.0 - dd2 / sigma_sq, min=0.0)
+        vals = torch.round(c * _I8_SCALE - _I8_BIAS).to(torch.int8)
+    else:
+        dd = _sqrt(ds2) - _sqrt(dt2)
+        vals = torch.clamp(1.0 - dd * dd / sigma_sq, min=0.0).to(dtype)
+    cache = torch.zeros(B, N, ld, dtype=dtype, device=src_keypts.device)
+    cache[:, :, :N] = vals
+    return cache
+
+
+def compat_flash_attention_build_plain(q, k, v, src_keypts, tgt_keypts,
+                                       mask=None, sigma_d: float = 0.10):
+    """Plain version of ``compat_flash_attention_build``: the int8 cache,
+    and the attention on that cache."""
+    cache = build_compat_cache_plain(src_keypts, tgt_keypts, sigma_d,
+                                     torch.int8)
+    return compat_attention_cached_plain(q, k, v, cache, mask), cache
+
+
+def _check_qkv(name, q, k, v):
+    """Device, type and shape checks shared by the attention wrappers;
+    returns contiguous q, k, v."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: q/k/v must be f32 or bf16, got {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name}: q, k and v must share a dtype")
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{name}: q/k/v must share a shape [B, N, D]")
+    if q.shape[-1] not in (32, 128):
+        raise ValueError(
+            f"{name}: head width {q.shape[-1]} not built (32/128)")
+    return q.contiguous(), k.contiguous(), v.contiguous()
+
+
+def _check_keypts(name, src_keypts, tgt_keypts, B, N):
+    for kp in (src_keypts, tgt_keypts):
+        if kp.device.type != "cuda":
+            raise ValueError(f"{name}: unsupported device {kp.device}")
+    if src_keypts.shape != (B, N, 3) or tgt_keypts.shape != (B, N, 3):
+        raise ValueError(f"{name}: keypoints must be [B, N, 3]")
+    return src_keypts.float().contiguous(), tgt_keypts.float().contiguous()
+
+
+def _check_mask(name, mask, B, N, device):
+    m = (torch.ones(B, N, device=device) if mask is None
+         else mask.float().contiguous())
+    if m.shape != (B, N):
+        raise ValueError(f"{name}: mask must be [B, N]")
+    return m
+
+
+def _check_cache(name, compat, B, N):
+    if compat.dtype not in _CACHE_TYPES:
+        raise TypeError(f"{name}: cache dtype {compat.dtype} not in "
+                        "f32/bf16/int8")
+    ld = cache_row_stride(N, compat.dtype)
+    if compat.shape != (B, N, ld) or not compat.is_contiguous():
+        raise ValueError(
+            f"{name}: compat cache of shape {tuple(compat.shape)} does not "
+            f"match the layout {(B, N, ld)} for N={N} and {compat.dtype}; "
+            "build it with build_compat_cache")
+    return ld
+
+
+def compat_flash_attention(q, k, v, src_keypts, tgt_keypts, mask=None,
+                           sigma_d: float = 0.10, compat=None):
     """Compat-modulated single-head attention over a batch of pairs.
 
     q, k, v: [B, N, D] f32 or bf16 (D in 32, 128 on CUDA);
     src_keypts, tgt_keypts: [B, N, 3]; mask: optional [B, N] key validity.
+    compat: optional [B, N, ld] cache from ``build_compat_cache`` or
+    ``compat_flash_attention_build``; the keypoints may then be None.
     Returns [B, N, D] in q's dtype.
     """
+    if compat is not None:
+        return _compat_flash_attention_cached(q, k, v, compat, mask)
     if q.device.type == "cpu":
         return compat_attention_plain(q, k, v, src_keypts, tgt_keypts, mask,
                                       sigma_d)
-    if q.device.type != "cuda":
-        raise ValueError(f"{KERNEL}: unsupported device {q.device}")
+    q, k, v = _check_qkv(KERNEL, q, k, v)
     B, N, D = q.shape
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{KERNEL}: q/k/v must be f32 or bf16, got {q.dtype}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"{KERNEL}: q, k and v must share a dtype")
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"{KERNEL}: q/k/v shapes differ")
-    if D not in (32, 128):
-        raise ValueError(f"{KERNEL}: head width {D} not built (32/128)")
-    if src_keypts.shape != (B, N, 3) or tgt_keypts.shape != (B, N, 3):
-        raise ValueError(f"{KERNEL}: keypoints must be [B, N, 3]")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    src = src_keypts.float().contiguous()
-    tgt = tgt_keypts.float().contiguous()
-    m = (torch.ones(B, N, device=q.device) if mask is None
-         else mask.float().contiguous())
-    if m.shape != (B, N):
-        raise ValueError(f"{KERNEL}: mask must be [B, N]")
+    src, tgt = _check_keypts(KERNEL, src_keypts, tgt_keypts, B, N)
+    m = _check_mask(KERNEL, mask, B, N, q.device)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out  # nothing to launch
@@ -112,3 +255,82 @@ def compat_flash_attention(q, k, v, src_keypts, tgt_keypts, mask=None,
         _build.stream_of(q))
     _build.check(code, KERNEL)
     return out
+
+
+def _compat_flash_attention_cached(q, k, v, compat, mask):
+    if q.device.type == "cpu" and compat.device.type == "cpu":
+        _check_cache(KERNEL_CACHED, compat, q.shape[0], q.shape[1])
+        return compat_attention_cached_plain(q, k, v, compat, mask)
+    q, k, v = _check_qkv(KERNEL_CACHED, q, k, v)
+    B, N, D = q.shape
+    if compat.device != q.device:
+        raise ValueError(f"{KERNEL_CACHED}: cache on {compat.device}, "
+                         f"q on {q.device}")
+    ld = _check_cache(KERNEL_CACHED, compat, B, N)
+    m = _check_mask(KERNEL_CACHED, mask, B, N, q.device)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    code = _build.load().gmf_compat_flash_attention_cached(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), compat.data_ptr(),
+        m.data_ptr(), out.data_ptr(), B, N, D, ld,
+        int(q.dtype == torch.bfloat16), _CACHE_TYPES[compat.dtype],
+        _qscale(D), _build.stream_of(q))
+    _build.check(code, KERNEL_CACHED)
+    return out
+
+
+def build_compat_cache(src_keypts, tgt_keypts, sigma_d: float = 0.10,
+                       dtype: torch.dtype = torch.bfloat16):
+    """The spatial-consistency matrix of every pair, computed once:
+    keypoints [B, N, 3] -> [B, N, ld] cache of ``dtype`` (f32, bf16 or
+    int8), ``ld = cache_row_stride(N, dtype)``, pad columns zero. Rows are
+    queries, columns keys. Masked correspondences have entries too; the
+    attention's mask excludes them."""
+    ld = cache_row_stride(src_keypts.shape[1], dtype)
+    if src_keypts.device.type == "cpu" and tgt_keypts.device.type == "cpu":
+        return build_compat_cache_plain(src_keypts, tgt_keypts, sigma_d,
+                                        dtype)
+    if src_keypts.dim() != 3:
+        raise ValueError(f"{KERNEL_CACHE}: keypoints must be [B, N, 3]")
+    B, N, _ = src_keypts.shape
+    src, tgt = _check_keypts(KERNEL_CACHE, src_keypts, tgt_keypts, B, N)
+    cache = torch.empty(B, N, ld, dtype=dtype, device=src.device)
+    if cache.numel() == 0:
+        return cache
+    code = _build.load().gmf_build_compat_cache(
+        src.data_ptr(), tgt.data_ptr(), cache.data_ptr(), B, N, ld,
+        _CACHE_TYPES[dtype], float(sigma_d) ** 2, _build.stream_of(src))
+    _build.check(code, KERNEL_CACHE)
+    return cache
+
+
+def compat_flash_attention_build(q, k, v, src_keypts, tgt_keypts, mask=None,
+                                 sigma_d: float = 0.10):
+    """First-layer attention that also emits the int8 compat cache for
+    the layers after it (forward only).
+
+    Returns ``(out [B, N, D], cache [B, N, ld] int8)``: the cache equals
+    ``build_compat_cache(..., dtype=torch.int8)`` in every byte and out
+    equals ``compat_flash_attention(..., compat=cache)``, since the
+    attention runs on the dequantized codes.
+    """
+    if q.device.type == "cpu":
+        return compat_flash_attention_build_plain(q, k, v, src_keypts,
+                                                  tgt_keypts, mask, sigma_d)
+    q, k, v = _check_qkv(KERNEL_BUILD, q, k, v)
+    B, N, D = q.shape
+    src, tgt = _check_keypts(KERNEL_BUILD, src_keypts, tgt_keypts, B, N)
+    m = _check_mask(KERNEL_BUILD, mask, B, N, q.device)
+    ld = cache_row_stride(N, torch.int8)
+    out = torch.empty_like(q)
+    cache = torch.empty(B, N, ld, dtype=torch.int8, device=q.device)
+    if out.numel() == 0:
+        return out, cache
+    code = _build.load().gmf_compat_flash_attention_build(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), src.data_ptr(),
+        tgt.data_ptr(), m.data_ptr(), out.data_ptr(), cache.data_ptr(), B, N,
+        D, ld, int(q.dtype == torch.bfloat16), float(sigma_d) ** 2,
+        _qscale(D), _build.stream_of(q))
+    _build.check(code, KERNEL_BUILD)
+    return out, cache

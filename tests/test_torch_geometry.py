@@ -101,6 +101,21 @@ def test_leading_eigenvector_global_exit(rng, num_iters):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
 
 
+@pytest.mark.parametrize("num_iters", [3, 10])
+def test_leading_eigenvector_fixed(rng, num_iters):
+    """No convergence test: exactly num_iters rounds, also for blocks
+    that converged at once."""
+    M = rng.rand(12, 20, 20).astype(np.float32)
+    M = M + M.transpose(0, 2, 1)
+    M[:4] = np.eye(20, dtype=np.float32)[None] + 0.01 * M[:4]
+    M[4] = 0.0  # an all-zero block stays zero (no NaN)
+    got = spectral.leading_eigenvector_fixed(_t(M), num_iters=num_iters)
+    ref = jspectral.leading_eigenvector_fixed(jnp.asarray(M),
+                                              num_iters=num_iters)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
+    assert np.isfinite(got.numpy()).all() and (got[4] == 0).all()
+
+
 def test_pick_seeds_nms_dense(rng):
     B, N = 2, 200
     pts = rng.rand(B, N, 3).astype(np.float32) * 2

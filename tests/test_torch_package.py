@@ -12,7 +12,7 @@ import torch
 from gmf_tpu_torch.data.synthetic import make_correspondence_problem
 from gmf_tpu_torch.eval.registration import PointDSCRegistrar
 from gmf_tpu_torch.models import PointDSC
-from gmf_tpu_torch.ops import fused_attention
+from gmf_tpu_torch.ops import fused_attention, fused_seed_solver
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
@@ -31,7 +31,7 @@ def test_importing_the_port_loads_no_jax():
         "runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(len(mods), bad)\n"
-        "sys.exit(1 if bad or len(mods) < 15 else 0)\n")
+        "sys.exit(1 if bad or len(mods) < 16 else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
@@ -76,5 +76,17 @@ def test_entry_points_default_to_cuda():
 def test_wrappers_take_plain_version_only_on_cpu():
     x = torch.zeros(1, 4, 32, device="meta")
     kp = torch.zeros(1, 4, 3, device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        fused_attention.compat_flash_attention(x, x, x, kp, kp)
+    cache = torch.zeros(1, 4, 16, dtype=torch.int8, device="meta")
+    knn = torch.zeros(1, 2, 4, 3, device="meta")
+    calls = [
+        lambda: fused_attention.compat_flash_attention(x, x, x, kp, kp),
+        lambda: fused_attention.compat_flash_attention(x, x, x, None, None,
+                                                       compat=cache),
+        lambda: fused_attention.compat_flash_attention_build(x, x, x, kp, kp),
+        lambda: fused_attention.build_compat_cache(kp, kp, 0.1, torch.int8),
+        lambda: fused_seed_solver.fused_seed_weights(
+            torch.zeros(1, 2, 4, 32, device="meta"), knn, knn, 1.0, 0.1),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
