@@ -7,8 +7,9 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
 
 1. Print the card's name and power limit (nvidia-smi).
 2. Build the kernels (one nvcc per source, in parallel).
-3. Hold each of the eight kernels against its plain PyTorch version on the
-   card at the main path's shapes: B=8 pairs, N=5000 (4000 valid rows in
+3. Hold each of the twelve kernels against its plain PyTorch version on the
+   card at its path's shapes. The eight forward kernels at the serving
+   path's shapes: B=8 pairs, N=5000 (4000 valid rows in
    pair 0), D=128, S=500 seeds, k=40. Attention runs in f32 and bf16, the
    compat cache in f32, bf16 and int8. The int8 cache of the build+attend
    kernel, of the standalone cache kernel and of the plain version must agree
@@ -16,7 +17,13 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
    kernel's on that cache. Then the five kernels of the main path once
    more at that path's B=64 (bf16 attention, every pair with its own
    count of valid rows), with the same limits, their plain versions run
-   in slices of 8 pairs.
+   in slices of 8 pairs. Then every kernel of the training paths at the
+   training shape, B=16, N=1000, D=128 with the last 10% of pair 0
+   masked, f32 and bf16: the four backward kernels (dK/dV and dQ,
+   streaming and cached, the cached ones on each cache type), the
+   streaming and cached forward (output and the lse they write), the
+   standalone cache of each type (every byte), kNN and counts at S=100
+   seeds, each against its plain version with the limits above.
 4. Serve register_batch requests through PointDSCRegistrar at full width
    (12 layers, 128 channels, k=40, ratio 0.1, 120x160 images, bucket 5000;
    bf16 modules, f32 geometry). Launch counts are reset just before each
@@ -30,16 +37,35 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
    - compat_cache="int8" with seed_solver="fused" at 8 pairs (1 solver
      launch), its transforms held against seed_solver="xla" on every pair
      where the same seed won.
+   Then train through Trainer.train_step at the reference's 3DMatch
+   configuration (16 pairs of N=1000 per step, 120x160 images, the same
+   full-width model, f32, Adam), counts reset before each path:
+   - the training main path, compat_cache="auto" (the f32 cache): 2
+     warm-up and 3 timed steps, per step 1 standalone cache build and 12
+     launches each of the cached forward, dK/dV and dQ kernels, and one
+     of kNN and counts;
+   - compat_cache="off": 12 each of the streaming forward and its two
+     backward kernels per step; compat_cache="int8": the cached kernels
+     on int8 codes. Every step applied, every loss finite.
 5. Serve one request of 8 pairs with f32 modules on the card through the
    kernels and on the CPU through the plain versions, with the same
    weights and inputs, and compare final transforms and labels: with the
-   int8 cache and with compat_cache="off".
-6. Print a JSON line with every path's time per request, a JSON line with
-   every kernel's launches, time, plain time, bound and error, and, as the
-   last line, {"ok": true, "device": {...}}.
+   int8 cache and with compat_cache="off". Take one f32 train step of 16
+   pairs of N=1000 on the card and on the CPU, same weights and batch,
+   "auto" and "off": the loss and each parameter's gradient against the
+   same step in f64 on the CPU, within the CPU tests' bound on that
+   parameter's own scale or twice the CPU's own f32 error there, and the
+   new parameters against Adam's update from the card's gradient
+   (compare_train_step; scripts/check_train_faults.py shows that planted
+   backward faults fail it).
+6. Run the training command line once (synthetic data, one epoch of two
+   steps).
+7. Print a JSON line with every path's time per request or step, a JSON
+   line with every kernel's launches, time, plain time, bound and error,
+   and, as the last line, {"ok": true, "device": {...}}.
 
 Times are CUDA-event means after warm-up (kernels) and host-clock means
-of synchronised requests (registrar).
+of synchronised requests (registrar) and steps (trainer).
 """
 
 from __future__ import annotations
@@ -64,8 +90,14 @@ NUM_ITERS = 10
 KERNELS = ("compat_flash_attention", "build_compat_cache",
            "compat_flash_attention_build", "compat_flash_attention_cached",
            "nms_local_max", "seed_knn_topk", "seed_hypothesis_counts",
-           "fused_seed_weights")
+           "fused_seed_weights", "compat_flash_attention_bwd_dkv",
+           "compat_flash_attention_bwd_dq",
+           "compat_flash_attention_cached_bwd_dkv",
+           "compat_flash_attention_cached_bwd_dq")
+BWD_KERNELS = KERNELS[8:]
 SOURCES = {name: f"gmf_tpu_torch/ops/csrc/{name}.cu" for name in KERNELS}
+for _name in BWD_KERNELS:  # one source holds a dK/dV and a dQ kernel
+    SOURCES[_name] = f"gmf_tpu_torch/ops/csrc/{_name.rsplit('_', 1)[0]}.cu"
 REPLACES = {
     "compat_flash_attention": "gmf_tpu/ops/fused_attention.py:241",
     "build_compat_cache": "gmf_tpu/ops/fused_attention.py:625",
@@ -75,6 +107,12 @@ REPLACES = {
     "seed_knn_topk": "gmf_tpu/ops/fused_topk.py:108",
     "seed_hypothesis_counts": "gmf_tpu/ops/fused_scoring.py:138",
     "fused_seed_weights": "gmf_tpu/ops/fused_seed_solver.py:163",
+    "compat_flash_attention_bwd_dkv": "gmf_tpu/ops/fused_attention.py:310",
+    "compat_flash_attention_bwd_dq": "gmf_tpu/ops/fused_attention.py:328",
+    "compat_flash_attention_cached_bwd_dkv":
+        "gmf_tpu/ops/fused_attention.py:982",
+    "compat_flash_attention_cached_bwd_dq":
+        "gmf_tpu/ops/fused_attention.py:1009",
 }
 _COMMON = {"nms_local_max": 1, "seed_knn_topk": 1,
            "seed_hypothesis_counts": 1}
@@ -100,6 +138,27 @@ PATHS = {
                                  "compat_flash_attention_cached": 11,
                                  **_COMMON}),
 }
+# training (the reference's 3DMatch configuration at full width, f32):
+# pairs per step, correspondences per pair, the image size
+B_TRAIN, N_TRAIN = 16, 1000
+S_TRAIN = N_TRAIN // 10  # seeds per pair at ratio 0.1
+_TRAIN_COMMON = {"seed_knn_topk": 1, "seed_hypothesis_counts": 1}
+_CACHED_STEP = {"build_compat_cache": 1, "compat_flash_attention_cached": 12,
+                "compat_flash_attention_cached_bwd_dkv": 12,
+                "compat_flash_attention_cached_bwd_dq": 12, **_TRAIN_COMMON}
+# the training paths: model mode, steps (the first two of the main path
+# are warm-up) and the launches each step must make
+TRAIN_PATHS = {
+    "train_auto": dict(compat_cache="auto", steps=5, cache=torch.float32,
+                       per_step=_CACHED_STEP),
+    "train_off": dict(compat_cache="off", steps=2, cache=None,
+                      per_step={"compat_flash_attention": 12,
+                                "compat_flash_attention_bwd_dkv": 12,
+                                "compat_flash_attention_bwd_dq": 12,
+                                **_TRAIN_COMMON}),
+    "train_int8": dict(compat_cache="int8", steps=2, cache=torch.int8,
+                       per_step=_CACHED_STEP),
+}
 # the path whose run gives each kernel's launch count in the result
 KERNEL_PATH = {
     "compat_flash_attention": "off_b8",
@@ -110,6 +169,10 @@ KERNEL_PATH = {
     "seed_knn_topk": "int8_b64",
     "seed_hypothesis_counts": "int8_b64",
     "fused_seed_weights": "int8_fused_b8",
+    "compat_flash_attention_bwd_dkv": "train_off",
+    "compat_flash_attention_bwd_dq": "train_off",
+    "compat_flash_attention_cached_bwd_dkv": "train_auto",
+    "compat_flash_attention_cached_bwd_dq": "train_auto",
 }
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 tensor-core
@@ -413,23 +476,23 @@ def seed_solver_phase(rates, feats, src, tgt, knn_idx):
         bound_ms=bound_ms, bound_by=bound_by)
 
 
-def perturbed_hypotheses(gt_trans, dev):
-    """[batch, S, 4, 4] hypotheses: each pair's true transform turned by
+def perturbed_hypotheses(gt_trans, dev, s=S):
+    """[batch, s, 4, 4] hypotheses: each pair's true transform turned by
     ~0.02 rad about x and z and shifted by ~2 cm, so the inlier counts
     spread."""
     rng = np.random.RandomState(SEED + 1)
     batch = gt_trans.shape[0]
-    a = 0.02 * rng.randn(batch, S, 3)
+    a = 0.02 * rng.randn(batch, s, 3)
     c, sn = np.cos(a), np.sin(a)
-    Rx = np.tile(np.eye(3), (batch, S, 1, 1))
+    Rx = np.tile(np.eye(3), (batch, s, 1, 1))
     Rz = Rx.copy()
     Rx[..., 1, 1], Rx[..., 1, 2] = c[..., 0], -sn[..., 0]
     Rx[..., 2, 1], Rx[..., 2, 2] = sn[..., 0], c[..., 0]
     Rz[..., 0, 0], Rz[..., 0, 1] = c[..., 2], -sn[..., 2]
     Rz[..., 1, 0], Rz[..., 1, 1] = sn[..., 2], c[..., 2]
-    T = np.repeat(gt_trans[:, None], S, axis=1).copy()
+    T = np.repeat(gt_trans[:, None], s, axis=1).copy()
     T[..., :3, :3] = (Rx @ Rz) @ T[..., :3, :3]
-    T[..., :3, 3] += 0.02 * rng.randn(batch, S, 3)
+    T[..., :3, 3] += 0.02 * rng.randn(batch, s, 3)
     return torch.tensor(T.astype(np.float32), device=dev)
 
 
@@ -534,10 +597,6 @@ def main_shape_phase(dev):
         compat_flash_attention, compat_flash_attention_build)
     from gmf_tpu_torch.ops.fused_nms import (nms_local_max,
                                              nms_local_max_plain)
-    from gmf_tpu_torch.ops.fused_scoring import (
-        seed_hypothesis_counts, seed_hypothesis_counts_plain)
-    from gmf_tpu_torch.ops.fused_topk import (seed_knn_topk,
-                                              seed_knn_topk_plain)
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     prob = make_correspondence_problem(np.random.RandomState(SEED + 2),
@@ -590,31 +649,474 @@ def main_shape_phase(dev):
     if errs["nms_local_max"] != 0:
         fail(f"B={B_MAIN}: nms_local_max disagrees with its plain version")
 
-    feats = torch.randn(B_MAIN, N, D, generator=gen, device=dev)
+    errs.update(seed_kernels_check(f"B={B_MAIN}", gen, prob["gt_trans"], src,
+                                   tgt, mask, S, slices))
+    return errs
+
+
+def seed_kernels_check(where, gen, gt_trans, src, tgt, mask, s, slices):
+    """The seed kNN and the hypothesis counts at the shapes of one path:
+    ``s`` seeds per pair among its valid rows, unit features of depth D,
+    hypotheses near each pair's true transform. The plain versions run on
+    each slice of pairs; kernel_phase's limits. Returns the two kernels'
+    largest errors."""
+    from gmf_tpu_torch.ops.fused_scoring import (
+        seed_hypothesis_counts, seed_hypothesis_counts_plain)
+    from gmf_tpu_torch.ops.fused_topk import (seed_knn_topk,
+                                              seed_knn_topk_plain)
+
+    batch, n = mask.shape
+    dev = mask.device
+    feats = torch.randn(batch, n, D, generator=gen, device=dev)
     feats = feats / feats.norm(dim=-1, keepdim=True)
-    seed_idx = torch.randperm(int(valid.min()), generator=gen,
-                              device=dev)[:S]
+    seed_idx = torch.randperm(int(mask.sum(-1).min()), generator=gen,
+                              device=dev)[:s]
     seeds = feats[:, seed_idx].contiguous()
     got_i, _ = seed_knn_topk(seeds, feats, K1, mask=mask)
-    errs["seed_knn_topk"] = max(
-        knn_score_err(seeds[sl], feats[sl], mask[sl], got_i[sl],
-                      seed_knn_topk_plain(seeds[sl], feats[sl], K1,
-                                          mask=mask[sl])[1])
-        for sl in slices)
-    if not errs["seed_knn_topk"] <= 1e-5:
-        fail(f"B={B_MAIN}: seed_knn_topk: chosen scores differ by "
-             f"{errs['seed_knn_topk']}")
+    knn = max(knn_score_err(seeds[sl], feats[sl], mask[sl], got_i[sl],
+                            seed_knn_topk_plain(seeds[sl], feats[sl], K1,
+                                                mask=mask[sl])[1])
+              for sl in slices)
+    if not knn <= 1e-5:
+        fail(f"{where}: seed_knn_topk: chosen scores differ by {knn}")
     del feats, seeds
 
-    trans = perturbed_hypotheses(prob["gt_trans"], dev)
+    trans = perturbed_hypotheses(gt_trans, dev, s)
     got = seed_hypothesis_counts(trans, src, tgt, 0.10, mask=mask)
     ref = torch.cat([seed_hypothesis_counts_plain(
         trans[sl], src[sl], tgt[sl], 0.10, mask=mask[sl]) for sl in slices])
-    errs["seed_hypothesis_counts"] = (got - ref).abs().max().item()
-    if not errs["seed_hypothesis_counts"] <= 2:
-        fail(f"B={B_MAIN}: seed_hypothesis_counts: counts differ by "
-             f"{errs['seed_hypothesis_counts']}")
-    return errs
+    counts = (got - ref).abs().max().item()
+    if not counts <= 2:
+        fail(f"{where}: seed_hypothesis_counts: counts differ by {counts}")
+    return {"seed_knn_topk": knn, "seed_hypothesis_counts": counts}
+
+
+def bwd_bound(rates, dtype, nbytes_side, alu, sfu, products, out_tensors,
+              b=B_TRAIN, n=N_TRAIN):
+    """(bound_ms, bound_by) of one backward kernel at [b, n, D]: q, k, v,
+    do read and ``out_tensors`` outputs written in ``dtype``, lse, delta
+    and mask, plus ``nbytes_side`` (keypoints or the cache); per (i, j)
+    ``products`` products of depth D (2 D flop each), ``alu`` f32 ALU ops
+    and ``sfu`` SFU ops."""
+    pairs = b * n * n
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = (4 + out_tensors) * b * n * D * esize + 3 * b * n * 4
+    mm_rate = BF16_TC_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    return rates.bound(nbytes + nbytes_side, {
+        "products": 2 * D * products * pairs / mm_rate,
+        "alu": alu * pairs / rates.alu, "sfu": sfu * pairs / rates.sfu})
+
+
+def backward_phase(dev, rates):
+    """Every kernel of the training paths at the training shape B=16,
+    N=1000, D=128 with the last 10% of pair 0 masked: kernels 2, 3, 7 and
+    8 against the plain backward; kernels 1 and 6 (output and lse) against
+    the plain forward; kernel 4's cache of each type against its plain
+    version in every byte; kNN and counts at S=100 seeds, k=40 with
+    kernel_phase's limits. Attention in f32 and bf16, the cached kernels
+    on each cache type. The backward kernels get the same out and lse as
+    the plain backward. Limits: forward outputs as in kernel_phase
+    (attention_tol); backward f32 1e-5 of the largest entry (the two sum in
+    another order); bf16 4 bf16 ulps of it (both round p and dlogits to
+    bf16 before their products, and an operand at a rounding edge may take
+    the neighbouring value, then the result is rounded to bf16); lse 1e-5
+    absolute (summation order), and each valid row's p = exp2(s - lse)
+    sums to 1 within 1e-5 (f32)."""
+    from gmf_tpu_torch.data.synthetic import make_correspondence_problem
+    from gmf_tpu_torch.ops.fused_attention import (
+        _cached_forward, _load_compat, _logits_plain, _stream_compat_plain,
+        _streaming_forward, build_compat_cache, build_compat_cache_plain,
+        bwd_dkv, bwd_dq, bwd_inputs, cache_row_stride,
+        compat_attention_bwd_plain, compat_attention_cached_plain,
+        compat_attention_plain)
+
+    b, n = B_TRAIN, N_TRAIN
+    f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
+    names = {f32: "f32", bf16: "bf16", i8: "int8"}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    prob = make_correspondence_problem(np.random.RandomState(SEED + 3),
+                                       num_corr=n, inlier_ratio=0.5,
+                                       image_hw=(8, 8), batch=b)
+    src = torch.tensor(prob["src_keypts"], device=dev)
+    tgt = torch.tensor(prob["tgt_keypts"], device=dev)
+    mask = torch.ones(b, n, device=dev)
+    mask[0, n - n // 10:] = 0.0
+    valid = mask > 0
+    seed_errs = seed_kernels_check(f"B={b}, N={n}", gen, prob["gt_trans"],
+                                   src, tgt, mask, S_TRAIN, [slice(0, b)])
+    res = {}
+    for dtype in (f32, bf16):
+        q, k, v, do = (torch.randn(b, n, D, generator=gen, device=dev)
+                       .to(dtype) for _ in range(4))
+        for cdt in (None, f32, bf16, i8):
+            tag = f"{names[dtype]}_{'stream' if cdt is None else names[cdt]}"
+            cache = None if cdt is None else build_compat_cache(src, tgt,
+                                                                0.10, cdt)
+            if cache is None:
+                out, lse = _streaming_forward(q, k, v, src, tgt, mask, 0.10,
+                                              True)
+                ref_out, ref_lse = compat_attention_plain(
+                    q, k, v, src, tgt, mask, return_lse=True)
+                compat = _stream_compat_plain(src, tgt, 0.10)
+            else:
+                if dtype == f32 and not torch.equal(
+                        cache, build_compat_cache_plain(src, tgt, 0.10, cdt)):
+                    fail(f"build_compat_cache {names[cdt]} at B={b}, N={n}: "
+                         "differs from its plain version")
+                out, lse = _cached_forward(q, k, v, cache, mask, True)
+                ref_out, ref_lse = compat_attention_cached_plain(
+                    q, k, v, cache, mask, return_lse=True)
+                compat = _load_compat(cache, n)
+            fwd_tol, _ = attention_tol(ref_out, dtype)
+            fwd_err = (out.float() - ref_out.float()).abs().max().item()
+            if not fwd_err <= fwd_tol:
+                fail(f"forward {tag}: max abs err {fwd_err} > {fwd_tol}")
+            del ref_out
+            lse_err = (lse - ref_lse)[valid].abs().max().item()
+            if not lse_err <= 1e-5:
+                fail(f"lse {tag}: differs from the plain forward's by "
+                     f"{lse_err}")
+            psum_err = None
+            if dtype == f32:
+                psum = torch.exp2(_logits_plain(q, k, compat, mask)
+                                  - lse[..., None]).sum(-1)
+                psum_err = (psum[valid] - 1.0).abs().max().item()
+                if not psum_err <= 1e-5:
+                    fail(f"lse {tag}: recomputed p sums to 1 within "
+                         f"{psum_err} only")
+            del compat
+            inp = bwd_inputs(q, k, v, do, out, lse, mask)
+            got_k, got_v = bwd_dkv(inp, src, tgt, 0.10, cache)
+            got_q = bwd_dq(inp, src, tgt, 0.10, cache)
+            ref_q, ref_k, ref_v = compat_attention_bwd_plain(
+                q, k, v, do, out, lse, mask, src, tgt, 0.10, compat=cache)
+            errs = {}
+            for part, g, r in (("dq", got_q, ref_q), ("dk", got_k, ref_k),
+                               ("dv", got_v, ref_v)):
+                scale = r.float().abs().max().item()
+                tol = (1e-5 * scale if dtype == f32
+                       else 4 * bf16_ulp(scale))
+                err = (g.float() - r.float()).abs().max().item()
+                if not err <= tol:
+                    fail(f"backward {tag} {part}: max abs err {err} > {tol}")
+                errs[part] = (err, tol)
+            if not (got_q[~valid] == 0).all():
+                fail(f"backward {tag}: masked query rows got a gradient")
+            del got_q, got_k, got_v, ref_q, ref_k, ref_v
+            row = dict(fwd_err=fwd_err, fwd_tol=fwd_tol, lse_err=lse_err,
+                       psum_err=psum_err, errs=errs)
+            row["dkv_ms"] = cuda_ms(
+                lambda: bwd_dkv(inp, src, tgt, 0.10, cache), reps=10)
+            row["dq_ms"] = cuda_ms(
+                lambda: bwd_dq(inp, src, tgt, 0.10, cache), reps=10)
+            row["plain_ms"] = cuda_ms(lambda: compat_attention_bwd_plain(
+                q, k, v, do, out, lse, mask, src, tgt, 0.10, compat=cache),
+                reps=2, warmup=1)
+            if cache is None:
+                side = b * n * 6 * 4
+                alu, sfu = (26, 3)  # compat 20, p and dlogits 6; 2 sqrt, exp2
+                fwd = lambda lse_on: _streaming_forward(  # noqa: E731
+                    q, k, v, src, tgt, mask, 0.10, lse_on)
+            else:
+                side = b * n * cache_row_stride(n, cdt) * cache.element_size()
+                alu, sfu = (9, 1)  # dequantize, logit, p, dlogits; exp2
+                fwd = lambda lse_on: _cached_forward(  # noqa: E731
+                    q, k, v, cache, mask, lse_on)
+            row["dkv_bound"] = bwd_bound(rates, dtype, side, alu, sfu, 4, 2)
+            row["dq_bound"] = bwd_bound(rates, dtype, side, alu, sfu, 3, 1)
+            if dtype == f32 and cdt in (None, f32):
+                # the forward at the training shape, with and without lse
+                row["fwd_ms_lse"] = cuda_ms(lambda: fwd(True), reps=10)
+                row["fwd_ms_no_lse"] = cuda_ms(lambda: fwd(False), reps=10)
+            res[tag] = row
+            del inp, out, lse, cache
+            torch.cuda.empty_cache()
+        del q, k, v, do
+    summary = {t: {"fwd_err": r["fwd_err"], "lse_err": r["lse_err"],
+                   "psum_err": r["psum_err"],
+                   **{p: e[0] for p, e in r["errs"].items()},
+                   "dkv_ms": r["dkv_ms"], "dq_ms": r["dq_ms"]}
+               for t, r in res.items()}
+    print(f"training-shape kernels passed: {json.dumps(seed_errs)} "
+          f"{json.dumps(summary)}", flush=True)
+
+    def rows_for(main, name_dkv, name_dq):
+        """The two kernels' rows: the f32 training case first, every other
+        type and cache beside it."""
+        out = {}
+        for part, name in (("dkv", name_dkv), ("dq", name_dq)):
+            grads = ("dk", "dv") if part == "dkv" else ("dq",)
+            tags = [t for t in res
+                    if t.endswith("stream") == main.endswith("stream")]
+            m = res[main]
+            out[name] = dict(
+                dtype="f32", shape=[b, n, D],
+                max_abs_err=max(m["errs"][g][0] for g in grads),
+                tolerance=min(m["errs"][g][1] for g in grads),
+                ms=m[f"{part}_ms"], plain_ms=m["plain_ms"],
+                plain_covers="dq, dk and dv together",
+                bound_ms=m[f"{part}_bound"][0],
+                bound_by=m[f"{part}_bound"][1],
+                variants={t: dict(ms=res[t][f"{part}_ms"],
+                                  bound_ms=res[t][f"{part}_bound"][0],
+                                  max_abs_err=max(res[t]["errs"][g][0]
+                                                  for g in grads),
+                                  tolerance=min(res[t]["errs"][g][1]
+                                                for g in grads))
+                          for t in tags})
+        return out
+
+    rows = rows_for("f32_stream", "compat_flash_attention_bwd_dkv",
+                    "compat_flash_attention_bwd_dq")
+    rows.update(rows_for("f32_f32", "compat_flash_attention_cached_bwd_dkv",
+                         "compat_flash_attention_cached_bwd_dq"))
+    fwd = {"compat_flash_attention": ("f32_stream", ["bf16_stream"]),
+           "compat_flash_attention_cached": (
+               "f32_f32", ["bf16_f32", "bf16_bf16", "bf16_int8"])}
+    extra = {}
+    for name, (main, bf16_tags) in fwd.items():
+        r = res[main]
+        extra[name] = dict(
+            b16_n1000_f32_ms_with_lse=r["fwd_ms_lse"],
+            b16_n1000_f32_ms_without_lse=r["fwd_ms_no_lse"],
+            b16_n1000_f32_max_abs_err=r["fwd_err"],
+            b16_n1000_bf16_max_abs_err=max(res[t]["fwd_err"]
+                                           for t in bf16_tags),
+            b16_n1000_lse_max_abs_err=r["lse_err"],
+            b16_n1000_p_sum_err=r["psum_err"])
+    extra["build_compat_cache"] = dict(b16_n1000_equal_to_plain=True)
+    for name, err in seed_errs.items():
+        extra[name] = {"b16_n1000_max_abs_err": err}
+    return rows, extra
+
+
+def make_trainer(dev, compat_cache, batch_size=B_TRAIN, steps=1,
+                 num_corr=N_TRAIN):
+    """The reference's 3DMatch training configuration at full width (12
+    layers, 128 channels, k=40, ratio 0.1, sigma_d 0.10, 120x160 images),
+    f32, random weights from SEED, behind the port's Trainer on synthetic
+    batches of ``batch_size`` pairs of ``num_corr`` correspondences."""
+    from gmf_tpu_torch.data.synthetic import SyntheticCorrespondenceLoader
+    from gmf_tpu_torch.models import PointDSC
+    from gmf_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    model = PointDSC(num_layers=12, num_channels=128, k=40, ratio=0.1,
+                     sigma_d=0.10, compat_cache=compat_cache,
+                     dtype=torch.float32, device=dev, seed=SEED)
+    loader = SyntheticCorrespondenceLoader(
+        batch_size=batch_size, num_corr=num_corr, steps_per_epoch=steps,
+        image_hw=IMAGE_HW, seed=SEED)
+    return Trainer(model, TrainConfig(), loader, loader)
+
+
+def train_path(name, dev):
+    """Drive one path of TRAIN_PATHS through Trainer.train_step, with the
+    launch counts reset just before and read just after. Fails on a wrong
+    launch count, a cache of another type, a skipped step or a non-finite
+    loss. Times the steps after the first two (host clock around
+    synchronised steps)."""
+    from gmf_tpu_torch.ops import _build
+
+    spec = TRAIN_PATHS[name]
+    trainer = make_trainer(dev, spec["compat_cache"], steps=spec["steps"])
+    caches = []
+    hook = trainer.model.encoder.register_forward_pre_hook(
+        lambda mod, args, kwargs: caches.append(
+            None if kwargs.get("compat_cache") is None
+            else kwargs["compat_cache"].dtype), with_kwargs=True)
+    batches = list(trainer.train_loader)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    times, metrics = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics.append(trainer.train_step(batch, epoch=1))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {k: _build.launches[k] for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    hook.remove()
+    for k in KERNELS:
+        want = spec["per_step"].get(k, 0) * len(batches)
+        if launches[k] != want:
+            fail(f"path {name}: {k} launched {launches[k]} times, expected "
+                 f"{want}")
+    if any(c != spec["cache"] for c in caches):
+        fail(f"path {name}: the layers got caches of {caches}")
+    for m in metrics:
+        if m["skipped_step"] != 0.0 or not math.isfinite(m["loss"]):
+            fail(f"path {name}: a step was skipped or its loss is not "
+                 f"finite: {m}")
+    timed = times[2:] if len(times) > 2 else times[1:]
+    out = dict(compat_cache=spec["compat_cache"],
+               cache_type=str(spec["cache"]), steps=len(batches),
+               pairs_per_step=B_TRAIN, num_corr=N_TRAIN, launches=launches,
+               launches_per_step=spec["per_step"],
+               losses=[m["loss"] for m in metrics],
+               ms_per_step=1e3 * float(np.mean(timed)),
+               timed_steps=len(timed),
+               step_ms_all=[1e3 * t for t in times],
+               pairs_per_s=B_TRAIN / float(np.mean(timed)),
+               peak_memory_bytes=peak)
+    print(f"path {name}: " + json.dumps(
+        {k: v for k, v in out.items() if k not in ("launches",)}),
+        flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def cpu_reference_steps(model, batch, compat_cache):
+    """The train step of copies of ``model`` on the CPU through the plain
+    versions: in f64 (modules in f64; the attention, compat and geometry
+    keep their f32 arithmetic), the reference, and in f32 at 8 and at 4
+    threads, whose distance from it is what an f32 step's own rounding
+    gives. "auto" takes the f32 cache on the card, so the CPU models take
+    "f32". Returns {name: (model, metrics, seconds)}."""
+    from gmf_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    runs, threads_before = {}, torch.get_num_threads()
+    for name, dtype, threads in (("f64", torch.float64, 8),
+                                 ("f32_8", torch.float32, 8),
+                                 ("f32_4", torch.float32, 4)):
+        torch.set_num_threads(threads)
+        cpu = copy.deepcopy(model).to("cpu", dtype)
+        cpu.compat_cache = "f32" if compat_cache == "auto" else compat_cache
+        t0 = time.perf_counter()
+        metrics = Trainer(cpu, TrainConfig(), [], [],
+                          steps_per_epoch=1).train_step(batch, epoch=1)
+        runs[name] = (cpu, metrics, time.perf_counter() - t0)
+    torch.set_num_threads(threads_before)
+    return runs
+
+
+def leaf_tol(scale, cpu_err):
+    """The bound on one parameter's gradient error against the f64 step,
+    from its largest f64 entry and the farther f32 CPU step's error on it.
+    Where that error reaches the gradient itself, f32 cannot resolve the
+    gradient (a bias before a batch norm, whose true gradient is 0): the
+    card's value is then noise too, and noise of another summation order
+    may be several times that of the two CPU orders (5.4x at one thread
+    against 8 and 4, tests/test_torch_trainer.py), so 8 times it."""
+    if cpu_err >= scale:
+        return 8 * cpu_err + 1e-6
+    return max(2e-3 * scale + 1e-6, 2 * cpu_err)
+
+
+def compare_train_step(model, batch, cpu_runs):
+    """One f32 train step of ``model`` on the card against ``cpu_runs``
+    (cpu_reference_steps of the same model and batch).
+
+    An f32 step of this full-depth network is itself far from exact: the
+    CPU's f32 step lies 5.6e-3 of the largest gradient from the f64 one
+    (PERF.md section 6), beyond the CPU tests' 2e-3. So each parameter's
+    gradient (leaf) must lie within 2e-3 of that leaf's own largest f64
+    entry plus 1e-6 (tests/test_torch_train.py's bound, per leaf) of the
+    f64 step's, or within twice the farther of the two f32 CPU steps on
+    that leaf, whichever is larger (leaf_tol). The loss within 1e-4
+    relative. The new
+    parameters must be Adam's first update from the card's own gradient,
+    p - lr g / (|g| + eps) with g the gradient plus wd p, computed in f64,
+    within 1e-6 of max(1, |p|). Returns the numbers, "ok" among them."""
+    from gmf_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = TrainConfig()
+    p0 = {n: p.detach().double().cpu() for n, p in model.named_parameters()}
+    m_gpu = Trainer(model, cfg, [], [], steps_per_epoch=1).train_step(
+        batch, epoch=1)
+    _, m_ref, _ = cpu_runs["f64"]
+    grads = {name: {n: p.grad.double().cpu() for n, p in m.named_parameters()}
+             for name, m in (("gpu", model),
+                             *((k, r[0]) for k, r in cpu_runs.items()))}
+    leaves = []
+    for n, want in grads["f64"].items():
+        scale = want.abs().max().item()
+        cpu_err = max((grads[k][n] - want).abs().max().item()
+                      for k in ("f32_8", "f32_4"))
+        err = (grads["gpu"][n] - want).abs().max().item()
+        leaves.append((err / leaf_tol(scale, cpu_err), n, err, scale,
+                       cpu_err))
+    ratios = np.array([r[0] for r in leaves])
+    worst = max(leaves)
+    # the loosest bound against its leaf's own scale, among the leaves
+    # that carry gradient (not the biases before a batch norm, whose true
+    # gradient is 0)
+    top = max(r[3] for r in leaves)
+    loosest = max((leaf_tol(r[3], r[4]) / r[3], r[1])
+                  for r in leaves if r[3] >= 1e-3 * top)
+    adam_err = 0.0
+    for n, p in model.named_parameters():
+        g = grads["gpu"][n] + cfg.weight_decay * p0[n]
+        want = p0[n] - cfg.lr * g / (g.abs() + 1e-8)
+        adam_err = max(adam_err, ((p.detach().double().cpu() - want).abs()
+                                  / p0[n].abs().clamp(min=1.0)).max().item())
+    loss_err = abs(m_gpu["loss"] - m_ref["loss"]) / abs(m_ref["loss"])
+    ok = bool(loss_err <= 1e-4 and worst[0] <= 1.0 and adam_err <= 1e-6
+              and m_gpu["skipped_step"] == m_ref["skipped_step"] == 0.0)
+    return dict(
+        ok=ok, loss_gpu=m_gpu["loss"], loss_f64=m_ref["loss"],
+        loss_cpu_f32=cpu_runs["f32_8"][1]["loss"], loss_rel_err=loss_err,
+        grad_scale=top,
+        grad_max_abs_err=max(r[2] for r in leaves),
+        grad_cpu_f32_max_abs_err=max(r[4] for r in leaves),
+        leaves=len(leaves),
+        leaves_unresolved_in_f32=sum(r[4] >= r[3] for r in leaves),
+        leaf_err_over_tol_max=worst[0],
+        leaf_err_over_tol_median=float(np.median(ratios)),
+        leaves_over_half_tol=int((ratios > 0.5).sum()),
+        worst_leaf=dict(name=worst[1], err=worst[2], scale=worst[3],
+                        cpu_f32_err=worst[4]),
+        loosest_tol_over_scale=loosest[0], loosest_leaf=loosest[1],
+        adam_update_max_err=adam_err,
+        skipped_step=m_gpu["skipped_step"],
+        cpu_step_seconds={k: r[2] for k, r in cpu_runs.items()})
+
+
+def train_cpu_check(dev, compat_cache, pairs=B_TRAIN):
+    """One f32 train step with the same weights and batch on the card
+    (kernels) and on the CPU (plain versions) at the training main shape,
+    full width and depth, held to compare_train_step's bounds."""
+    gpu = make_trainer(dev, compat_cache, batch_size=pairs)
+    batch = next(iter(gpu.train_loader))
+    cpu_runs = cpu_reference_steps(gpu.model, batch, compat_cache)
+    out = dict(compat_cache=compat_cache, pairs=pairs, num_corr=N_TRAIN,
+               **compare_train_step(gpu.model, batch, cpu_runs))
+    print(f"f32 train step, compat_cache={compat_cache}, kernels (card) vs "
+          f"plain (CPU, f64): {json.dumps(out)}", flush=True)
+    if not out["ok"]:
+        fail(f"f32 train step (compat_cache={compat_cache}) through the "
+             "kernels disagrees with the plain versions")
+    del gpu, cpu_runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def cli_phase():
+    """The training command line once on the card: synthetic data, one
+    epoch of two steps, full width; it must exit 0 and leave its
+    snapshots."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "gmf_tpu_torch.train.train_pointdsc",
+             "--dataset", "synthetic", "--max-epoch", "1",
+             "--steps-per-epoch", "2", "--save-dir", tmp],
+            capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        if r.returncode != 0:
+            fail(f"train_pointdsc exited {r.returncode}:\n{r.stdout}\n"
+                 f"{r.stderr[-4000:]}")
+        if not os.path.exists(os.path.join(tmp, "model_best", "state.pt")):
+            fail("train_pointdsc left no model_best snapshot")
+    last = r.stdout.strip().splitlines()[-1]
+    print(f"train_pointdsc on the card in {seconds:.1f} s: {last}",
+          flush=True)
+    return dict(seconds=seconds, last_line=last)
 
 
 def make_registrar(dev, dtype=torch.bfloat16, compat_cache="int8",
@@ -787,6 +1289,12 @@ def main():
     torch.cuda.empty_cache()
     print("kernel checks passed", flush=True)
 
+    rows_bwd, train_extra = backward_phase(dev, rates)
+    rows.update(rows_bwd)
+    for name, extra in train_extra.items():
+        rows[name].update(extra)
+    torch.cuda.empty_cache()
+
     # 4. the served paths at full width; the main path first
     paths, results, winners = {}, {}, {}
     requests8 = make_requests(B)
@@ -828,20 +1336,32 @@ def main():
              "than a quarter of the pairs")
     del results, winners
 
-    # 5. f32 slice: kernels on the card vs plain versions on the CPU
+    # 4b. training at the 3DMatch configuration; the main path first
+    for name in TRAIN_PATHS:
+        paths[name] = train_path(name, dev)
+
+    # 5. f32 slice and f32 train step: kernels on the card vs plain
+    # versions on the CPU
     torch.set_num_threads(8)
     slices = [f32_slice_check(dev, requests8[0], "int8"),
               f32_slice_check(dev, requests8[0], "off")]
+    train_checks = [train_cpu_check(dev, "auto"), train_cpu_check(dev, "off")]
+
+    # 6. the training command line
+    cli = cli_phase()
 
     kernels = []
     for name in KERNELS:
         r = rows[name]
         path = KERNEL_PATH[name]
+        per = (dict(launches_per_step=TRAIN_PATHS[path]["per_step"][name])
+               if path in TRAIN_PATHS else
+               dict(launches_per_forward=PATHS[path]["per_forward"][name]))
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=paths[path]["launches"][name],
-            launches_per_forward=PATHS[path]["per_forward"][name],
-            path=path, max_abs_err=r.pop("max_abs_err"), ms=r.pop("ms"),
+            **per, path=path, max_abs_err=r.pop("max_abs_err"),
+            ms=r.pop("ms"),
             plain_ms=r.pop("plain_ms"), bound_ms=r.pop("bound_ms"),
             bound_by=r.pop("bound_by"),
             library_ms=None,  # no single PyTorch call computes any of them
@@ -850,7 +1370,12 @@ def main():
             fail(f"{name} was not launched on path {path}")
     result = {"kernels": kernels}
     main_path = paths["int8_b64"]
-    serve = {"registrar_ms_per_request": main_path["ms_per_request"],
+    train = paths["train_auto"]
+    serve = {"train_ms_per_step": train["ms_per_step"],
+             "train_pairs_per_s": train["pairs_per_s"],
+             "train_peak_memory_bytes": train["peak_memory_bytes"],
+             "train_checks": train_checks, "cli": cli,
+             "registrar_ms_per_request": main_path["ms_per_request"],
              "pairs_per_s": main_path["pairs_per_s"],
              "pairs_per_request": B_MAIN, "bucket": N, "build_s": build_s,
              "peak_memory_bytes": main_path["peak_memory_bytes"],

@@ -1,14 +1,15 @@
 """Synthetic correspondence problems (host-side NumPy).
 
-Counterpart of ``gmf_tpu/data/synthetic.py::make_correspondence_problem``:
+Counterpart of ``gmf_tpu/data/synthetic.py``
+(``make_correspondence_problem`` and ``SyntheticCorrespondenceLoader``):
 the same draws from the same ``RandomState``, so a seed gives the same
-batch in both packages. Problems are solvable by construction: a known
+batches in both packages. Problems are solvable by construction: a known
 SE(3) transform, an inlier ratio, Gaussian noise, uniform outliers.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterator
 
 import numpy as np
 
@@ -60,3 +61,28 @@ def make_correspondence_problem(
         "p_image": p_image,
         "q_image": q_image,
     }
+
+
+class SyntheticCorrespondenceLoader:
+    """Iterable of ``steps_per_epoch`` synthetic batches; every pass starts
+    again from ``seed``."""
+
+    def __init__(self, batch_size: int = 4, num_corr: int = 256,
+                 steps_per_epoch: int = 4, inlier_ratio: float = 0.5,
+                 image_hw=(24, 32), seed: int = 0):
+        self.batch_size = batch_size
+        self.num_corr = num_corr
+        self.steps_per_epoch = steps_per_epoch
+        self.inlier_ratio = inlier_ratio
+        self.image_hw = image_hw
+        self.seed = seed
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        rng = np.random.RandomState(self.seed)
+        for _ in range(self.steps_per_epoch):
+            yield make_correspondence_problem(
+                rng, num_corr=self.num_corr, batch=self.batch_size,
+                inlier_ratio=self.inlier_ratio, image_hw=self.image_hw)
+
+    def __len__(self):
+        return self.steps_per_epoch

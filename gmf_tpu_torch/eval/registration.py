@@ -59,11 +59,12 @@ class PointDSCRegistrar:
                 [np.asarray(x[key], np.float32) for x in source])).to(
                     self.device)
 
-        out = self.model(
-            stack("corr_pos", padded), stack("src_keypts", padded),
-            stack("tgt_keypts", padded), stack("p_image", samples),
-            stack("q_image", samples), testing=True,
-            corr_mask=stack("corr_mask", padded))
+        with torch.inference_mode():
+            out = self.model(
+                stack("corr_pos", padded), stack("src_keypts", padded),
+                stack("tgt_keypts", padded), stack("p_image", samples),
+                stack("q_image", samples), testing=True,
+                corr_mask=stack("corr_mask", padded))
         trans = out["final_trans"].cpu().numpy()
         labels = out["final_labels"].cpu().numpy()
         return [(trans[i], labels[i][:min(s["corr_pos"].shape[0], bucket)])

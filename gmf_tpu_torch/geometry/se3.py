@@ -28,6 +28,11 @@ def integrate_trans(R, t):
     return torch.cat([top, bottom], dim=-2)
 
 
+def decompose_trans(trans):
+    """Split [..., 4, 4] into (R [..., 3, 3], t [..., 3, 1])."""
+    return trans[..., :3, :3], trans[..., :3, 3:4]
+
+
 def random_rotation_matrix(num_axis, augment_rotation, rng=None):
     """Random rotation about 1 or 3 axes scaled by augment_rotation
     (host-side NumPy, same draws as gmf_tpu.geometry.se3)."""

@@ -1,8 +1,8 @@
-"""PointDSC + GMF, test-mode forward, in PyTorch with CUDA kernels.
+"""PointDSC + GMF in PyTorch with CUDA kernels.
 
-Counterpart of ``gmf_tpu/models/pointdsc.py`` on its fused eval path
+Counterpart of ``gmf_tpu/models/pointdsc.py`` on its fused path
 (``fused_attention=True, knn_topk="fused", hypo_scoring="fused"``, every
-``compat_cache`` and ``seed_solver`` mode), ``testing=True`` only:
+``compat_cache`` and ``seed_solver`` mode). ``testing=True`` (eval):
 
 1. ResNet-34/8 image tokens of both frames, Fusion-1.
 2. num_layers x [PointCN -> NonLocalBlock]: compat-modulated attention
@@ -22,12 +22,23 @@ Counterpart of ``gmf_tpu/models/pointdsc.py`` on its fused eval path
 6. Post-refinement with the batch-global stopping rule: every pair is
    refitted while ANY pair's inlier count still changes.
 
+``testing=False`` (the training and validation branch): the same
+encoder, the feature-similarity matrix M for the spectral-matching loss,
+seeds by a stable argsort of the confidence, the seed solver on the plain
+chain with a fixed iteration count, no post-refinement, and
+``final_labels`` = confidence. Gradients flow through the attention
+kernels' backward (ops/fused_attention.py) and through the gathers of
+features and keypoints; kNN indices and inlier counts come from their
+kernels on detached inputs, and the compat cache is built without
+gradient, as in the reference. Batch norms follow ``self.training``, the
+counterpart of the JAX ``train`` flag.
+
 Module names are the reference's torch names, the ones
 ``gmf_tpu/utils/convert_torch.py::convert_pointdsc`` reads, so
 ``utils/bridge.py`` maps flax variables onto ``state_dict`` keys one to
 one. Modules run in ``dtype`` (bf16 on the card is fine); geometry from
-the normalised features on is f32. The dense unfused attention and the
-train branch (M matrix, argsort seeds) are not ported yet.
+the normalised features on is f32. The dense unfused attention is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -39,8 +50,10 @@ from torch import nn
 
 from gmf_tpu_torch.geometry.kabsch import rigid_transform_3d
 from gmf_tpu_torch.geometry.se3 import transform
-from gmf_tpu_torch.geometry.spectral import leading_eigenvector
+from gmf_tpu_torch.geometry.spectral import (leading_eigenvector,
+                                             leading_eigenvector_fixed)
 from gmf_tpu_torch.nn.fusion import FusionLayer
+from gmf_tpu_torch.nn.norm import BatchNorm1d
 from gmf_tpu_torch.nn.resnet import ImageEncoder
 from gmf_tpu_torch.ops.fused_attention import (
     build_compat_cache, cache_row_stride, compat_flash_attention,
@@ -52,8 +65,9 @@ from gmf_tpu_torch.ops.fused_topk import seed_knn_topk
 from gmf_tpu_torch.utils.device import resolve_device
 
 
-class TokenBatchNorm(nn.BatchNorm1d):
-    """BatchNorm1d over the channel axis of [..., C] tokens."""
+class TokenBatchNorm(BatchNorm1d):
+    """BatchNorm1d over the channel axis of [..., C] tokens, with flax's
+    running statistics (``nn/norm.py``)."""
 
     def forward(self, x):
         return super().forward(x.reshape(-1, x.shape[-1])).reshape(x.shape)
@@ -218,6 +232,13 @@ class PointDSC(nn.Module):
         self.classification = nn.Sequential(
             nn.Linear(num_channels, 32), nn.ReLU(), nn.Linear(32, 32),
             nn.ReLU(), nn.Linear(32, 1))
+        # the scalar settings, recorded in checkpoints (train/trainer.py)
+        self.config = dict(
+            in_dim=in_dim, num_layers=num_layers, num_channels=num_channels,
+            num_iterations=num_iterations, ratio=ratio,
+            inlier_threshold=inlier_threshold, sigma_d=sigma_d, k=k,
+            nms_radius=nms_radius, compat_cache=compat_cache,
+            seed_solver=seed_solver)
         self._init_weights(seed)
         self.to(device=device, dtype=dtype)
         self.eval()
@@ -247,22 +268,27 @@ class PointDSC(nn.Module):
     def dtype(self):
         return self.sigma.dtype
 
-    @torch.no_grad()
     def forward(self, corr_pos, src_keypts, tgt_keypts, p_image, q_image,
                 testing: bool = False, corr_mask=None):
         """corr_pos [B, N, 6], keypoints [B, N, 3], images [B, H, W, 3]
         (NHWC), corr_mask optional [B, N]. Returns final_trans [B, 4, 4],
-        final_labels [B, N], M (None), seed_trans, seed_fitness,
-        confidence."""
-        if not testing or self.training:
-            raise NotImplementedError(
-                "only the test-mode forward (testing=True, eval mode) is "
-                "ported; the train branch comes with training")
+        final_labels [B, N], M ([B, N, N], None when testing), seed_trans,
+        seed_fitness, confidence. ``testing=True`` runs without gradient."""
+        if testing:
+            with torch.no_grad():
+                return self._forward(corr_pos, src_keypts, tgt_keypts,
+                                     p_image, q_image, True, corr_mask)
+        return self._forward(corr_pos, src_keypts, tgt_keypts, p_image,
+                             q_image, False, corr_mask)
+
+    def _forward(self, corr_pos, src_keypts, tgt_keypts, p_image, q_image,
+                 testing, corr_mask):
         B, N, _ = corr_pos.shape
         src = src_keypts.float()
         tgt = tgt_keypts.float()
         mask = None if corr_mask is None else corr_mask.float()
-        cache, build_cache = self._build_compat_cache(src, tgt)
+        with torch.no_grad():  # compat is data, as in the reference
+            cache, build_cache = self._build_compat_cache(src, tgt, testing)
         feats = self.encoder(corr_pos.to(self.dtype), p_image.to(self.dtype),
                              q_image.to(self.dtype), mask, src, tgt,
                              compat_cache=cache, build_cache=build_cache)
@@ -271,26 +297,47 @@ class PointDSC(nn.Module):
         normed = f32 / torch.sqrt((f32 * f32).sum(-1, keepdim=True) + 1e-12)
         confidence = self.classification(feats)[..., 0].float()
 
+        M = None
+        if not testing:
+            # feature-similarity matrix, the spectral-matching loss's input
+            sigma = self.sigma.float()
+            M = torch.matmul(normed, normed.transpose(-1, -2))
+            M = torch.clamp(1.0 - (1.0 - M) / sigma ** 2, 0.0, 1.0)
+            M = M * (1.0 - torch.eye(N, dtype=M.dtype, device=M.device))
+
         num_seeds = max(int(N * self.ratio), 1)
-        seeds = pick_seeds_nms_fused(src, confidence, self.nms_radius,
-                                     num_seeds, mask=mask)
+        if testing:
+            seeds = pick_seeds_nms_fused(src, confidence, self.nms_radius,
+                                         num_seeds, mask=mask)
+        else:
+            ranked = confidence.detach()
+            if mask is not None:
+                ranked = torch.where(mask > 0, ranked,
+                                     torch.full_like(ranked, -math.inf))
+            # stable, as jnp.argsort: ties keep their index order
+            seeds = torch.argsort(-ranked, dim=-1, stable=True)[:, :num_seeds]
         seed_trans, seed_fitness, final_trans, final_labels = (
-            self._cal_seed_trans(seeds, normed, src, tgt, mask))
-        final_trans = self._post_refinement(final_trans, src, tgt, mask)
+            self._cal_seed_trans(seeds, normed, src, tgt, mask, testing))
+        if testing:
+            final_trans = self._post_refinement(final_trans, src, tgt, mask)
+        else:
+            final_labels = confidence
         return {
             "final_trans": final_trans,
             "final_labels": final_labels,
-            "M": None,
+            "M": M,
             "seed_trans": seed_trans,
             "seed_fitness": seed_fitness,
             "confidence": confidence,
         }
 
-    def _build_compat_cache(self, src, tgt):
+    def _build_compat_cache(self, src, tgt, testing: bool = True):
         """Resolve ``compat_cache`` for this request: ``(cache,
-        build_cache)``. An int8 cache is not built here: layer 0 of the
-        encoder builds it while it attends (``build_cache`` True). f32 and
-        bf16 caches are built now; "off" gives ``(None, False)``."""
+        build_cache)``. In test mode an int8 cache is not built here:
+        layer 0 of the encoder builds it while it attends (``build_cache``
+        True; that kernel has no backward). Other caches, and the int8
+        cache in the train branch, are built now; "off" gives ``(None,
+        False)``."""
         B, N, _ = src.shape
         if self.compat_cache == "off":
             return None, False
@@ -301,21 +348,26 @@ class PointDSC(nn.Module):
                 return None, False
         else:
             dtype = _CACHE_DTYPES[self.compat_cache]
-        if dtype == torch.int8:
+        if dtype == torch.int8 and testing:
             return None, True
         return build_compat_cache(src, tgt, self.sigma_d, dtype), False
 
-    def _cal_seed_trans(self, seeds, feats, src, tgt, mask):
-        """Seed-row kNN (fused kernel; column 0, the seed itself, dropped)."""
+    def _cal_seed_trans(self, seeds, feats, src, tgt, mask, testing):
+        """Seed-row kNN (fused kernel on detached features; column 0, the
+        seed itself, dropped)."""
         B, N, C = feats.shape
         k = min(self.k, N - 1)
-        seed_feats = torch.gather(feats, 1, seeds[..., None].expand(-1, -1, C))
-        knn_idx, _ = seed_knn_topk(seed_feats, feats, k + 1, mask=mask)
+        plain = feats.detach()
+        seed_feats = torch.gather(plain, 1, seeds[..., None].expand(-1, -1, C))
+        knn_idx, _ = seed_knn_topk(seed_feats, plain, k + 1, mask=mask)
         return self._seed_trans_from_knn(feats, src, tgt, mask,
-                                         knn_idx[..., 1:].long())
+                                         knn_idx[..., 1:].long(), testing)
 
-    def _seed_trans_from_knn(self, feats, src, tgt, mask, knn_idx):
-        """Seed-local spectral matching, weighted Kabsch, scoring."""
+    def _seed_trans_from_knn(self, feats, src, tgt, mask, knn_idx, testing):
+        """Seed-local spectral matching, weighted Kabsch, scoring. The
+        train branch always takes the plain chain with the fixed iteration
+        count: the fused solver and the early exit are eval-only, as in
+        the reference."""
         B, N, C = feats.shape
         S, k = knn_idx.shape[1:]
         rows = (knn_idx + (torch.arange(B, device=feats.device) * N)[
@@ -325,7 +377,7 @@ class PointDSC(nn.Module):
         tgt_knn = tgt.reshape(B * N, 3)[rows].reshape(B, S, k, 3)
 
         sigma = self.sigma.float()
-        if self.seed_solver == "fused":
+        if self.seed_solver == "fused" and testing:
             weight = fused_seed_weights(knn_feats, src_knn, tgt_knn, sigma,
                                         self.sigma_d,
                                         num_iters=self.num_iterations)
@@ -340,15 +392,17 @@ class PointDSC(nn.Module):
                 1.0 - (src_d - tgt_d) ** 2 / self.sigma_d ** 2, min=0.0)
             total_M = feat_M * spatial_M * (
                 1.0 - torch.eye(k, device=feats.device))
-            weight = leading_eigenvector(total_M.reshape(B * S, k, k),
-                                         num_iters=self.num_iterations)
+            eig = leading_eigenvector if testing else \
+                leading_eigenvector_fixed
+            weight = eig(total_M.reshape(B * S, k, k),
+                         num_iters=self.num_iterations)
             weight = weight.reshape(B, S, k)
             weight = weight / (weight.sum(-1, keepdim=True) + 1e-6)
         seed_trans = rigid_transform_3d(
             src_knn.reshape(B * S, k, 3), tgt_knn.reshape(B * S, k, 3),
             weight.reshape(B * S, k)).reshape(B, S, 4, 4)
 
-        counts = seed_hypothesis_counts(seed_trans, src, tgt,
+        counts = seed_hypothesis_counts(seed_trans.detach(), src, tgt,
                                         self.inlier_threshold, mask=mask)
         if mask is None:
             fitness = counts.float() / N

@@ -5,12 +5,15 @@ Counterpart of ``gmf_tpu/nn/resnet.py``. Module names are torchvision's
 the names ``gmf_tpu/utils/convert_torch.py::convert_resnet_trunk`` reads.
 The public input is NHWC like the JAX package; the trunk runs NCHW and
 ``ImageEncoder.tokens`` flattens H-then-W, so a 120x160 image gives the
-same 15x20 = 300 tokens in the same order.
+same 15x20 = 300 tokens in the same order. Batch norms keep flax's
+running statistics (``nn/norm.py``).
 """
 
 from __future__ import annotations
 
 from torch import nn
+
+from gmf_tpu_torch.nn.norm import BatchNorm2d
 
 
 class BasicBlock(nn.Module):
@@ -21,13 +24,13 @@ class BasicBlock(nn.Module):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 3, stride=stride, padding=1,
                                bias=False)
-        self.bn1 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.bn1 = BatchNorm2d(planes, eps=1e-5)
         self.relu = nn.ReLU()
         self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.bn2 = BatchNorm2d(planes, eps=1e-5)
         self.downsample = nn.Sequential(
             nn.Conv2d(inplanes, planes, 1, stride=stride, bias=False),
-            nn.BatchNorm2d(planes, eps=1e-5),
+            BatchNorm2d(planes, eps=1e-5),
         ) if downsample else None
 
     def forward(self, x):
@@ -45,7 +48,7 @@ class ResNet(nn.Module):
         super().__init__()
         w = base_width
         self.conv1 = nn.Conv2d(3, w, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(w, eps=1e-5)
+        self.bn1 = BatchNorm2d(w, eps=1e-5)
         self.relu = nn.ReLU()
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         self.layer1 = nn.Sequential(

@@ -40,16 +40,35 @@ F = ctypes.c_float
 # C entry points: name -> argument types (pointers and the stream are
 # c_void_p, so ctypes never truncates them to 32 bits)
 SIGNATURES = {
-    # q, k, v, src, tgt, mask, out, B, N, D, is_bf16, sigma_sq, qscale, stream
-    "gmf_compat_flash_attention": [P, P, P, P, P, P, P, I, I, I, I, F, F, P],
+    # q, k, v, src, tgt, mask, out, lse, B, N, D, is_bf16, sigma_sq, qscale,
+    # stream
+    "gmf_compat_flash_attention": [P, P, P, P, P, P, P, P, I, I, I, I, F, F,
+                                   P],
+    # q, k, v, dout, lse, delta, src, tgt, mask, dk, dv, B, N, D, is_bf16,
+    # sigma_sq, qscale, scale, stream
+    "gmf_compat_flash_attention_bwd_dkv": [P, P, P, P, P, P, P, P, P, P, P,
+                                           I, I, I, I, F, F, F, P],
+    # q, k, v, dout, lse, delta, src, tgt, mask, dq, B, N, D, is_bf16,
+    # sigma_sq, qscale, scale, stream
+    "gmf_compat_flash_attention_bwd_dq": [P, P, P, P, P, P, P, P, P, P, I, I,
+                                          I, I, F, F, F, P],
     # q, k, v, src, tgt, mask, out, cache, B, N, D, ld, is_bf16, sigma_sq,
     # qscale, stream
     "gmf_compat_flash_attention_build": [P, P, P, P, P, P, P, P, I, I, I, I,
                                          I, F, F, P],
-    # q, k, v, cache, mask, out, B, N, D, ld, is_bf16, cache_type, qscale,
-    # stream
-    "gmf_compat_flash_attention_cached": [P, P, P, P, P, P, I, I, I, I, I, I,
-                                          F, P],
+    # q, k, v, cache, mask, out, lse, B, N, D, ld, is_bf16, cache_type,
+    # qscale, stream
+    "gmf_compat_flash_attention_cached": [P, P, P, P, P, P, P, I, I, I, I, I,
+                                          I, F, P],
+    # q, k, v, dout, lse, delta, cache, mask, dk, dv, B, N, D, ld, is_bf16,
+    # cache_type, qscale, scale, stream
+    "gmf_compat_flash_attention_cached_bwd_dkv": [P, P, P, P, P, P, P, P, P,
+                                                  P, I, I, I, I, I, I, F, F,
+                                                  P],
+    # q, k, v, dout, lse, delta, cache, mask, dq, B, N, D, ld, is_bf16,
+    # cache_type, qscale, scale, stream
+    "gmf_compat_flash_attention_cached_bwd_dq": [P, P, P, P, P, P, P, P, P,
+                                                 I, I, I, I, I, I, F, F, P],
     # src, tgt, cache, B, N, ld, cache_type, sigma_sq, stream
     "gmf_build_compat_cache": [P, P, P, I, I, I, I, F, P],
     # feats, src_knn, tgt_knn, sigma, out, n_seeds, k, C, is_bf16,

@@ -27,12 +27,14 @@
 
 // q, k, v, out: [B, N, D] (f32, or bf16 when is_bf16); src, tgt: [B, N, 3]
 // f32; mask: [B, N] f32 (> 0 valid). qscale = log2(e) / sqrt(D).
+// lse: [B, N] f32, the rows' base-2 log-sum-exp for the backward, or null
+// (inference: nothing is written).
 extern "C" int gmf_compat_flash_attention(
     const void* q, const void* k, const void* v, const void* src,
-    const void* tgt, const void* mask, void* out, int B, int N, int D,
-    int is_bf16, float sigma_sq, float qscale, void* stream) {
+    const void* tgt, const void* mask, void* out, void* lse, int B, int N,
+    int D, int is_bf16, float sigma_sq, float qscale, void* stream) {
   if (B <= 0 || N <= 0) return cudaErrorInvalidValue;  // nothing to launch
   return static_cast<int>(dispatch_flash<Compat::kStream, int8_t>(
-      q, k, v, src, tgt, mask, out, nullptr, B, N, D, 0, is_bf16,
+      q, k, v, src, tgt, mask, out, lse, nullptr, B, N, D, 0, is_bf16,
       1.f / sigma_sq, qscale, stream));
 }

@@ -33,6 +33,6 @@ extern "C" int gmf_compat_flash_attention_build(
   if (B <= 0 || N <= 0 || ld < N || ld % 16 != 0)
     return cudaErrorInvalidValue;
   return static_cast<int>(dispatch_flash<Compat::kBuild, int8_t>(
-      q, k, v, src, tgt, mask, out, static_cast<int8_t*>(cache), B, N, D, ld,
-      is_bf16, sigma_sq, qscale, stream));
+      q, k, v, src, tgt, mask, out, nullptr, static_cast<int8_t*>(cache), B,
+      N, D, ld, is_bf16, sigma_sq, qscale, stream));
 }

@@ -22,25 +22,26 @@
 
 // q, k, v, out: [B, N, D] (f32, or bf16 when is_bf16); mask: [B, N] f32;
 // cache: [B, N, ld] of cache_type (0 f32, 1 bf16, 2 int8), rows 16-byte
-// aligned.
+// aligned. lse: [B, N] f32 base-2 log-sum-exp for the backward, or null.
 extern "C" int gmf_compat_flash_attention_cached(
     const void* q, const void* k, const void* v, const void* cache,
-    const void* mask, void* out, int B, int N, int D, int ld, int is_bf16,
-    int cache_type, float qscale, void* stream) {
+    const void* mask, void* out, void* lse, int B, int N, int D, int ld,
+    int is_bf16, int cache_type, float qscale, void* stream) {
   if (B <= 0 || N <= 0 || ld < N) return cudaErrorInvalidValue;
   cudaError_t err = cudaErrorInvalidValue;
   void* c = const_cast<void*>(cache);
   if (cache_type == CACHE_F32 && ld % 4 == 0)
     err = dispatch_flash<Compat::kCached, float>(
-        q, k, v, nullptr, nullptr, mask, out, static_cast<float*>(c), B, N, D,
-        ld, is_bf16, 0.f, qscale, stream);
+        q, k, v, nullptr, nullptr, mask, out, lse, static_cast<float*>(c), B,
+        N, D, ld, is_bf16, 0.f, qscale, stream);
   else if (cache_type == CACHE_BF16 && ld % 8 == 0)
     err = dispatch_flash<Compat::kCached, __nv_bfloat16>(
-        q, k, v, nullptr, nullptr, mask, out, static_cast<__nv_bfloat16*>(c),
-        B, N, D, ld, is_bf16, 0.f, qscale, stream);
+        q, k, v, nullptr, nullptr, mask, out, lse,
+        static_cast<__nv_bfloat16*>(c), B, N, D, ld, is_bf16, 0.f, qscale,
+        stream);
   else if (cache_type == CACHE_INT8 && ld % 16 == 0)
     err = dispatch_flash<Compat::kCached, int8_t>(
-        q, k, v, nullptr, nullptr, mask, out, static_cast<int8_t*>(c), B, N,
-        D, ld, is_bf16, 0.f, qscale, stream);
+        q, k, v, nullptr, nullptr, mask, out, lse, static_cast<int8_t*>(c), B,
+        N, D, ld, is_bf16, 0.f, qscale, stream);
   return static_cast<int>(err);
 }

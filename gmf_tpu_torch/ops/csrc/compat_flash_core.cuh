@@ -109,6 +109,20 @@ __device__ __forceinline__ float compat_two_sqrt(const float* a,
   return fmaxf(__fsub_rn(1.f, __fdiv_rn(__fmul_rn(dd, dd), sigma_sq)), 0.f);
 }
 
+// streaming compat of query a and key b (s.xyz then t.xyz): the exact
+// per-coordinate distances with IEEE sqrt. The forward and the backward
+// kernels both take it from here, so the backward recomputes the very
+// logits whose log-sum-exp the forward stored.
+__device__ __forceinline__ float compat_stream(const float* a, const float* b,
+                                               float inv_sigma_sq) {
+  const float dx = a[0] - b[0], dy = a[1] - b[1], dz = a[2] - b[2];
+  const float ex = a[3] - b[3], ey = a[4] - b[4], ez = a[5] - b[5];
+  const float ds = sqrtf(dx * dx + dy * dy + dz * dz);
+  const float dt = sqrtf(ex * ex + ey * ey + ez * ez);
+  const float diff = ds - dt;
+  return fmaxf(1.f - diff * diff * inv_sigma_sq, 0.f);
+}
+
 // code / 254 + 0.5 as one FMA (127 / 254 is exactly 0.5)
 __device__ __forceinline__ float dequant_i8(float code) {
   return fmaf(code, 1.f / 254.f, 0.5f);
@@ -167,8 +181,8 @@ compat_flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ src,
                  const float* __restrict__ tgt,
                  const float* __restrict__ mask, T* __restrict__ out,
-                 CT* __restrict__ cache, int N, int ld, float sigma_arg,
-                 float qscale) {
+                 float* __restrict__ lse, CT* __restrict__ cache, int N,
+                 int ld, float sigma_arg, float qscale) {
   static_assert(D % 16 == 0, "D must be a multiple of 16");
   constexpr bool kCoords = MODE != Compat::kCached;
   constexpr int DP = D + 1;  // padded strides: column reads hit 32 banks
@@ -191,6 +205,7 @@ compat_flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   v += base * D;
   out += base * D;
   mask += base;
+  if (lse != nullptr) lse += base;
   if constexpr (kCoords) {
     src += base * 3;
     tgt += base * 3;
@@ -301,14 +316,7 @@ compat_flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       for (int rr = 0; rr < 2; ++rr) {
         float compat;
         if constexpr (MODE == Compat::kStream) {
-          const float dx = qp[rr][0] - kp[0], dy = qp[rr][1] - kp[1],
-                      dz = qp[rr][2] - kp[2];
-          const float ex = qp[rr][3] - kp[3], ey = qp[rr][4] - kp[4],
-                      ez = qp[rr][5] - kp[5];
-          const float ds = sqrtf(dx * dx + dy * dy + dz * dz);
-          const float dt = sqrtf(ex * ex + ey * ey + ez * ez);
-          const float diff = ds - dt;
-          compat = fmaxf(1.f - diff * diff * sigma_arg, 0.f);
+          compat = compat_stream(qp[rr], kp, sigma_arg);
         } else if constexpr (MODE == Compat::kBuild) {
           // pad columns (past N) hold code 0
           const float code =
@@ -382,7 +390,12 @@ compat_flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
   }
 
-  if ((tid & 3) == 0) sRow[r2] = fmaxf(l_run, 1e-30f);
+  if ((tid & 3) == 0) {
+    const float l = fmaxf(l_run, 1e-30f);
+    sRow[r2] = l;
+    // base-2 log-sum-exp of the row, as the TPU kernel stores it
+    if (lse != nullptr && q0 + r2 < N) lse[q0 + r2] = m_run + log2f(l);
+  }
   __syncthreads();
 #pragma unroll
   for (int rr = 0; rr < 4; ++rr) {
@@ -398,9 +411,9 @@ compat_flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D, Compat MODE, typename CT>
 cudaError_t launch_flash(const void* q, const void* k, const void* v,
                          const float* src, const float* tgt,
-                         const float* mask, void* out, CT* cache, int B,
-                         int N, int ld, float sigma_arg, float qscale,
-                         cudaStream_t stream) {
+                         const float* mask, void* out, float* lse,
+                         CT* cache, int B, int N, int ld, float sigma_arg,
+                         float qscale, cudaStream_t stream) {
   const size_t bytes = smem_floats<D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       compat_flash_fwd<T, D, MODE, CT>,
@@ -409,8 +422,8 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v,
   const dim3 grid((N + BQ - 1) / BQ, B);
   compat_flash_fwd<T, D, MODE, CT><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), src, tgt, mask, static_cast<T*>(out), cache,
-      N, ld, sigma_arg, qscale);
+      static_cast<const T*>(v), src, tgt, mask, static_cast<T*>(out), lse,
+      cache, N, ld, sigma_arg, qscale);
   return cudaGetLastError();
 }
 
@@ -418,16 +431,18 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v,
 template <Compat MODE, typename CT>
 cudaError_t dispatch_flash(const void* q, const void* k, const void* v,
                            const void* src, const void* tgt,
-                           const void* mask, void* out, CT* cache, int B,
-                           int N, int D, int ld, int is_bf16,
-                           float sigma_arg, float qscale, void* stream) {
+                           const void* mask, void* out, void* lse,
+                           CT* cache, int B, int N, int D, int ld,
+                           int is_bf16, float sigma_arg, float qscale,
+                           void* stream) {
   const auto* s = static_cast<const float*>(src);
   const auto* t = static_cast<const float*>(tgt);
   const auto* m = static_cast<const float*>(mask);
+  auto* l = static_cast<float*>(lse);
   auto st = static_cast<cudaStream_t>(stream);
-#define GMF_FLASH_CASE(T, WIDTH)                                           \
-  return launch_flash<T, WIDTH, MODE, CT>(q, k, v, s, t, m, out, cache, B, \
-                                          N, ld, sigma_arg, qscale, st)
+#define GMF_FLASH_CASE(T, WIDTH)                                          \
+  return launch_flash<T, WIDTH, MODE, CT>(q, k, v, s, t, m, out, l, cache, \
+                                          B, N, ld, sigma_arg, qscale, st)
   if (D == 32) {
     if (is_bf16) GMF_FLASH_CASE(__nv_bfloat16, 32);
     GMF_FLASH_CASE(float, 32);

@@ -1,18 +1,24 @@
 """Compat-modulated attention: CUDA kernels and their plain versions.
 
-Counterpart of ``gmf_tpu/ops/fused_attention.py`` (forward only), batched
-over pairs:
+Counterpart of ``gmf_tpu/ops/fused_attention.py`` (forward and its
+``custom_vjp`` backward), batched over pairs:
 
     compat[i,j] = max(0, 1 - (|s_i - s_j| - |t_i - t_j|)^2 / sigma^2)
     out         = softmax(compat * (q . k) / sqrt(D), masked keys -1e9) @ v
 
-Four functions, each launching its kernel on CUDA tensors and using its
-plain version (``*_plain``) only for CPU tensors:
+Each function launches its kernel on CUDA tensors and uses its plain
+version (``*_plain``) only for CPU tensors:
 
 - ``compat_flash_attention``: streaming mode rebuilds compat from the
   keypoints in every call (``csrc/compat_flash_attention.cu``); with
   ``compat=cache`` it streams a precomputed cache instead
-  (``csrc/compat_flash_attention_cached.cu``).
+  (``csrc/compat_flash_attention_cached.cu``). When q, k or v needs a
+  gradient it runs as a ``torch.autograd.Function`` whose forward also
+  writes the rows' base-2 log-sum-exp and whose backward is
+  ``compat_flash_attention_bwd``: the dK/dV and the dQ kernels
+  (``csrc/compat_flash_attention_bwd.cu``,
+  ``csrc/compat_flash_attention_cached_bwd.cu``). Gradients go to q, k
+  and v only; keypoints, mask and cache are data.
 - ``build_compat_cache``: the cache on its own, f32, bf16 or int8
   (``csrc/build_compat_cache.cu``).
 - ``compat_flash_attention_build``: the first layer's attention, which
@@ -27,7 +33,7 @@ difference, as in the reference.
 Cache layout (the port's own): ``[B, N, ld]``, exactly N valid entries
 per row and a row stride ``ld = cache_row_stride(N, dtype)`` that keeps
 every row 16-byte aligned; entries past column N are zero and are never
-read as keys. The backward kernels (training) are not ported yet.
+read as keys.
 """
 
 from __future__ import annotations
@@ -44,6 +50,12 @@ KERNEL = "compat_flash_attention"
 KERNEL_CACHED = "compat_flash_attention_cached"
 KERNEL_BUILD = "compat_flash_attention_build"
 KERNEL_CACHE = "build_compat_cache"
+KERNEL_BWD_DKV = "compat_flash_attention_bwd_dkv"
+KERNEL_BWD_DQ = "compat_flash_attention_bwd_dq"
+KERNEL_CACHED_BWD_DKV = "compat_flash_attention_cached_bwd_dkv"
+KERNEL_CACHED_BWD_DQ = "compat_flash_attention_cached_bwd_dq"
+# lse of masked query rows in the backward: p = exp2(s - 1e9) is exactly 0
+LSE_PAD = 1e9
 
 _I8_SCALE = 254.0
 _I8_BIAS = 127.0
@@ -94,41 +106,82 @@ def _qscale(D: int) -> float:
     return (1.0 / math.sqrt(D)) * _LOG2E
 
 
+def _rounder(dtype):
+    """Rounding to the kernels' product type: bf16 for bf16 inputs, none
+    for f32."""
+    if dtype == torch.bfloat16:
+        return lambda x: x.to(torch.bfloat16).float()
+    return lambda x: x
+
+
+def _logits_plain(q, k, compat, mask):
+    """Base-2 logits compat * (q * scale * log2(e)) . k, masked keys
+    -1e9, in f32; under bf16 the scaled q is rounded first, as in the
+    kernels."""
+    qs = _rounder(q.dtype)(q.float() * _qscale(q.shape[-1]))
+    logits = compat * torch.matmul(qs, k.float().transpose(-1, -2))
+    if mask is not None:
+        logits = torch.where(mask[:, None, :] > 0, logits,
+                             torch.full_like(logits, NEG_INF))
+    return logits
+
+
 def _attend_plain(q, k, v, compat, mask):
     """softmax(compat * q.k, masked) @ v with a dense f32 compat
-    [B, N, N].
+    [B, N, N], and the rows' base-2 log-sum-exp [B, N] f32.
 
     The softmax is base 2 with scale * log2(e) folded into q, as in the
     kernels. Under bf16 the scaled q and the probabilities are rounded to
     bf16 before their products, as the kernels do, so the two differ only
     by f32 summation order and the kernels' running max.
     """
-    D = q.shape[-1]
-    rounded = q.dtype == torch.bfloat16
-    qs = q.float() * _qscale(D)
-    if rounded:
-        qs = qs.to(torch.bfloat16).float()
-    logits = compat * torch.matmul(qs, k.float().transpose(-1, -2))
-    if mask is not None:
-        logits = torch.where(mask[:, None, :] > 0, logits,
-                             torch.full_like(logits, NEG_INF))
-    p = torch.exp2(logits - logits.amax(dim=-1, keepdim=True))
+    logits = _logits_plain(q, k, compat, mask)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp2(logits - m)
     denom = p.sum(dim=-1, keepdim=True)
-    if rounded:
-        p = p.to(torch.bfloat16).float()
-    out = torch.matmul(p, v.float()) / denom
-    return out.to(q.dtype)
+    lse = (m + torch.log2(torch.clamp(denom, min=1e-30)))[..., 0]
+    out = torch.matmul(_rounder(q.dtype)(p), v.float()) / denom
+    return out.to(q.dtype), lse
+
+
+def _attend_bwd_plain(q, k, v, do, out, lse, compat, mask):
+    """The gradient of ``_attend_plain`` with respect to q, k and v as the
+    backward kernels form it: p recomputed from the forward's lse (1e9 on
+    masked query rows, so their p and every gradient through them is 0),
+    dlogits = p (dp - delta) compat scale, and under bf16 the kernels'
+    roundings before each product."""
+    D = q.shape[-1]
+    rnd = _rounder(q.dtype)
+    if mask is not None:
+        lse = torch.where(mask > 0, lse, torch.full_like(lse, LSE_PAD))
+    p = torch.exp2(_logits_plain(q, k, compat, mask) - lse[..., None])
+    do32 = do.float()
+    dp = torch.matmul(do32, v.float().transpose(-1, -2))
+    delta = (do32 * out.float()).sum(-1)
+    ds = p * (dp - delta[..., None]) * compat * (1.0 / math.sqrt(D))
+    ds = rnd(ds)
+    dv = torch.matmul(rnd(p).transpose(-1, -2), do32)
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    dq = torch.matmul(ds, k.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _stream_compat_plain(src_keypts, tgt_keypts, sigma_d):
+    """Dense [B, N, N] f32 compat of the streaming mode."""
+    compat = _pairwise_dist(src_keypts.float()) - _pairwise_dist(
+        tgt_keypts.float())
+    return torch.clamp(1.0 - compat * compat / sigma_d ** 2, min=0.0)
 
 
 def compat_attention_plain(q, k, v, src_keypts, tgt_keypts, mask=None,
-                           sigma_d: float = 0.10):
+                           sigma_d: float = 0.10, return_lse: bool = False):
     """Dense version of the streaming mode: materialises the [B, N, N]
     compat and logits in f32. q, k, v [B, N, D]; keypoints [B, N, 3];
-    mask [B, N] -> [B, N, D]."""
-    compat = _pairwise_dist(src_keypts.float()) - _pairwise_dist(
-        tgt_keypts.float())
-    compat = torch.clamp(1.0 - compat * compat / sigma_d ** 2, min=0.0)
-    return _attend_plain(q, k, v, compat, mask)
+    mask [B, N] -> [B, N, D], and with ``return_lse`` also the rows'
+    base-2 log-sum-exp [B, N] f32, the backward's input."""
+    out, lse = _attend_plain(
+        q, k, v, _stream_compat_plain(src_keypts, tgt_keypts, sigma_d), mask)
+    return (out, lse) if return_lse else out
 
 
 def _load_compat(cache, N: int):
@@ -140,10 +193,30 @@ def _load_compat(cache, N: int):
     return c.float()
 
 
-def compat_attention_cached_plain(q, k, v, compat, mask=None):
+def compat_attention_cached_plain(q, k, v, compat, mask=None,
+                                  return_lse: bool = False):
     """Dense version of the cached mode; ``compat`` is a [B, N, ld]
-    cache."""
-    return _attend_plain(q, k, v, _load_compat(compat, q.shape[1]), mask)
+    cache. ``return_lse`` as in ``compat_attention_plain``."""
+    out, lse = _attend_plain(q, k, v, _load_compat(compat, q.shape[1]),
+                             mask)
+    return (out, lse) if return_lse else out
+
+
+def compat_attention_bwd_plain(q, k, v, do, out, lse, mask=None,
+                               src_keypts=None, tgt_keypts=None,
+                               sigma_d: float = 0.10, compat=None):
+    """Plain version of ``compat_flash_attention_bwd``: ``(dq, dk, dv)``
+    of the streaming mode (keypoints) or of the cached mode (``compat``, a
+    [B, N, ld] cache), from the forward's ``out`` and ``lse``.
+
+    This is the gradient the kernels compute, not autograd of the plain
+    forward: the two agree on valid query rows, and on masked query rows
+    this one is 0 by construction (their p is 0), as in the reference."""
+    if compat is not None:
+        c = _load_compat(compat, q.shape[1])
+    else:
+        c = _stream_compat_plain(src_keypts, tgt_keypts, sigma_d)
+    return _attend_bwd_plain(q, k, v, do, out, lse, c, mask)
 
 
 def build_compat_cache_plain(src_keypts, tgt_keypts, sigma_d: float = 0.10,
@@ -234,33 +307,63 @@ def compat_flash_attention(q, k, v, src_keypts, tgt_keypts, mask=None,
     src_keypts, tgt_keypts: [B, N, 3]; mask: optional [B, N] key validity.
     compat: optional [B, N, ld] cache from ``build_compat_cache`` or
     ``compat_flash_attention_build``; the keypoints may then be None.
-    Returns [B, N, D] in q's dtype.
+    Returns [B, N, D] in q's dtype. Differentiable with respect to q, k
+    and v (``compat_flash_attention_bwd``); masked query rows get no
+    gradient, as in the reference.
     """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if compat is not None:
+            return _CachedAttention.apply(q, k, v, compat, mask)
+        return _StreamingAttention.apply(q, k, v, src_keypts, tgt_keypts,
+                                         mask, sigma_d)
     if compat is not None:
-        return _compat_flash_attention_cached(q, k, v, compat, mask)
+        return _cached_forward(q, k, v, compat, mask, False)[0]
+    return _streaming_forward(q, k, v, src_keypts, tgt_keypts, mask,
+                              sigma_d, False)[0]
+
+
+def _lse_out(with_lse: bool, q):
+    """The [B, N] f32 lse output, or None (the kernel then writes none)."""
+    if not with_lse:
+        return None
+    return torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+
+
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
+
+
+def _streaming_forward(q, k, v, src_keypts, tgt_keypts, mask, sigma_d,
+                       with_lse: bool):
+    """(out, lse or None) of the streaming mode."""
     if q.device.type == "cpu":
-        return compat_attention_plain(q, k, v, src_keypts, tgt_keypts, mask,
-                                      sigma_d)
+        out, lse = compat_attention_plain(q, k, v, src_keypts, tgt_keypts,
+                                          mask, sigma_d, return_lse=True)
+        return out, (lse if with_lse else None)
     q, k, v = _check_qkv(KERNEL, q, k, v)
     B, N, D = q.shape
     src, tgt = _check_keypts(KERNEL, src_keypts, tgt_keypts, B, N)
     m = _check_mask(KERNEL, mask, B, N, q.device)
     out = torch.empty_like(q)
+    lse = _lse_out(with_lse, q)
     if out.numel() == 0:
-        return out  # nothing to launch
+        return out, lse  # nothing to launch
     code = _build.load().gmf_compat_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), src.data_ptr(),
-        tgt.data_ptr(), m.data_ptr(), out.data_ptr(), B, N, D,
+        tgt.data_ptr(), m.data_ptr(), out.data_ptr(), _ptr(lse), B, N, D,
         int(q.dtype == torch.bfloat16), float(sigma_d) ** 2, _qscale(D),
         _build.stream_of(q))
     _build.check(code, KERNEL)
-    return out
+    return out, lse
 
 
-def _compat_flash_attention_cached(q, k, v, compat, mask):
+def _cached_forward(q, k, v, compat, mask, with_lse: bool):
+    """(out, lse or None) of the cached mode."""
     if q.device.type == "cpu" and compat.device.type == "cpu":
         _check_cache(KERNEL_CACHED, compat, q.shape[0], q.shape[1])
-        return compat_attention_cached_plain(q, k, v, compat, mask)
+        out, lse = compat_attention_cached_plain(q, k, v, compat, mask,
+                                                 return_lse=True)
+        return out, (lse if with_lse else None)
     q, k, v = _check_qkv(KERNEL_CACHED, q, k, v)
     B, N, D = q.shape
     if compat.device != q.device:
@@ -269,15 +372,154 @@ def _compat_flash_attention_cached(q, k, v, compat, mask):
     ld = _check_cache(KERNEL_CACHED, compat, B, N)
     m = _check_mask(KERNEL_CACHED, mask, B, N, q.device)
     out = torch.empty_like(q)
+    lse = _lse_out(with_lse, q)
     if out.numel() == 0:
-        return out
+        return out, lse
     code = _build.load().gmf_compat_flash_attention_cached(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), compat.data_ptr(),
-        m.data_ptr(), out.data_ptr(), B, N, D, ld,
+        m.data_ptr(), out.data_ptr(), _ptr(lse), B, N, D, ld,
         int(q.dtype == torch.bfloat16), _CACHE_TYPES[compat.dtype],
         _qscale(D), _build.stream_of(q))
     _build.check(code, KERNEL_CACHED)
-    return out
+    return out, lse
+
+
+class _StreamingAttention(torch.autograd.Function):
+    """Streaming mode with its flash backward; the counterpart of the
+    reference's ``_flash`` custom_vjp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, src_keypts, tgt_keypts, mask, sigma_d):
+        out, lse = _streaming_forward(q, k, v, src_keypts, tgt_keypts, mask,
+                                      sigma_d, True)
+        ctx.save_for_backward(q, k, v, out, lse, src_keypts, tgt_keypts,
+                              mask)
+        ctx.sigma_d = sigma_d
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, src, tgt, mask = ctx.saved_tensors
+        dq, dk, dv = compat_flash_attention_bwd(
+            q, k, v, dout, out, lse, mask, src, tgt, ctx.sigma_d)
+        return dq, dk, dv, None, None, None, None
+
+
+class _CachedAttention(torch.autograd.Function):
+    """Cached mode with its flash backward; the counterpart of the
+    reference's ``_flash_cached`` custom_vjp. The cache is data."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, compat, mask):
+        out, lse = _cached_forward(q, k, v, compat, mask, True)
+        ctx.save_for_backward(q, k, v, out, lse, compat, mask)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, compat, mask = ctx.saved_tensors
+        dq, dk, dv = compat_flash_attention_bwd(q, k, v, dout, out, lse,
+                                                mask, compat=compat)
+        return dq, dk, dv, None, None
+
+
+def compat_flash_attention_bwd(q, k, v, do, out, lse, mask=None,
+                               src_keypts=None, tgt_keypts=None,
+                               sigma_d: float = 0.10, compat=None):
+    """``(dq, dk, dv)`` of ``compat_flash_attention`` from the forward's
+    ``out`` and base-2 ``lse`` [B, N] and the output gradient ``do``:
+    streaming mode from the keypoints, cached mode from ``compat``. On
+    CUDA tensors it launches the dK/dV kernel, then the dQ kernel; on CPU
+    tensors it runs ``compat_attention_bwd_plain``."""
+    if q.device.type == "cpu":
+        return compat_attention_bwd_plain(q, k, v, do, out, lse, mask,
+                                          src_keypts, tgt_keypts, sigma_d,
+                                          compat)
+    inp = bwd_inputs(q, k, v, do, out, lse, mask)
+    dk, dv = bwd_dkv(inp, src_keypts, tgt_keypts, sigma_d, compat)
+    return bwd_dq(inp, src_keypts, tgt_keypts, sigma_d, compat), dk, dv
+
+
+def bwd_inputs(q, k, v, do, out, lse, mask):
+    """Checked CUDA inputs of the backward kernels: q, k, v, do contiguous
+    of one type, the mask as f32, lse with ``LSE_PAD`` on masked query
+    rows, and delta = rowsum(do * out) in f32, formed outside the kernels
+    as the reference does."""
+    q, k, v = _check_qkv(KERNEL_BWD_DKV, q, k, v)
+    B, N, _ = q.shape
+    do = do.to(q.dtype).contiguous()
+    if do.shape != q.shape or out.shape != q.shape:
+        raise ValueError(f"{KERNEL_BWD_DKV}: do and out must be [B, N, D]")
+    if lse.shape != (B, N):
+        raise ValueError(f"{KERNEL_BWD_DKV}: lse must be [B, N]")
+    m = _check_mask(KERNEL_BWD_DKV, mask, B, N, q.device)
+    lse = torch.where(m > 0, lse.float(),
+                      torch.full_like(m, LSE_PAD)).contiguous()
+    delta = (do.float() * out.float()).sum(-1).contiguous()
+    return dict(q=q, k=k, v=v, do=do, lse=lse, delta=delta, mask=m)
+
+
+def _bwd_common(inp):
+    q = inp["q"]
+    B, N, D = q.shape
+    head = [q.data_ptr(), inp["k"].data_ptr(), inp["v"].data_ptr(),
+            inp["do"].data_ptr(), inp["lse"].data_ptr(),
+            inp["delta"].data_ptr()]
+    return q, B, N, D, head
+
+
+def bwd_dkv(inp, src_keypts=None, tgt_keypts=None, sigma_d: float = 0.10,
+            compat=None):
+    """Launch the dK/dV kernel on ``bwd_inputs``: ``(dk, dv)``."""
+    q, B, N, D, head = _bwd_common(inp)
+    dk, dv = torch.empty_like(q), torch.empty_like(q)
+    if q.numel() == 0:
+        return dk, dv
+    bf16 = int(q.dtype == torch.bfloat16)
+    lib = _build.load()
+    if compat is None:
+        src, tgt = _check_keypts(KERNEL_BWD_DKV, src_keypts, tgt_keypts, B,
+                                 N)
+        code = lib.gmf_compat_flash_attention_bwd_dkv(
+            *head, src.data_ptr(), tgt.data_ptr(), inp["mask"].data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, N, D, bf16,
+            float(sigma_d) ** 2, _qscale(D), 1.0 / math.sqrt(D),
+            _build.stream_of(q))
+        _build.check(code, KERNEL_BWD_DKV)
+        return dk, dv
+    ld = _check_cache(KERNEL_CACHED_BWD_DKV, compat, B, N)
+    code = lib.gmf_compat_flash_attention_cached_bwd_dkv(
+        *head, compat.data_ptr(), inp["mask"].data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), B, N, D, ld, bf16, _CACHE_TYPES[compat.dtype],
+        _qscale(D), 1.0 / math.sqrt(D), _build.stream_of(q))
+    _build.check(code, KERNEL_CACHED_BWD_DKV)
+    return dk, dv
+
+
+def bwd_dq(inp, src_keypts=None, tgt_keypts=None, sigma_d: float = 0.10,
+           compat=None):
+    """Launch the dQ kernel on ``bwd_inputs``: ``dq``."""
+    q, B, N, D, head = _bwd_common(inp)
+    dq = torch.empty_like(q)
+    if q.numel() == 0:
+        return dq
+    bf16 = int(q.dtype == torch.bfloat16)
+    lib = _build.load()
+    if compat is None:
+        src, tgt = _check_keypts(KERNEL_BWD_DQ, src_keypts, tgt_keypts, B, N)
+        code = lib.gmf_compat_flash_attention_bwd_dq(
+            *head, src.data_ptr(), tgt.data_ptr(), inp["mask"].data_ptr(),
+            dq.data_ptr(), B, N, D, bf16, float(sigma_d) ** 2, _qscale(D),
+            1.0 / math.sqrt(D), _build.stream_of(q))
+        _build.check(code, KERNEL_BWD_DQ)
+        return dq
+    ld = _check_cache(KERNEL_CACHED_BWD_DQ, compat, B, N)
+    code = lib.gmf_compat_flash_attention_cached_bwd_dq(
+        *head, compat.data_ptr(), inp["mask"].data_ptr(), dq.data_ptr(), B,
+        N, D, ld, bf16, _CACHE_TYPES[compat.dtype], _qscale(D),
+        1.0 / math.sqrt(D), _build.stream_of(q))
+    _build.check(code, KERNEL_CACHED_BWD_DQ)
+    return dq
 
 
 def build_compat_cache(src_keypts, tgt_keypts, sigma_d: float = 0.10,

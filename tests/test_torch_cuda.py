@@ -16,10 +16,12 @@ from gmf_tpu_torch.eval.registration import PointDSCRegistrar
 from gmf_tpu_torch.models import PointDSC
 from gmf_tpu_torch.ops import _build
 from gmf_tpu_torch.ops.fused_attention import (
-    build_compat_cache, build_compat_cache_plain,
+    _cached_forward, _load_compat, _logits_plain, _stream_compat_plain,
+    _streaming_forward, build_compat_cache,
+    build_compat_cache_plain, compat_attention_bwd_plain,
     compat_attention_cached_plain, compat_attention_plain,
     compat_flash_attention, compat_flash_attention_build,
-    compat_flash_attention_build_plain)
+    compat_flash_attention_build_plain, compat_flash_attention_bwd)
 from gmf_tpu_torch.ops.fused_nms import nms_local_max, nms_local_max_plain
 from gmf_tpu_torch.ops.fused_scoring import (seed_hypothesis_counts,
                                              seed_hypothesis_counts_plain)
@@ -152,6 +154,74 @@ def test_cached_attention_kernel(gen, cuda, dtype, D, cache_dtype):
     with pytest.raises(ValueError, match="layout"):
         compat_flash_attention(q, k, v, None, None, mask=m,
                                compat=cache[:, :, :-1])
+
+
+def _bf16_ulp(x):
+    return 2.0 ** (np.floor(np.log2(x)) - 7)
+
+
+@pytest.mark.parametrize("cache_dtype",
+                         [None, torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 128])
+def test_attention_backward_kernels(gen, cuda, dtype, D, cache_dtype):
+    """Through autograd: the forward kernel (streaming, or cached on each
+    cache type) writes the lse, then the dK/dV and the dQ kernels run.
+    lse: 1e-5 against the plain forward's (f32 summation order), and each
+    valid row's p = exp2(s - lse) sums to 1 within 1e-5. Gradients against
+    the plain backward on the same out and lse: f32 within 1e-5 of the
+    largest entry (summation order); bf16 within 4 bf16 ulps of it (both
+    round p and dlogits to bf16 before their products, so an operand near
+    a rounding edge may take the neighbouring value, and both round the
+    result to bf16). Masked query rows get a dq of exactly 0."""
+    q, k, v, src, tgt, m = _attention_inputs(gen, cuda, dtype, D)
+    do = _t(gen.randn(*q.shape).astype(np.float32), cuda).to(dtype)
+    cache = (None if cache_dtype is None
+             else build_compat_cache(src, tgt, 0.10, cache_dtype))
+    fwd, dkv, dq_name = (
+        ("compat_flash_attention", "compat_flash_attention_bwd_dkv",
+         "compat_flash_attention_bwd_dq") if cache is None else
+        ("compat_flash_attention_cached",
+         "compat_flash_attention_cached_bwd_dkv",
+         "compat_flash_attention_cached_bwd_dq"))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    _build.reset_launches()
+    out = compat_flash_attention(*leaves, src, tgt, mask=m, compat=cache)
+    out.backward(do)
+    assert [_build.launches[n] for n in (fwd, dkv, dq_name)] == [1, 1, 1]
+    got = [x.grad for x in leaves]
+
+    if cache is None:
+        ref_out, ref_lse = compat_attention_plain(q, k, v, src, tgt, m,
+                                                  return_lse=True)
+        compat = _stream_compat_plain(src, tgt, 0.10)
+    else:
+        ref_out, ref_lse = compat_attention_cached_plain(
+            q, k, v, cache, m, return_lse=True)
+        compat = _load_compat(cache, q.shape[1])
+    # the kernel's lse, read back through a forward that returns it
+    lse = (_streaming_forward(q, k, v, src, tgt, m, 0.10, True)[1]
+           if cache is None else _cached_forward(q, k, v, cache, m, True)[1])
+    valid = m > 0
+    torch.testing.assert_close(lse[valid], ref_lse[valid], atol=1e-5,
+                               rtol=0)
+    psum = torch.exp2(_logits_plain(q, k, compat, m) - lse[..., None]).sum(-1)
+    torch.testing.assert_close(psum[valid], torch.ones_like(psum[valid]),
+                               atol=1e-5, rtol=0)
+
+    ref = compat_attention_bwd_plain(q, k, v, do, out.detach(), lse, m, src,
+                                     tgt, 0.10, compat=cache)
+    assert (got[0][~valid] == 0).all()
+    for g, r in zip(got, ref):
+        scale = r.float().abs().max().item()
+        atol = (1e-5 * scale if dtype == torch.float32
+                else 4 * _bf16_ulp(scale))
+        torch.testing.assert_close(g.float(), r.float(), atol=atol, rtol=0)
+    # the wrapper on its own gives the same gradients as autograd did
+    again = compat_flash_attention_bwd(q, k, v, do, out.detach(), lse, m,
+                                       src, tgt, 0.10, compat=cache)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -136,3 +136,42 @@ def test_topk_total_order_signed_zeros():
     _, ref = jax.lax.top_k(jnp.asarray(x), 8)
     np.testing.assert_array_equal(got, np.asarray(ref))
     np.testing.assert_array_equal(got[0, :6], [5, 7, 1, 3, 0, 2])
+
+
+def test_rigid_transform_3d_gradients_match_jax_grad(rng):
+    """Gradients through the quaternion Kabsch with respect to the points
+    and the weights, as the seed solver's training path takes them,
+    against jax.grad of the reference on the same scalar of the transform.
+    Repeated squaring makes the eigenvector's gradient a long product of
+    f32 4x4 matmuls: 1e-4 of the largest entry."""
+    A, Bp, w = _alignment_problem(rng)
+    proj = rng.randn(4, 4).astype(np.float32)
+
+    def jloss(a, b, ww):
+        return jnp.sum(jkabsch.rigid_transform_3d(a, b, ww) * proj)
+
+    ref = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (A, Bp, w)))
+    leaves = [_t(x).requires_grad_() for x in (A, Bp, w)]
+    (kabsch.rigid_transform_3d(*leaves) * _t(proj)).sum().backward()
+    for r, x in zip(ref, leaves):
+        r = np.asarray(r)
+        np.testing.assert_allclose(x.grad.numpy(), r,
+                                   atol=1e-4 * np.abs(r).max())
+
+
+def test_leading_eigenvector_fixed_gradient_matches_jax_grad(rng):
+    """The fixed-count power iteration that the train branch takes, its
+    gradient with respect to the matrix against jax.grad, to f32 rounding
+    of ten normalised matvecs: 1e-5 of the largest entry."""
+    x = rng.rand(6, 12, 5).astype(np.float32)
+    M = np.clip(x @ x.transpose(0, 2, 1) / 5, 0, 1).astype(np.float32)
+    proj = rng.randn(6, 12).astype(np.float32)
+
+    def jloss(m):
+        return jnp.sum(jspectral.leading_eigenvector_fixed(m, 10) * proj)
+
+    ref = np.asarray(jax.grad(jloss)(jnp.asarray(M)))
+    m = _t(M).requires_grad_()
+    (spectral.leading_eigenvector_fixed(m, 10) * _t(proj)).sum().backward()
+    np.testing.assert_allclose(m.grad.numpy(), ref,
+                               atol=1e-5 * np.abs(ref).max())

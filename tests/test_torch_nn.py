@@ -76,3 +76,72 @@ def test_image_encoder_tokens(rng):
     with torch.no_grad():
         got = tm.tokens(torch.tensor(img))
     _close(got.numpy(), ref)
+
+
+def test_token_batch_norm_train_stats_match_flax(rng):
+    """One train-mode call of TokenBatchNorm leaves the running statistics
+    flax's nn.BatchNorm(momentum=0.9) leaves: the biased batch variance,
+    0.9 old + 0.1 new (PyTorch's own update keeps the unbiased variance,
+    n / (n - 1) larger: 1.008 at these 128 rows). Same outputs too."""
+    import flax.linen as fnn
+
+    from gmf_tpu_torch.models.pointdsc import TokenBatchNorm
+
+    x = (2.0 + 3.0 * rng.randn(2, 64, 16)).astype(np.float32)
+    mean0 = rng.randn(16).astype(np.float32)
+    var0 = (0.5 + rng.rand(16)).astype(np.float32)
+    jm = fnn.BatchNorm(use_running_average=False, momentum=0.9, epsilon=1e-5)
+    v = jm.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    v = {"params": v["params"],
+         "batch_stats": {"mean": jnp.asarray(mean0), "var": jnp.asarray(var0)}}
+    ref, new = jm.apply(v, jnp.asarray(x), mutable=["batch_stats"])
+
+    tm = TokenBatchNorm(16, eps=1e-5)
+    with torch.no_grad():
+        tm.running_mean.copy_(torch.tensor(mean0))
+        tm.running_var.copy_(torch.tensor(var0))
+    tm.train()
+    got = tm(torch.tensor(x))
+    np.testing.assert_allclose(tm.running_mean.numpy(),
+                               np.asarray(new["batch_stats"]["mean"]),
+                               atol=1e-6)
+    np.testing.assert_allclose(tm.running_var.numpy(),
+                               np.asarray(new["batch_stats"]["var"]),
+                               atol=1e-6)
+    _close(got.detach().numpy(), ref)
+
+
+def test_image_encoder_train_stats_match_flax(rng):
+    """Two train-mode calls of the image encoder (the p and q images, as
+    the model makes them) update every batch norm of the trunk as flax
+    does. PyTorch's unbiased update would be 1/(n - 1) too large: 1e-2 at
+    layer1's 96 rows, 4e-2 at layer2's 3 x 4 map. Limit 5e-5 of the
+    statistic's scale: the convolutions sum in another order (1e-6
+    relative), and flax takes the variance as E[x^2] - E[x]^2, which
+    cancels where a channel's mean is large against its spread (measured
+    1.3e-5)."""
+    imgs = [rng.rand(2, 24, 32, 3).astype(np.float32) for _ in range(2)]
+    jm = JaxImageEncoder(base_width=8)
+    v = jm.init(jax.random.PRNGKey(1), jnp.asarray(imgs[0]))
+    v = {"params": _perturb(v["params"], rng),
+         "batch_stats": _perturb(v["batch_stats"], rng)}
+    tm = ImageEncoder(base_width=8)
+    tm.load_state_dict(image_encoder_to_state_dict(v["params"],
+                                                   v["batch_stats"]),
+                       strict=True)
+    tm.train()
+    for img in imgs:
+        ref, new = jm.apply(v, jnp.asarray(img), train=True,
+                            mutable=["batch_stats"])
+        v = {"params": v["params"], "batch_stats": new["batch_stats"]}
+        got = tm(torch.tensor(img))
+        _close(got.detach().numpy(), ref)
+    want = image_encoder_to_state_dict(v["params"], v["batch_stats"])
+    have = tm.state_dict()
+    keys = [k for k in want if k.endswith(("running_mean", "running_var"))]
+    assert len(keys) == 2 * 16
+    for key in keys:
+        ref = want[key].numpy()
+        np.testing.assert_allclose(have[key].numpy(), ref,
+                                   atol=5e-5 * max(1.0, np.abs(ref).max()),
+                                   err_msg=key)
