@@ -7,8 +7,8 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
 
 1. Print the card's name and power limit (nvidia-smi).
 2. Build the kernels (one nvcc per source, in parallel).
-3. Hold each of the twelve kernels against its plain PyTorch version on the
-   card at its path's shapes. The eight forward kernels at the serving
+3. Hold each of the sixteen kernels against its plain PyTorch version on
+   the card at its path's shapes. The eight forward kernels at the serving
    path's shapes: B=8 pairs, N=5000 (4000 valid rows in
    pair 0), D=128, S=500 seeds, k=40. Attention runs in f32 and bf16, the
    compat cache in f32, bf16 and int8. The int8 cache of the build+attend
@@ -23,7 +23,17 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
    streaming and cached, the cached ones on each cache type), the
    streaming and cached forward (output and the lse they write), the
    standalone cache of each type (every byte), kNN and counts at S=100
-   seeds, each against its plain version with the limits above.
+   seeds, each against its plain version with the limits above. Then the
+   attention-variant microbenchmark (variants_phase): the four instances
+   of compat_flash_variants.cu (v0, v1, v3, v6) against their plain
+   version at B=8, N=5000 in f32 and bf16 and at N=333, with the limits
+   above; the benchmark itself (gmf_tpu_torch.tools.bench_flash_variants)
+   at its full size, 64 pairs of N=5000, 12 layers, 3 timed stacks per
+   variant and the library's attention beside v1, its launch counts reset
+   just before it and read just after it; and one layer of each
+   variant's kernel on the benchmark's own input (64 x 5000, q = k = v)
+   against its plain version run in slices of 8 pairs, with the limits
+   above, v4 and v5's caches every byte.
 4. Serve register_batch requests through PointDSCRegistrar at full width
    (12 layers, 128 channels, k=40, ratio 0.1, 120x160 images, bucket 5000;
    bf16 modules, f32 geometry). Launch counts are reset just before each
@@ -81,6 +91,10 @@ import time
 import numpy as np
 import torch
 
+# the attention variants' own instances: v0, v1, v3, v6 of the
+# attention-variant microbenchmark, by variant
+from gmf_tpu_torch.ops.flash_variants import KERNELS as VARIANT_KERNELS
+
 B, N, N_VALID0, D, S, K1 = 8, 5000, 4000, 128, 500, 41
 B_MAIN = 64  # pairs per request on the main path (the bench default)
 IMAGE_HW = (120, 160)
@@ -93,11 +107,14 @@ KERNELS = ("compat_flash_attention", "build_compat_cache",
            "fused_seed_weights", "compat_flash_attention_bwd_dkv",
            "compat_flash_attention_bwd_dq",
            "compat_flash_attention_cached_bwd_dkv",
-           "compat_flash_attention_cached_bwd_dq")
-BWD_KERNELS = KERNELS[8:]
+           "compat_flash_attention_cached_bwd_dq",
+           *VARIANT_KERNELS.values())
+BWD_KERNELS = KERNELS[8:12]
 SOURCES = {name: f"gmf_tpu_torch/ops/csrc/{name}.cu" for name in KERNELS}
 for _name in BWD_KERNELS:  # one source holds a dK/dV and a dQ kernel
     SOURCES[_name] = f"gmf_tpu_torch/ops/csrc/{_name.rsplit('_', 1)[0]}.cu"
+for _name in VARIANT_KERNELS.values():  # one source, four instances
+    SOURCES[_name] = "gmf_tpu_torch/ops/csrc/compat_flash_variants.cu"
 REPLACES = {
     "compat_flash_attention": "gmf_tpu/ops/fused_attention.py:241",
     "build_compat_cache": "gmf_tpu/ops/fused_attention.py:625",
@@ -113,6 +130,15 @@ REPLACES = {
         "gmf_tpu/ops/fused_attention.py:982",
     "compat_flash_attention_cached_bwd_dq":
         "gmf_tpu/ops/fused_attention.py:1009",
+    **{name: "scripts/bench_flash_variants.py:183"
+       for name in VARIANT_KERNELS.values()},
+}
+# kernels that also stand for a pallas_call of the variant microbenchmark
+ALSO_REPLACES = {
+    "compat_flash_attention": "scripts/bench_flash_variants.py:183 (v2)",
+    "compat_flash_attention_cached":
+        "scripts/bench_flash_variants.py:183 (v4, v5)",
+    "build_compat_cache": "scripts/bench_flash_variants.py:214",
 }
 _COMMON = {"nms_local_max": 1, "seed_knn_topk": 1,
            "seed_hypothesis_counts": 1}
@@ -173,6 +199,38 @@ KERNEL_PATH = {
     "compat_flash_attention_bwd_dq": "train_off",
     "compat_flash_attention_cached_bwd_dkv": "train_auto",
     "compat_flash_attention_cached_bwd_dq": "train_auto",
+    **{name: "bench_flash_variants" for name in VARIANT_KERNELS.values()},
+}
+# the attention-variant microbenchmark (gmf_tpu_torch.tools.
+# bench_flash_variants) at its defaults but for the timed runs: one warm
+# and VARIANT_ITERS timed stacks of VARIANT_LAYERS layers per variant
+VARIANT_ITERS, VARIANT_LAYERS = 3, 12
+VARIANT_RUNS = 1 + VARIANT_ITERS
+# the launches of that run, per kernel (not named: none): 12 per stack of
+# each variant's kernel (v2 the streaming one, v4 and v5 the cached one),
+# one more of v1 (its single layer beside the library's), and, for v4 and
+# v5, one cache per run of the precompute
+VARIANT_BENCH_LAUNCHES = {
+    **{name: VARIANT_LAYERS * VARIANT_RUNS + (v == "v1")
+       for v, name in VARIANT_KERNELS.items()},
+    "compat_flash_attention": VARIANT_LAYERS * VARIANT_RUNS,
+    "compat_flash_attention_cached": 2 * VARIANT_LAYERS * VARIANT_RUNS,
+    "build_compat_cache": 2 * VARIANT_RUNS,
+}
+# f32 ALU and SFU operations per (i, j) of each variant beside its two
+# products: the compat arithmetic, the logit's multiply and mask, and the
+# softmax's exp2; a sqrt or an IEEE division is one SFU operation
+VARIANT_OPS = {
+    "v0": (24, 4),  # 2 norm-identity dots 10, 2 x (add, 2x, sub, max),
+                    # dd, dd^2, 1-, max, logit 2; 2 sqrt, div, exp2
+    "v1": (1, 1),   # mask; exp2
+    "v2": (20, 3),  # as kernel 1 (attention_bound)
+    "v3": (25, 3),  # 6 sub, 6 mul, 4 add, one-sqrt 5, 1-, max, logit 2;
+                    # sqrt, div, exp2
+    "v4": (3, 1),   # as kernel 6: widen, multiply, mask; exp2
+    "v5": (3, 1),
+    "v6": (27, 3),  # norm identity 18, one-sqrt 5, 1-, max, logit 2;
+                    # sqrt, div, exp2
 }
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 tensor-core
@@ -280,6 +338,20 @@ def attention_bound(rates, dtype, cache_dtype=None, build=False):
     })
 
 
+def cache_bound(rates, cdt, b=B, n=N):
+    """(bound_ms, bound_by) of the standalone cache of ``cdt`` at [b, n]:
+    the keypoints read, the cache written; per (i, j) 20 ALU and 3 SFU
+    ops (two-sqrt form, f32 and bf16) or 26 and 2 (one-sqrt int8 code)."""
+    from gmf_tpu_torch.ops.fused_attention import cache_row_stride
+
+    two_sqrt = cdt != torch.int8
+    esize = torch.empty((), dtype=cdt).element_size()
+    return rates.bound(
+        b * n * cache_row_stride(n, cdt) * esize + b * n * 6 * 4,
+        {"alu": (20 if two_sqrt else 26) * b * n * n / rates.alu,
+         "sfu": (3 if two_sqrt else 2) * b * n * n / rates.sfu})
+
+
 def attention_tol(ref, dtype):
     """f32: the kernel and its plain version differ by summation order and
     the running max only. bf16: the plain version rounds q*scale and p as
@@ -294,7 +366,7 @@ def attention_phase(dev, rates, gen, src, tgt, mask):
     """Kernels 1, 4, 5 and 6: streaming, standalone cache, build+attend,
     cached."""
     from gmf_tpu_torch.ops.fused_attention import (
-        build_compat_cache, build_compat_cache_plain, cache_row_stride,
+        build_compat_cache, build_compat_cache_plain,
         compat_attention_cached_plain, compat_attention_plain,
         compat_flash_attention, compat_flash_attention_build)
 
@@ -314,12 +386,7 @@ def attention_phase(dev, rates, gen, src, tgt, mask):
                  f"entries, by at most {diff.max().item()}")
         del ref
         caches[cdt] = got
-        ld = cache_row_stride(N, cdt)
-        two_sqrt = cdt != i8
-        bound_ms, bound_by = rates.bound(
-            B * N * ld * got.element_size() + B * N * 6 * 4,
-            {"alu": (20 if two_sqrt else 26) * B * N * N / rates.alu,
-             "sfu": (3 if two_sqrt else 2) * B * N * N / rates.sfu})
+        bound_ms, bound_by = cache_bound(rates, cdt)
         cache_row[cdt] = dict(
             ms=cuda_ms(lambda: build_compat_cache(src, tgt, 0.10, cdt),
                        reps=5),
@@ -890,6 +957,227 @@ def backward_phase(dev, rates):
     return rows, extra
 
 
+def variant_bound(rates, variant, b, n, dtype=torch.bfloat16):
+    """(bound_ms, bound_by) of one layer of ``variant`` at [b, n, D]: q,
+    k, v read and out written in ``dtype``, the keypoints (v0, v2, v3, v6)
+    or the cache (v4 bf16, v5 f32), the two products of depth D per (i, j)
+    on the bf16 tensor cores (f32: CUDA cores) and VARIANT_OPS. The
+    benchmark passes no mask."""
+    from gmf_tpu_torch.ops.flash_variants import CACHE_DTYPES
+    from gmf_tpu_torch.ops.fused_attention import cache_row_stride
+
+    pairs = b * n * n
+    nbytes = 4 * b * n * D * (torch.finfo(dtype).bits // 8)
+    if variant in CACHE_DTYPES:
+        cdt = CACHE_DTYPES[variant]
+        nbytes += (b * n * cache_row_stride(n, cdt)
+                   * (torch.finfo(cdt).bits // 8))
+    elif variant != "v1":
+        nbytes += b * n * 6 * 4
+    alu, sfu = VARIANT_OPS[variant]
+    mm_rate = BF16_TC_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    return rates.bound(nbytes, {"products": 4 * D * pairs / mm_rate,
+                                "alu": alu * pairs / rates.alu,
+                                "sfu": sfu * pairs / rates.sfu})
+
+
+def precompute_row(rates, cdt, src, tgt, slices, cache):
+    """The standalone cache of ``cdt`` (kernel 4, the microbenchmark's
+    precompute) that the kernel built from ``src`` and ``tgt``, held
+    against its plain version on each slice of pairs in every byte, as
+    kernel_phase holds it; the plain version's time and the bound at that
+    shape."""
+    from gmf_tpu_torch.ops.fused_attention import build_compat_cache_plain
+
+    def plain():
+        return [build_compat_cache_plain(src[sl], tgt[sl], 0.10, cdt)
+                for sl in slices]
+
+    for sl, ref in zip(slices, plain()):
+        if not torch.equal(cache[sl], ref):
+            fail(f"build_compat_cache {cdt} at B={src.shape[0]}, pairs "
+                 f"{sl.start}..{sl.stop - 1}: differs from its plain "
+                 "version")
+        del ref
+    b, n, _ = src.shape
+    bound_ms, bound_by = cache_bound(rates, cdt, b, n)
+    return dict(precompute_plain_ms=cuda_ms(plain, reps=1, warmup=0),
+                precompute_bound_ms=bound_ms, precompute_bound_by=bound_by)
+
+
+def variants_phase(dev, rates):
+    """The attention-variant microbenchmark's kernels and its run.
+
+    1. Each of the four instances of compat_flash_variants.cu (v0, v1, v3,
+       v6) against flash_variant_plain at kernel_phase's shape (B=8,
+       N=5000 with 4000 valid rows in pair 0, D=128) in bf16 and f32, and
+       at a ragged N=333, with kernel_phase's limits (attention_tol);
+       their time and the plain version's at 8 x 5000.
+    2. The benchmark through its entry point at its full size (B=64,
+       N=5000, D=128, 12 layers) with VARIANT_ITERS timed stacks: the
+       path of these kernels. Launch counts are reset just before and
+       read just after, and must be VARIANT_BENCH_LAUNCHES exactly. Every
+       time and difference it reports must be finite.
+    3. One layer of each variant's kernel on the benchmark's own input
+       (B=64, N=5000, q = k = v, no mask) against its plain version run
+       in slices of 8 pairs, with the limits of step 1: flash_variant for
+       v0-v3 and v6, and for v4 and v5 the standalone cache (every byte
+       against the plain one) and the cached kernel on it. The plain
+       version's time and each variant's bound at that shape.
+    Returns the kernel rows of the four instances and the summary."""
+    from gmf_tpu_torch.ops import _build
+    from gmf_tpu_torch.ops.flash_variants import (
+        CACHE_DTYPES, VARIANTS, flash_variant, flash_variant_plain)
+    from gmf_tpu_torch.ops.fused_attention import (
+        build_compat_cache, build_compat_cache_plain,
+        compat_attention_cached_plain)
+    from gmf_tpu_torch.tools import bench_flash_variants as bench
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    names = {f32: "f32", bf16: "bf16"}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    _, src, tgt, mask = make_inputs(dev)
+    checks = {v: {} for v in VARIANT_KERNELS}
+    for dtype in (f32, bf16):
+        q, k, v = (torch.randn(B, N, D, generator=gen, device=dev).to(dtype)
+                   for _ in range(3))
+        n_r = 333
+        qr, kr, vr = (torch.randn(B, n_r, D, generator=gen, device=dev)
+                      .to(dtype) for _ in range(3))
+        src_r = 2.5 * torch.rand(B, n_r, 3, generator=gen, device=dev)
+        tgt_r = src_r + 0.02 * torch.randn(B, n_r, 3, generator=gen,
+                                           device=dev)
+        for variant in VARIANT_KERNELS:
+            c = checks[variant]
+            main = f"b{B}_n{N}_{names[dtype]}"
+            for tag, args in ((main, (q, k, v, src, tgt, mask)),
+                              (f"b{B}_n{n_r}_{names[dtype]}",
+                               (qr, kr, vr, src_r, tgt_r, None))):
+                got = flash_variant(*args, variant=variant)
+                ref = flash_variant_plain(*args, variant=variant)
+                tol, ref_max = attention_tol(ref, dtype)
+                err = (got.float() - ref.float()).abs().max().item()
+                if not err <= tol:
+                    fail(f"{VARIANT_KERNELS[variant]} {tag}: max abs err "
+                         f"{err} > {tol}")
+                c[f"{tag}_max_abs_err"] = err
+                c[f"{tag}_tolerance"] = tol
+                del got, ref
+            c[f"{main}_ms"] = cuda_ms(lambda: flash_variant(
+                q, k, v, src, tgt, mask=mask, variant=variant), reps=5)
+            c[f"{main}_plain_ms"] = cuda_ms(
+                lambda: flash_variant_plain(q, k, v, src, tgt, mask=mask,
+                                            variant=variant),
+                reps=2, warmup=1)
+            c[f"{main}_bound_ms"] = variant_bound(rates, variant, B, N,
+                                                  dtype)[0]
+        del q, k, v, qr, kr, vr
+        torch.cuda.empty_cache()
+    print(f"variant kernels vs plain passed: {json.dumps(checks)}",
+          flush=True)
+
+    # the benchmark: the path of the four instances
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    res = bench.main(["--iters", str(VARIANT_ITERS),
+                      "--layers", str(VARIANT_LAYERS)])
+    torch.cuda.synchronize()
+    launches = {k: _build.launches[k] for k in KERNELS}
+    for k in KERNELS:
+        if launches[k] != VARIANT_BENCH_LAUNCHES.get(k, 0):
+            fail(f"bench_flash_variants: {k} launched {launches[k]} times, "
+                 f"expected {VARIANT_BENCH_LAUNCHES.get(k, 0)}")
+    numbers = [res["sdpa"]["ms_per_stack"], res["sdpa"]["max_abs_diff_vs_v1"]]
+    for row in res["variants"].values():
+        numbers += [row["ms_per_stack"], row.get("precompute_ms", 1.0),
+                    row["max_abs_diff_vs_v0"] or 0.0]
+    if not all(math.isfinite(x) and x >= 0 for x in numbers):
+        fail(f"bench_flash_variants: a time or difference is not finite: "
+             f"{res}")
+    # the library computes v1's function independently: after one layer
+    # within attention_tol's 2 bf16 ulps of the largest output (the
+    # stack's 12 layers amplify the two softmaxes' different roundings)
+    sdpa = res["sdpa"]
+    sdpa_tol = 2 * bf16_ulp(sdpa["one_layer_v1_max_abs_out"])
+    if not sdpa["one_layer_max_abs_diff_vs_v1"] <= sdpa_tol:
+        fail(f"scaled_dot_product_attention and v1 differ by "
+             f"{sdpa['one_layer_max_abs_diff_vs_v1']} > {sdpa_tol} after "
+             "one layer")
+    b, n = res["batch"], res["num_corr"]
+
+    # each variant's kernel against its plain version, one layer of the
+    # benchmark's input; plain times and bounds at that shape
+    q, src64, tgt64 = bench.make_inputs(b, n, dev)
+    slices = [slice(s0, s0 + B) for s0 in range(0, b, B)]
+    summary = {}
+    for variant in VARIANTS:
+        pre = {}
+        if variant in CACHE_DTYPES:
+            cdt = CACHE_DTYPES[variant]
+            cache = build_compat_cache(src64, tgt64, bench.SIGMA_D, cdt)
+            pre = precompute_row(rates, cdt, src64, tgt64, slices, cache)
+            got = bench.cached_layer(q, cache)
+        else:
+            cache = None
+            got = bench.variant_layer(q, variant, src64, tgt64)
+
+        def plain_layer():
+            if cache is None:
+                return torch.cat([flash_variant_plain(
+                    q[sl], q[sl], q[sl], src64[sl], tgt64[sl],
+                    variant=variant, sigma_d=bench.SIGMA_D)
+                    for sl in slices])
+            return torch.cat([compat_attention_cached_plain(
+                q[sl], q[sl], q[sl], cache[sl]) for sl in slices])
+
+        ref = plain_layer()
+        tol, _ = attention_tol(ref, torch.bfloat16)
+        err = (got.float() - ref.float()).abs().max().item()
+        if not err <= tol:
+            fail(f"bench_flash_variants {variant} at B={b}, N={n}: max abs "
+                 f"err {err} > {tol} against the plain version")
+        del got, ref
+        bound_ms, bound_by = variant_bound(rates, variant, b, n)
+        summary[variant] = dict(
+            res["variants"][variant],
+            max_abs_err=err, tolerance=tol,
+            plain_ms_per_layer=cuda_ms(plain_layer, reps=1, warmup=0),
+            bound_ms_per_layer=bound_ms, bound_by=bound_by, **pre,
+            kernel=VARIANT_KERNELS.get(variant, {
+                "v2": "compat_flash_attention"}.get(
+                    variant, "compat_flash_attention_cached")))
+        del cache
+        torch.cuda.empty_cache()
+    del q, src64, tgt64
+    out = dict(batch=b, num_corr=n, layers=res["layers"],
+               iters=res["iters"], launches=launches, variants=summary,
+               sdpa=res["sdpa"], card=res["card"])
+    print(f"path bench_flash_variants: {json.dumps(out)}", flush=True)
+
+    rows = {}
+    for variant, name in VARIANT_KERNELS.items():
+        c, r = checks[variant], summary[variant]
+        rows[name] = dict(
+            dtype="bf16", shape=[b, n, D], variant=variant,
+            max_abs_err=r["max_abs_err"], tolerance=r["tolerance"],
+            ms=r["ms_per_layer"],
+            plain_ms=r["plain_ms_per_layer"],
+            bound_ms=r["bound_ms_per_layer"], bound_by=r["bound_by"],
+            library_ms=None, **c)
+    rows[VARIANT_KERNELS["v1"]].update(
+        library_ms=res["sdpa"]["ms_per_layer"],
+        library=("torch.nn.functional.scaled_dot_product_attention, one "
+                 f"head, backend {res['sdpa']['backend']}"))
+    # the benchmark's launches of kernels 1, 4 and 6, held at its shape
+    extra = {"compat_flash_attention": {
+                 "bench_v2_b64_max_abs_err": summary["v2"]["max_abs_err"]},
+             "compat_flash_attention_cached": {
+                 f"bench_{v}_b64_max_abs_err": summary[v]["max_abs_err"]
+                 for v in CACHE_DTYPES},
+             "build_compat_cache": {"bench_b64_bf16_f32_max_abs_err": 0.0}}
+    return rows, out, extra
+
+
 def make_trainer(dev, compat_cache, batch_size=B_TRAIN, steps=1,
                  num_corr=N_TRAIN):
     """The reference's 3DMatch training configuration at full width (12
@@ -1295,8 +1583,18 @@ def main():
         rows[name].update(extra)
     torch.cuda.empty_cache()
 
+    # 3b. the attention variants and their microbenchmark
+    t0 = time.perf_counter()
+    rows_var, variants, var_extra = variants_phase(dev, rates)
+    variants["phase_seconds"] = time.perf_counter() - t0
+    print(f"variants phase in {variants['phase_seconds']:.1f} s", flush=True)
+    rows.update(rows_var)
+    for name, extra in var_extra.items():
+        rows[name].update(extra)
+    torch.cuda.empty_cache()
+
     # 4. the served paths at full width; the main path first
-    paths, results, winners = {}, {}, {}
+    paths, results, winners = {"bench_flash_variants": variants}, {}, {}
     requests8 = make_requests(B)
     for name, spec in PATHS.items():
         reqs = make_requests(B_MAIN) if spec["pairs"] == B_MAIN else requests8
@@ -1354,9 +1652,14 @@ def main():
     for name in KERNELS:
         r = rows[name]
         path = KERNEL_PATH[name]
-        per = (dict(launches_per_step=TRAIN_PATHS[path]["per_step"][name])
-               if path in TRAIN_PATHS else
-               dict(launches_per_forward=PATHS[path]["per_forward"][name]))
+        if path in TRAIN_PATHS:
+            per = dict(launches_per_step=TRAIN_PATHS[path]["per_step"][name])
+        elif path in PATHS:
+            per = dict(launches_per_forward=PATHS[path]["per_forward"][name])
+        else:
+            per = dict(launches_per_stack=VARIANT_LAYERS)
+        if name in ALSO_REPLACES:
+            per["also_replaces"] = ALSO_REPLACES[name]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=paths[path]["launches"][name],
@@ -1364,7 +1667,9 @@ def main():
             ms=r.pop("ms"),
             plain_ms=r.pop("plain_ms"), bound_ms=r.pop("bound_ms"),
             bound_by=r.pop("bound_by"),
-            library_ms=None,  # no single PyTorch call computes any of them
+            # one PyTorch call computes only v1's function (attention
+            # without compat); none computes the others
+            library_ms=r.pop("library_ms", None),
             **r))
         if kernels[-1]["launches"] < 1:
             fail(f"{name} was not launched on path {path}")

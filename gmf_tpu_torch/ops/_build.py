@@ -69,6 +69,10 @@ SIGNATURES = {
     # cache_type, qscale, scale, stream
     "gmf_compat_flash_attention_cached_bwd_dq": [P, P, P, P, P, P, P, P, P,
                                                  I, I, I, I, I, I, F, F, P],
+    # q, k, v, src, tgt, mask, out, B, N, D, variant, is_bf16, sigma_sq,
+    # qscale, stream
+    "gmf_compat_flash_variant": [P, P, P, P, P, P, P, I, I, I, I, I, F, F,
+                                 P],
     # src, tgt, cache, B, N, ld, cache_type, sigma_sq, stream
     "gmf_build_compat_cache": [P, P, P, I, I, I, I, F, P],
     # feats, src_knn, tgt_knn, sigma, out, n_seeds, k, C, is_bf16,

@@ -9,7 +9,13 @@
 //                    attend on the DEQUANTIZED code
 //                    (compat_flash_attention_build.cu),
 //   Compat::kCached  load it from a cache of f32, bf16 or int8 codes
-//                    (compat_flash_attention_cached.cu).
+//                    (compat_flash_attention_cached.cu),
+//
+// and four more forms of the compat arithmetic that the attention-variant
+// microbenchmark compares (compat_flash_variants.cu): kNone (compat 1,
+// plain attention), kStreamOneSqrt (difference form, one sqrt), kNormId
+// and kNormIdOneSqrt (squared distances by the norm identity
+// |a|^2 + |b|^2 - 2 a.b, two sqrt or one).
 //
 // For one pair,
 //
@@ -50,7 +56,15 @@ constexpr int BK = 32;        // keys per streamed tile
 constexpr int THREADS = 256;
 constexpr float MASKED = -1e9f;
 
-enum class Compat { kStream, kBuild, kCached };
+enum class Compat {
+  kStream,
+  kBuild,
+  kCached,
+  kNone,
+  kStreamOneSqrt,
+  kNormId,
+  kNormIdOneSqrt
+};
 
 // cache element types as the C entry points number them
 constexpr int CACHE_F32 = 0, CACHE_BF16 = 1, CACHE_INT8 = 2;
@@ -84,18 +98,47 @@ __device__ __forceinline__ void squared_dists(const float* a, const float* b,
                   __fmul_rn(ez, ez));
 }
 
-// int8 cache: one-sqrt form (sqrt(a) - sqrt(b))^2 = a + b - 2 sqrt(ab),
-// then code = round_half_even(254 c - 127), returned as a float in
-// [-127, 127].
+// squared distance of a and b (3 coordinates) by the norm identity
+// |a|^2 + |b|^2 - 2 a.b, clamped at 0: it cancels where the points are
+// close against their distance from the origin
+__device__ __forceinline__ float norm_id_sq(const float* a, const float* b) {
+  const float na = __fadd_rn(__fadd_rn(__fmul_rn(a[0], a[0]),
+                                       __fmul_rn(a[1], a[1])),
+                             __fmul_rn(a[2], a[2]));
+  const float nb = __fadd_rn(__fadd_rn(__fmul_rn(b[0], b[0]),
+                                       __fmul_rn(b[1], b[1])),
+                             __fmul_rn(b[2], b[2]));
+  const float dot = __fadd_rn(__fadd_rn(__fmul_rn(a[0], b[0]),
+                                        __fmul_rn(a[1], b[1])),
+                              __fmul_rn(a[2], b[2]));
+  return fmaxf(__fsub_rn(__fadd_rn(na, nb), __fmul_rn(2.f, dot)), 0.f);
+}
+
+// compat from the squared distances, one-sqrt form:
+// (sqrt(a) - sqrt(b))^2 = a + b - 2 sqrt(ab)
+__device__ __forceinline__ float compat_one_sqrt_of(float ds2, float dt2,
+                                                    float sigma_sq) {
+  const float root = __fsqrt_rn(__fmul_rn(ds2, dt2));
+  const float dd2 = fmaxf(
+      __fsub_rn(__fadd_rn(ds2, dt2), __fmul_rn(2.f, root)), 0.f);
+  return fmaxf(__fsub_rn(1.f, __fdiv_rn(dd2, sigma_sq)), 0.f);
+}
+
+// compat from the squared distances, two-sqrt difference form
+__device__ __forceinline__ float compat_two_sqrt_of(float ds2, float dt2,
+                                                    float sigma_sq) {
+  const float dd = __fsub_rn(__fsqrt_rn(ds2), __fsqrt_rn(dt2));
+  return fmaxf(__fsub_rn(1.f, __fdiv_rn(__fmul_rn(dd, dd), sigma_sq)), 0.f);
+}
+
+// int8 cache: the one-sqrt form, then code = round_half_even(254 c - 127),
+// returned as a float in [-127, 127].
 __device__ __forceinline__ float compat_i8_code(const float* a,
                                                 const float* b,
                                                 float sigma_sq) {
   float ds2, dt2;
   squared_dists(a, b, ds2, dt2);
-  const float root = __fsqrt_rn(__fmul_rn(ds2, dt2));
-  const float dd2 = fmaxf(
-      __fsub_rn(__fadd_rn(ds2, dt2), __fmul_rn(2.f, root)), 0.f);
-  const float c = fmaxf(__fsub_rn(1.f, __fdiv_rn(dd2, sigma_sq)), 0.f);
+  const float c = compat_one_sqrt_of(ds2, dt2, sigma_sq);
   return rintf(__fsub_rn(__fmul_rn(c, 254.f), 127.f));
 }
 
@@ -105,8 +148,29 @@ __device__ __forceinline__ float compat_two_sqrt(const float* a,
                                                  float sigma_sq) {
   float ds2, dt2;
   squared_dists(a, b, ds2, dt2);
-  const float dd = __fsub_rn(__fsqrt_rn(ds2), __fsqrt_rn(dt2));
-  return fmaxf(__fsub_rn(1.f, __fdiv_rn(__fmul_rn(dd, dd), sigma_sq)), 0.f);
+  return compat_two_sqrt_of(ds2, dt2, sigma_sq);
+}
+
+// the microbenchmark's compat forms of query a and key b (s.xyz then
+// t.xyz), every operation rounded on its own as in the plain version
+template <Compat MODE>
+__device__ __forceinline__ float compat_variant(const float* a,
+                                                const float* b,
+                                                float sigma_sq) {
+  if constexpr (MODE == Compat::kNone) {
+    return 1.f;
+  } else {
+    float ds2, dt2;
+    if constexpr (MODE == Compat::kStreamOneSqrt) {
+      squared_dists(a, b, ds2, dt2);
+    } else {
+      ds2 = norm_id_sq(a, b);
+      dt2 = norm_id_sq(a + 3, b + 3);
+    }
+    if constexpr (MODE == Compat::kNormId)
+      return compat_two_sqrt_of(ds2, dt2, sigma_sq);
+    return compat_one_sqrt_of(ds2, dt2, sigma_sq);
+  }
 }
 
 // streaming compat of query a and key b (s.xyz then t.xyz): the exact
@@ -173,8 +237,9 @@ constexpr size_t smem_floats() {
          BQ * 8 + BQ;
 }
 
-// sigma_arg: 1 / sigma^2 (kStream), sigma^2 (kBuild), unused (kCached).
-// cache: written (kBuild), read (kCached), unused (kStream).
+// sigma_arg: 1 / sigma^2 (kStream), unused (kCached, kNone), sigma^2
+// (the others). cache: written (kBuild), read (kCached), unused (the
+// others).
 template <typename T, int D, Compat MODE, typename CT>
 __global__ void __launch_bounds__(THREADS)
 compat_flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
@@ -184,7 +249,8 @@ compat_flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
                  float* __restrict__ lse, CT* __restrict__ cache, int N,
                  int ld, float sigma_arg, float qscale) {
   static_assert(D % 16 == 0, "D must be a multiple of 16");
-  constexpr bool kCoords = MODE != Compat::kCached;
+  constexpr bool kCoords = MODE != Compat::kCached && MODE != Compat::kNone;
+  constexpr bool kCache = MODE == Compat::kBuild || MODE == Compat::kCached;
   constexpr int DP = D + 1;  // padded strides: column reads hit 32 banks
   constexpr int PP = BK + 1;
   constexpr int CPT = D / 16;  // output columns per thread
@@ -210,7 +276,7 @@ compat_flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     src += base * 3;
     tgt += base * 3;
   }
-  if constexpr (MODE != Compat::kStream) cache += base * ld;
+  if constexpr (kCache) cache += base * ld;
 
   for (int e = tid; e < BQ * D; e += THREADS) {
     const int r = e / D, d = e % D, i = q0 + r;
@@ -323,8 +389,10 @@ compat_flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
               state < 0.f ? 0.f : compat_i8_code(qp[rr], kp, sigma_arg);
           tile[rr][cc] = code;
           compat = dequant_i8(code);
-        } else {
+        } else if constexpr (MODE == Compat::kCached) {
           compat = tile[rr][cc];
+        } else {
+          compat = compat_variant<MODE>(qp[rr], kp, sigma_arg);
         }
         float logit = compat * s[rr][cc];
         if (state == 0.f) logit = MASKED;

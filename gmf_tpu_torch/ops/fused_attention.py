@@ -74,13 +74,14 @@ def cache_row_stride(N: int, dtype: torch.dtype) -> int:
     return -(-N // per16) * per16
 
 
-def _pairwise_sqdist(x):
-    """[B, N, 3] -> [B, N, N] squared Euclidean distances, from
-    per-coordinate differences (no norm-identity cancellation), summed
-    as (x^2 + y^2) + z^2."""
+def _pairwise_sqdist(x, y=None):
+    """[B, R, 3], [B, N, 3] (default: x) -> [B, R, N] squared Euclidean
+    distances, from per-coordinate differences (no norm-identity
+    cancellation), summed as (x^2 + y^2) + z^2."""
+    y = x if y is None else y
     d2 = None
     for c in range(3):
-        diff = x[:, :, None, c] - x[:, None, :, c]
+        diff = x[:, :, None, c] - y[:, None, :, c]
         d2 = diff * diff if d2 is None else d2 + diff * diff
     return d2
 
@@ -96,8 +97,31 @@ def _sqrt(x):
     return torch.sqrt(x)
 
 
-def _pairwise_dist(x):
-    return _sqrt(_pairwise_sqdist(x))
+def _pairwise_dist(x, y=None):
+    return _sqrt(_pairwise_sqdist(x, y))
+
+
+def _compat_two_sqrt(ds2, dt2, sigma_sq):
+    """max(1 - (sqrt(ds2) - sqrt(dt2))^2 / sigma^2, 0), one rounding per
+    operation as in the kernels; ``sigma_sq`` is a tensor (see
+    ``_sigma_sq``)."""
+    dd = _sqrt(ds2) - _sqrt(dt2)
+    return torch.clamp(1.0 - dd * dd / sigma_sq, min=0.0)
+
+
+def _compat_one_sqrt(ds2, dt2, sigma_sq):
+    """The one-sqrt form of ``_compat_two_sqrt``:
+    (sqrt(a) - sqrt(b))^2 = max(a + b - 2 sqrt(ab), 0)."""
+    dd2 = torch.clamp(ds2 + dt2 - 2.0 * _sqrt(ds2 * dt2), min=0.0)
+    return torch.clamp(1.0 - dd2 / sigma_sq, min=0.0)
+
+
+def _sigma_sq(sigma_d, device):
+    """sigma_d^2 as an f32 tensor: PyTorch turns a division by a Python
+    scalar into a multiplication by its reciprocal on CUDA, one rounding
+    more than the kernels' division."""
+    return torch.tensor(float(sigma_d) ** 2, dtype=torch.float32,
+                        device=device)
 
 
 def _qscale(D: int) -> float:
@@ -117,7 +141,7 @@ def _rounder(dtype):
 def _logits_plain(q, k, compat, mask):
     """Base-2 logits compat * (q * scale * log2(e)) . k, masked keys
     -1e9, in f32; under bf16 the scaled q is rounded first, as in the
-    kernels."""
+    kernels. q may hold a slice of the query rows."""
     qs = _rounder(q.dtype)(q.float() * _qscale(q.shape[-1]))
     logits = compat * torch.matmul(qs, k.float().transpose(-1, -2))
     if mask is not None:
@@ -166,10 +190,13 @@ def _attend_bwd_plain(q, k, v, do, out, lse, compat, mask):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _stream_compat_plain(src_keypts, tgt_keypts, sigma_d):
-    """Dense [B, N, N] f32 compat of the streaming mode."""
-    compat = _pairwise_dist(src_keypts.float()) - _pairwise_dist(
-        tgt_keypts.float())
+def _stream_compat_plain(src_keypts, tgt_keypts, sigma_d,
+                         rows=slice(None)):
+    """Dense [B, N, N] f32 compat of the streaming mode, or [B, R, N] of
+    the query ``rows`` against every key."""
+    src, tgt = src_keypts.float(), tgt_keypts.float()
+    compat = (_pairwise_dist(src[:, rows], src)
+              - _pairwise_dist(tgt[:, rows], tgt))
     return torch.clamp(1.0 - compat * compat / sigma_d ** 2, min=0.0)
 
 
@@ -225,19 +252,14 @@ def build_compat_cache_plain(src_keypts, tgt_keypts, sigma_d: float = 0.10,
     the same order, one rounding each, on dense [B, N, N] tensors."""
     B, N, _ = src_keypts.shape
     ld = cache_row_stride(N, dtype)
-    # a tensor, not a Python scalar: PyTorch turns a division by a scalar
-    # into a multiplication by its reciprocal on CUDA, one rounding more
-    sigma_sq = torch.tensor(float(sigma_d) ** 2, dtype=torch.float32,
-                            device=src_keypts.device)
+    sigma_sq = _sigma_sq(sigma_d, src_keypts.device)
     ds2 = _pairwise_sqdist(src_keypts.float())
     dt2 = _pairwise_sqdist(tgt_keypts.float())
     if dtype == torch.int8:
-        dd2 = torch.clamp(ds2 + dt2 - 2.0 * _sqrt(ds2 * dt2), min=0.0)
-        c = torch.clamp(1.0 - dd2 / sigma_sq, min=0.0)
+        c = _compat_one_sqrt(ds2, dt2, sigma_sq)
         vals = torch.round(c * _I8_SCALE - _I8_BIAS).to(torch.int8)
     else:
-        dd = _sqrt(ds2) - _sqrt(dt2)
-        vals = torch.clamp(1.0 - dd * dd / sigma_sq, min=0.0).to(dtype)
+        vals = _compat_two_sqrt(ds2, dt2, sigma_sq).to(dtype)
     cache = torch.zeros(B, N, ld, dtype=dtype, device=src_keypts.device)
     cache[:, :, :N] = vals
     return cache

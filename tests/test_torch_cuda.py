@@ -15,6 +15,10 @@ from gmf_tpu_torch.data.synthetic import make_correspondence_problem
 from gmf_tpu_torch.eval.registration import PointDSCRegistrar
 from gmf_tpu_torch.models import PointDSC
 from gmf_tpu_torch.ops import _build
+from gmf_tpu_torch.ops.flash_variants import (IN_KERNEL,
+                                              KERNELS as VARIANT_KERNELS,
+                                              flash_variant,
+                                              flash_variant_plain)
 from gmf_tpu_torch.ops.fused_attention import (
     _cached_forward, _load_compat, _logits_plain, _stream_compat_plain,
     _streaming_forward, build_compat_cache,
@@ -154,6 +158,39 @@ def test_cached_attention_kernel(gen, cuda, dtype, D, cache_dtype):
     with pytest.raises(ValueError, match="layout"):
         compat_flash_attention(q, k, v, None, None, mask=m,
                                compat=cache[:, :, :-1])
+
+
+# launches of one flash_variant call, by variant
+_VARIANT_LAUNCHES = {
+    **{v: {name: 1} for v, name in VARIANT_KERNELS.items()},
+    "v2": {"compat_flash_attention": 1},
+}
+
+
+@pytest.mark.parametrize("variant", IN_KERNEL)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 128])
+def test_flash_variant_kernel(gen, cuda, dtype, D, variant):
+    """Each variant of the microbenchmark at N=333 (no multiple of the
+    64-row blocks or the 32-key tiles), pair 0 partly masked, against
+    flash_variant_plain, with the launches it makes. v0, v1, v3 and v6 are
+    the four instances of compat_flash_variants.cu: kernel and plain
+    version round every compat operation alike, so they differ by the
+    softmax's summation order and running max only: f32 1e-5, bf16 2 ulps
+    at the largest output. v2 launches the streaming kernel, held to the
+    same limits (v4 and v5 are the cached kernel on a standalone cache:
+    test_cached_attention_kernel)."""
+    q, k, v, src, tgt, m = _attention_inputs(gen, cuda, dtype, D)
+    before = _build.launches.copy()
+    got = flash_variant(q, k, v, src, tgt, mask=m, variant=variant)
+    torch.cuda.synchronize()
+    made = {n: c - before[n] for n, c in _build.launches.items()
+            if c != before[n]}
+    assert made == _VARIANT_LAUNCHES[variant]
+    ref = flash_variant_plain(q, k, v, src, tgt, mask=m, variant=variant)
+    assert got.dtype == dtype and got.shape == ref.shape
+    torch.testing.assert_close(got.float(), ref.float(),
+                               atol=_out_atol(ref, dtype), rtol=0)
 
 
 def _bf16_ulp(x):

@@ -1,6 +1,8 @@
 """Package rules of gmf_tpu_torch: no JAX anywhere, the card by default."""
 
 import ast
+import functools
+import pkgutil
 import subprocess
 import sys
 from pathlib import Path
@@ -9,10 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+import gmf_tpu_torch
 from gmf_tpu_torch.data.synthetic import make_correspondence_problem
 from gmf_tpu_torch.eval.registration import PointDSCRegistrar
 from gmf_tpu_torch.models import PointDSC
-from gmf_tpu_torch.ops import fused_attention, fused_seed_solver
+from gmf_tpu_torch.ops import (flash_variants, fused_attention,
+                               fused_seed_solver)
+from gmf_tpu_torch.tools import bench_flash_variants
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
@@ -74,6 +79,28 @@ def test_entry_points_default_to_cuda():
     assert np.isfinite(trans).all()
 
 
+def test_bench_entry_point_defaults_to_cuda():
+    """The variant microbenchmark runs on the card unless asked for the
+    CPU, and without CUDA it raises instead of falling back."""
+    assert bench_flash_variants.parse_args([]).device == "cuda"
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench_flash_variants.main(["--num-corr", "8", "--batch", "1",
+                                   "--layers", "1", "--iters", "1"])
+
+
+def test_no_jax_checks_cover_the_tools():
+    """tools/ is inside the checks above: the glob of
+    test_no_jax_import_statements and the package walk of
+    test_importing_the_port_loads_no_jax both reach it."""
+    assert (ROOT / "gmf_tpu_torch/tools/bench_flash_variants.py") in set(
+        (ROOT / "gmf_tpu_torch").rglob("*.py"))
+    assert "gmf_tpu_torch.tools.bench_flash_variants" in {
+        m.name for m in pkgutil.walk_packages(gmf_tpu_torch.__path__,
+                                              "gmf_tpu_torch.")}
+
+
 def test_wrappers_take_plain_version_only_on_cpu():
     x = torch.zeros(1, 4, 32, device="meta")
     kp = torch.zeros(1, 4, 3, device="meta")
@@ -87,6 +114,8 @@ def test_wrappers_take_plain_version_only_on_cpu():
         lambda: fused_attention.build_compat_cache(kp, kp, 0.1, torch.int8),
         lambda: fused_seed_solver.fused_seed_weights(
             torch.zeros(1, 2, 4, 32, device="meta"), knn, knn, 1.0, 0.1),
+        *(functools.partial(flash_variants.flash_variant, x, x, x, kp, kp,
+                            variant=v) for v in flash_variants.IN_KERNEL),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="unsupported device"):
