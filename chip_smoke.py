@@ -17,7 +17,13 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
    kernel's on that cache. Then the five kernels of the main path once
    more at that path's B=64 (bf16 attention, every pair with its own
    count of valid rows), with the same limits, their plain versions run
-   in slices of 8 pairs. Then every kernel of the training paths at the
+   in slices of 8 pairs. Then the bf16 forward core (core_phase) in each
+   of its modes (streaming, build+attend, cached on int8, bf16 and f32
+   caches, no compat) at D=32 and 128 and N in 1, 63-65, 127-129, 333,
+   5000, with masked keys inside a tile and a pair whose keys are all
+   masked, and across the pair boundary (the next pair's k and v all
+   inf), output and lse against the plain version with the limits above.
+   Then every kernel of the training paths at the
    training shape, B=16, N=1000, D=128 with the last 10% of pair 0
    masked, f32 and bf16: the four backward kernels (dK/dV and dQ,
    streaming and cached, the cached ones on each cache type), the
@@ -719,6 +725,146 @@ def main_shape_phase(dev):
     errs.update(seed_kernels_check(f"B={B_MAIN}", gen, prob["gt_trans"], src,
                                    tgt, mask, S, slices))
     return errs
+
+
+# the bf16 forward core (compat_flash_fwd_tc) at the edges of its tiles:
+# key counts below, at and around one 64-key tile (the tile beside a bf16
+# or f32 cache) and one 128-key tile and 128-row query block, a ragged 333
+# and the bench's 5000, at both head widths, in each of its modes
+CORE_N = (1, 63, 64, 65, 127, 128, 129, 333, 5000)
+CORE_D = (32, 128)
+CORE_MODES = ("stream", "build", "cached_int8", "cached_bf16", "cached_f32",
+              "none")
+
+
+def core_inputs(gen, b, n, d, dev):
+    """bf16 q, k, v [b, n, d], keypoints in a 2.5 m cube with 40% of the
+    targets near their sources, and the mask: pair 0 with masked keys in
+    the middle of its tiles (keys 20..39 of every 64 and every key of
+    index 3 mod 7), pair 1 with every key masked, the others none."""
+    q, k, v = (torch.randn(b, n, d, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    src = 2.5 * torch.rand(b, n, 3, generator=gen, device=dev)
+    tgt = torch.where(torch.rand(b, n, 1, generator=gen, device=dev) < 0.4,
+                      src + 0.02 * torch.randn(b, n, 3, generator=gen,
+                                               device=dev),
+                      2.5 * torch.rand(b, n, 3, generator=gen, device=dev))
+    mask = torch.ones(b, n, device=dev)
+    j = torch.arange(n, device=dev)
+    mask[0, ((j % 64 >= 20) & (j % 64 < 40)) | (j % 7 == 3)] = 0.0
+    if b > 1:
+        mask[1] = 0.0
+    return q, k, v, src, tgt, mask
+
+
+def core_case(mode, q, k, v, src, tgt, mask, pairs=slice(None)):
+    """One bf16 mode of the forward core on the card and its plain version
+    on the pairs ``pairs``: ((out, lse), (ref_out, ref_lse)), lse None
+    where the kernel writes none (build+attend, the variants). The
+    build+attend cache must equal the plain one in every byte, and its
+    output the cached kernel's on that cache exactly."""
+    from gmf_tpu_torch.ops.flash_variants import (flash_variant,
+                                                  flash_variant_plain)
+    from gmf_tpu_torch.ops.fused_attention import (
+        _cached_forward, _streaming_forward, build_compat_cache,
+        build_compat_cache_plain, compat_attention_cached_plain,
+        compat_attention_plain, compat_flash_attention,
+        compat_flash_attention_build)
+
+    p = pairs
+    if mode == "stream":
+        out, lse = _streaming_forward(q, k, v, src, tgt, mask, 0.10, True)
+        ref = compat_attention_plain(q[p], k[p], v[p], src[p], tgt[p],
+                                     mask[p], return_lse=True)
+    elif mode == "build":
+        out, cache = compat_flash_attention_build(q, k, v, src, tgt,
+                                                  mask=mask)
+        lse = None
+        ref_cache = build_compat_cache_plain(src, tgt, 0.10, torch.int8)
+        if not torch.equal(cache, ref_cache):
+            fail(f"core {mode}: the int8 cache differs from the plain one")
+        cached = compat_flash_attention(q, k, v, None, None, mask=mask,
+                                        compat=cache)
+        if not torch.equal(out[p], cached[p]):
+            fail(f"core {mode}: the output differs from the cached "
+                 "kernel's on the cache it built")
+        ref = compat_attention_cached_plain(q[p], k[p], v[p], ref_cache[p],
+                                            mask[p], return_lse=True)
+    elif mode.startswith("cached"):
+        cdt = {"int8": torch.int8, "bf16": torch.bfloat16,
+               "f32": torch.float32}[mode.split("_")[1]]
+        cache = build_compat_cache(src, tgt, 0.10, cdt)
+        out, lse = _cached_forward(q, k, v, cache, mask, True)
+        ref = compat_attention_cached_plain(q[p], k[p], v[p], cache[p],
+                                            mask[p], return_lse=True)
+    else:
+        out, lse = flash_variant(q, k, v, src, tgt, mask=mask,
+                                 variant="v1"), None
+        ref = flash_variant_plain(q[p], k[p], v[p], src[p], tgt[p],
+                                  mask=mask[p], variant="v1"), None
+    return (out[p], None if lse is None else lse[p]), ref
+
+
+def core_errors(where, got, ref):
+    """Output within attention_tol (2 bf16 ulps of the largest output),
+    lse within 1e-5 (summation order) on every row of a pair with a valid
+    key; returns (out err, lse err or None)."""
+    (out, lse), (ref_out, ref_lse) = got, ref
+    tol, _ = attention_tol(ref_out, torch.bfloat16)
+    err = (out.float() - ref_out.float()).abs().max().item()
+    if not err <= tol:
+        fail(f"{where}: max abs err {err} > {tol}")
+    if lse is None:
+        return err, None
+    rows = ref_lse > -1e8  # pairs with every key masked: lse -1e9
+    lse_err = (lse - ref_lse)[rows].abs().max().item() if rows.any() else 0.
+    if not lse_err <= 1e-5:
+        fail(f"{where}: lse differs from the plain forward's by {lse_err}")
+    return err, lse_err
+
+
+def max_measured(a, b):
+    """The larger of two errors, either of which may be None (not
+    measured: the kernel writes no lse); None if neither was measured."""
+    return a if b is None else b if a is None else max(a, b)
+
+
+def core_phase(dev):
+    """The bf16 forward core in each mode (streaming, build+attend, cached
+    on int8, bf16 and f32 caches, no compat) at D = 32 and 128 and every N
+    of CORE_N, 3 pairs (core_inputs' masks), against its plain version
+    (core_case, core_errors). Then the pair boundary at N = 333, whose
+    last tile reaches 51 rows into the next pair: 2 pairs, pair 1's k and
+    v all inf and its mask 1; pair 0's output and lse against the plain
+    version of pair 0 alone, with the same limits. Returns each mode's
+    largest errors; the lse error is None for the modes that write no lse
+    (build, none)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    worst = {m: [0.0, None] for m in CORE_MODES}
+    for d in CORE_D:
+        for n in CORE_N:
+            inputs = core_inputs(gen, 3, n, d, dev)
+            for mode in CORE_MODES:
+                err, lse_err = core_errors(f"core {mode} D={d} N={n}",
+                                           *core_case(mode, *inputs))
+                worst[mode][0] = max(worst[mode][0], err)
+                worst[mode][1] = max_measured(worst[mode][1], lse_err)
+            del inputs
+        q, k, v, src, tgt, _ = core_inputs(gen, 2, 333, d, dev)
+        k[1], v[1] = math.inf, math.inf
+        mask = torch.ones(2, 333, device=dev)
+        for mode in CORE_MODES:
+            err, lse_err = core_errors(
+                f"core {mode} D={d} pair boundary",
+                *core_case(mode, q, k, v, src, tgt, mask, slice(0, 1)))
+            worst[mode][0] = max(worst[mode][0], err)
+            worst[mode][1] = max_measured(worst[mode][1], lse_err)
+    torch.cuda.empty_cache()
+    out = {m: {"max_abs_err": e, "lse_max_abs_err": le}
+           for m, (e, le) in worst.items()}
+    print(f"bf16 core checks passed (N {list(CORE_N)}, D {list(CORE_D)}, "
+          f"pair boundary): {json.dumps(out)}", flush=True)
+    return out
 
 
 def seed_kernels_check(where, gen, gt_trans, src, tgt, mask, s, slices):
@@ -1575,6 +1721,7 @@ def main():
     for name, err in main_shape_phase(dev).items():
         rows[name][f"b{B_MAIN}_max_abs_err"] = err
     torch.cuda.empty_cache()
+    core = core_phase(dev)
     print("kernel checks passed", flush=True)
 
     rows_bwd, train_extra = backward_phase(dev, rates)
@@ -1591,6 +1738,12 @@ def main():
     rows.update(rows_var)
     for name, extra in var_extra.items():
         rows[name].update(extra)
+    for name, modes in (("compat_flash_attention", ["stream"]),
+                        ("compat_flash_attention_build", ["build"]),
+                        ("compat_flash_attention_cached",
+                         ["cached_int8", "cached_bf16", "cached_f32"]),
+                        (VARIANT_KERNELS["v1"], ["none"])):
+        rows[name]["bf16_core_checks"] = {m: core[m] for m in modes}
     torch.cuda.empty_cache()
 
     # 4. the served paths at full width; the main path first

@@ -16,12 +16,12 @@
 // rather than the TPU kernel's norm identity |a|^2 + |b|^2 - 2a.b, which
 // cancels at metre-scale extents and only paid off on the TPU's MXU.
 //
-// Bound on this card: per (i, j) the kernel does 2*D FMAs (q.k and p.v),
-// ~20 f32 ALU ops of compat, 2 sqrt and 1 exp2 on the SFU; bytes are
-// O(N*D) per pair. This first version keeps everything on the CUDA cores
-// (no mma/wgmma), so the 2*D FMAs bound it: f32-ALU bound. Register
-// micro-tiles (2x4 logits, 4xD/16 accumulators per thread) keep the
-// shared-memory reads per FMA low; tensor cores are the next step.
+// Bound on this card: per (i, j) the kernel does 2*D multiply-adds (q.k
+// and p.v), ~20 f32 ALU ops of compat, 2 sqrt and 1 exp2 on the SFU;
+// bytes are O(N*D) per pair. bf16: the products run on the tensor cores
+// (wgmma), so the SFU's 3 ops per (i, j) bound it, the products next;
+// compat is computed on S's fragment in registers. f32: the products are
+// FMAs on the CUDA cores and bound it.
 
 #include "compat_flash_core.cuh"
 

@@ -18,9 +18,12 @@
 // (i, j) is visited once); pad columns N..ld-1 are written as 0. The
 // kernel is the Compat::kBuild instance of compat_flash_core.cuh.
 //
-// Bound on this card: the streaming kernel's 2*D FMAs per (i, j) plus one
-// sqrt, one division and one exp2; the cache store adds B*N*ld bytes. On
-// the CUDA cores the FMAs bound it (f32-ALU bound).
+// Bound on this card: the streaming kernel's 2*D multiply-adds per (i, j)
+// plus ~29 explicitly rounded ALU ops, one sqrt, one division and one
+// exp2; the cache store adds B*N*ld bytes. bf16: the products run on the
+// tensor cores and the code's ALU and SFU ops bound it; each warp stages
+// its 16 rows of codes in shared memory and stores them 16 bytes a lane.
+// f32: the FMAs on the CUDA cores bound it.
 
 #include "compat_flash_core.cuh"
 

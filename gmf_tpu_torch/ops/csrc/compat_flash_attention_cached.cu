@@ -6,17 +6,20 @@
 // attention of the PointDSC NonLocal layers that share one compat matrix.
 // The cache tile takes the place of the compat arithmetic; an int8 cache is
 // dequantized as code / 254 + 0.5 (one FMA), bf16 and f32 are widened. The
-// tile is the only O(N^2) stream read from device memory: each thread
-// fetches 4 neighbouring entries of a row with one vector load, started
-// before the q.k loop so that it is in flight during the products. Masked
-// keys are excluded by the mask, as in the streaming kernel; the cache
-// holds entries for them. The kernel is the Compat::kCached instance of
+// tile is the only O(N^2) stream read from device memory. bf16: the block's
+// cache tile (128 x 128 int8 entries, 128 x 64 bf16 or f32) travels by
+// cp.async with K and V, one tile ahead of its use, and each thread reads its entries from shared memory in the
+// S fragment's layout; f32: each thread loads 4 neighbouring entries of a
+// row with one vector load, in flight during the products. Masked keys are
+// excluded by the mask, as in the streaming kernel; the cache holds
+// entries for them. The kernel is the Compat::kCached instance of
 // compat_flash_core.cuh.
 //
-// Bound on this card: 2*D FMAs and one exp2 per (i, j); bytes are the
-// cache, B*N*ld elements, plus O(N*D) per pair. On the CUDA cores the FMAs
-// bound it (f32-ALU bound); with the products on the tensor cores an int8
-// cache at D=128 would be bound by its bytes.
+// Bound on this card: 2*D multiply-adds and one exp2 per (i, j); bytes are
+// the cache, B*N*ld elements, plus O(N*D) per pair. bf16: the products on
+// the tensor cores bound it at D=128 (0.83 ms at 64 x 5000), the int8
+// cache's bytes next (0.48 ms), a bf16 or f32 cache's bytes first. f32:
+// the FMAs on the CUDA cores bound it.
 
 #include "compat_flash_core.cuh"
 

@@ -22,20 +22,32 @@
 //   out[i] = softmax_j(compat[i,j] * q_i.k_j / sqrt(D)) @ v
 //
 // with masked keys set to -1e9 AFTER the compat multiply (a compat of 0
-// does not exclude a key). Each block owns BQ query rows of one pair and
-// streams key tiles of BK rows through shared memory, with an online
-// base-2 softmax whose scale*log2(e) is folded into q once. The batch is
-// the grid's y dimension; keys past N carry zero weight, so no padding to
-// a block multiple is needed. q/k/v may be f32 or bf16; arithmetic is f32.
-// Under bf16 the scaled q and the probabilities p are rounded to bf16
-// before their products, as the TPU kernels do.
+// does not exclude a key) and keys past N at weight 0, so nothing is
+// padded to a tile multiple. A block owns a tile of query rows of one pair
+// (the batch is the grid's y dimension) and streams key tiles through
+// shared memory with an online base-2 softmax whose scale*log2(e) is
+// folded into q once. It writes out in q's type and, when asked, the rows'
+// base-2 log-sum-exp m + log2(max(l, 1e-30)) that the backward reads.
+//
+// Two specialisations, chosen by q's element type in launch_flash:
+//
+//   bf16  compat_flash_fwd_tc: both products on the tensor cores (wgmma),
+//         K/V and cache tiles by cp.async in a two-slot ring, compat and
+//         softmax on the S accumulator in registers (design below, before
+//         the kernel). q * scale * log2(e) and p are rounded to bf16 before
+//         their products, as the TPU kernels do; l sums the unrounded p.
+//         Bound: the products, 4 D flop per (i, j) at 989 TFLOP/s, next to
+//         one exp2 per (i, j) on the SFU.
+//   f32   compat_flash_fwd: the products as f32 FMAs on the CUDA cores,
+//         64 queries x 32 keys a block, register micro-tiles fed from
+//         shared memory. The tensor cores would take f32 only as TF32,
+//         which keeps 10 mantissa bits: it would change the training
+//         path's numbers and the f32 cached backward's bit-for-bit
+//         agreement with its plain version. Bound: the f32 FMAs.
 //
 // The cache is [B, N, ld]: row i of a pair holds its N compat entries and
 // ld - N pad entries (zeros), ld chosen so every row starts 16-byte
-// aligned. A thread owns 4 neighbouring keys of 2 query rows, so it moves
-// its part of a cache row with one vector access (4 x int8 = 4 bytes,
-// 4 x bf16 = 8 bytes, 4 x f32 = 16 bytes), and the 8 threads of a row
-// cover 32 contiguous entries.
+// aligned, so 16-byte copies never straddle a row.
 //
 // The int8 code and the f32/bf16 compat are computed with explicitly
 // rounded operations (no FMA contraction, IEEE sqrt and division), so the
@@ -49,11 +61,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 32;        // keys per streamed tile
-constexpr int THREADS = 256;
+constexpr int BQ = 64;        // the f32 kernel's query rows per block
+constexpr int BK = 32;        // and keys per streamed tile
+constexpr int THREADS = 256;  // its threads (the backward kernels' too)
 constexpr float MASKED = -1e9f;
 
 enum class Compat {
@@ -229,7 +243,7 @@ __device__ __forceinline__ void store4(int8_t* p, const float (&c)[4]) {
       (signed char)(int)c[3]);
 }
 
-// ---- the attention kernel -------------------------------------------------
+// ---- the f32 instances: products on the CUDA cores ------------------------
 
 template <int D>
 constexpr size_t smem_floats() {
@@ -476,22 +490,578 @@ compat_flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---- the bf16 instances: products on the tensor cores --------------------
+//
+// A block is TC_WARPGROUPS warpgroups of 128 threads; each owns 64 query
+// rows (wgmma's M) and walks the key tiles of its pair. The K and V tiles
+// (bf16) and, for kCached, the block's cache tile arrive by cp.async in a
+// ring of TC_STAGES slots: tile t + 1 is copied while tile t is multiplied.
+// Per tile and warpgroup:
+//
+//   S = Qs K^T   D / 16 wgmma m64n{128|64}k16, both operands in shared
+//                memory (K-major); S stays in registers;
+//   compat, masks, online softmax on S's fragment: a thread holds rows
+//                r and r + 8 of its warp's 16 and two neighbouring columns
+//                of every 8, and the 4 lanes of a row reduce by shuffles;
+//   O += P V     P rounded to bf16 into wgmma's A registers (the
+//                accumulator's layout is the A operand's), V read from its
+//                row-major tile through the descriptor's transpose bit.
+//
+// The only block-wide barrier per tile is the ring's: it publishes tile t
+// and certifies that every warpgroup is done with the slot tile t + 1
+// will overwrite. Rows and keys past N arrive as zeros (cp.async's
+// zero-fill), so a tile never reads the next pair.
+
+constexpr int TC_WARPGROUPS = 2;
+constexpr int TC_BQ = 64 * TC_WARPGROUPS;  // query rows per block
+constexpr int TC_THREADS = 128 * TC_WARPGROUPS;
+constexpr int TC_STAGES = 2;               // ring slots
+constexpr int KEY_FIELDS = 8;              // per key: s.xyz, t.xyz, mask
+
+// Keys per tile: 128, or 64 beside a bf16 or f32 cache, whose two tiles
+// of 128 x 128 entries would not fit in shared memory next to the K and V
+// ring. On the H100 128 keys took 2-14% less time than 64 wherever both
+// fit (int8 cache, no cache; scripts/compare_forward_builds.py against a
+// copy with 64). The modes without a cache take CT = int8_t.
+template <typename CT>
+__host__ __device__ constexpr int tc_bk() {
+  return sizeof(CT) == 1 ? 128 : 64;
+}
+
+// Bytes of one row of a staged cache (or kBuild code) tile: tc_bk entries
+// and a pad that puts the 8 rows a warp reads in fragment layout in
+// different banks.
+template <typename CT>
+__host__ __device__ constexpr int tc_cache_row() {
+  return tc_bk<CT>() * (int)sizeof(CT) + (sizeof(CT) == 4 ? 32 : 16);
+}
+
+// A bf16 tile of `rows` x D in shared memory in wgmma's swizzled layout:
+// column blocks of RB-byte rows (D = 128: two blocks of 64 columns, 128-byte
+// swizzle; D = 32: one block of 64-byte rows, 64-byte swizzle), each block
+// `rows` x RB bytes, the 16-byte chunks of a row permuted by address bits
+// 7-9 (7-8). Every tile starts 1024-byte aligned, so the pattern lines up
+// with the one the descriptor names.
+template <int D>
+struct TcTile {
+  static constexpr int RB = D >= 64 ? 128 : 64;
+  static constexpr int CPR = RB / 16;                  // chunks per row
+  static constexpr uint64_t SWIZZLE = RB == 128 ? 1 : 2;  // descriptor mode
+  static __device__ __forceinline__ uint32_t offset(int row, int chunk,
+                                                    int rows) {
+    const uint32_t off = row * RB + (chunk % CPR) * 16;
+    return (chunk / CPR) * rows * RB +
+           (off ^ (((off >> 7) & (CPR - 1)) << 4));
+  }
+  // wgmma's shared-memory matrix descriptor. K-major operands (Q, K): sbo
+  // is the stride of 8-row groups, lbo unused. MN-major (V): lbo is the
+  // stride of the column blocks, sbo that of 8-row groups along K.
+  static __device__ __forceinline__ uint64_t desc(uint32_t addr,
+                                                  uint32_t lbo,
+                                                  uint32_t sbo) {
+    return (uint64_t)((addr & 0x3ffff) >> 4) |
+           ((uint64_t)((lbo >> 4) & 0x3fff) << 16) |
+           ((uint64_t)((sbo >> 4) & 0x3fff) << 32) | (SWIZZLE << 62);
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (4) bytes global -> shared, asynchronously; zeros where !valid (the
+// source is then not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// this thread's shared-memory writes, made visible to wgmma (async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// orders the accumulator's uses after the wgmma.wait that completes it
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// 2 neighbouring cache entries as compat (int8: dequantized)
+__device__ __forceinline__ void load2(const float* p, float (&c)[2]) {
+  const float2 x = *reinterpret_cast<const float2*>(p);
+  c[0] = x.x; c[1] = x.y;
+}
+__device__ __forceinline__ void load2(const __nv_bfloat16* p, float (&c)[2]) {
+  const uint32_t raw = *reinterpret_cast<const uint32_t*>(p);
+  c[0] = __uint_as_float(raw << 16);
+  c[1] = __uint_as_float(raw & 0xffff0000u);
+}
+__device__ __forceinline__ void load2(const int8_t* p, float (&c)[2]) {
+  const char2 x = *reinterpret_cast<const char2*>(p);
+  c[0] = dequant_i8((float)x.x); c[1] = dequant_i8((float)x.y);
+}
+// d += A B: A 64 x 16 (shared, K-major), B 16 x 64 (shared, K-major)
+__device__ __forceinline__ void wgmma_ss(float (&d)[32],
+                                         uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      "%26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d += A B: A 64 x 16 (shared, K-major), B 16 x 128 (shared, K-major)
+__device__ __forceinline__ void wgmma_ss(float (&d)[64],
+                                                uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      "%62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d += A B: A 64 x 16 (registers), B 16 x 32 (shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += A B: A 64 x 16 (registers), B 16 x 128 (shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      "%62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int D, Compat MODE, typename CT>
+constexpr size_t tc_smem_bytes() {
+  return 1024 /* alignment */ + TC_BQ * D * 2 +
+         TC_STAGES * (2 * tc_bk<CT>() * D * 2 +
+                      tc_bk<CT>() * KEY_FIELDS * 4) +
+         (MODE == Compat::kCached  ? TC_STAGES * TC_BQ * tc_cache_row<CT>()
+          : MODE == Compat::kBuild ? TC_BQ * tc_cache_row<CT>()
+                                   : 0);
+}
+
+// The bf16 attention: arguments as compat_flash_fwd's.
+template <int D, Compat MODE, typename CT>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+compat_flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    const float* __restrict__ src,
+                    const float* __restrict__ tgt,
+                    const float* __restrict__ mask,
+                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                    CT* __restrict__ cache, int N, int ld, float sigma_arg,
+                    float qscale) {
+  using Tile = TcTile<D>;
+  static_assert(D % 32 == 0, "D must be a multiple of 32");
+  constexpr bool kCoords = MODE != Compat::kCached && MODE != Compat::kNone;
+  constexpr bool kCache = MODE == Compat::kBuild || MODE == Compat::kCached;
+  constexpr int RB = Tile::RB;
+  constexpr int CHUNKS = D / 8;  // 16-byte chunks of a q/k/v row
+  constexpr int KEYS = tc_bk<CT>();  // keys per tile
+  constexpr int KV_BYTES = KEYS * D * 2;
+  constexpr int CROW = tc_cache_row<CT>();
+  constexpr int NS = KEYS / 8;  // 8-column groups of S
+  constexpr int NO = D / 8;      // of O
+  extern __shared__ __align__(16) uint8_t tc_smem[];
+  uint8_t* sQ = tc_smem + ((1024u - (smem_u32(tc_smem) & 1023u)) & 1023u);
+  uint8_t* sK = sQ + TC_BQ * D * 2;       // [TC_STAGES][KV_BYTES]
+  uint8_t* sV = sK + TC_STAGES * KV_BYTES;  // [TC_STAGES][KV_BYTES]
+  float* sKey = reinterpret_cast<float*>(sV + TC_STAGES * KV_BYTES);
+  // kCached: [TC_STAGES][TC_BQ][CROW] cache tiles; kBuild: [TC_BQ][CROW]
+  // codes on their way to the cache
+  uint8_t* sC = reinterpret_cast<uint8_t*>(sKey + TC_STAGES * KEYS *
+                                                      KEY_FIELDS);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, quad = lane % 4;
+  const int wg = warp / 4;
+  const int row0 = warp * 16 + lane / 4;  // this thread's rows: row0, +8
+  const int q0 = blockIdx.x * TC_BQ;
+  const size_t base = (size_t)blockIdx.y * N;
+  q += base * D;
+  k += base * D;
+  v += base * D;
+  out += base * D;
+  mask += base;
+  if (lse != nullptr) lse += base;
+  if constexpr (kCoords) {
+    src += base * 3;
+    tgt += base * 3;
+  }
+  if constexpr (kCache) cache += base * ld;
+
+  // tile t's K, V, key data (and cache tile) into ring slot `stage`
+  auto load_tile = [&](int t, int stage) {
+    const int k0 = t * KEYS;
+    const uint32_t dk = smem_u32(sK + stage * KV_BYTES);
+    const uint32_t dv = smem_u32(sV + stage * KV_BYTES);
+    for (int e = tid; e < KEYS * CHUNKS; e += TC_THREADS) {
+      const int r = e / CHUNKS, ch = e % CHUNKS, j = k0 + r;
+      const bool in = j < N;
+      const size_t g = (size_t)(in ? j : 0) * D + ch * 8;
+      const uint32_t off = Tile::offset(r, ch, KEYS);
+      cp_async16(dk + off, k + g, in);
+      cp_async16(dv + off, v + g, in);
+    }
+    const uint32_t dkey = smem_u32(sKey + stage * KEYS * KEY_FIELDS);
+    for (int r = tid; r < KEYS; r += TC_THREADS) {
+      const int j = k0 + r;
+      cp_async4(dkey + (r * KEY_FIELDS + 6) * 4, mask + (j < N ? j : 0),
+                j < N);
+    }
+    if constexpr (kCoords) {
+      for (int e = tid; e < KEYS * 6; e += TC_THREADS) {
+        const int r = e / 6, c = e % 6, j = k0 + r;
+        const size_t jj = j < N ? j : 0;
+        cp_async4(dkey + (r * KEY_FIELDS + c) * 4,
+                  c < 3 ? src + jj * 3 + c : tgt + jj * 3 + c - 3, j < N);
+      }
+    }
+    if constexpr (MODE == Compat::kCached) {
+      constexpr int EPC = 16 / (int)sizeof(CT);  // entries per chunk
+      constexpr int CPT = KEYS / EPC;           // chunks per tile row
+      const uint32_t dc = smem_u32(sC + stage * TC_BQ * CROW);
+      for (int e = tid; e < TC_BQ * CPT; e += TC_THREADS) {
+        const int r = e / CPT, ch = e % CPT, i = q0 + r, jc = k0 + ch * EPC;
+        const bool in = i < N && jc < ld;
+        cp_async16(dc + r * CROW + ch * 16,
+                   cache + (in ? (size_t)i * ld + jc : 0), in);
+      }
+    }
+  };
+
+  // prologue: Q and tile 0 in flight, then q * scale * log2(e) rounded to
+  // bf16 in place (each thread rescales the chunks it copied itself)
+  for (int e = tid; e < TC_BQ * CHUNKS; e += TC_THREADS) {
+    const int r = e / CHUNKS, ch = e % CHUNKS, i = q0 + r;
+    cp_async16(smem_u32(sQ) + Tile::offset(r, ch, TC_BQ),
+               q + (size_t)(i < N ? i : 0) * D + ch * 8, i < N);
+  }
+  load_tile(0, 0);
+  cp_async_commit();
+  float qp[2][6];
+  if constexpr (kCoords) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int i = q0 + row0 + 8 * rr;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        qp[rr][c] = i < N ? src[(size_t)i * 3 + c] : 0.f;
+        qp[rr][3 + c] = i < N ? tgt[(size_t)i * 3 + c] : 0.f;
+      }
+    }
+  }
+  cp_async_wait_all();
+  for (int e = tid; e < TC_BQ * CHUNKS; e += TC_THREADS) {
+    uint4* p = reinterpret_cast<uint4*>(
+        sQ + Tile::offset(e / CHUNKS, e % CHUNKS, TC_BQ));
+    uint4 x = *p;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&x);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float2 f = __bfloat1622float2(h[c]);
+      h[c] = __floats2bfloat162_rn(f.x * qscale, f.y * qscale);
+    }
+    *p = x;
+  }
+  fence_proxy_async();
+
+  float o[NO * 4];
+#pragma unroll
+  for (int i = 0; i < NO * 4; ++i) o[i] = 0.f;
+  // running max and sum of rows row0 and row0 + 8
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  const uint32_t q_addr = smem_u32(sQ) + wg * 64 * RB;
+  const int tiles = (N + KEYS - 1) / KEYS;
+
+  for (int t = 0; t < tiles; ++t) {
+    const int stage = t % TC_STAGES;
+    const int k0 = t * KEYS;
+    if (t > 0) {
+      cp_async_wait_all();
+      fence_proxy_async();
+    }
+    __syncthreads();
+    if (t + 1 < tiles) {
+      load_tile(t + 1, (t + 1) % TC_STAGES);
+      cp_async_commit();
+    }
+
+    // S = Qs K^T, this warpgroup's 64 rows x KEYS keys
+    float s[NS * 4];
+#pragma unroll
+    for (int i = 0; i < NS * 4; ++i) s[i] = 0.f;
+    const uint32_t k_addr = smem_u32(sK + stage * KV_BYTES);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const uint32_t blk = ks * 32 / RB, col = ks * 32 % RB;
+      wgmma_ss(s, Tile::desc(q_addr + blk * TC_BQ * RB + col, 16, 8 * RB),
+               Tile::desc(k_addr + blk * KEYS * RB + col, 16, 8 * RB));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // compat and the key state on the fragment: masked keys -1e9 after
+    // the multiply, keys past N -inf (weight 0)
+    const float* key = sKey + stage * KEYS * KEY_FIELDS;
+    float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int jg = 0; jg < NS; ++jg) {
+      const int c0 = jg * 8 + 2 * quad;
+      float cc[2][2];
+      if constexpr (MODE == Compat::kCached) {
+        const uint8_t* tile = sC + stage * TC_BQ * CROW;
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr)
+          load2(reinterpret_cast<const CT*>(tile + (row0 + 8 * rr) * CROW) +
+                    c0,
+                cc[rr]);
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float* kp = key + (c0 + e) * KEY_FIELDS;
+        const bool past = k0 + c0 + e >= N;
+        const bool masked = !(kp[6] > 0.f);
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          float compat;
+          if constexpr (MODE == Compat::kStream) {
+            compat = compat_stream(qp[rr], kp, sigma_arg);
+          } else if constexpr (MODE == Compat::kBuild) {
+            // pad columns (past N) hold code 0
+            cc[rr][e] = past ? 0.f : compat_i8_code(qp[rr], kp, sigma_arg);
+            compat = dequant_i8(cc[rr][e]);
+          } else if constexpr (MODE == Compat::kCached) {
+            compat = cc[rr][e];
+          } else {
+            compat = compat_variant<MODE>(qp[rr], kp, sigma_arg);
+          }
+          float logit = compat * s[jg * 4 + rr * 2 + e];
+          if (masked) logit = MASKED;
+          if (past) logit = -INFINITY;
+          s[jg * 4 + rr * 2 + e] = logit;
+          mt[rr] = fmaxf(mt[rr], logit);
+        }
+      }
+      if constexpr (MODE == Compat::kBuild) {
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr)
+          *reinterpret_cast<char2*>(sC + (row0 + 8 * rr) * CROW + c0) =
+              make_char2((signed char)(int)cc[rr][0],
+                         (signed char)(int)cc[rr][1]);
+      }
+    }
+    if constexpr (MODE == Compat::kBuild) {
+      // this warp's 16 rows of codes, 16 bytes a lane: every (i, j < ld)
+      // of the pair is written once, by the block that owns row i
+      __syncwarp();
+      for (int e = lane; e < 16 * (KEYS / 16); e += 32) {
+        const int r = warp * 16 + e / (KEYS / 16);
+        const int j = k0 + (e % (KEYS / 16)) * 16;
+        const int i = q0 + r;
+        if (i < N && j < ld)
+          *reinterpret_cast<uint4*>(cache + (size_t)i * ld + j) =
+              *reinterpret_cast<const uint4*>(sC + r * CROW + (j - k0));
+      }
+    }
+
+    // online base-2 softmax: the tile's sum of the unrounded p of a row,
+    // over its 4 lanes, joins the running sum once per tile
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      mt[rr] = fmaxf(mt[rr], __shfl_xor_sync(0xffffffffu, mt[rr], 1));
+      mt[rr] = fmaxf(mt[rr], __shfl_xor_sync(0xffffffffu, mt[rr], 2));
+      const float m_next = fmaxf(m_run[rr], mt[rr]);
+      const float alpha =
+          m_run[rr] == -INFINITY ? 0.f : exp2f(m_run[rr] - m_next);
+      m_run[rr] = m_next;
+      float psum = 0.f;
+#pragma unroll
+      for (int jg = 0; jg < NS; ++jg)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = exp2f(s[jg * 4 + rr * 2 + e] - m_next);
+          psum += p;
+          s[jg * 4 + rr * 2 + e] = p;
+        }
+      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+      psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+      l_run[rr] = alpha * l_run[rr] + psum;
+#pragma unroll
+      for (int jg = 0; jg < NO; ++jg) {
+        o[jg * 4 + rr * 2] *= alpha;
+        o[jg * 4 + rr * 2 + 1] *= alpha;
+      }
+    }
+
+    // O += P V: p rounded to bf16 into the A fragments of KEYS / 16
+    // k-steps (the accumulator's column groups 2 kk and 2 kk + 1)
+    uint32_t pa[KEYS / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < KEYS / 16; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+    const uint32_t v_addr = smem_u32(sV + stage * KV_BYTES);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KEYS / 16; ++kk)
+      wgmma_rs(o, pa[kk],
+               Tile::desc(v_addr + kk * 16 * RB, KEYS * RB, 8 * RB));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const float l = fmaxf(l_run[rr], 1e-30f);
+    const int i = q0 + row0 + 8 * rr;
+    if (i >= N) continue;
+    // base-2 log-sum-exp of the row, as the TPU kernel stores it
+    if (lse != nullptr && quad == 0) lse[i] = m_run[rr] + log2f(l);
+#pragma unroll
+    for (int jg = 0; jg < NO; ++jg)
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)i * D + jg * 8 +
+                                         2 * quad) =
+          __floats2bfloat162_rn(o[jg * 4 + rr * 2] / l,
+                                o[jg * 4 + rr * 2 + 1] / l);
+  }
+}
+
 template <typename T, int D, Compat MODE, typename CT>
 cudaError_t launch_flash(const void* q, const void* k, const void* v,
                          const float* src, const float* tgt,
                          const float* mask, void* out, float* lse,
                          CT* cache, int B, int N, int ld, float sigma_arg,
                          float qscale, cudaStream_t stream) {
-  const size_t bytes = smem_floats<D>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      compat_flash_fwd<T, D, MODE, CT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((N + BQ - 1) / BQ, B);
-  compat_flash_fwd<T, D, MODE, CT><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), src, tgt, mask, static_cast<T*>(out), lse,
-      cache, N, ld, sigma_arg, qscale);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    // cp.async moves 16-byte chunks of q, k, v and the cache
+    if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)cache) & 15)
+      return cudaErrorMisalignedAddress;
+    const size_t bytes = tc_smem_bytes<D, MODE, CT>();
+    cudaError_t err = cudaFuncSetAttribute(
+        compat_flash_fwd_tc<D, MODE, CT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((N + TC_BQ - 1) / TC_BQ, B);
+    compat_flash_fwd_tc<D, MODE, CT><<<grid, TC_THREADS, bytes, stream>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), src, tgt, mask,
+        static_cast<__nv_bfloat16*>(out), lse, cache, N, ld, sigma_arg,
+        qscale);
+  } else {
+    const size_t bytes = smem_floats<D>() * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(
+        compat_flash_fwd<T, D, MODE, CT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((N + BQ - 1) / BQ, B);
+    compat_flash_fwd<T, D, MODE, CT><<<grid, THREADS, bytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), src, tgt, mask, static_cast<T*>(out), lse,
+        cache, N, ld, sigma_arg, qscale);
+  }
   return cudaGetLastError();
 }
 

@@ -25,11 +25,13 @@
 // products and two sums in f32, each rounded on its own, as the plain
 // version rounds them, so the two compute the same compat bit for bit.
 //
-// Bound on this card: per (i, j) 2*D FMAs for q.k and p.v, 0-27 f32 ALU
-// ops and 1-4 SFU ops (sqrt, division, exp2) of compat and softmax; bytes
-// are O(N*D) per pair. On the CUDA cores, as here, the FMAs bound every
-// variant (f32-ALU bound); the microbenchmark times them beside each other
-// to show what each compat form adds.
+// Bound on this card: per (i, j) 2*D multiply-adds for q.k and p.v, 0-27
+// f32 ALU ops and 1-4 SFU ops (sqrt, division, exp2) of compat and
+// softmax; bytes are O(N*D) per pair. bf16: the products run on the tensor
+// cores, so v1 is bound by them and the others by their compat's SFU or
+// ALU ops; f32: the FMAs on the CUDA cores bound every variant. The
+// microbenchmark times them beside each other to show what each compat
+// form adds.
 
 #include "compat_flash_core.cuh"
 

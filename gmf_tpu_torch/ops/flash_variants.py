@@ -67,10 +67,12 @@ IN_KERNEL = ("v0", "v1", "v2", "v3", "v6")
 # variants with an instance of their own: the C entry point's number
 _VARIANT_IDS = {"v0": 0, "v1": 1, "v3": 3, "v6": 6}
 KERNELS = {v: f"compat_flash_variant_{v}" for v in _VARIANT_IDS}
-# query rows and keys per block of csrc/compat_flash_core.cuh (BQ, BK)
-TILE = (64, 32)
 # v4 and v5: the cache type of the standalone cache they stream
 CACHE_DTYPES = {"v4": torch.bfloat16, "v5": torch.float32}
+# query rows per block and keys per tile of each variant's bf16 kernel
+# (csrc/compat_flash_core.cuh: TC_BQ, tc_bk; 64 keys beside a bf16 or f32
+# cache; the f32 kernels: 64 x 32)
+TILES = {v: (128, 64 if v in CACHE_DTYPES else 128) for v in VARIANTS}
 # f32 elements of one [B, rows, N] temporary of the plain version
 PLAIN_CHUNK = 1 << 26
 
@@ -152,7 +154,7 @@ def flash_variant(q, k, v, src_keypts, tgt_keypts, mask=None, *, variant,
         return compat_flash_attention(q, k, v, src_keypts, tgt_keypts, mask,
                                       sigma_d)
     name = KERNELS[variant]
-    q, k, v = _check_qkv(name, q, k, v)
+    q, k, v = _check_qkv(name, q, k, v, forward=True)
     B, N, D = q.shape
     src = tgt = None
     if variant != "v1":

@@ -274,9 +274,10 @@ def compat_flash_attention_build_plain(q, k, v, src_keypts, tgt_keypts,
     return compat_attention_cached_plain(q, k, v, cache, mask), cache
 
 
-def _check_qkv(name, q, k, v):
+def _check_qkv(name, q, k, v, forward: bool = False):
     """Device, type and shape checks shared by the attention wrappers;
-    returns contiguous q, k, v."""
+    returns contiguous q, k, v. ``forward``: the caller launches a forward
+    kernel, whose bf16 form also needs q, k and v 16-byte aligned."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -288,7 +289,12 @@ def _check_qkv(name, q, k, v):
     if q.shape[-1] not in (32, 128):
         raise ValueError(
             f"{name}: head width {q.shape[-1]} not built (32/128)")
-    return q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # the bf16 forward kernels copy q, k and v in 16-byte chunks
+    if forward and q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                                     for t in (q, k, v)):
+        raise ValueError(f"{name}: bf16 q/k/v must start 16-byte aligned")
+    return q, k, v
 
 
 def _check_keypts(name, src_keypts, tgt_keypts, B, N):
@@ -362,7 +368,7 @@ def _streaming_forward(q, k, v, src_keypts, tgt_keypts, mask, sigma_d,
         out, lse = compat_attention_plain(q, k, v, src_keypts, tgt_keypts,
                                           mask, sigma_d, return_lse=True)
         return out, (lse if with_lse else None)
-    q, k, v = _check_qkv(KERNEL, q, k, v)
+    q, k, v = _check_qkv(KERNEL, q, k, v, forward=True)
     B, N, D = q.shape
     src, tgt = _check_keypts(KERNEL, src_keypts, tgt_keypts, B, N)
     m = _check_mask(KERNEL, mask, B, N, q.device)
@@ -386,7 +392,7 @@ def _cached_forward(q, k, v, compat, mask, with_lse: bool):
         out, lse = compat_attention_cached_plain(q, k, v, compat, mask,
                                                  return_lse=True)
         return out, (lse if with_lse else None)
-    q, k, v = _check_qkv(KERNEL_CACHED, q, k, v)
+    q, k, v = _check_qkv(KERNEL_CACHED, q, k, v, forward=True)
     B, N, D = q.shape
     if compat.device != q.device:
         raise ValueError(f"{KERNEL_CACHED}: cache on {compat.device}, "
@@ -582,7 +588,7 @@ def compat_flash_attention_build(q, k, v, src_keypts, tgt_keypts, mask=None,
     if q.device.type == "cpu":
         return compat_flash_attention_build_plain(q, k, v, src_keypts,
                                                   tgt_keypts, mask, sigma_d)
-    q, k, v = _check_qkv(KERNEL_BUILD, q, k, v)
+    q, k, v = _check_qkv(KERNEL_BUILD, q, k, v, forward=True)
     B, N, D = q.shape
     src, tgt = _check_keypts(KERNEL_BUILD, src_keypts, tgt_keypts, B, N)
     m = _check_mask(KERNEL_BUILD, mask, B, N, q.device)

@@ -12,10 +12,10 @@ scale 1/sqrt(D), bf16 q drawn from ``np.random.RandomState(0)`` and
 keypoints uniform in a 3 m cube, as the script draws them. One warm run,
 then ``--iters`` timed runs. One line per variant, in the script's format:
 
-    v0 bq=   64 bk=   32:  ms/batch (pairs/s fwd-only)  max|Δ| vs v0 = ...
+    v0 bq=  128 bk=  128:  ms/batch (pairs/s fwd-only)  max|Δ| vs v0 = ...
 
-``bq``/``bk`` are the port's one tile (the script's tile sweep has no
-counterpart); max|Δ| is the largest difference of the stack's output from
+``bq``/``bk`` are the tile of the variant's bf16 kernel (the script's
+tile sweep has no counterpart); max|Δ| is the largest difference of the stack's output from
 v0's (v1 has none: it drops compat); v4 and v5 add the time of their cache
 precompute, which runs once before the stack; each line ends with the
 peak device memory of its stack (the cache included). Then the same stack
@@ -42,7 +42,7 @@ import time
 import numpy as np
 import torch
 
-from gmf_tpu_torch.ops.flash_variants import (CACHE_DTYPES, TILE, VARIANTS,
+from gmf_tpu_torch.ops.flash_variants import (CACHE_DTYPES, TILES, VARIANTS,
                                               flash_variant)
 from gmf_tpu_torch.ops.fused_attention import (build_compat_cache,
                                                compat_flash_attention)
@@ -138,7 +138,8 @@ def run(args):
     cuda = device.type == "cuda"
     B, N = args.batch, args.num_corr
     result = dict(batch=B, num_corr=N, d=D, layers=args.layers,
-                  iters=args.iters, sigma_d=SIGMA_D, tile=list(TILE),
+                  iters=args.iters, sigma_d=SIGMA_D,
+                  tiles={v: list(t) for v, t in TILES.items()},
                   device=device.type,
                   timer="cuda events" if cuda else "host clock")
     if cuda:
@@ -211,7 +212,8 @@ def _line(variant, row):
              f"  max|Δ| vs v0 = {row['max_abs_diff_vs_v0']:.2e}")
     pre = ("" if "precompute_ms" not in row else
            f"  (+precompute {row['precompute_ms']:.1f} ms)")
-    return (f"{variant} bq={TILE[0]:5d} bk={TILE[1]:5d}: "
+    bq, bk = TILES[variant]
+    return (f"{variant} bq={bq:5d} bk={bk:5d}: "
             f"{row['ms_per_stack']:8.1f} ms/batch "
             f"({row['pairs_per_s']:7.1f} pairs/s fwd-only){drift}{pre}  "
             f"{_peak(row['peak_memory_bytes'])}")

@@ -20,7 +20,7 @@ from gmf_tpu_torch.ops.flash_variants import (IN_KERNEL,
                                               flash_variant,
                                               flash_variant_plain)
 from gmf_tpu_torch.ops.fused_attention import (
-    _cached_forward, _load_compat, _logits_plain, _stream_compat_plain,
+    _cached_forward, _check_qkv, _load_compat, _logits_plain, _stream_compat_plain,
     _streaming_forward, build_compat_cache,
     build_compat_cache_plain, compat_attention_bwd_plain,
     compat_attention_cached_plain, compat_attention_plain,
@@ -56,7 +56,7 @@ def _t(x, dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [32, 128])
 def test_attention_kernel(gen, cuda, dtype, D):
-    """N=333 is no multiple of the 64-row blocks. f32: summation order
+    """N=333 is no multiple of any block or key tile. f32: summation order
     only. bf16: both round q*scale and p to bf16 as the TPU kernel does,
     and round the output to bf16, which may land on the neighbouring bf16
     value: 2 ulps at the largest output."""
@@ -172,7 +172,7 @@ _VARIANT_LAUNCHES = {
 @pytest.mark.parametrize("D", [32, 128])
 def test_flash_variant_kernel(gen, cuda, dtype, D, variant):
     """Each variant of the microbenchmark at N=333 (no multiple of the
-    64-row blocks or the 32-key tiles), pair 0 partly masked, against
+    blocks or key tiles), pair 0 partly masked, against
     flash_variant_plain, with the launches it makes. v0, v1, v3 and v6 are
     the four instances of compat_flash_variants.cu: kernel and plain
     version round every compat operation alike, so they differ by the
@@ -195,6 +195,117 @@ def test_flash_variant_kernel(gen, cuda, dtype, D, variant):
 
 def _bf16_ulp(x):
     return 2.0 ** (np.floor(np.log2(x)) - 7)
+
+
+# the bf16 forward core's modes (compat_flash_fwd_tc in
+# csrc/compat_flash_core.cuh): streaming, build+attend, cached on each
+# cache type, no compat (variant v1)
+_CORE_MODES = ["stream", "build", "cached_int8", "cached_bf16",
+               "cached_f32", "none"]
+_CACHE_OF = {"cached_int8": torch.int8, "cached_bf16": torch.bfloat16,
+             "cached_f32": torch.float32}
+
+
+def _core_inputs(gen, cuda, B, N, D):
+    """bf16 q, k, v and keypoints; pair 0 has masked keys inside its
+    64-key tiles (keys 20..39 of each, and every index 3 mod 7), pair 1
+    has every key masked, pair 2 none."""
+    q, k, v = (_t(gen.randn(B, N, D).astype(np.float32), cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    src = gen.rand(B, N, 3).astype(np.float32) * 2.5
+    tgt = src + 0.02 * gen.randn(B, N, 3).astype(np.float32)
+    tgt[:, ::3] = gen.rand(B, (N + 2) // 3, 3).astype(np.float32) * 2.5
+    mask = np.ones((B, N), np.float32)
+    j = np.arange(N)
+    mask[0, ((j % 64 >= 20) & (j % 64 < 40)) | (j % 7 == 3)] = 0.0
+    mask[1] = 0.0
+    return q, k, v, _t(src, cuda), _t(tgt, cuda), _t(mask, cuda)
+
+
+def _core_check(mode, q, k, v, src, tgt, m, p=slice(None)):
+    """The kernel against its plain version on pairs ``p``: the output
+    within 2 bf16 ulps of the largest one (both round q*scale and p to
+    bf16, then the output), the lse (where the kernel writes one) within
+    1e-5 on every row of a pair with a valid key (summation order);
+    build+attend's cache equal to the plain one in every byte and its
+    output to the cached kernel's on it."""
+    lse = ref_lse = None
+    if mode == "stream":
+        out, lse = _streaming_forward(q, k, v, src, tgt, m, 0.10, True)
+        ref, ref_lse = compat_attention_plain(q[p], k[p], v[p], src[p],
+                                              tgt[p], m[p], return_lse=True)
+    elif mode == "build":
+        out, cache = compat_flash_attention_build(q, k, v, src, tgt, mask=m)
+        ref_cache = build_compat_cache_plain(src, tgt, 0.10, torch.int8)
+        assert torch.equal(cache, ref_cache)
+        cached = compat_flash_attention(q, k, v, None, None, mask=m,
+                                        compat=cache)
+        assert torch.equal(out[p], cached[p])
+        ref = compat_attention_cached_plain(q[p], k[p], v[p], ref_cache[p],
+                                            mask=m[p])
+    elif mode in _CACHE_OF:
+        cache = build_compat_cache(src, tgt, 0.10, _CACHE_OF[mode])
+        out, lse = _cached_forward(q, k, v, cache, m, True)
+        ref, ref_lse = compat_attention_cached_plain(
+            q[p], k[p], v[p], cache[p], m[p], return_lse=True)
+    else:
+        out = flash_variant(q, k, v, src, tgt, mask=m, variant="v1")
+        ref = flash_variant_plain(q[p], k[p], v[p], src[p], tgt[p],
+                                  mask=m[p], variant="v1")
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out[p].float(), ref.float(),
+                               atol=_out_atol(ref, torch.bfloat16), rtol=0)
+    if lse is not None:
+        rows = ref_lse > -1e8  # a pair with every key masked: -1e9
+        torch.testing.assert_close(lse[p][rows], ref_lse[rows], atol=1e-5,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("N", [1, 63, 64, 65, 127, 128, 129, 333, 5000])
+@pytest.mark.parametrize("D", [32, 128])
+@pytest.mark.parametrize("mode", _CORE_MODES)
+def test_bf16_core_edges(gen, cuda, mode, D, N):
+    """Key counts below, at and around one 64-key tile (beside a bf16 or
+    f32 cache) and one 128-key tile and 128-row query block, a ragged 333
+    and the bench's 5000; masked keys inside a tile and a fully masked
+    pair."""
+    _core_check(mode, *_core_inputs(gen, cuda, 3, N, D))
+
+
+def test_bf16_core_rejects_misaligned(gen, cuda):
+    """The bf16 forward kernels copy 16-byte chunks: a q/k/v view that
+    starts off a 16-byte boundary is refused by every forward wrapper
+    before the launch, not read wrongly. The backward kernels load one
+    element at a time, and their check takes such a view."""
+    q, k, v, src, tgt, m = _core_inputs(gen, cuda, 3, 64, 32)
+    flat = torch.zeros(q.numel() + 1, dtype=q.dtype, device=cuda)
+    shifted = flat[1:].view(q.shape)
+    shifted.copy_(q)
+    cache = build_compat_cache(src, tgt, 0.10, torch.int8)
+    for forward in (
+            lambda: compat_flash_attention(shifted, k, v, src, tgt, mask=m),
+            lambda: compat_flash_attention(shifted, k, v, None, None,
+                                           mask=m, compat=cache),
+            lambda: compat_flash_attention_build(shifted, k, v, src, tgt,
+                                                 mask=m),
+            lambda: flash_variant(shifted, k, v, src, tgt, mask=m,
+                                  variant="v1")):
+        with pytest.raises(ValueError, match="aligned"):
+            forward()
+    assert _check_qkv("backward", shifted, k, v)[0].data_ptr() == \
+        shifted.data_ptr()
+
+
+@pytest.mark.parametrize("D", [32, 128])
+@pytest.mark.parametrize("mode", _CORE_MODES)
+def test_bf16_core_pair_boundary(gen, cuda, mode, D):
+    """Pair 0's last tile (N = 333) reaches 51 rows into pair 1, whose k
+    and v are all inf: the kernel must not read them, so pair 0's output
+    and lse equal the plain version's on pair 0 alone."""
+    q, k, v, src, tgt, _ = _core_inputs(gen, cuda, 2, 333, D)
+    k[1], v[1] = float("inf"), float("inf")
+    m = torch.ones(2, 333, device=cuda)
+    _core_check(mode, q, k, v, src, tgt, m, slice(0, 1))
 
 
 @pytest.mark.parametrize("cache_dtype",
