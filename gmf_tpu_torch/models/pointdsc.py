@@ -293,16 +293,17 @@ class PointDSC(nn.Module):
                              q_image.to(self.dtype), mask, src, tgt,
                              compat_cache=cache, build_cache=build_cache)
         del cache
-        f32 = feats.float()
-        normed = f32 / torch.sqrt((f32 * f32).sum(-1, keepdim=True) + 1e-12)
+        # in the modules' dtype, as the reference: under bf16 modules the
+        # kNN, feat_M and M see bf16 features
+        normed = feats / torch.sqrt((feats * feats).sum(-1, keepdim=True)
+                                    + 1e-12)
         confidence = self.classification(feats)[..., 0].float()
 
         M = None
         if not testing:
             # feature-similarity matrix, the spectral-matching loss's input
-            sigma = self.sigma.float()
             M = torch.matmul(normed, normed.transpose(-1, -2))
-            M = torch.clamp(1.0 - (1.0 - M) / sigma ** 2, 0.0, 1.0)
+            M = torch.clamp(1.0 - (1.0 - M) / self.sigma ** 2, 0.0, 1.0)
             M = M * (1.0 - torch.eye(N, dtype=M.dtype, device=M.device))
 
         num_seeds = max(int(N * self.ratio), 1)
@@ -376,20 +377,25 @@ class PointDSC(nn.Module):
         src_knn = src.reshape(B * N, 3)[rows].reshape(B, S, k, 3)
         tgt_knn = tgt.reshape(B * N, 3)[rows].reshape(B, S, k, 3)
 
-        sigma = self.sigma.float()
         if self.seed_solver == "fused" and testing:
-            weight = fused_seed_weights(knn_feats, src_knn, tgt_knn, sigma,
-                                        self.sigma_d,
+            weight = fused_seed_weights(knn_feats, src_knn, tgt_knn,
+                                        self.sigma.float(), self.sigma_d,
                                         num_iters=self.num_iterations)
         else:
+            # feat_M in the modules' dtype; sigma_d rounded to it and
+            # squared in it, then the f32 spatial term: the reference's
+            # promotions (gmf_tpu/models/pointdsc.py:621,670-682)
             feat_M = torch.matmul(knn_feats, knn_feats.transpose(-1, -2))
-            feat_M = torch.clamp(1.0 - (1.0 - feat_M) / sigma ** 2, min=0.0)
+            feat_M = torch.clamp(1.0 - (1.0 - feat_M) / self.sigma ** 2,
+                                 min=0.0)
+            sigma_spat = torch.tensor(self.sigma_d, dtype=self.dtype)
             src_d = torch.linalg.vector_norm(
                 src_knn[:, :, :, None] - src_knn[:, :, None], dim=-1)
             tgt_d = torch.linalg.vector_norm(
                 tgt_knn[:, :, :, None] - tgt_knn[:, :, None], dim=-1)
             spatial_M = torch.clamp(
-                1.0 - (src_d - tgt_d) ** 2 / self.sigma_d ** 2, min=0.0)
+                1.0 - (src_d - tgt_d) ** 2 / (sigma_spat ** 2).float(),
+                min=0.0)
             total_M = feat_M * spatial_M * (
                 1.0 - torch.eye(k, device=feats.device))
             eig = leading_eigenvector if testing else \
@@ -404,11 +410,15 @@ class PointDSC(nn.Module):
 
         counts = seed_hypothesis_counts(seed_trans.detach(), src, tgt,
                                         self.inlier_threshold, mask=mask)
+        # the f32 ratio rounded to the modules' dtype before the argmax, as
+        # the reference (:734,741-744): under bf16 near counts tie and the
+        # first maximum (the lowest seed index) wins, as jnp.argmax
         if mask is None:
             fitness = counts.float() / N
         else:
             fitness = counts.float() / (mask.sum(-1)[:, None] + 1e-6)
-        best = fitness.argmax(-1)  # first maximum, as jnp.argmax
+        fitness = fitness.to(self.dtype)
+        best = fitness.argmax(-1)
         final_trans = seed_trans[torch.arange(B, device=feats.device), best]
         final_L2 = torch.linalg.vector_norm(transform(src, final_trans) - tgt,
                                             dim=-1)
@@ -426,7 +436,9 @@ class PointDSC(nn.Module):
                            device=trans.device)
         for _ in range(20):
             L2 = torch.linalg.vector_norm(transform(src, trans) - tgt, dim=-1)
-            inlier = (L2 < tau).float()
+            # in the modules' dtype, as the reference (:802-805): without a
+            # mask a bf16 count is rounded to bf16 (the f32 mask promotes)
+            inlier = (L2 < tau).to(self.dtype)
             if mask is not None:
                 inlier = inlier * mask
             num = inlier.sum(-1).int()
