@@ -7,8 +7,9 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
 
 1. Print the card's name and power limit (nvidia-smi).
 2. Build the kernels (one nvcc per source, in parallel).
-3. Hold each of the sixteen kernels against its plain PyTorch version on
-   the card at its path's shapes. The eight forward kernels at the serving
+3. Hold each of the seventeen kernels (the seed kNN's two instances
+   count apart) against its plain PyTorch version on the card at its
+   path's shapes. The eight forward kernels at the serving
    path's shapes: B=8 pairs, N=5000 (4000 valid rows in
    pair 0), D=128, S=500 seeds, k=40. Attention runs in f32 and bf16, the
    compat cache in f32, bf16 and int8. The int8 cache of the build+attend
@@ -17,7 +18,11 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
    kernel's on that cache. Then the five kernels of the main path once
    more at that path's B=64 (bf16 attention, every pair with its own
    count of valid rows), with the same limits, their plain versions run
-   in slices of 8 pairs. Then the bf16 forward core (core_phase) in each
+   in slices of 8 pairs. The seed kNN in both its instances (bf16 on
+   the tensor cores, the main path's; f32 on the CUDA cores, training's)
+   on unit features rounded to the instance's type, its plain version fed
+   the same values, at B=8 and at B=64, each timed beside its plain
+   version at both. Then the bf16 forward core (core_phase) in each
    of its modes (streaming, build+attend, cached on int8, bf16 and f32
    caches, no compat) at D=32 and 128 and N in 1, 63-65, 127-129, 333,
    5000, with masked keys inside a tile and a pair whose keys are all
@@ -66,7 +71,10 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
 5. Serve one request of 8 pairs with f32 modules on the card through the
    kernels and on the CPU through the plain versions, with the same
    weights and inputs, and compare final transforms and labels: with the
-   int8 cache and with compat_cache="off". Take one f32 train step of 16
+   int8 cache and with compat_cache="off". The same request with bf16
+   modules and the int8 cache, the serving path's numerics, held on the
+   pairs where the same correspondence's seed won on both (the two
+   devices round bf16 apart; bf16_slice_check). Take one f32 train step of 16
    pairs of N=1000 on the card and on the CPU, same weights and batch,
    "auto" and "off": the loss and each parameter's gradient against the
    same step in f64 on the CPU, within the CPU tests' bound on that
@@ -100,6 +108,8 @@ import torch
 # the attention variants' own instances: v0, v1, v3, v6 of the
 # attention-variant microbenchmark, by variant
 from gmf_tpu_torch.ops.flash_variants import KERNELS as VARIANT_KERNELS
+# the seed kNN's two instances, by the features' dtype
+from gmf_tpu_torch.ops.fused_topk import KERNELS as KNN_KERNELS
 
 B, N, N_VALID0, D, S, K1 = 8, 5000, 4000, 128, 500, 41
 B_MAIN = 64  # pairs per request on the main path (the bench default)
@@ -109,15 +119,16 @@ SEED_SIGMA = 1.2  # feature sigma of the seed-solver check (learned, ~1)
 NUM_ITERS = 10
 KERNELS = ("compat_flash_attention", "build_compat_cache",
            "compat_flash_attention_build", "compat_flash_attention_cached",
-           "nms_local_max", "seed_knn_topk", "seed_hypothesis_counts",
+           "nms_local_max", *KNN_KERNELS.values(), "seed_hypothesis_counts",
            "fused_seed_weights", "compat_flash_attention_bwd_dkv",
            "compat_flash_attention_bwd_dq",
            "compat_flash_attention_cached_bwd_dkv",
            "compat_flash_attention_cached_bwd_dq",
            *VARIANT_KERNELS.values())
-BWD_KERNELS = KERNELS[8:12]
+BWD_KERNELS = KERNELS[9:13]
 SOURCES = {name: f"gmf_tpu_torch/ops/csrc/{name}.cu" for name in KERNELS}
-for _name in BWD_KERNELS:  # one source holds a dK/dV and a dQ kernel
+# one source holds a dK/dV and a dQ kernel, or a kernel's instances
+for _name in (*BWD_KERNELS, *KNN_KERNELS.values()):
     SOURCES[_name] = f"gmf_tpu_torch/ops/csrc/{_name.rsplit('_', 1)[0]}.cu"
 for _name in VARIANT_KERNELS.values():  # one source, four instances
     SOURCES[_name] = "gmf_tpu_torch/ops/csrc/compat_flash_variants.cu"
@@ -127,7 +138,8 @@ REPLACES = {
     "compat_flash_attention_build": "gmf_tpu/ops/fused_attention.py:766",
     "compat_flash_attention_cached": "gmf_tpu/ops/fused_attention.py:847",
     "nms_local_max": "gmf_tpu/ops/fused_nms.py:69",
-    "seed_knn_topk": "gmf_tpu/ops/fused_topk.py:108",
+    **{name: "gmf_tpu/ops/fused_topk.py:108"
+       for name in KNN_KERNELS.values()},
     "seed_hypothesis_counts": "gmf_tpu/ops/fused_scoring.py:138",
     "fused_seed_weights": "gmf_tpu/ops/fused_seed_solver.py:163",
     "compat_flash_attention_bwd_dkv": "gmf_tpu/ops/fused_attention.py:310",
@@ -146,7 +158,8 @@ ALSO_REPLACES = {
         "scripts/bench_flash_variants.py:183 (v4, v5)",
     "build_compat_cache": "scripts/bench_flash_variants.py:214",
 }
-_COMMON = {"nms_local_max": 1, "seed_knn_topk": 1,
+# the served models run bf16 modules, so the kNN gets bf16 features
+_COMMON = {"nms_local_max": 1, KNN_KERNELS[torch.bfloat16]: 1,
            "seed_hypothesis_counts": 1}
 # the served paths: model modes, pairs per request, and the launches each
 # forward must make (kernels not named: none)
@@ -174,7 +187,7 @@ PATHS = {
 # pairs per step, correspondences per pair, the image size
 B_TRAIN, N_TRAIN = 16, 1000
 S_TRAIN = N_TRAIN // 10  # seeds per pair at ratio 0.1
-_TRAIN_COMMON = {"seed_knn_topk": 1, "seed_hypothesis_counts": 1}
+_TRAIN_COMMON = {KNN_KERNELS[torch.float32]: 1, "seed_hypothesis_counts": 1}
 _CACHED_STEP = {"build_compat_cache": 1, "compat_flash_attention_cached": 12,
                 "compat_flash_attention_cached_bwd_dkv": 12,
                 "compat_flash_attention_cached_bwd_dq": 12, **_TRAIN_COMMON}
@@ -198,7 +211,8 @@ KERNEL_PATH = {
     "compat_flash_attention_build": "int8_b64",
     "compat_flash_attention_cached": "int8_b64",
     "nms_local_max": "int8_b64",
-    "seed_knn_topk": "int8_b64",
+    KNN_KERNELS[torch.bfloat16]: "int8_b64",
+    KNN_KERNELS[torch.float32]: "train_auto",
     "seed_hypothesis_counts": "int8_b64",
     "fused_seed_weights": "int8_fused_b8",
     "compat_flash_attention_bwd_dkv": "train_off",
@@ -574,10 +588,70 @@ def knn_score_err(seeds, feats, mask, got_i, ref_v):
     and the plain version's. Near-ties (score gaps below f32
     summation-order error) may swap neighbours between the two; the
     chosen scores must agree."""
-    full = torch.matmul(seeds, feats.transpose(-1, -2))
+    full = torch.matmul(seeds.float(), feats.float().transpose(-1, -2))
     full = torch.where(mask[:, None] > 0, full,
                        torch.full_like(full, -math.inf))
     return (full.gather(-1, got_i.long()) - ref_v).abs().max().item()
+
+
+def knn_inputs(gen, mask, s, dtype):
+    """(seeds, feats): unit features of depth D rounded to ``dtype``, and
+    ``s`` seeds per pair among the rows every pair holds valid."""
+    batch, n = mask.shape
+    feats = torch.randn(batch, n, D, generator=gen, device=mask.device)
+    feats = (feats / feats.norm(dim=-1, keepdim=True)).to(dtype)
+    seed_idx = torch.randperm(int(mask.sum(-1).min()), generator=gen,
+                              device=mask.device)[:s]
+    return feats[:, seed_idx].contiguous(), feats
+
+
+def knn_bound(rates, dtype, b, s, n):
+    """(bound_ms, bound_by) of one seed kNN: seeds and keys of ``dtype``
+    and the mask read once, k + 1 indices and scores written; the
+    products on the tensor cores (bf16) or as f32 FMAs, and one compare
+    per score."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    peak = BF16_TC_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    return rates.bound((b * s + b * n) * D * size + b * n * 4
+                       + b * s * K1 * 8,
+                       {"products": 2 * b * s * n * D / peak,
+                        "select": b * s * n / rates.alu})
+
+
+def knn_check(where, seeds, feats, mask, slices, rates=None):
+    """The kNN instance of the features' dtype against its plain version,
+    fed the same values, on each slice of pairs: the chosen scores within
+    1e-5. Returns the kernel's indices and its row: the error, the share
+    of indices equal to the plain version's and, given ``rates``, the ms
+    of the kernel and of the plain version over all pairs and the bound."""
+    from gmf_tpu_torch.ops.fused_topk import (seed_knn_topk,
+                                              seed_knn_topk_plain)
+
+    got_i, _ = seed_knn_topk(seeds, feats, K1, mask=mask)
+    err, same = 0.0, 0
+    for sl in slices:
+        ref_i, ref_v = seed_knn_topk_plain(seeds[sl], feats[sl], K1,
+                                           mask=mask[sl])
+        err = max(err, knn_score_err(seeds[sl], feats[sl], mask[sl],
+                                     got_i[sl], ref_v))
+        same += int((got_i[sl] == ref_i).sum().item())
+        del ref_i, ref_v
+    name = KNN_KERNELS[feats.dtype]
+    if not err <= 1e-5:
+        fail(f"{where}: {name}: chosen scores differ by {err}")
+    row = dict(max_abs_err=err, tolerance=1e-5,
+               index_agreement=same / got_i.numel())
+    if rates is not None:
+        b, s, n = seeds.shape[0], seeds.shape[1], feats.shape[1]
+        row.update(
+            ms=cuda_ms(lambda: seed_knn_topk(seeds, feats, K1, mask=mask),
+                       reps=10),
+            plain_ms=cuda_ms(lambda: seed_knn_topk_plain(seeds, feats, K1,
+                                                         mask=mask),
+                             reps=3, warmup=1),
+            **dict(zip(("bound_ms", "bound_by"),
+                       knn_bound(rates, feats.dtype, b, s, n))))
+    return got_i, row
 
 
 def kernel_phase(dev, rates):
@@ -586,8 +660,6 @@ def kernel_phase(dev, rates):
                                              nms_local_max_plain)
     from gmf_tpu_torch.ops.fused_scoring import (
         seed_hypothesis_counts, seed_hypothesis_counts_plain)
-    from gmf_tpu_torch.ops.fused_topk import (seed_knn_topk,
-                                              seed_knn_topk_plain)
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     prob, src, tgt, mask = make_inputs(dev)
@@ -611,28 +683,11 @@ def kernel_phase(dev, rates):
         **dict(zip(("bound_ms", "bound_by"), rates.bound(
             B * N * 4 * 5, {"alu": 10 * needed / rates.alu}))))
 
-    # -- seed kNN ----------------------------------------------------------
-    feats = torch.randn(B, N, D, generator=gen, device=dev)
-    feats = feats / feats.norm(dim=-1, keepdim=True)
-    seed_idx = torch.randperm(N_VALID0, generator=gen, device=dev)[:S]
-    seeds = feats[:, seed_idx].contiguous()
-    got_i, got_v = seed_knn_topk(seeds, feats, K1, mask=mask)
-    ref_i, ref_v = seed_knn_topk_plain(seeds, feats, K1, mask=mask)
-    err = knn_score_err(seeds, feats, mask, got_i, ref_v)
-    if not err <= 1e-5:
-        fail(f"seed_knn_topk: chosen scores differ by {err}")
-    rows["seed_knn_topk"] = dict(
-        max_abs_err=err, tolerance=1e-5,
-        index_agreement=(got_i == ref_i).float().mean().item(),
-        ms=cuda_ms(lambda: seed_knn_topk(seeds, feats, K1, mask=mask),
-                   reps=10),
-        plain_ms=cuda_ms(lambda: seed_knn_topk_plain(seeds, feats, K1,
-                                                     mask=mask),
-                         reps=3, warmup=1),
-        **dict(zip(("bound_ms", "bound_by"), rates.bound(
-            (B * S * D + B * N * D + B * N) * 4 + B * S * K1 * 8,
-            {"products": 2 * B * S * N * D / F32_FLOPS,
-             "select": B * S * N / rates.alu}))))
+    # -- seed kNN, both instances --------------------------------------------
+    for dtype in (torch.bfloat16, torch.float32):
+        seeds, feats = knn_inputs(gen, mask, S, dtype)
+        got_i, rows[KNN_KERNELS[dtype]] = knn_check(
+            f"B={B}", seeds, feats, mask, [slice(None)], rates)
     rows["fused_seed_weights"] = seed_solver_phase(rates, feats, src, tgt,
                                                    got_i)
     del feats, seeds
@@ -657,13 +712,15 @@ def kernel_phase(dev, rates):
     return rows
 
 
-def main_shape_phase(dev):
+def main_shape_phase(dev, rates):
     """Phase 3, second part: the main path's five kernels at the shapes
     that path gives them, B_MAIN pairs in one launch, attention in bf16,
     every pair with its own count of valid rows. The pairs are independent,
     so the plain versions run in slices of B pairs and their [B, N, N]
-    temporaries stay as large as in the first part. Same limits as there.
-    Returns each kernel's largest error."""
+    temporaries stay as large as in the first part. Same limits as there;
+    the kNN in both instances (its main path takes bf16), each also timed
+    over all B_MAIN pairs beside its plain version. Returns each kernel's
+    largest error and the two kNN rows (knn_check)."""
     from gmf_tpu_torch.data.synthetic import make_correspondence_problem
     from gmf_tpu_torch.ops.fused_attention import (
         build_compat_cache_plain, compat_attention_cached_plain,
@@ -722,9 +779,11 @@ def main_shape_phase(dev):
     if errs["nms_local_max"] != 0:
         fail(f"B={B_MAIN}: nms_local_max disagrees with its plain version")
 
-    errs.update(seed_kernels_check(f"B={B_MAIN}", gen, prob["gt_trans"], src,
-                                   tgt, mask, S, slices))
-    return errs
+    seed_errs, knn_rows = seed_kernels_check(
+        f"B={B_MAIN}", gen, prob["gt_trans"], src, tgt, mask, S, slices,
+        rates)
+    errs.update(seed_errs)
+    return errs, knn_rows
 
 
 # the bf16 forward core (compat_flash_fwd_tc) at the edges of its tiles:
@@ -867,33 +926,26 @@ def core_phase(dev):
     return out
 
 
-def seed_kernels_check(where, gen, gt_trans, src, tgt, mask, s, slices):
-    """The seed kNN and the hypothesis counts at the shapes of one path:
-    ``s`` seeds per pair among its valid rows, unit features of depth D,
-    hypotheses near each pair's true transform. The plain versions run on
-    each slice of pairs; kernel_phase's limits. Returns the two kernels'
-    largest errors."""
+def seed_kernels_check(where, gen, gt_trans, src, tgt, mask, s, slices,
+                       rates=None):
+    """The seed kNN, both instances, and the hypothesis counts at the
+    shapes of one path: ``s`` seeds per pair among its valid rows, unit
+    features of depth D, hypotheses near each pair's true transform. The
+    plain versions run on each slice of pairs; kernel_phase's limits.
+    Returns each kernel's largest error and, given ``rates``, each kNN
+    instance's times and bound over all pairs (knn_check)."""
     from gmf_tpu_torch.ops.fused_scoring import (
         seed_hypothesis_counts, seed_hypothesis_counts_plain)
-    from gmf_tpu_torch.ops.fused_topk import (seed_knn_topk,
-                                              seed_knn_topk_plain)
 
-    batch, n = mask.shape
+    errs, knn_rows = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        seeds, feats = knn_inputs(gen, mask, s, dtype)
+        _, row = knn_check(where, seeds, feats, mask, slices, rates)
+        errs[KNN_KERNELS[dtype]] = row["max_abs_err"]
+        knn_rows[KNN_KERNELS[dtype]] = row
+        del seeds, feats
+
     dev = mask.device
-    feats = torch.randn(batch, n, D, generator=gen, device=dev)
-    feats = feats / feats.norm(dim=-1, keepdim=True)
-    seed_idx = torch.randperm(int(mask.sum(-1).min()), generator=gen,
-                              device=dev)[:s]
-    seeds = feats[:, seed_idx].contiguous()
-    got_i, _ = seed_knn_topk(seeds, feats, K1, mask=mask)
-    knn = max(knn_score_err(seeds[sl], feats[sl], mask[sl], got_i[sl],
-                            seed_knn_topk_plain(seeds[sl], feats[sl], K1,
-                                                mask=mask[sl])[1])
-              for sl in slices)
-    if not knn <= 1e-5:
-        fail(f"{where}: seed_knn_topk: chosen scores differ by {knn}")
-    del feats, seeds
-
     trans = perturbed_hypotheses(gt_trans, dev, s)
     got = seed_hypothesis_counts(trans, src, tgt, 0.10, mask=mask)
     ref = torch.cat([seed_hypothesis_counts_plain(
@@ -901,7 +953,8 @@ def seed_kernels_check(where, gen, gt_trans, src, tgt, mask, s, slices):
     counts = (got - ref).abs().max().item()
     if not counts <= 2:
         fail(f"{where}: seed_hypothesis_counts: counts differ by {counts}")
-    return {"seed_knn_topk": knn, "seed_hypothesis_counts": counts}
+    errs["seed_hypothesis_counts"] = counts
+    return (errs, knn_rows) if rates is not None else errs
 
 
 def bwd_bound(rates, dtype, nbytes_side, alu, sfu, products, out_tensors,
@@ -955,8 +1008,9 @@ def backward_phase(dev, rates):
     mask = torch.ones(b, n, device=dev)
     mask[0, n - n // 10:] = 0.0
     valid = mask > 0
-    seed_errs = seed_kernels_check(f"B={b}, N={n}", gen, prob["gt_trans"],
-                                   src, tgt, mask, S_TRAIN, [slice(0, b)])
+    seed_errs, knn_rows = seed_kernels_check(
+        f"B={b}, N={n}", gen, prob["gt_trans"], src, tgt, mask, S_TRAIN,
+        [slice(0, b)], rates)
     res = {}
     for dtype in (f32, bf16):
         q, k, v, do = (torch.randn(b, n, D, generator=gen, device=dev)
@@ -1100,6 +1154,9 @@ def backward_phase(dev, rates):
     extra["build_compat_cache"] = dict(b16_n1000_equal_to_plain=True)
     for name, err in seed_errs.items():
         extra[name] = {"b16_n1000_max_abs_err": err}
+    for name, row in knn_rows.items():  # the training shape's kNN
+        extra[name].update({f"b16_n1000_{k}": v for k, v in row.items()
+                            if k in ("ms", "plain_ms", "bound_ms")})
     return rows, extra
 
 
@@ -1689,6 +1746,64 @@ def f32_slice_check(dev, request, compat_cache):
                 seconds=seconds)
 
 
+def winning_correspondences(model, out):
+    """Hook helper: record, for each pair of a forward, the index of the
+    correspondence whose seed won (the NMS seeds recomputed from the
+    model's own confidences, on the model's device)."""
+    from gmf_tpu_torch.ops.fused_nms import pick_seeds_nms_fused
+
+    def hook(mod, args, kwargs, result):
+        src, mask = args[1], kwargs["corr_mask"]
+        seeds = pick_seeds_nms_fused(
+            src.float(), result["confidence"], mod.nms_radius,
+            max(int(src.shape[1] * mod.ratio), 1), mask=mask)
+        best = result["seed_fitness"].argmax(-1)
+        out.extend(seeds.gather(1, best[:, None])[:, 0].cpu().tolist())
+
+    return model.register_forward_hook(hook, with_kwargs=True)
+
+
+def bf16_slice_check(dev, request):
+    """Phase 5, the serving dtype: bf16 modules with the int8 cache, the
+    card through the kernels against the CPU through the plain versions,
+    same weights, the f32 slices' pairs. The two round bf16 apart (cuBLAS
+    and the CPU's kernels; the kernels within 2 ulps of their plain
+    versions), so their confidences, and with them the seeds, may differ.
+    A pair whose winning seed is the same correspondence on both is held
+    to the f32 slices' bounds (final_trans 1e-3, labels >= 0.99); the
+    others are counted, and at least half the pairs must be held."""
+    from gmf_tpu_torch.eval.registration import PointDSCRegistrar
+
+    reg16 = make_registrar(dev, torch.bfloat16, compat_cache="int8")
+    cpu_model = copy.deepcopy(reg16.model).to("cpu")
+    won, won_cpu = [], []
+    hooks = [winning_correspondences(reg16.model, won),
+             winning_correspondences(cpu_model, won_cpu)]
+    t0 = time.perf_counter()
+    got = reg16.register_batch(request)
+    ref = PointDSCRegistrar(cpu_model, buckets=(N,)).register_batch(request)
+    seconds = time.perf_counter() - t0
+    for h in hooks:
+        h.remove()
+    held = [i for i in range(len(request)) if won[i] == won_cpu[i]]
+    trans_err = max((float(np.abs(got[i][0] - ref[i][0]).max())
+                     for i in held), default=0.0)
+    agree = min((float((got[i][1] == ref[i][1]).mean()) for i in held),
+                default=1.0)
+    print(f"bf16 slice, compat_cache=int8, kernels (card) vs plain (CPU), "
+          f"{seconds:.1f} s: the same seed won on {len(held)} of "
+          f"{len(request)} pairs; there max |dT| {trans_err:.2e} (limit "
+          f"1e-3), label agreement {agree} (limit 0.99)", flush=True)
+    if trans_err > 1e-3 or agree < 0.99:
+        fail("bf16 slice through the kernels disagrees with the plain "
+             "versions on a pair whose winning seed is the same")
+    if len(held) < 0.5 * len(request):
+        fail("bf16 slice: another seed won on more than half the pairs")
+    return dict(compat_cache="int8", dtype="bf16", pairs=len(request),
+                same_seed=len(held), max_trans_err=trans_err,
+                min_label_agreement=agree, seconds=seconds)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the result JSON here")
@@ -1718,8 +1833,12 @@ def main():
     # 3. kernels vs plain
     rows = kernel_phase(dev, rates)
     torch.cuda.empty_cache()
-    for name, err in main_shape_phase(dev).items():
+    errs, knn_rows = main_shape_phase(dev, rates)
+    for name, err in errs.items():
         rows[name][f"b{B_MAIN}_max_abs_err"] = err
+    for name, row in knn_rows.items():  # both kNN instances at b=64
+        rows[name].update({f"b{B_MAIN}_{k}": v for k, v in row.items()
+                           if k != "tolerance"})
     torch.cuda.empty_cache()
     core = core_phase(dev)
     print("kernel checks passed", flush=True)
@@ -1795,7 +1914,8 @@ def main():
     # versions on the CPU
     torch.set_num_threads(8)
     slices = [f32_slice_check(dev, requests8[0], "int8"),
-              f32_slice_check(dev, requests8[0], "off")]
+              f32_slice_check(dev, requests8[0], "off"),
+              bf16_slice_check(dev, requests8[0])]
     train_checks = [train_cpu_check(dev, "auto"), train_cpu_check(dev, "off")]
 
     # 6. the training command line

@@ -268,6 +268,14 @@ class PointDSC(nn.Module):
     def dtype(self):
         return self.sigma.dtype
 
+    @property
+    def seed_dtype(self):
+        """The dtype of the normalised features and of the seed stage's
+        roundings: the modules' (bf16 or f32), as in the reference; f64
+        modules keep f32 there, as the geometry does."""
+        return (self.dtype if self.dtype in (torch.bfloat16, torch.float32)
+                else torch.float32)
+
     def forward(self, corr_pos, src_keypts, tgt_keypts, p_image, q_image,
                 testing: bool = False, corr_mask=None):
         """corr_pos [B, N, 6], keypoints [B, N, 3], images [B, H, W, 3]
@@ -293,17 +301,18 @@ class PointDSC(nn.Module):
                              q_image.to(self.dtype), mask, src, tgt,
                              compat_cache=cache, build_cache=build_cache)
         del cache
-        # in the modules' dtype, as the reference: under bf16 modules the
-        # kNN, feat_M and M see bf16 features
-        normed = feats / torch.sqrt((feats * feats).sum(-1, keepdim=True)
-                                    + 1e-12)
+        # in seed_dtype, as the reference: under bf16 modules the kNN,
+        # feat_M and M see bf16 features
+        f = feats.to(self.seed_dtype)
+        normed = f / torch.sqrt((f * f).sum(-1, keepdim=True) + 1e-12)
+        sigma = self.sigma.to(self.seed_dtype)
         confidence = self.classification(feats)[..., 0].float()
 
         M = None
         if not testing:
             # feature-similarity matrix, the spectral-matching loss's input
             M = torch.matmul(normed, normed.transpose(-1, -2))
-            M = torch.clamp(1.0 - (1.0 - M) / self.sigma ** 2, 0.0, 1.0)
+            M = torch.clamp(1.0 - (1.0 - M) / sigma ** 2, 0.0, 1.0)
             M = M * (1.0 - torch.eye(N, dtype=M.dtype, device=M.device))
 
         num_seeds = max(int(N * self.ratio), 1)
@@ -318,7 +327,8 @@ class PointDSC(nn.Module):
             # stable, as jnp.argsort: ties keep their index order
             seeds = torch.argsort(-ranked, dim=-1, stable=True)[:, :num_seeds]
         seed_trans, seed_fitness, final_trans, final_labels = (
-            self._cal_seed_trans(seeds, normed, src, tgt, mask, testing))
+            self._cal_seed_trans(seeds, normed, sigma, src, tgt, mask,
+                                 testing))
         if testing:
             final_trans = self._post_refinement(final_trans, src, tgt, mask)
         else:
@@ -353,7 +363,7 @@ class PointDSC(nn.Module):
             return None, True
         return build_compat_cache(src, tgt, self.sigma_d, dtype), False
 
-    def _cal_seed_trans(self, seeds, feats, src, tgt, mask, testing):
+    def _cal_seed_trans(self, seeds, feats, sigma, src, tgt, mask, testing):
         """Seed-row kNN (fused kernel on detached features; column 0, the
         seed itself, dropped)."""
         B, N, C = feats.shape
@@ -361,10 +371,11 @@ class PointDSC(nn.Module):
         plain = feats.detach()
         seed_feats = torch.gather(plain, 1, seeds[..., None].expand(-1, -1, C))
         knn_idx, _ = seed_knn_topk(seed_feats, plain, k + 1, mask=mask)
-        return self._seed_trans_from_knn(feats, src, tgt, mask,
+        return self._seed_trans_from_knn(feats, sigma, src, tgt, mask,
                                          knn_idx[..., 1:].long(), testing)
 
-    def _seed_trans_from_knn(self, feats, src, tgt, mask, knn_idx, testing):
+    def _seed_trans_from_knn(self, feats, sigma, src, tgt, mask, knn_idx,
+                             testing):
         """Seed-local spectral matching, weighted Kabsch, scoring. The
         train branch always takes the plain chain with the fixed iteration
         count: the fused solver and the early exit are eval-only, as in
@@ -379,16 +390,15 @@ class PointDSC(nn.Module):
 
         if self.seed_solver == "fused" and testing:
             weight = fused_seed_weights(knn_feats, src_knn, tgt_knn,
-                                        self.sigma.float(), self.sigma_d,
+                                        sigma.float(), self.sigma_d,
                                         num_iters=self.num_iterations)
         else:
             # feat_M in the modules' dtype; sigma_d rounded to it and
             # squared in it, then the f32 spatial term: the reference's
             # promotions (gmf_tpu/models/pointdsc.py:621,670-682)
             feat_M = torch.matmul(knn_feats, knn_feats.transpose(-1, -2))
-            feat_M = torch.clamp(1.0 - (1.0 - feat_M) / self.sigma ** 2,
-                                 min=0.0)
-            sigma_spat = torch.tensor(self.sigma_d, dtype=self.dtype)
+            feat_M = torch.clamp(1.0 - (1.0 - feat_M) / sigma ** 2, min=0.0)
+            sigma_spat = torch.tensor(self.sigma_d, dtype=sigma.dtype)
             src_d = torch.linalg.vector_norm(
                 src_knn[:, :, :, None] - src_knn[:, :, None], dim=-1)
             tgt_d = torch.linalg.vector_norm(
@@ -417,7 +427,7 @@ class PointDSC(nn.Module):
             fitness = counts.float() / N
         else:
             fitness = counts.float() / (mask.sum(-1)[:, None] + 1e-6)
-        fitness = fitness.to(self.dtype)
+        fitness = fitness.to(self.seed_dtype)
         best = fitness.argmax(-1)
         final_trans = seed_trans[torch.arange(B, device=feats.device), best]
         final_L2 = torch.linalg.vector_norm(transform(src, final_trans) - tgt,
@@ -438,7 +448,7 @@ class PointDSC(nn.Module):
             L2 = torch.linalg.vector_norm(transform(src, trans) - tgt, dim=-1)
             # in the modules' dtype, as the reference (:802-805): without a
             # mask a bf16 count is rounded to bf16 (the f32 mask promotes)
-            inlier = (L2 < tau).to(self.dtype)
+            inlier = (L2 < tau).to(self.seed_dtype)
             if mask is not None:
                 inlier = inlier * mask
             num = inlier.sum(-1).int()

@@ -80,8 +80,8 @@ SIGNATURES = {
     "gmf_fused_seed_weights": [P, P, P, P, P, I, I, I, I, F, I, P],
     # keypts, scores, out, B, N, radius_sq, stream
     "gmf_nms_local_max": [P, P, P, I, I, F, P],
-    # seeds, feats, mask, idx, val, B, S, N, C, K, stream
-    "gmf_seed_knn_topk": [P, P, P, P, P, I, I, I, I, I, P],
+    # seeds, feats, mask, idx, val, B, S, N, C, K, is_bf16, stream
+    "gmf_seed_knn_topk": [P, P, P, P, P, I, I, I, I, I, I, P],
     # trans, src, tgt, mask, counts, B, S, N, thr_sq, stream
     "gmf_seed_hypothesis_counts": [P, P, P, P, P, I, I, I, F, P],
 }

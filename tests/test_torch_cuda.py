@@ -414,23 +414,68 @@ def test_nms_kernel(gen, cuda):
                                atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("case", ["plain", "ties", "exhausted"])
-def test_knn_kernel(gen, cuda, case):
-    """Indices exact; scores to f32 summation-order error."""
-    B, S, N, C, k = 2, 50, 1000, 128, 41
+# (N, S, k) per case: N past a multiple of the 64-key tile (1000, 333, 65),
+# S past a multiple of the 64-seed block (50, 1, 65), k at both list widths
+KNN_CASES = {
+    "plain": (1000, 50, 41),
+    "ties": (1000, 50, 64),        # duplicated rows; exact zero scores
+    "exhausted": (1000, 50, 41),   # pair 0: 30 valid keys < k
+    "all_masked": (333, 50, 41),   # pair 1: no valid key
+    "boundary": (65, 1, 64),       # pair 1's features all +inf
+    "k128": (1000, 65, 128),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(KNN_CASES))
+def test_knn_kernel(gen, cuda, case, dtype):
+    """Indices equal to the plain version's; scores within 1e-5 (f32
+    summation order; bf16 products are exact). The plain version gets
+    the same bf16 values."""
+    N, S, k = KNN_CASES[case]
+    B, C = 2, 128
     f = gen.randn(B, N, C).astype(np.float32)
     f /= np.linalg.norm(f, axis=-1, keepdims=True)
     mask = np.ones((B, N), np.float32)
     if case == "ties":
-        f[:, 500:600] = f[:, :100]
+        # the seeds (rows 0-49) and their copies (500-549) live in the
+        # first half of the depth, every other row in the second: those
+        # score exactly 0 (+0 and -0 compare equal) and fill by index
+        f[:, :50, C // 2:] = 0.0
+        f[:, 50:, : C // 2] = 0.0
+        f[:, 500:550] = f[:, :50]
     if case == "exhausted":
         mask[0, 30:] = 0.0
-    f, m = _t(f, cuda), _t(mask, cuda)
+    if case == "all_masked":
+        mask[1] = 0.0
+    if case == "boundary":
+        f[1] = np.inf
+    f, m = _t(f, cuda).to(dtype), _t(mask, cuda)
     s = f[:, :S].contiguous()
+    name = ("seed_knn_topk_bf16" if dtype == torch.bfloat16
+            else "seed_knn_topk_f32")
+    before = _build.launches[name]
     got_i, got_v = seed_knn_topk(s, f, k, mask=m)
     ref_i, ref_v = seed_knn_topk_plain(s, f, k, mask=m)
-    torch.testing.assert_close(got_i, ref_i, atol=0, rtol=0)
-    torch.testing.assert_close(got_v, ref_v, atol=1e-5, rtol=0)
+    assert _build.launches[name] == before + 1
+    pairs = slice(0, 1) if case == "boundary" else slice(None)
+    torch.testing.assert_close(got_i[pairs], ref_i[pairs], atol=0, rtol=0)
+    torch.testing.assert_close(got_v[pairs], ref_v[pairs], atol=1e-5,
+                               rtol=0)
+    if case == "ties":
+        assert (ref_v == 0).sum() > S and (got_i[..., 1] >= 500).all()
+
+
+def test_knn_kernel_refuses(cuda):
+    """k > N and k past the list width raise; so does a depth above 128."""
+    f = torch.randn(1, 200, 128, device=cuda)
+    with pytest.raises(ValueError, match="N=40"):
+        seed_knn_topk(f[:, :5], f[:, :40], 41)
+    with pytest.raises(ValueError, match="top-k width"):
+        seed_knn_topk(f[:, :5], f, 129)
+    with pytest.raises(ValueError, match="depth"):
+        seed_knn_topk(torch.randn(1, 5, 256, device=cuda),
+                      torch.randn(1, 300, 256, device=cuda), 41)
 
 
 def test_scoring_kernel(gen, cuda):

@@ -323,9 +323,14 @@ def _unit_rows(rng, n, c):
     return f / np.linalg.norm(f, axis=-1, keepdims=True)
 
 
-@pytest.mark.parametrize("case", ["plain", "ties", "exhausted"])
-def test_seed_knn_topk_matches_pallas_interpret(rng, case):
-    B, S, N, C, k = 2, 24, 200, 32, 11
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["plain", "ties", "exhausted", "k128"])
+def test_seed_knn_topk_matches_pallas_interpret(rng, case, dtype):
+    """Indices equal to the Pallas kernel's in interpret mode, both fed the
+    same f32 or bf16 features (bf16: exact products, f32 sums); k up to
+    the kernel's width of 128."""
+    B, S, N, C = 2, 24, 200, 32
+    k = 128 if case == "k128" else 11
     feats = np.stack([_unit_rows(rng, N, C) for _ in range(B)])
     mask = np.ones((B, N), np.float32)
     mask[1, 170:] = 0.0
@@ -339,10 +344,12 @@ def test_seed_knn_topk_matches_pallas_interpret(rng, case):
         seeds[0, :, C // 2:] = 0.0
     if case == "exhausted":
         mask[0, 8:] = 0.0  # 8 valid keys < k: rows fill by index
-    got, _ = seed_knn_topk(_t(seeds), _t(feats), k, mask=_t(mask))
+    got, _ = seed_knn_topk(_t(seeds).to(getattr(torch, dtype)),
+                           _t(feats).to(getattr(torch, dtype)), k,
+                           mask=_t(mask))
     for b in range(B):
-        ref, _ = jtopk.seed_knn_topk(jnp.asarray(seeds[b]),
-                                     jnp.asarray(feats[b]), k,
+        ref, _ = jtopk.seed_knn_topk(jnp.asarray(seeds[b], dtype),
+                                     jnp.asarray(feats[b], dtype), k,
                                      mask=jnp.asarray(mask[b]),
                                      interpret=True)
         np.testing.assert_array_equal(got[b].numpy(), np.asarray(ref))
