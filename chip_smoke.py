@@ -618,12 +618,12 @@ def knn_bound(rates, dtype, b, s, n):
                         "select": b * s * n / rates.alu})
 
 
-def knn_check(where, seeds, feats, mask, slices, rates=None):
+def knn_check(where, seeds, feats, mask, slices, rates):
     """The kNN instance of the features' dtype against its plain version,
     fed the same values, on each slice of pairs: the chosen scores within
     1e-5. Returns the kernel's indices and its row: the error, the share
-    of indices equal to the plain version's and, given ``rates``, the ms
-    of the kernel and of the plain version over all pairs and the bound."""
+    of indices equal to the plain version's, the ms of the kernel and of
+    the plain version over all pairs, and the bound."""
     from gmf_tpu_torch.ops.fused_topk import (seed_knn_topk,
                                               seed_knn_topk_plain)
 
@@ -639,18 +639,17 @@ def knn_check(where, seeds, feats, mask, slices, rates=None):
     name = KNN_KERNELS[feats.dtype]
     if not err <= 1e-5:
         fail(f"{where}: {name}: chosen scores differ by {err}")
-    row = dict(max_abs_err=err, tolerance=1e-5,
-               index_agreement=same / got_i.numel())
-    if rates is not None:
-        b, s, n = seeds.shape[0], seeds.shape[1], feats.shape[1]
-        row.update(
-            ms=cuda_ms(lambda: seed_knn_topk(seeds, feats, K1, mask=mask),
-                       reps=10),
-            plain_ms=cuda_ms(lambda: seed_knn_topk_plain(seeds, feats, K1,
-                                                         mask=mask),
-                             reps=3, warmup=1),
-            **dict(zip(("bound_ms", "bound_by"),
-                       knn_bound(rates, feats.dtype, b, s, n))))
+    b, s, n = seeds.shape[0], seeds.shape[1], feats.shape[1]
+    row = dict(
+        max_abs_err=err, tolerance=1e-5,
+        index_agreement=same / got_i.numel(),
+        ms=cuda_ms(lambda: seed_knn_topk(seeds, feats, K1, mask=mask),
+                   reps=10),
+        plain_ms=cuda_ms(lambda: seed_knn_topk_plain(seeds, feats, K1,
+                                                     mask=mask),
+                         reps=3, warmup=1),
+        **dict(zip(("bound_ms", "bound_by"),
+                   knn_bound(rates, feats.dtype, b, s, n))))
     return got_i, row
 
 
@@ -688,6 +687,7 @@ def kernel_phase(dev, rates):
         seeds, feats = knn_inputs(gen, mask, S, dtype)
         got_i, rows[KNN_KERNELS[dtype]] = knn_check(
             f"B={B}", seeds, feats, mask, [slice(None)], rates)
+    # the seed solver on the f32 features and their neighbours (the last)
     rows["fused_seed_weights"] = seed_solver_phase(rates, feats, src, tgt,
                                                    got_i)
     del feats, seeds
@@ -927,13 +927,13 @@ def core_phase(dev):
 
 
 def seed_kernels_check(where, gen, gt_trans, src, tgt, mask, s, slices,
-                       rates=None):
+                       rates):
     """The seed kNN, both instances, and the hypothesis counts at the
     shapes of one path: ``s`` seeds per pair among its valid rows, unit
     features of depth D, hypotheses near each pair's true transform. The
     plain versions run on each slice of pairs; kernel_phase's limits.
-    Returns each kernel's largest error and, given ``rates``, each kNN
-    instance's times and bound over all pairs (knn_check)."""
+    Returns each kernel's largest error and each kNN instance's row
+    (knn_check)."""
     from gmf_tpu_torch.ops.fused_scoring import (
         seed_hypothesis_counts, seed_hypothesis_counts_plain)
 
@@ -954,7 +954,7 @@ def seed_kernels_check(where, gen, gt_trans, src, tgt, mask, s, slices,
     if not counts <= 2:
         fail(f"{where}: seed_hypothesis_counts: counts differ by {counts}")
     errs["seed_hypothesis_counts"] = counts
-    return (errs, knn_rows) if rates is not None else errs
+    return errs, knn_rows
 
 
 def bwd_bound(rates, dtype, nbytes_side, alu, sfu, products, out_tensors,
