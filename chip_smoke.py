@@ -31,7 +31,9 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
    Then every kernel of the training paths at the
    training shape, B=16, N=1000, D=128 with the last 10% of pair 0
    masked, f32 and bf16: the four backward kernels (dK/dV and dQ,
-   streaming and cached, the cached ones on each cache type), the
+   streaming and cached, the cached ones on each cache type, launched
+   twice for the same bits and across the pair boundary: pair 0 at
+   N=333, pair 1's k, v and do all inf), the
    streaming and cached forward (output and the lse they write), the
    standalone cache of each type (every byte), kNN and counts at S=100
    seeds, each against its plain version with the limits above. Then the
@@ -258,8 +260,18 @@ VARIANT_OPS = {
 HBM_BPS = 3.35e12
 BF16_TC_FLOPS = 989e12
 F32_FLOPS = 67e12
+# An f32-accurate product's rate: the faster of the CUDA cores' f32 FMAs
+# and the bf16 tensor cores running six products of a three-term bf16
+# split, the route of the cached backward (compat_flash_bwd_tc.cuh)
+F32_PRODUCT_FLOPS = max(F32_FLOPS, BF16_TC_FLOPS / 6)
 SFU_PER_CLK_PER_SM = 16   # Hopper: 4 SFU quads per SM
 ALU_PER_CLK_PER_SM = 128  # f32 lanes per SM
+
+
+def product_rate(dtype) -> float:
+    """FLOP/s of a matrix product whose operands are ``dtype``: bf16 on
+    the tensor cores, f32 at f32 accuracy by the faster route."""
+    return BF16_TC_FLOPS if dtype == torch.bfloat16 else F32_PRODUCT_FLOPS
 
 
 def fail(msg: str):
@@ -350,9 +362,8 @@ def attention_bound(rates, dtype, cache_dtype=None, build=False):
         nbytes += (B * N * cache_row_stride(N, cache_dtype)
                    * torch.empty((), dtype=cache_dtype).element_size())
     alu, sfu = (29, 3) if build else (20, 3) if cache_dtype is None else (3, 1)
-    mm_rate = BF16_TC_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
     return rates.bound(nbytes, {
-        "products": 4 * D * pairs / mm_rate,
+        "products": 4 * D * pairs / product_rate(dtype),
         "compat_alu": alu * pairs / rates.alu,
         "sfu": sfu * pairs / rates.sfu,
     })
@@ -550,7 +561,7 @@ def seed_solver_phase(rates, feats, src, tgt, knn_idx):
     seeds = B * S
     bound_ms, bound_by = rates.bound(
         seeds * k * (D * 4 + 24 + 4),
-        {"gram": 2 * seeds * k * k * D / F32_FLOPS,
+        {"gram": 2 * seeds * k * k * D / F32_PRODUCT_FLOPS,
          "alu": seeds * k * k * (25 + 2 * NUM_ITERS) / rates.alu,
          "sfu": 4 * seeds * k * k / rates.sfu})  # 2 sqrt, 2 divisions
     return dict(
@@ -608,13 +619,11 @@ def knn_inputs(gen, mask, s, dtype):
 def knn_bound(rates, dtype, b, s, n):
     """(bound_ms, bound_by) of one seed kNN: seeds and keys of ``dtype``
     and the mask read once, k + 1 indices and scores written; the
-    products on the tensor cores (bf16) or as f32 FMAs, and one compare
-    per score."""
+    products at ``product_rate``, and one compare per score."""
     size = torch.tensor([], dtype=dtype).element_size()
-    peak = BF16_TC_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
     return rates.bound((b * s + b * n) * D * size + b * n * 4
                        + b * s * K1 * 8,
-                       {"products": 2 * b * s * n * D / peak,
+                       {"products": 2 * b * s * n * D / product_rate(dtype),
                         "select": b * s * n / rates.alu})
 
 
@@ -967,10 +976,61 @@ def bwd_bound(rates, dtype, nbytes_side, alu, sfu, products, out_tensors,
     pairs = b * n * n
     esize = torch.finfo(dtype).bits // 8
     nbytes = (4 + out_tensors) * b * n * D * esize + 3 * b * n * 4
-    mm_rate = BF16_TC_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
     return rates.bound(nbytes + nbytes_side, {
-        "products": 2 * D * products * pairs / mm_rate,
+        "products": 2 * D * products * pairs / product_rate(dtype),
         "alu": alu * pairs / rates.alu, "sfu": sfu * pairs / rates.sfu})
+
+
+def bwd_tol(ref, dtype) -> float:
+    """The backward kernels' limit against their plain version: f32 1e-5
+    of the largest entry (the two sum in another order, the cached kernels
+    through the three-term bf16 split); bf16 4 bf16 ulps of it (both round
+    p and dlogits to bf16 before their products, and an operand at a
+    rounding edge may take the neighbouring value, then the result is
+    rounded to bf16)."""
+    scale = ref.float().abs().max().item()
+    return 1e-5 * scale if dtype == torch.float32 else 4 * bf16_ulp(scale)
+
+
+def cached_bwd_pair_boundary(dev, gen):
+    """The cached dK/dV and dQ kernels across the pair boundary: pair 0 at
+    N = 333, whose last tiles reach into pair 1, with pair 1's k, v and do
+    all inf. The kernels must not read them: pair 0's gradients meet
+    ``bwd_tol`` against the plain backward on pair 0 alone. f32 and bf16,
+    each cache type. Returns the largest error over its limit, by kernel."""
+    from gmf_tpu_torch.ops.fused_attention import (
+        _cached_forward, build_compat_cache, bwd_dkv, bwd_dq, bwd_inputs,
+        compat_attention_bwd_plain)
+
+    n, p = 333, slice(0, 1)
+    src = 2.5 * torch.rand(2, n, 3, generator=gen, device=dev)
+    tgt = src + 0.02 * torch.randn(2, n, 3, generator=gen, device=dev)
+    mask = torch.ones(2, n, device=dev)
+    worst = {"dkv": 0.0, "dq": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (torch.randn(2, n, D, generator=gen, device=dev)
+                       .to(dtype) for _ in range(4))
+        for t in (k, v, do):
+            t[1] = float("inf")
+        for cdt in (torch.float32, torch.bfloat16, torch.int8):
+            cache = build_compat_cache(src, tgt, 0.10, cdt)
+            out, lse = _cached_forward(q, k, v, cache, mask, True)
+            inp = bwd_inputs(q, k, v, do, out, lse, mask)
+            got_k, got_v = bwd_dkv(inp, compat=cache)
+            got_q = bwd_dq(inp, compat=cache)
+            refs = compat_attention_bwd_plain(
+                q[p], k[p], v[p], do[p], out[p], lse[p], mask[p],
+                compat=cache[p])
+            for part, g, r in zip(("dq", "dk", "dv"), (got_q, got_k, got_v),
+                                  refs):
+                tol = bwd_tol(r, dtype)
+                err = (g[p].float() - r.float()).abs().max().item()
+                if not err <= tol:
+                    fail(f"cached backward {part} at the pair boundary "
+                         f"({dtype}, {cdt} cache): max abs err {err} > {tol}")
+                kernel = "dq" if part == "dq" else "dkv"
+                worst[kernel] = max(worst[kernel], err / tol)
+    return worst
 
 
 def backward_phase(dev, rates):
@@ -982,12 +1042,10 @@ def backward_phase(dev, rates):
     kernel_phase's limits. Attention in f32 and bf16, the cached kernels
     on each cache type. The backward kernels get the same out and lse as
     the plain backward. Limits: forward outputs as in kernel_phase
-    (attention_tol); backward f32 1e-5 of the largest entry (the two sum in
-    another order); bf16 4 bf16 ulps of it (both round p and dlogits to
-    bf16 before their products, and an operand at a rounding edge may take
-    the neighbouring value, then the result is rounded to bf16); lse 1e-5
-    absolute (summation order), and each valid row's p = exp2(s - lse)
-    sums to 1 within 1e-5 (f32)."""
+    (attention_tol); backward ``bwd_tol``; lse 1e-5 absolute (summation
+    order), and each valid row's p = exp2(s - lse) sums to 1 within 1e-5
+    (f32). The cached kernels must also give the same bits in two launches
+    and hold across the pair boundary (``cached_bwd_pair_boundary``)."""
     from gmf_tpu_torch.data.synthetic import make_correspondence_problem
     from gmf_tpu_torch.ops.fused_attention import (
         _cached_forward, _load_compat, _logits_plain, _stream_compat_plain,
@@ -1057,12 +1115,17 @@ def backward_phase(dev, rates):
             got_q = bwd_dq(inp, src, tgt, 0.10, cache)
             ref_q, ref_k, ref_v = compat_attention_bwd_plain(
                 q, k, v, do, out, lse, mask, src, tgt, 0.10, compat=cache)
+            if cache is not None:
+                again_k, again_v = bwd_dkv(inp, compat=cache)
+                if not (torch.equal(again_k, got_k)
+                        and torch.equal(again_v, got_v)
+                        and torch.equal(bwd_dq(inp, compat=cache), got_q)):
+                    fail(f"backward {tag}: two launches differ")
+                del again_k, again_v
             errs = {}
             for part, g, r in (("dq", got_q, ref_q), ("dk", got_k, ref_k),
                                ("dv", got_v, ref_v)):
-                scale = r.float().abs().max().item()
-                tol = (1e-5 * scale if dtype == f32
-                       else 4 * bf16_ulp(scale))
+                tol = bwd_tol(r, dtype)
                 err = (g.float() - r.float()).abs().max().item()
                 if not err <= tol:
                     fail(f"backward {tag} {part}: max abs err {err} > {tol}")
@@ -1099,13 +1162,15 @@ def backward_phase(dev, rates):
             del inp, out, lse, cache
             torch.cuda.empty_cache()
         del q, k, v, do
+    boundary = cached_bwd_pair_boundary(dev, gen)
     summary = {t: {"fwd_err": r["fwd_err"], "lse_err": r["lse_err"],
                    "psum_err": r["psum_err"],
                    **{p: e[0] for p, e in r["errs"].items()},
                    "dkv_ms": r["dkv_ms"], "dq_ms": r["dq_ms"]}
                for t, r in res.items()}
     print(f"training-shape kernels passed: {json.dumps(seed_errs)} "
-          f"{json.dumps(summary)}", flush=True)
+          f"{json.dumps(summary)}; cached backward at the pair boundary, "
+          f"error over limit: {json.dumps(boundary)}", flush=True)
 
     def rows_for(main, name_dkv, name_dq):
         """The two kernels' rows: the f32 training case first, every other
@@ -1152,6 +1217,10 @@ def backward_phase(dev, rates):
             b16_n1000_lse_max_abs_err=r["lse_err"],
             b16_n1000_p_sum_err=r["psum_err"])
     extra["build_compat_cache"] = dict(b16_n1000_equal_to_plain=True)
+    for kernel, name in (("dkv", "compat_flash_attention_cached_bwd_dkv"),
+                         ("dq", "compat_flash_attention_cached_bwd_dq")):
+        extra[name] = dict(two_launches_same_bits=True,
+                           pair_boundary_n333_err_over_limit=boundary[kernel])
     for name, err in seed_errs.items():
         extra[name] = {"b16_n1000_max_abs_err": err}
     for name, row in knn_rows.items():  # the training shape's kNN
@@ -1164,7 +1233,7 @@ def variant_bound(rates, variant, b, n, dtype=torch.bfloat16):
     """(bound_ms, bound_by) of one layer of ``variant`` at [b, n, D]: q,
     k, v read and out written in ``dtype``, the keypoints (v0, v2, v3, v6)
     or the cache (v4 bf16, v5 f32), the two products of depth D per (i, j)
-    on the bf16 tensor cores (f32: CUDA cores) and VARIANT_OPS. The
+    at ``product_rate`` and VARIANT_OPS. The
     benchmark passes no mask."""
     from gmf_tpu_torch.ops.flash_variants import CACHE_DTYPES
     from gmf_tpu_torch.ops.fused_attention import cache_row_stride
@@ -1178,10 +1247,9 @@ def variant_bound(rates, variant, b, n, dtype=torch.bfloat16):
     elif variant != "v1":
         nbytes += b * n * 6 * 4
     alu, sfu = VARIANT_OPS[variant]
-    mm_rate = BF16_TC_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
-    return rates.bound(nbytes, {"products": 4 * D * pairs / mm_rate,
-                                "alu": alu * pairs / rates.alu,
-                                "sfu": sfu * pairs / rates.sfu})
+    return rates.bound(nbytes, {
+        "products": 4 * D * pairs / product_rate(dtype),
+        "alu": alu * pairs / rates.alu, "sfu": sfu * pairs / rates.sfu})
 
 
 def precompute_row(rates, cdt, src, tgt, slices, cache):

@@ -6,23 +6,23 @@
 // (fused_attention.py:1009), both over _bwd_tile_cached: the custom_vjp
 // backward (_flash_cached_bwd) of the cached attention, which the PointDSC
 // NonLocal layers run in training when they share one compat matrix. The
-// kernels are the Compat::kCached instances of compat_flash_bwd_core.cuh:
-// they read the forward's [B, N, ld] cache (rows are queries) four entries
-// at a time, f32 and bf16 widened, int8 dequantized as code / 254 + 0.5
-// with the forward's one FMA, so p = exp2(s - lse) recomputes the forward's
-// probabilities. The cache carries no gradient.
+// kernels are compat_flash_bwd_tc.cuh's: every product on the tensor cores
+// (wgmma), f32 q/k/v split into three bf16 terms and six products, bf16
+// as one term. They read the forward's [B, N, ld] cache (rows are
+// queries), f32 and bf16 widened, int8 dequantized as code / 254 + 0.5
+// with the forward's one FMA, so p = exp2(s - lse) recomputes the
+// forward's probabilities. The cache carries no gradient.
 //
 // Bound on this card, per (i, j): 4 products of depth D (dK/dV kernel,
 // 8 D flop) or 3 (dQ kernel, 6 D flop), ~9 f32 ALU ops (dequantize, logit,
 // p, dlogits) and 1 exp2. Bytes: the cache, B N ld elements, read once by
-// each kernel, plus O(N D) per pair. At D = 128 in f32 the FMAs on the
-// CUDA cores bound both (at B = 16, N = 1000, about 0.24 ms and 0.18 ms at
-// 67 TFLOP/s); the 4-byte f32 cache (64 MB) would take 0.02 ms to read.
-// The design is compat_flash_attention_bwd.cu's, with a cache tile in
-// place of the compat arithmetic; each thread's tile is loaded before the
-// products so that it is in flight during them.
+// each kernel, plus O(N D) per pair. At D = 128 the products bound both:
+// in bf16 at 989 TFLOP/s, in f32 at 989 / 6 (six bf16 products per f32
+// product, the faster of that and the CUDA cores' 67 TFLOP/s): at B = 16,
+// N = 1000, about 0.10 ms (dK/dV) and 0.075 ms (dQ) in f32; the 4-byte
+// f32 cache (64 MB) takes 0.02 ms to read.
 
-#include "compat_flash_bwd_core.cuh"
+#include "compat_flash_bwd_tc.cuh"
 
 namespace {
 
@@ -32,13 +32,13 @@ cudaError_t cached_bwd(bool dq_kernel, const void* q, const void* k,
                        const void* delta, const void* cache, const void* mask,
                        void* out0, void* out1, int B, int N, int D, int ld,
                        int is_bf16, float qscale, float scale, void* stream) {
-  return dispatch_bwd<Compat::kCached, CT>(
-      dq_kernel, q, k, v, dout, lse, delta, nullptr, nullptr, mask,
-      static_cast<const CT*>(cache), out0, out1, B, N, D, ld, is_bf16, 0.f,
-      qscale, scale, stream);
+  return dispatch_bwd_tc<CT>(dq_kernel, q, k, v, dout, lse, delta, mask,
+                             static_cast<const CT*>(cache), out0, out1, B, N,
+                             D, ld, is_bf16, qscale, scale, stream);
 }
 
-// cache element type (0 f32, 1 bf16, 2 int8); rows 16-byte aligned
+// cache element type (0 f32, 1 bf16, 2 int8); rows 16-byte aligned; q,
+// k, v, dout and the cache must start 16-byte aligned
 cudaError_t cached_bwd_any(bool dq_kernel, const void* q, const void* k,
                            const void* v, const void* dout, const void* lse,
                            const void* delta, const void* cache,

@@ -1,15 +1,12 @@
-// Shared core of the compat-modulated flash attention BACKWARD kernels for
-// Hopper, sm_90a: the gradient of compat_flash_core.cuh's forward with
-// respect to q, k and v, recomputed from the forward's base-2 log-sum-exp.
-//
-// One template, two ways to obtain the compat tile, as in the forward:
-//
-//   Compat::kStream  rebuild it from the keypoints with compat_stream(),
-//                    the very function the forward used
-//                    (compat_flash_attention_bwd.cu),
-//   Compat::kCached  load it from the [B, N, ld] cache of f32, bf16 or int8
-//                    codes the forward read (compat_flash_attention_cached_
-//                    bwd.cu).
+// Core of the STREAMING compat-modulated flash attention BACKWARD kernels
+// for Hopper, sm_90a: the gradient of compat_flash_core.cuh's streaming
+// forward with respect to q, k and v, recomputed from the forward's base-2
+// log-sum-exp. Compat is rebuilt from the keypoints with compat_stream(),
+// the very function the forward used (compat_flash_attention_bwd.cu). Its
+// only instances are Compat::kStream (the template keeps the parameters
+// MODE, CT, cache and ld, unused, so those kernels keep their names and
+// code); the cached backward is compat_flash_bwd_tc.cuh's, on the tensor
+// cores.
 //
 // For pair b, query i and key j (qs = q * scale * log2(e), folded as in the
 // forward; lse and delta per query row):
@@ -28,8 +25,7 @@
 //
 // Tiles: BWD_BQ = 64 queries x BWD_BK = 32 keys. bwd_tile() computes p and
 // dlogits of one tile into shared memory, each of the 256 threads owning
-// a 2 x 4 patch (the forward's logits layout, so a cached compat row is
-// read 4 entries at a time with one vector load and the products q.k are
+// a 2 x 4 patch (the forward's logits layout, so the products q.k are
 // summed in the forward's order). Two kernels use it:
 //
 //   compat_flash_bwd_dkv  one block per (key tile, pair) keeps its 32 keys'
@@ -116,8 +112,7 @@ __device__ __forceinline__ void load_key_side(float* dst, const float* src,
 
 // p (when sP is given) and dlogits of the tile (queries q0.., keys k0..)
 // into [BWD_BQ][BWD_PP] shared arrays, rounded to T. sQs, sDO: [BWD_BQ]
-// [D + 1]; sK, sV: [BWD_BK][D + 1]; side rows as above. cache: this pair's
-// [N, ld] rows (kCached).
+// [D + 1]; sK, sV: [BWD_BK][D + 1]; side rows as above. cache, ld: unused.
 template <typename T, int D, Compat MODE, typename CT>
 __device__ __forceinline__ void bwd_tile(
     const float* sQs, const float* sDO, const float* sK, const float* sV,
@@ -128,20 +123,6 @@ __device__ __forceinline__ void bwd_tile(
   const int tid = threadIdx.x;
   const int r1 = (tid / 8) * 2;
   const int c1 = (tid % 8) * 4;
-  const int j0 = k0 + c1;
-  float tile[2][4];
-  if constexpr (MODE == Compat::kCached) {
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const int i = q0 + r1 + rr;
-      if (i < N && j0 < ld) {
-        load4(cache + (size_t)i * ld + j0, tile[rr]);
-      } else {
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc) tile[rr][cc] = 0.f;
-      }
-    }
-  }
   float s[2][4], dp[2][4];
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr)
@@ -171,11 +152,7 @@ __device__ __forceinline__ void bwd_tile(
       const float state = kside[6];
       float p = 0.f, ds = 0.f;
       if (row_in && state >= 0.f) {
-        float compat;
-        if constexpr (MODE == Compat::kStream)
-          compat = compat_stream(qside, kside, inv_sigma_sq);
-        else
-          compat = tile[rr][cc];
+        const float compat = compat_stream(qside, kside, inv_sigma_sq);
         float logit = compat * s[rr][cc];
         if (state == 0.f) logit = MASKED;
         p = exp2f(logit - qside[6]);
@@ -200,7 +177,7 @@ constexpr size_t dq_smem_floats() {
 }
 
 // q, k, v, dout: [B, N, D] of T; lse, delta, mask: [B, N] f32; src, tgt:
-// [B, N, 3] (kStream); cache: [B, N, ld] (kCached) -> dk, dv [B, N, D].
+// [B, N, 3] (kStream); cache, ld: unused -> dk, dv [B, N, D].
 template <typename T, int D, Compat MODE, typename CT>
 __global__ void __launch_bounds__(THREADS)
 compat_flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
@@ -243,8 +220,6 @@ compat_flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
   if constexpr (kCoords) {
     src += base * 3;
     tgt += base * 3;
-  } else {
-    cache += base * ld;
   }
 
   load_rows<T, D>(sK, k, k0, BWD_BK, N, 1.f);
@@ -337,8 +312,6 @@ compat_flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   if constexpr (kCoords) {
     src += base * 3;
     tgt += base * 3;
-  } else {
-    cache += base * ld;
   }
 
   load_rows<T, D>(sQs, q, q0, BWD_BQ, N, qscale);

@@ -1,0 +1,742 @@
+// The cached compat-modulated flash attention BACKWARD on Hopper's tensor
+// cores, sm_90a: dK/dV and dQ of compat_flash_core.cuh's cached forward,
+// recomputed from the forward's base-2 log-sum-exp. Both q/k/v types (f32
+// and bf16), three cache types (f32, bf16, int8 codes), D = 32 and 128.
+//
+// For pair b, query i and key j (qs = q * scale * log2(e); lse and delta
+// per query row; the cache is [B, N, ld], rows are queries):
+//
+//   s       = compat * (qs_i . k_j)        masked keys: -1e9 AFTER the
+//   p       = exp2(s - lse_i)              multiply, as in the forward
+//   dp      = do_i . v_j
+//   dlogits = p * (dp - delta_i) * compat * scale
+//   dV_j = sum_i p * do_i,  dK_j = sum_i dlogits * q_i,  dQ_i = sum_j
+//   dlogits * k_j
+//
+// lse_i = 1e9 on masked query rows (from the caller) makes their p, and so
+// their dq, exactly 0; keys and queries past N carry no weight.
+//
+// Every product runs on wgmma (compat_flash_core.cuh's descriptors,
+// swizzles and wrappers). A block is two warpgroups: warpgroup 1 produces,
+// warpgroup 0 consumes.
+//
+//   compat_flash_bwd_dkv_tc  one block per (64-key tile, pair): k and v
+//       stay resident, the query tiles stream through a ring of two
+//       32-query slots (q, do, their cache tile, lse, delta). Per slot
+//       S^T = k qs^T and dP^T = v do^T with the keys as wgmma's 64 rows
+//       (both operands K-major); p and dlogits on the accumulators in
+//       registers; then dV += P^T do and dK += dS^T q with P^T, dS^T as
+//       the register A operand (the accumulator's layout is the A
+//       fragment's) and do, q read MN-major through the descriptor's
+//       transpose bit, from the tiles S^T just read K-major. The cache
+//       tile is read transposed from shared memory.
+//   compat_flash_bwd_dq_tc   one block per (64-query tile, pair): qs and
+//       do stay resident, the key tiles stream through the same ring (k,
+//       v, the cache tile, the key states). S = qs k^T, dP = do v^T, then
+//       dQ += dS k with k read MN-major.
+//
+// The producer loads each tile with 16-byte loads into registers and
+// stores it swizzled; rows past N are stored as zeros, so the last tile
+// of a pair never reads the next pair. Named barriers hand a slot from
+// producer to consumer (FULL) and back (EMPTY). No atomics: each block
+// owns its outputs, so two launches give the same bits.
+//
+// f32 q/k/v keep f32 accuracy by a three-term bf16 split: on its way into
+// shared memory (and, for p and dlogits, in registers) x becomes hi =
+// bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), both subtractions
+// exact in f32, and each product is the six terms lo.hi + hi.lo + mid.mid
+// + mid.hi + hi.mid + hi.hi, summed smallest first in an f32 accumulator:
+// some 2^-24 of the operands' scale, as f32 itself (the terms dropped,
+// mid.lo, lo.mid and lo.lo, are below 2^-24). The tensor cores' f32
+// accumulation truncates, so dV, dK and dQ take each slot's products into
+// a zeroed tile sum and add it with rounded f32 adds (mma_rs). Plain TF32
+// keeps 10 bits and misses the 1e-5 limit the f32 path is held to; TF32
+// wgmma also takes K-major operands only, which would need a transposed
+// copy of q and do that does not fit beside the tiles. The f32 instance
+// folds qscale into S in registers (qscale * (q . k)): one f32 rounding
+// more than the plain version's (q * qscale) . k, some 6e-8 of s, where a
+// scaled copy of q would cost three more tiles.
+//
+// The bf16 instance is the same template with one term. It rounds where
+// the plain version and the TPU kernel round: qs (a scaled copy of q,
+// bf16(q * qscale) as in the forward, so p recomputes the forward's
+// probabilities), p before dV, dlogits before dK and dQ.
+//
+// Shared memory, f32, D = 128: resident 2 x 3 terms x 64 x 128 bf16 (96
+// KB) and two slots of 2 x 3 x 32 x 128 bf16 plus the cache tile (57-59
+// KB each): 211-215 KB, one block per SM. Two 32-row slots beat one of 64
+// rows, which the same bytes allow (no overlap of loads with products).
+//
+// Bound: the products, 4 (dK/dV) or 3 (dQ) of depth D per (i, j), at 989
+// TFLOP/s in bf16 and at 989 / 6 in f32. What holds the kernels above it
+// (on an H100): one consumer warpgroup an SM, which waits for its own
+// products (S and dP, then dV and dK, then each tile sum) and leaves the
+// tensor cores idle while it forms p, dlogits and the fragments; the
+// S and dP products are m64n32k16, which read more shared memory per flop
+// than wider ones; and the f32 dK/dV instance runs at 255 registers with
+// some 390 bytes of spills.
+
+#pragma once
+
+#include "compat_flash_core.cuh"
+
+namespace {
+
+constexpr int BT_ROWS = 64;    // resident rows per block: wgmma's M
+constexpr int BT_STREAM = 32;  // rows of a streamed tile (one ring slot)
+constexpr int BT_STAGES = 2;   // ring slots
+constexpr int BT_THREADS = 256;  // warpgroup 0 consumes, 1 produces
+constexpr int BT_WG = 128;
+// named barriers (0 is __syncthreads): slot s is FULL at 1 + s, EMPTY at
+// 1 + BT_STAGES + s
+constexpr int BAR_FULL = 1, BAR_EMPTY = 1 + BT_STAGES;
+constexpr float LSE_PAD = 1e9f;  // lse of rows past N: p = 0
+
+// bf16 terms an operand of type T is split into
+template <typename T>
+__host__ __device__ constexpr int bt_terms() {
+  return std::is_same<T, float>::value ? 3 : 1;
+}
+
+// the six products of a split operand pair in the order they are summed,
+// smallest first: (a term, b term) = lo.hi, hi.lo, mid.mid, mid.hi,
+// hi.mid, hi.hi (0 hi, 1 mid, 2 lo); one term: hi.hi alone
+__host__ __device__ constexpr int term_a(int p) {
+  return p == 0 ? 2 : p == 2 || p == 3 ? 1 : 0;
+}
+__host__ __device__ constexpr int term_b(int p) {
+  return p == 1 ? 2 : p == 2 || p == 4 ? 1 : 0;
+}
+template <int TERMS>
+__host__ __device__ constexpr int first_product() {
+  return TERMS == 3 ? 0 : 5;
+}
+
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(BT_THREADS) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(BT_THREADS)
+               : "memory");
+}
+
+// d += A B: A 64 x 16 (shared, K-major), B 16 x 32 (shared, K-major)
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// x -> TERMS bf16 values packed in pairs: hi, then the rounded remainders
+template <int TERMS>
+__device__ __forceinline__ void split2(float x0, float x1,
+                                       uint32_t (&w)[TERMS]) {
+#pragma unroll
+  for (int t = 0; t < TERMS; ++t) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    w[t] = *reinterpret_cast<const uint32_t*>(&h);
+    const float2 f = __bfloat1622float2(h);
+    x0 -= f.x;  // exact: x0 - bf16(x0) has at most 16 significant bits
+    x1 -= f.y;
+  }
+}
+
+__device__ __forceinline__ void widen8(const float4 (&raw)[2],
+                                       float (&x)[8]) {
+  x[0] = raw[0].x; x[1] = raw[0].y; x[2] = raw[0].z; x[3] = raw[0].w;
+  x[4] = raw[1].x; x[5] = raw[1].y; x[6] = raw[1].z; x[7] = raw[1].w;
+}
+
+// 8 consecutive elements (one 16-byte chunk of the bf16 tile) of row i <
+// N, zeros past N
+template <typename T>
+__device__ __forceinline__ void fetch8(const T* row, bool in,
+                                       float4 (&raw)[2]) {
+  if constexpr (std::is_same<T, float>::value) {
+    raw[0] = in ? reinterpret_cast<const float4*>(row)[0]
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+    raw[1] = in ? reinterpret_cast<const float4*>(row)[1]
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {
+    const uint4 u = in ? *reinterpret_cast<const uint4*>(row)
+                       : make_uint4(0u, 0u, 0u, 0u);
+    raw[0] = make_float4(__uint_as_float(u.x << 16),
+                         __uint_as_float(u.x & 0xffff0000u),
+                         __uint_as_float(u.y << 16),
+                         __uint_as_float(u.y & 0xffff0000u));
+    raw[1] = make_float4(__uint_as_float(u.z << 16),
+                         __uint_as_float(u.z & 0xffff0000u),
+                         __uint_as_float(u.w << 16),
+                         __uint_as_float(u.w & 0xffff0000u));
+  }
+}
+
+// Rows [r0, r0 + ROWS) of a [N, D] tensor of T into shared memory, NT
+// threads (thread `tid`) sharing the work, rows past N as zeros:
+//   split:  its bf16_terms<T>() terms, tile t at split + t * ROWS * D * 2;
+//   scaled: bf16(x * mul), one tile (the bf16 instance's qs).
+// Either may be null. Tiles are TcTile<D>-swizzled, 1024-byte aligned.
+template <typename T, int D, int ROWS, int NT>
+__device__ __forceinline__ void load_tile(uint8_t* split, uint8_t* scaled,
+                                          const T* src, int r0, int N,
+                                          int tid, float mul) {
+  using Tile = TcTile<D>;
+  constexpr int TERMS = bt_terms<T>();
+  constexpr int CHUNKS = D / 8;  // 16-byte bf16 chunks of a row
+  constexpr int ITERS = ROWS * CHUNKS / NT;
+  static_assert(ROWS * CHUNKS % NT == 0, "tile not a multiple of threads");
+  float4 raw[ITERS][2];
+#pragma unroll
+  for (int it = 0; it < ITERS; ++it) {
+    const int e = tid + it * NT, r = e / CHUNKS, ch = e % CHUNKS;
+    const int i = r0 + r;
+    fetch8(src + (size_t)(i < N ? i : 0) * D + ch * 8, i < N, raw[it]);
+  }
+#pragma unroll
+  for (int it = 0; it < ITERS; ++it) {
+    const int e = tid + it * NT;
+    const uint32_t off = Tile::offset(e / CHUNKS, e % CHUNKS, ROWS);
+    float x[8];
+    widen8(raw[it], x);
+    if (split != nullptr) {
+      uint32_t w[4][TERMS];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) split2<TERMS>(x[2 * c], x[2 * c + 1], w[c]);
+#pragma unroll
+      for (int t = 0; t < TERMS; ++t)
+        *reinterpret_cast<uint4*>(split + t * ROWS * D * 2 + off) =
+            make_uint4(w[0][t], w[1][t], w[2][t], w[3][t]);
+    }
+    if (scaled != nullptr)
+      *reinterpret_cast<uint4*>(scaled + off) = make_uint4(
+          pack_bf16(x[0] * mul, x[1] * mul), pack_bf16(x[2] * mul, x[3] * mul),
+          pack_bf16(x[4] * mul, x[5] * mul), pack_bf16(x[6] * mul, x[7] * mul));
+  }
+}
+
+// A cache tile: rows [r0, r0 + ROWS) (queries), columns [c0, c0 + COLS)
+// (keys) of this pair's [N, ld] cache into rows of `crow` bytes; entries
+// past row N or column ld are zeros. 16-byte chunks (ld keeps every row
+// 16-byte aligned, so a chunk never straddles a row).
+template <typename CT, int ROWS, int COLS>
+__device__ __forceinline__ void load_cache_tile(uint8_t* dst, const CT* cache,
+                                                int r0, int c0, int N, int ld,
+                                                int crow, int tid) {
+  constexpr int EPC = 16 / (int)sizeof(CT);  // entries per chunk
+  constexpr int CPR = COLS / EPC;            // chunks per tile row
+  for (int e = tid; e < ROWS * CPR; e += BT_WG) {
+    const int r = e / CPR, ch = e % CPR, i = r0 + r, jc = c0 + ch * EPC;
+    const bool in = i < N && jc < ld;
+    *reinterpret_cast<uint4*>(dst + r * crow + ch * 16) =
+        in ? *reinterpret_cast<const uint4*>(cache + (size_t)i * ld + jc)
+           : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// one cache entry as compat (int8: dequantized with the forward's FMA)
+__device__ __forceinline__ float compat_at(const float* p) { return *p; }
+__device__ __forceinline__ float compat_at(const __nv_bfloat16* p) {
+  return __uint_as_float((uint32_t)*reinterpret_cast<const uint16_t*>(p)
+                         << 16);
+}
+__device__ __forceinline__ float compat_at(const int8_t* p) {
+  return dequant_i8((float)*p);
+}
+
+// acc (64 x BROWS) += A B^T over depth D, both operands split into TERMS
+// tiles in shared memory, K-major: A of 64 rows at a, B of BROWS rows at b
+template <int TERMS, int D, int BROWS, int R>
+__device__ __forceinline__ void mma_ss(float (&acc)[R], uint32_t a,
+                                       uint32_t b) {
+  using Tile = TcTile<D>;
+  constexpr int RB = Tile::RB;
+#pragma unroll
+  for (int p = first_product<TERMS>(); p < 6; ++p)
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const uint32_t blk = ks * 32 / RB, col = ks * 32 % RB;
+      wgmma_ss(acc,
+               Tile::desc(a + term_a(p) * BT_ROWS * D * 2 +
+                              blk * BT_ROWS * RB + col,
+                          16, 8 * RB),
+               Tile::desc(b + term_b(p) * BROWS * D * 2 + blk * BROWS * RB +
+                              col,
+                          16, 8 * RB));
+    }
+}
+
+// d += A B: the products of mma_rs, issued and waited for
+template <int TERMS, int D, int KROWS>
+__device__ __forceinline__ void issue_rs(
+    float (&d)[D / 2], const uint32_t (&a)[TERMS][KROWS / 16][4],
+    uint32_t b) {
+  using Tile = TcTile<D>;
+  constexpr int RB = Tile::RB;
+  wgmma_fence();
+#pragma unroll
+  for (int p = first_product<TERMS>(); p < 6; ++p)
+#pragma unroll
+    for (int kk = 0; kk < KROWS / 16; ++kk)
+      wgmma_rs(d, a[term_a(p)][kk],
+               Tile::desc(b + term_b(p) * KROWS * D * 2 + kk * 16 * RB,
+                          KROWS * RB, 8 * RB));
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(d);
+}
+
+// acc (64 x D) += A B over depth KROWS: A in registers (TERMS split
+// fragments of KROWS / 16 k-steps), B the KROWS x D tile split into TERMS
+// tiles at b, read MN-major. One term: straight into acc. Three terms:
+// into a zeroed tile sum, added to acc with rounded f32 adds. The tensor
+// cores' f32 accumulation truncates; into acc itself, every slot's steps
+// would each cost up to an ulp of the whole sum (on an H100, 7.4e-6 of
+// the largest entry at N = 1000 against the plain version, whose limit is
+// 1e-5; 1.5-2.3e-6 with the tile sums), into the tile's own sum they cost
+// an ulp of that.
+template <int TERMS, int D, int KROWS>
+__device__ __forceinline__ void mma_rs(
+    float (&acc)[D / 2], const uint32_t (&a)[TERMS][KROWS / 16][4],
+    uint32_t b) {
+  if constexpr (TERMS == 1) {
+    issue_rs<TERMS, D, KROWS>(acc, a, b);
+  } else {
+    float part[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) part[i] = 0.f;
+    issue_rs<TERMS, D, KROWS>(part, a, b);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] += part[i];
+  }
+}
+
+// an m64nK accumulator's columns as the A fragments of K / 16 k-steps
+// (column groups 2 kk and 2 kk + 1), split into TERMS bf16 terms
+template <int TERMS, int K>
+__device__ __forceinline__ void to_frags(const float (&x)[K / 2],
+                                         uint32_t (&a)[TERMS][K / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      uint32_t w[TERMS];
+      split2<TERMS>(x[8 * kk + 2 * c], x[8 * kk + 2 * c + 1], w);
+#pragma unroll
+      for (int t = 0; t < TERMS; ++t) a[t][kk][c] = w[t];
+    }
+}
+
+// an accumulator (64 x D, this thread's rows r and r + 8) to rows < N of
+// out, two neighbouring columns a store
+template <int D>
+__device__ __forceinline__ void store_rows(float* out, const float (&acc)[D / 2],
+                                           int row, int N, int quad) {
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    if (row + 8 * rr >= N) continue;
+#pragma unroll
+    for (int jg = 0; jg < D / 8; ++jg)
+      *reinterpret_cast<float2*>(out + (size_t)(row + 8 * rr) * D + jg * 8 +
+                                 2 * quad) =
+          make_float2(acc[jg * 4 + rr * 2], acc[jg * 4 + rr * 2 + 1]);
+  }
+}
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out,
+                                           const float (&acc)[D / 2], int row,
+                                           int N, int quad) {
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    if (row + 8 * rr >= N) continue;
+#pragma unroll
+    for (int jg = 0; jg < D / 8; ++jg)
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(row + 8 * rr) * D +
+                                         jg * 8 + 2 * quad) =
+          __floats2bfloat162_rn(acc[jg * 4 + rr * 2],
+                                acc[jg * 4 + rr * 2 + 1]);
+  }
+}
+
+// key state of key j: 1 valid, 0 masked (logit -1e9), -1 past N (weight 0)
+__device__ __forceinline__ float key_state(const float* mask, int j, int N) {
+  return j >= N ? -1.f : (mask[j] > 0.f ? 1.f : 0.f);
+}
+
+// Shared-memory layout of both kernels: the resident operands (two of
+// TERMS tiles of 64 rows), then BT_STAGES slots, each two streamed
+// operands (TERMS tiles of BT_STREAM rows), the bf16 dK/dV instance's qs
+// tile, a cache tile of CROWS rows of `crow` bytes and SIDE floats a row
+// of the stream (lse and delta, or the key state).
+template <typename T, int D, typename CT, bool kDkv>
+struct BtLayout {
+  static constexpr int TERMS = bt_terms<T>();
+  static constexpr int RES = TERMS * BT_ROWS * D * 2;
+  static constexpr int STR = TERMS * BT_STREAM * D * 2;
+  static constexpr int QS = kDkv && TERMS == 1 ? BT_STREAM * D * 2 : 0;
+  // dK/dV: rows = the slot's queries, 64 keys a row, read transposed; a
+  // 16-byte pad puts the lanes of a warp in distinct banks. dQ: rows =
+  // the block's queries, BT_STREAM keys a row, read as the forward reads.
+  static constexpr int CROWS = kDkv ? BT_STREAM : BT_ROWS;
+  static constexpr int CROW =
+      kDkv ? BT_ROWS * (int)sizeof(CT) + 16
+           : BT_STREAM * (int)sizeof(CT) + (sizeof(CT) == 4 ? 32 : 16);
+  static constexpr int SIDE = kDkv ? 2 : 1;
+  static constexpr int CACHE_OFF = 2 * STR + QS;
+  static constexpr int SIDE_OFF = CACHE_OFF + CROWS * CROW;
+  static constexpr int SLOT =
+      (SIDE_OFF + SIDE * BT_STREAM * 4 + 1023) / 1024 * 1024;
+  static constexpr size_t BYTES = 1024 /* alignment */ + 2 * RES +
+                                  BT_STAGES * SLOT;
+};
+
+// q, k, v, dout: [B, N, D] of T; lse, delta, mask: [B, N] f32; cache: [B,
+// N, ld] -> dk, dv [B, N, D] of T
+template <typename T, int D, typename CT>
+__global__ void __launch_bounds__(BT_THREADS, 1)
+compat_flash_bwd_dkv_tc(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        const float* __restrict__ mask,
+                        const CT* __restrict__ cache, T* __restrict__ dk,
+                        T* __restrict__ dv, int N, int ld, float qscale,
+                        float scale) {
+  using L = BtLayout<T, D, CT, true>;
+  constexpr int TERMS = L::TERMS;
+  static_assert(D % 32 == 0, "D must be a multiple of 32");
+  extern __shared__ __align__(16) uint8_t bt_smem[];
+  uint8_t* sK = bt_smem + ((1024u - (smem_u32(bt_smem) & 1023u)) & 1023u);
+  uint8_t* sV = sK + L::RES;
+  uint8_t* ring = sV + L::RES;
+
+  const int tid = threadIdx.x;
+  const int k0 = blockIdx.x * BT_ROWS;
+  const size_t base = (size_t)blockIdx.y * N;
+  q += base * D;
+  k += base * D;
+  v += base * D;
+  dout += base * D;
+  dk += base * D;
+  dv += base * D;
+  lse += base;
+  delta += base;
+  mask += base;
+  cache += base * ld;
+
+  load_tile<T, D, BT_ROWS, BT_THREADS>(sK, nullptr, k, k0, N, tid, 0.f);
+  load_tile<T, D, BT_ROWS, BT_THREADS>(sV, nullptr, v, k0, N, tid, 0.f);
+  fence_proxy_async();
+  __syncthreads();
+  const int tiles = (N + BT_STREAM - 1) / BT_STREAM;
+
+  if (tid >= BT_WG) {  // producer: the query tiles
+    const int ptid = tid - BT_WG;
+    for (int t = 0; t < tiles; ++t) {
+      const int s = t % BT_STAGES, q0 = t * BT_STREAM;
+      if (t >= BT_STAGES) bar_sync(BAR_EMPTY + s);
+      uint8_t* slot = ring + s * L::SLOT;
+      load_tile<T, D, BT_STREAM, BT_WG>(
+          slot, TERMS == 1 ? slot + 2 * L::STR : nullptr, q, q0, N, ptid,
+          qscale);
+      load_tile<T, D, BT_STREAM, BT_WG>(slot + L::STR, nullptr, dout, q0, N,
+                                        ptid, 0.f);
+      load_cache_tile<CT, BT_STREAM, BT_ROWS>(slot + L::CACHE_OFF, cache, q0,
+                                              k0, N, ld, L::CROW, ptid);
+      if (ptid < BT_STREAM) {
+        float* side = reinterpret_cast<float*>(slot + L::SIDE_OFF);
+        const int i = q0 + ptid;
+        side[ptid] = i < N ? lse[i] : LSE_PAD;
+        side[BT_STREAM + ptid] = i < N ? delta[i] : 0.f;
+      }
+      fence_proxy_async();
+      bar_arrive(BAR_FULL + s);
+    }
+  } else {  // consumer: this warpgroup's 64 keys are wgmma's rows
+    const int warp = tid / 32, lane = tid % 32, quad = lane % 4;
+    const int row0 = warp * 16 + lane / 4;  // keys k0 + row0, + 8
+    const float state[2] = {key_state(mask, k0 + row0, N),
+                            key_state(mask, k0 + row0 + 8, N)};
+    const float sfold = TERMS == 1 ? 1.f : qscale;
+    float acc_k[D / 2], acc_v[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+    const uint32_t k_addr = smem_u32(sK), v_addr = smem_u32(sV);
+
+    for (int t = 0; t < tiles; ++t) {
+      const int s = t % BT_STAGES, q0 = t * BT_STREAM;
+      uint8_t* slot = ring + s * L::SLOT;
+      const uint32_t q_addr = smem_u32(slot);
+      const uint32_t do_addr = q_addr + L::STR;
+      bar_sync(BAR_FULL + s);
+
+      // S^T = k qs^T, dP^T = v do^T: 64 keys x BT_STREAM queries
+      float st[BT_STREAM / 2], dpt[BT_STREAM / 2];
+#pragma unroll
+      for (int i = 0; i < BT_STREAM / 2; ++i) st[i] = dpt[i] = 0.f;
+      wgmma_fence();
+      mma_ss<TERMS, D, BT_STREAM>(st, k_addr,
+                                  TERMS == 1 ? q_addr + 2 * L::STR : q_addr);
+      mma_ss<TERMS, D, BT_STREAM>(dpt, v_addr, do_addr);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // p and dlogits in place; a thread holds keys row0, row0 + 8 and
+      // queries 2 quad, 2 quad + 1 of every 8
+      const uint8_t* ctile = slot + L::CACHE_OFF;
+      const float* side = reinterpret_cast<const float*>(slot + L::SIDE_OFF);
+#pragma unroll
+      for (int jg = 0; jg < BT_STREAM / 8; ++jg)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = jg * 8 + 2 * quad + e;
+          const float l = side[c], dl = side[BT_STREAM + c];
+          const bool q_in = q0 + c < N;
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int idx = jg * 4 + rr * 2 + e;
+            float p = 0.f, ds = 0.f;
+            if (q_in && state[rr] >= 0.f) {
+              const float compat = compat_at(reinterpret_cast<const CT*>(
+                  ctile + c * L::CROW) + row0 + 8 * rr);
+              float logit = compat * (sfold * st[idx]);
+              if (state[rr] == 0.f) logit = MASKED;
+              p = exp2f(logit - l);
+              ds = p * (dpt[idx] - dl) * compat * scale;
+            }
+            st[idx] = p;
+            dpt[idx] = ds;
+          }
+        }
+
+      // dV += P^T do, dK += dS^T q (p and dlogits rounded to bf16 under
+      // bf16, split into three terms under f32)
+      uint32_t pa[TERMS][BT_STREAM / 16][4], da[TERMS][BT_STREAM / 16][4];
+      to_frags<TERMS, BT_STREAM>(st, pa);
+      mma_rs<TERMS, D, BT_STREAM>(acc_v, pa, do_addr);
+      to_frags<TERMS, BT_STREAM>(dpt, da);
+      mma_rs<TERMS, D, BT_STREAM>(acc_k, da, q_addr);
+      if (t + BT_STAGES < tiles) bar_arrive(BAR_EMPTY + s);
+    }
+    store_rows<D>(dk + (size_t)k0 * D, acc_k, row0, N - k0, quad);
+    store_rows<D>(dv + (size_t)k0 * D, acc_v, row0, N - k0, quad);
+  }
+}
+
+// the same inputs -> dq [B, N, D] of T
+template <typename T, int D, typename CT>
+__global__ void __launch_bounds__(BT_THREADS, 1)
+compat_flash_bwd_dq_tc(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const T* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       const float* __restrict__ mask,
+                       const CT* __restrict__ cache, T* __restrict__ dq,
+                       int N, int ld, float qscale, float scale) {
+  using L = BtLayout<T, D, CT, false>;
+  constexpr int TERMS = L::TERMS;
+  static_assert(D % 32 == 0, "D must be a multiple of 32");
+  extern __shared__ __align__(16) uint8_t bt_smem[];
+  uint8_t* sQ = bt_smem + ((1024u - (smem_u32(bt_smem) & 1023u)) & 1023u);
+  uint8_t* sDO = sQ + L::RES;
+  uint8_t* ring = sDO + L::RES;
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * BT_ROWS;
+  const size_t base = (size_t)blockIdx.y * N;
+  q += base * D;
+  k += base * D;
+  v += base * D;
+  dout += base * D;
+  dq += base * D;
+  lse += base;
+  delta += base;
+  mask += base;
+  cache += base * ld;
+
+  // resident: the q terms (f32; qscale is folded into S) or bf16(q *
+  // qscale), and do
+  load_tile<T, D, BT_ROWS, BT_THREADS>(TERMS == 1 ? nullptr : sQ,
+                                       TERMS == 1 ? sQ : nullptr, q, q0, N,
+                                       tid, qscale);
+  load_tile<T, D, BT_ROWS, BT_THREADS>(sDO, nullptr, dout, q0, N, tid, 0.f);
+  fence_proxy_async();
+  __syncthreads();
+  const int tiles = (N + BT_STREAM - 1) / BT_STREAM;
+
+  if (tid >= BT_WG) {  // producer: the key tiles
+    const int ptid = tid - BT_WG;
+    for (int t = 0; t < tiles; ++t) {
+      const int s = t % BT_STAGES, k0 = t * BT_STREAM;
+      if (t >= BT_STAGES) bar_sync(BAR_EMPTY + s);
+      uint8_t* slot = ring + s * L::SLOT;
+      load_tile<T, D, BT_STREAM, BT_WG>(slot, nullptr, k, k0, N, ptid, 0.f);
+      load_tile<T, D, BT_STREAM, BT_WG>(slot + L::STR, nullptr, v, k0, N,
+                                        ptid, 0.f);
+      load_cache_tile<CT, BT_ROWS, BT_STREAM>(slot + L::CACHE_OFF, cache, q0,
+                                              k0, N, ld, L::CROW, ptid);
+      if (ptid < BT_STREAM)
+        reinterpret_cast<float*>(slot + L::SIDE_OFF)[ptid] =
+            key_state(mask, k0 + ptid, N);
+      fence_proxy_async();
+      bar_arrive(BAR_FULL + s);
+    }
+  } else {  // consumer: this warpgroup's 64 queries are wgmma's rows
+    const int warp = tid / 32, lane = tid % 32, quad = lane % 4;
+    const int row0 = warp * 16 + lane / 4;  // queries q0 + row0, + 8
+    float lse_r[2], delta_r[2];
+    bool q_in[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int i = q0 + row0 + 8 * rr;
+      q_in[rr] = i < N;
+      lse_r[rr] = q_in[rr] ? lse[i] : LSE_PAD;
+      delta_r[rr] = q_in[rr] ? delta[i] : 0.f;
+    }
+    const float sfold = TERMS == 1 ? 1.f : qscale;
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    const uint32_t q_addr = smem_u32(sQ), do_addr = smem_u32(sDO);
+
+    for (int t = 0; t < tiles; ++t) {
+      const int s = t % BT_STAGES;
+      uint8_t* slot = ring + s * L::SLOT;
+      const uint32_t k_addr = smem_u32(slot);
+      bar_sync(BAR_FULL + s);
+
+      // S = qs k^T, dP = do v^T: 64 queries x BT_STREAM keys
+      float st[BT_STREAM / 2], dp[BT_STREAM / 2];
+#pragma unroll
+      for (int i = 0; i < BT_STREAM / 2; ++i) st[i] = dp[i] = 0.f;
+      wgmma_fence();
+      mma_ss<TERMS, D, BT_STREAM>(st, q_addr, k_addr);
+      mma_ss<TERMS, D, BT_STREAM>(dp, do_addr, k_addr + L::STR);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(st);
+      fence_regs(dp);
+
+      // dlogits in place of dp; a thread holds queries row0, row0 + 8 and
+      // keys 2 quad, 2 quad + 1 of every 8
+      const uint8_t* ctile = slot + L::CACHE_OFF;
+      const float* kstate =
+          reinterpret_cast<const float*>(slot + L::SIDE_OFF);
+#pragma unroll
+      for (int jg = 0; jg < BT_STREAM / 8; ++jg) {
+        const int c0 = jg * 8 + 2 * quad;
+        float cc[2][2];
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr)
+          load2(reinterpret_cast<const CT*>(ctile +
+                                            (row0 + 8 * rr) * L::CROW) +
+                    c0,
+                cc[rr]);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float state = kstate[c0 + e];
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int idx = jg * 4 + rr * 2 + e;
+            float ds = 0.f;
+            if (q_in[rr] && state >= 0.f) {
+              const float compat = cc[rr][e];
+              float logit = compat * (sfold * st[idx]);
+              if (state == 0.f) logit = MASKED;
+              const float p = exp2f(logit - lse_r[rr]);
+              ds = p * (dp[idx] - delta_r[rr]) * compat * scale;
+            }
+            dp[idx] = ds;
+          }
+        }
+      }
+
+      // dQ += dS k
+      uint32_t da[TERMS][BT_STREAM / 16][4];
+      to_frags<TERMS, BT_STREAM>(dp, da);
+      mma_rs<TERMS, D, BT_STREAM>(acc, da, k_addr);
+      if (t + BT_STAGES < tiles) bar_arrive(BAR_EMPTY + s);
+    }
+    store_rows<D>(dq + (size_t)q0 * D, acc, row0, N - q0, quad);
+  }
+}
+
+// Launch one cached backward kernel. dq_kernel selects compat_flash_bwd_dq_tc
+// (out0 = dq) over compat_flash_bwd_dkv_tc (out0 = dk, out1 = dv).
+template <typename T, int D, typename CT>
+cudaError_t launch_bwd_tc(bool dq_kernel, const void* q, const void* k,
+                          const void* v, const void* dout, const float* lse,
+                          const float* delta, const float* mask,
+                          const CT* cache, void* out0, void* out1, int B,
+                          int N, int ld, float qscale, float scale,
+                          cudaStream_t stream) {
+  // 16-byte loads of q, k, v, do and the cache
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout |
+       (uintptr_t)cache) & 15)
+    return cudaErrorMisalignedAddress;
+  const auto* tq = static_cast<const T*>(q);
+  const auto* tk = static_cast<const T*>(k);
+  const auto* tv = static_cast<const T*>(v);
+  const auto* tdo = static_cast<const T*>(dout);
+  const dim3 grid((N + BT_ROWS - 1) / BT_ROWS, B);
+  if (dq_kernel) {
+    const size_t bytes = BtLayout<T, D, CT, false>::BYTES;
+    cudaError_t err = cudaFuncSetAttribute(
+        compat_flash_bwd_dq_tc<T, D, CT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+    compat_flash_bwd_dq_tc<T, D, CT><<<grid, BT_THREADS, bytes, stream>>>(
+        tq, tk, tv, tdo, lse, delta, mask, cache, static_cast<T*>(out0), N,
+        ld, qscale, scale);
+  } else {
+    const size_t bytes = BtLayout<T, D, CT, true>::BYTES;
+    cudaError_t err = cudaFuncSetAttribute(
+        compat_flash_bwd_dkv_tc<T, D, CT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+    compat_flash_bwd_dkv_tc<T, D, CT><<<grid, BT_THREADS, bytes, stream>>>(
+        tq, tk, tv, tdo, lse, delta, mask, cache, static_cast<T*>(out0),
+        static_cast<T*>(out1), N, ld, qscale, scale);
+  }
+  return cudaGetLastError();
+}
+
+// q/k/v element type (f32 or bf16) and head width (32 or 128)
+template <typename CT>
+cudaError_t dispatch_bwd_tc(bool dq_kernel, const void* q, const void* k,
+                            const void* v, const void* dout, const void* lse,
+                            const void* delta, const void* mask,
+                            const CT* cache, void* out0, void* out1, int B,
+                            int N, int D, int ld, int is_bf16, float qscale,
+                            float scale, void* stream) {
+  const auto* l = static_cast<const float*>(lse);
+  const auto* dl = static_cast<const float*>(delta);
+  const auto* m = static_cast<const float*>(mask);
+  auto st = static_cast<cudaStream_t>(stream);
+#define GMF_BWD_TC_CASE(T, WIDTH)                                        \
+  return launch_bwd_tc<T, WIDTH, CT>(dq_kernel, q, k, v, dout, l, dl, m, \
+                                     cache, out0, out1, B, N, ld, qscale, \
+                                     scale, st)
+  if (D == 32) {
+    if (is_bf16) GMF_BWD_TC_CASE(__nv_bfloat16, 32);
+    GMF_BWD_TC_CASE(float, 32);
+  }
+  if (D == 128) {
+    if (is_bf16) GMF_BWD_TC_CASE(__nv_bfloat16, 128);
+    GMF_BWD_TC_CASE(float, 128);
+  }
+#undef GMF_BWD_TC_CASE
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace

@@ -40,10 +40,10 @@
 //         one exp2 per (i, j) on the SFU.
 //   f32   compat_flash_fwd: the products as f32 FMAs on the CUDA cores,
 //         64 queries x 32 keys a block, register micro-tiles fed from
-//         shared memory. The tensor cores would take f32 only as TF32,
-//         which keeps 10 mantissa bits: it would change the training
-//         path's numbers and the f32 cached backward's bit-for-bit
-//         agreement with its plain version. Bound: the f32 FMAs.
+//         shared memory. TF32 keeps 10 mantissa bits and would change
+//         the training path's numbers; the three-term bf16 split of
+//         compat_flash_bwd_tc.cuh keeps f32 accuracy on the tensor cores.
+//         Bound: the products (at 989 / 6 TFLOP/s by that split).
 //
 // The cache is [B, N, ld]: row i of a pair holds its N compat entries and
 // ld - N pad entries (zeros), ld chosen so every row starts 16-byte

@@ -470,12 +470,16 @@ def compat_flash_attention_bwd(q, k, v, do, out, lse, mask=None,
 
 def bwd_inputs(q, k, v, do, out, lse, mask):
     """Checked CUDA inputs of the backward kernels: q, k, v, do contiguous
-    of one type, the mask as f32, lse with ``LSE_PAD`` on masked query
-    rows, and delta = rowsum(do * out) in f32, formed outside the kernels
-    as the reference does."""
+    of one type and 16-byte aligned (the cached kernels copy 16-byte
+    chunks; a view that starts off a boundary is copied to fresh storage),
+    the mask as f32, lse with ``LSE_PAD`` on masked query rows, and delta =
+    rowsum(do * out) in f32, formed outside the kernels as the reference
+    does."""
     q, k, v = _check_qkv(KERNEL_BWD_DKV, q, k, v)
     B, N, _ = q.shape
     do = do.to(q.dtype).contiguous()
+    q, k, v, do = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v, do))
     if do.shape != q.shape or out.shape != q.shape:
         raise ValueError(f"{KERNEL_BWD_DKV}: do and out must be [B, N, D]")
     if lse.shape != (B, N):

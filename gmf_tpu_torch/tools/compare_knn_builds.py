@@ -3,10 +3,9 @@ turns.
 
     python -m gmf_tpu_torch.tools.compare_knn_builds --base DIR [--out PATH]
 
-DIR is an unpacked checkout of another commit (``git archive``). Each
-tree's kernels are built from its own ``gmf_tpu_torch/ops/csrc`` by its
-own ``ops/_build.py`` and called through ctypes on the same tensors, on
-the current stream. A build whose ``gmf_seed_knn_topk`` takes no dtype
+DIR is an unpacked checkout of another commit (``git archive``); each
+tree's kernels are built and loaded as ``gmf_tpu_torch.tools.
+build_compare`` says. A build whose ``gmf_seed_knn_topk`` takes no dtype
 flag has one instance, f32; it is timed on the f32 features, which is
 what the model fed it (it normalised the features in f32).
 
@@ -24,28 +23,19 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import importlib.util
 import json
 import math
-import subprocess
 import sys
 from pathlib import Path
 
 import torch
 
+from gmf_tpu_torch.tools.build_compare import card, load_build
+
 K1 = 41  # neighbours a seed keeps: k + 1, the seed itself included
 C = 128
 REPS = 10
 SHAPES = {"b8": (8, 5000), "b64": (64, 5000), "train_b16": (16, 1000)}
-
-
-def load_build(tree: Path, name: str):
-    """The ``ops/_build.py`` module of ``tree``, imported under ``name``."""
-    spec = importlib.util.spec_from_file_location(
-        name, tree / "gmf_tpu_torch" / "ops" / "_build.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def open_lib(build):
@@ -136,11 +126,8 @@ def main():
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("compare_knn_builds: needs a CUDA card")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(card, flush=True)
+    device = card()
+    print(device, flush=True)
     root = Path(__file__).resolve().parents[2]
     base_fn, base_flag = open_lib(load_build(args.base.resolve(),
                                              "base_build"))
@@ -149,7 +136,7 @@ def main():
         sys.exit("compare_knn_builds: this tree's kNN takes no dtype flag")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    result = {"card": card, "reps": REPS, "k": K1, "shapes": {}}
+    result = {"card": device, "reps": REPS, "k": K1, "shapes": {}}
     for shape in SHAPES:
         seeds, feats, mask = inputs(shape, dev, gen)
         bf = (seeds.bfloat16(), feats.bfloat16())

@@ -3,10 +3,8 @@ card, in turns, and check that their f32 instances are the same code.
 
     python scripts/compare_forward_builds.py --base DIR [--out PATH]
 
-DIR is an unpacked checkout of another commit (``git archive``). Each
-tree's kernels are built from its own ``gmf_tpu_torch/ops/csrc`` by its
-own ``ops/_build.py``; both export the same C entry points, so each is
-called through ctypes on the same tensors, on the current stream.
+DIR is an unpacked checkout of another commit (``git archive``); the two
+builds are loaded and timed by ``gmf_tpu_torch.tools.build_compare``.
 
 1. Times, per forward instance at 64 x 5000 x 128 in bf16 (PERF.md section 6
    rows 1, 5, 6 on int8, bf16 and f32 caches, and the variant instances
@@ -30,12 +28,7 @@ exits non-zero if an f32 output differs.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import importlib.util
 import json
-import math
-import re
-import subprocess
 import sys
 from pathlib import Path
 
@@ -44,31 +37,14 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+from gmf_tpu_torch.tools.build_compare import (  # noqa: E402
+    call, card, first_diff, load_build, open_lib, sass, speedup, time_turns)
+
 # the serving path's shape (the bench default), launches per timed turn
 B, N, D = 64, 5000, 128
 REPS = 5
 SIGMA_SQ = 0.10 ** 2
 CACHES = {"int8": torch.int8, "bf16": torch.bfloat16, "f32": torch.float32}
-
-
-def load_build(tree: Path, name: str):
-    """The ``ops/_build.py`` module of ``tree``, imported under ``name``."""
-    spec = importlib.util.spec_from_file_location(
-        name, tree / "gmf_tpu_torch" / "ops" / "_build.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def open_lib(build):
-    """(ctypes library, path) of a tree's kernels, built if need be."""
-    path = build.build()
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in build.SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib, path
 
 
 def instances(b, n, d, dtype, dev, gen, masked=False):
@@ -125,63 +101,10 @@ def instances(b, n, d, dtype, dev, gen, masked=False):
     return runs
 
 
-def call(lib, run):
-    code = run(lib)
-    if code != 0:
-        raise RuntimeError(f"CUDA error {code} at launch")
-
-
-def time_turns(libs, run):
-    """Mean ms of REPS launches in the order base, this, this, base."""
-    times = {"base": [], "this": []}
-    for who in ("base", "this", "this", "base"):
-        call(libs[who], run)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(REPS):
-            call(libs[who], run)
-        end.record()
-        end.synchronize()
-        times[who].append(start.elapsed_time(end) / REPS)
-    return times
-
-
 def outputs(lib, run, outs):
     call(lib, run)
     torch.cuda.synchronize()
     return [o.clone() for o in outs]
-
-
-def sass(path: Path) -> dict:
-    """{kernel name: SASS lines} of a library, with the file hashes in the
-    names and the numbers of the compiler's internal subroutines (division,
-    sqrt slow paths, numbered per source file) masked, runs of blanks
-    collapsed (the listing pads each line to its file's longest
-    instruction) and the source paths (``identifier = ...``) left out."""
-    text = subprocess.run(["cuobjdump", "-sass", str(path)], check=True,
-                          capture_output=True, text=True).stdout
-    masks = ((re.compile(r"_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}"),
-              "_GLOBAL_"), (re.compile(r"__internal_\d+_"), "__internal_"))
-    funcs, name = {}, None
-    for line in text.splitlines():
-        for pattern, repl in masks:
-            line = pattern.sub(repl, line)
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            name = m.group(1)
-            funcs[name] = []
-        elif name is not None and "identifier =" not in line:
-            funcs[name].append(" ".join(line.split()))
-    return funcs
-
-
-def first_diff(a, b, count=3):
-    """The first ``count`` differing line pairs of two SASS listings."""
-    pairs = [(x, y) for x, y in zip(a, b) if x != y]
-    return dict(lines=(len(a), len(b)), differing=len(pairs),
-                first=pairs[:count])
 
 
 def main():
@@ -192,27 +115,25 @@ def main():
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("compare_forward_builds: needs a CUDA card")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(card, flush=True)
+    device = card()
+    print(device, flush=True)
     dev = torch.device("cuda")
     paths, libs = {}, {}
     for who, tree in (("base", args.base.resolve()), ("this", ROOT)):
         libs[who], paths[who] = open_lib(load_build(tree, f"_build_{who}"))
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    rows = {}
+    rows, speedups = {}, {}
     runs = instances(B, N, D, torch.bfloat16, dev, gen)
     for name, (run, outs) in runs.items():
         ref = outputs(libs["base"], run, outs)
         got = outputs(libs["this"], run, outs)
         diff = max((g.float() - r.float()).abs().max().item()
                    for g, r in zip(got[:1], ref[:1]))
-        t = time_turns(libs, run)
+        t = time_turns(libs, run, REPS)
         rows[name] = dict(base_ms=t["base"], this_ms=t["this"],
                           max_abs_diff_out=diff)
+        speedups[name] = speedup(t)
         if len(got) > 1 and got[1].dtype == torch.int8:
             rows[name]["cache_equal"] = torch.equal(got[1], ref[1])
         print(f"{name}: base {t['base']} ms, this {t['this']} ms, "
@@ -243,23 +164,16 @@ def main():
     for n in differ[:4]:
         print(f"  {n}: {first_diff(base_sass[n], this_sass[n])}", flush=True)
 
-    res = dict(card=card, batch=B, num_corr=N, d=D, reps=REPS, rows=rows,
+    res = dict(card=device, batch=B, num_corr=N, d=D, reps=REPS, rows=rows,
                f32_equal=f32_equal, sass_shared=len(shared),
                sass_differ=differ, sass_f32_forward=len(f32_fwd),
                sass_f32_differ=f32_differ,
-               ok=ok, speedup={n: speedup(r) for n, r in rows.items()})
+               ok=ok, speedup=speedups)
     if args.out:
         Path(args.out).write_text(json.dumps(res, indent=1))
     print(json.dumps(res), flush=True)
     if not ok:
         sys.exit("compare_forward_builds: the f32 instances differ")
-
-
-def speedup(row):
-    """base ms over this tree's ms, from the means of both turns."""
-    base = sum(row["base_ms"]) / len(row["base_ms"])
-    this = sum(row["this_ms"]) / len(row["this_ms"])
-    return base / this if this > 0 else math.inf
 
 
 if __name__ == "__main__":

@@ -21,7 +21,7 @@ from gmf_tpu_torch.ops.flash_variants import (IN_KERNEL,
                                               flash_variant_plain)
 from gmf_tpu_torch.ops.fused_attention import (
     _cached_forward, _check_qkv, _load_compat, _logits_plain, _stream_compat_plain,
-    _streaming_forward, build_compat_cache,
+    _streaming_forward, build_compat_cache, bwd_dkv, bwd_dq, bwd_inputs,
     build_compat_cache_plain, compat_attention_bwd_plain,
     compat_attention_cached_plain, compat_attention_plain,
     compat_flash_attention, compat_flash_attention_build,
@@ -275,8 +275,9 @@ def test_bf16_core_edges(gen, cuda, mode, D, N):
 def test_bf16_core_rejects_misaligned(gen, cuda):
     """The bf16 forward kernels copy 16-byte chunks: a q/k/v view that
     starts off a 16-byte boundary is refused by every forward wrapper
-    before the launch, not read wrongly. The backward kernels load one
-    element at a time, and their check takes such a view."""
+    before the launch, not read wrongly. The backward's check takes such a
+    view, and ``bwd_inputs`` copies it to aligned storage before the cached
+    kernels' 16-byte loads: the gradients equal those of an aligned q."""
     q, k, v, src, tgt, m = _core_inputs(gen, cuda, 3, 64, 32)
     flat = torch.zeros(q.numel() + 1, dtype=q.dtype, device=cuda)
     shifted = flat[1:].view(q.shape)
@@ -294,6 +295,13 @@ def test_bf16_core_rejects_misaligned(gen, cuda):
             forward()
     assert _check_qkv("backward", shifted, k, v)[0].data_ptr() == \
         shifted.data_ptr()
+    out, lse = _cached_forward(q, k, v, cache, m, True)
+    do = torch.ones_like(q)
+    got = compat_flash_attention_bwd(shifted, k, v, do, out, lse, m,
+                                     compat=cache)
+    ref = compat_flash_attention_bwd(q, k, v, do, out, lse, m, compat=cache)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
 
 
 @pytest.mark.parametrize("D", [32, 128])
@@ -370,6 +378,79 @@ def test_attention_backward_kernels(gen, cuda, dtype, D, cache_dtype):
                                        src, tgt, 0.10, compat=cache)
     for g, a in zip(got, again):
         assert torch.equal(g, a)
+
+
+def _bwd_case(gen, cuda, B, N, D, dtype):
+    """q, k, v, do of ``dtype`` and keypoints; the mask of _core_inputs:
+    pair 0 with masked keys inside every tile, pair 1 (if any) all
+    masked, the others none."""
+    q, k, v, do = (_t(gen.randn(B, N, D).astype(np.float32), cuda).to(dtype)
+                   for _ in range(4))
+    src = gen.rand(B, N, 3).astype(np.float32) * 2.5
+    tgt = src + 0.02 * gen.randn(B, N, 3).astype(np.float32)
+    mask = np.ones((B, N), np.float32)
+    j = np.arange(N)
+    mask[0, ((j % 64 >= 20) & (j % 64 < 40)) | (j % 7 == 3)] = 0.0
+    if B > 1:
+        mask[1] = 0.0
+    return q, k, v, do, _t(src, cuda), _t(tgt, cuda), _t(mask, cuda)
+
+
+def _cached_bwd_check(q, k, v, do, src, tgt, m, cache_dtype, p=slice(None)):
+    """The cached dK/dV and dQ kernels (csrc/compat_flash_bwd_tc.cuh) on
+    the forward kernel's out and lse, against the plain backward on pairs
+    ``p``: f32 within 1e-5 of the largest entry (the three-term bf16 split
+    and another summation order), bf16 within 4 bf16 ulps of it; masked
+    query rows get a dq of exactly 0; a second launch gives the same bits
+    on those pairs."""
+    cache = build_compat_cache(src, tgt, 0.10, cache_dtype)
+    out, lse = _cached_forward(q, k, v, cache, m, True)
+    inp = bwd_inputs(q, k, v, do, out, lse, m)
+    _build.reset_launches()
+    got = (bwd_dq(inp, compat=cache), *bwd_dkv(inp, compat=cache))
+    assert [_build.launches[n] for n in (
+        "compat_flash_attention_cached_bwd_dkv",
+        "compat_flash_attention_cached_bwd_dq")] == [1, 1]
+    again = (bwd_dq(inp, compat=cache), *bwd_dkv(inp, compat=cache))
+    for g, a in zip(got, again):
+        assert torch.equal(g[p], a[p])
+    assert (got[0][p][m[p] == 0] == 0).all()
+    refs = compat_attention_bwd_plain(q[p], k[p], v[p], do[p], out[p],
+                                      lse[p], m[p], compat=cache[p])
+    for g, r in zip(got, refs):
+        scale = r.float().abs().max().item()
+        atol = (1e-5 * scale if q.dtype == torch.float32
+                else 4 * _bf16_ulp(scale))
+        torch.testing.assert_close(g[p].float(), r.float(), atol=atol,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("cache_dtype",
+                         [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [65, 333, 1000])
+@pytest.mark.parametrize("D", [32, 128])
+def test_cached_backward_edges(gen, cuda, D, N, dtype, cache_dtype):
+    """Key and query counts one past a 64-row block, a ragged 333 and the
+    training shape's 1000 (no multiple of the 32-row slots); masked keys
+    inside the tiles of pair 0, a fully masked pair 1 (every gradient 0),
+    pair 2 without a mask."""
+    _cached_bwd_check(*_bwd_case(gen, cuda, 3, N, D, dtype), cache_dtype)
+
+
+@pytest.mark.parametrize("cache_dtype",
+                         [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 128])
+def test_cached_backward_pair_boundary(gen, cuda, D, dtype, cache_dtype):
+    """Pair 0's last tiles (N = 333) reach into pair 1, whose k, v and do
+    are all inf: the kernels must not read them, so pair 0's gradients
+    meet the limits against the plain backward on pair 0 alone."""
+    q, k, v, do, src, tgt, _ = _bwd_case(gen, cuda, 2, 333, D, dtype)
+    for t in (k, v, do):
+        t[1] = float("inf")
+    m = torch.ones(2, 333, device=cuda)
+    _cached_bwd_check(q, k, v, do, src, tgt, m, cache_dtype, slice(0, 1))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -389,3 +389,55 @@ def test_seed_hypothesis_counts_matches_pallas_interpret(rng):
         np.testing.assert_array_equal(got[b].numpy(),
                                       np.asarray(ref).astype(np.int32))
     assert 0 < int(got.max()) < int(mask.sum(-1).max())
+
+
+def _split3(x):
+    """x (f32) as hi + mid + lo, each a bf16 value held in f32: hi =
+    bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid); both
+    subtractions are exact in f32."""
+    hi = x.to(torch.bfloat16).float()
+    mid = (x - hi).to(torch.bfloat16).float()
+    lo = (x - hi - mid).to(torch.bfloat16).float()
+    return hi, mid, lo
+
+
+def _split_product(a, b, terms):
+    """a @ b from the bf16 terms as the cached backward kernels form an f32
+    product on the tensor cores: every bf16 x bf16 product is exact in f32,
+    the term products are summed in f32, smallest first. ``terms`` 6: lo.hi
+    + hi.lo + mid.mid + mid.hi + hi.mid + hi.hi; 3: the last three only."""
+    pa, pb = _split3(a), _split3(b)
+    order = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))[6 - terms:]
+    acc = torch.zeros(a.shape[0], b.shape[1])
+    for i, j in order:
+        acc = acc + pa[i] @ pb[j]
+    return acc
+
+
+@pytest.mark.parametrize("contraction", ["s_t", "dv"])
+def test_three_term_bf16_split_keeps_f32_accuracy(rng, contraction):
+    """The error model behind holding the f32 cached backward to 1e-5 of
+    its plain version on the tensor cores. At the training shape (N=1000
+    queries and keys, D=128) the six-term product stays within f32's own
+    error against f64 on S^T = k qs^T (depth D) and on dV = P^T do (depth
+    N, P a softmax); dropping mid.mid, hi.lo and lo.hi does not (the issue's
+    emulation: 1.7e-7 six, 4.7e-6 three, 5.0e-7 f32, of the largest
+    entry)."""
+    N, D = 1000, 128
+    if contraction == "s_t":
+        k, q = (torch.tensor(rng.randn(N, D).astype(np.float32))
+                for _ in range(2))
+        a, b = k, (q * (1.4426950408889634 / np.sqrt(D))).T.contiguous()
+    else:
+        logits = torch.tensor(2 * rng.randn(N, N).astype(np.float32))
+        a = torch.softmax(logits, -1).T.contiguous()
+        b = torch.tensor(rng.randn(N, D).astype(np.float32))
+    exact = a.double() @ b.double()
+    scale = exact.abs().max().item()
+
+    def err(x):
+        return (x.double() - exact).abs().max().item() / scale
+
+    f32 = err(a @ b)
+    assert err(_split_product(a, b, 6)) <= 2 * f32
+    assert err(_split_product(a, b, 3)) > 5 * f32
