@@ -18,7 +18,8 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
    kernel's on that cache. Then the five kernels of the main path once
    more at that path's B=64 (bf16 attention, every pair with its own
    count of valid rows), with the same limits, their plain versions run
-   in slices of 8 pairs. The seed kNN in both its instances (bf16 on
+   in slices of 8 pairs; NMS at both sizes timed beside its plain version
+   and its work-based bound. The seed kNN in both its instances (bf16 on
    the tensor cores, the main path's; f32 on the CUDA cores, training's)
    on unit features rounded to the instance's type, its plain version fed
    the same values, at B=8 and at B=64, each timed beside its plain
@@ -28,15 +29,19 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
    5000, with masked keys inside a tile and a pair whose keys are all
    masked, and across the pair boundary (the next pair's k and v all
    inf), output and lse against the plain version with the limits above.
-   Then every kernel of the training paths at the
-   training shape, B=16, N=1000, D=128 with the last 10% of pair 0
-   masked, f32 and bf16: the four backward kernels (dK/dV and dQ,
+   The same for the f32 core (the three-term split on the tensor cores)
+   in each mode and the variants v0, v3, v6 at N in 1, 31-33, 64, 65,
+   333, 1000, with two launches equal in every bit and p recomputed from
+   its lse summing to 1 within 1e-5. Then every kernel of the training
+   paths at the training shape, B=16, N=1000, D=128 with the last 10% of
+   pair 0 masked, f32 and bf16: the four backward kernels (dK/dV and dQ,
    streaming and cached, the cached ones on each cache type, launched
    twice for the same bits and across the pair boundary: pair 0 at
-   N=333, pair 1's k, v and do all inf), the
-   streaming and cached forward (output and the lse they write), the
-   standalone cache of each type (every byte), kNN and counts at S=100
-   seeds, each against its plain version with the limits above. Then the
+   N=333, pair 1's k, v and do all inf), the streaming and cached
+   forward (output and the lse they write; the f32 ones timed beside
+   their bound), the standalone cache of each type (every byte), kNN and
+   counts at S=100 seeds, each against its plain version with the limits
+   above. Then the
    attention-variant microbenchmark (variants_phase): the four instances
    of compat_flash_variants.cu (v0, v1, v3, v6) against their plain
    version at B=8, N=5000 in f32 and bf16 and at N=333, with the limits
@@ -262,7 +267,7 @@ BF16_TC_FLOPS = 989e12
 F32_FLOPS = 67e12
 # An f32-accurate product's rate: the faster of the CUDA cores' f32 FMAs
 # and the bf16 tensor cores running six products of a three-term bf16
-# split, the route of the cached backward (compat_flash_bwd_tc.cuh)
+# split, the route of the f32 forward and cached backward attention
 F32_PRODUCT_FLOPS = max(F32_FLOPS, BF16_TC_FLOPS / 6)
 SFU_PER_CLK_PER_SM = 16   # Hopper: 4 SFU quads per SM
 ALU_PER_CLK_PER_SM = 128  # f32 lanes per SM
@@ -340,8 +345,8 @@ def make_inputs(dev):
     return prob, src, tgt, mask
 
 
-def attention_bound(rates, dtype, cache_dtype=None, build=False):
-    """(bound_ms, bound_by) of one attention call at [B, N, D].
+def attention_bound(rates, dtype, cache_dtype=None, build=False, b=B, n=N):
+    """(bound_ms, bound_by) of one attention call at [b, n, D].
 
     Bytes: q, k, v, out and the mask, plus the keypoints where compat is
     computed and the cache where one is read or written. Operations per
@@ -351,15 +356,15 @@ def attention_bound(rates, dtype, cache_dtype=None, build=False):
     cache is read; one exp2 everywhere."""
     from gmf_tpu_torch.ops.fused_attention import cache_row_stride
 
-    pairs = B * N * N
+    pairs = b * n * n
     esize = torch.finfo(dtype).bits // 8
-    nbytes = 4 * B * N * D * esize + B * N * 4
+    nbytes = 4 * b * n * D * esize + b * n * 4
     if cache_dtype is None or build:
-        nbytes += B * N * 6 * 4
+        nbytes += b * n * 6 * 4
     if build:
         cache_dtype = torch.int8
     if cache_dtype is not None:
-        nbytes += (B * N * cache_row_stride(N, cache_dtype)
+        nbytes += (b * n * cache_row_stride(n, cache_dtype)
                    * torch.empty((), dtype=cache_dtype).element_size())
     alu, sfu = (29, 3) if build else (20, 3) if cache_dtype is None else (3, 1)
     return rates.bound(nbytes, {
@@ -662,10 +667,50 @@ def knn_check(where, seeds, feats, mask, slices, rates):
     return got_i, row
 
 
-def kernel_phase(dev, rates):
-    """Phase 3: every kernel vs its plain version at main-path shapes."""
+def nms_check(where, src, scores, slices, rates):
+    """NMS at radius 0.10 against its plain version run on each slice of
+    pairs: equal in every bit. Returns its row: the times of the kernel
+    (its sort included) and of the plain version over all pairs, and
+    the work-based bound: per (i, j) compared ~10 ALU ops; a local maximum
+    compared with every key within the radius in x (the least a sweep
+    along x can compare), every other row with one key (its first
+    suppressor); 16 bytes a point read, 4 written. Beside it the bound of
+    a kernel whose local maxima compare with every key of the pair (the
+    kernel before the sweep): the sweep runs below it."""
     from gmf_tpu_torch.ops.fused_nms import (nms_local_max,
                                              nms_local_max_plain)
+
+    got = nms_local_max(src, scores, 0.10)
+    ref = torch.cat([nms_local_max_plain(src[sl], scores[sl], 0.10)
+                     for sl in slices])
+    err = (got - ref).abs().max().item()
+    if err != 0:
+        fail(f"{where}: nms_local_max disagrees with its plain version "
+             f"({err})")
+    b, n, _ = src.shape
+    # keys within the radius in x of each row
+    x = src[..., 0].contiguous()
+    xs = torch.sort(x, dim=1).values
+    near = (torch.searchsorted(xs, x + 0.10)
+            - torch.searchsorted(xs, x - 0.10, right=True))
+    n_max = int(ref.sum().item())
+    needed = int(near[ref > 0].sum().item()) + (b * n - n_max)
+    all_keys = n_max * n + (b * n - n_max)
+    del xs, near
+    return dict(
+        max_abs_err=err, tolerance=0.0, shape=[b, n],
+        ms=cuda_ms(lambda: nms_local_max(src, scores, 0.10), reps=10),
+        plain_ms=cuda_ms(lambda: [nms_local_max_plain(
+            src[sl], scores[sl], 0.10) for sl in slices], reps=3, warmup=1),
+        local_maxima=n_max, pairs_compared_at_least=needed,
+        bound_all_keys_ms=rates.bound(
+            b * n * 20, {"alu": 10 * all_keys / rates.alu})[0],
+        **dict(zip(("bound_ms", "bound_by"), rates.bound(
+            b * n * 20, {"alu": 10 * needed / rates.alu}))))
+
+
+def kernel_phase(dev, rates):
+    """Phase 3: every kernel vs its plain version at main-path shapes."""
     from gmf_tpu_torch.ops.fused_scoring import (
         seed_hypothesis_counts, seed_hypothesis_counts_plain)
 
@@ -675,21 +720,8 @@ def kernel_phase(dev, rates):
 
     # -- NMS -------------------------------------------------------------
     scores = torch.randn(B, N, generator=gen, device=dev)
-    got = nms_local_max(src, scores, 0.10)
-    ref = nms_local_max_plain(src, scores, 0.10)
-    err = (got - ref).abs().max().item()
-    if err != 0:
-        fail(f"nms_local_max disagrees with its plain version ({err})")
-    n_max = int(ref.sum().item())
-    needed = n_max * N + (B * N - n_max)  # maxima scan all keys
-    rows["nms_local_max"] = dict(
-        max_abs_err=err, tolerance=0.0,
-        ms=cuda_ms(lambda: nms_local_max(src, scores, 0.10), reps=10),
-        plain_ms=cuda_ms(lambda: nms_local_max_plain(src, scores, 0.10),
-                         reps=3, warmup=1),
-        local_maxima=n_max,
-        **dict(zip(("bound_ms", "bound_by"), rates.bound(
-            B * N * 4 * 5, {"alu": 10 * needed / rates.alu}))))
+    rows["nms_local_max"] = nms_check(f"B={B}", src, scores, [slice(None)],
+                                      rates)
 
     # -- seed kNN, both instances --------------------------------------------
     for dtype in (torch.bfloat16, torch.float32):
@@ -728,14 +760,13 @@ def main_shape_phase(dev, rates):
     so the plain versions run in slices of B pairs and their [B, N, N]
     temporaries stay as large as in the first part. Same limits as there;
     the kNN in both instances (its main path takes bf16), each also timed
-    over all B_MAIN pairs beside its plain version. Returns each kernel's
-    largest error and the two kNN rows (knn_check)."""
+    over all B_MAIN pairs beside its plain version; NMS timed beside its
+    plain version and its work-based bound. Returns each kernel's largest
+    error, the two kNN rows (knn_check) and NMS's row (nms_check)."""
     from gmf_tpu_torch.data.synthetic import make_correspondence_problem
     from gmf_tpu_torch.ops.fused_attention import (
         build_compat_cache_plain, compat_attention_cached_plain,
         compat_flash_attention, compat_flash_attention_build)
-    from gmf_tpu_torch.ops.fused_nms import (nms_local_max,
-                                             nms_local_max_plain)
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     prob = make_correspondence_problem(np.random.RandomState(SEED + 2),
@@ -781,18 +812,15 @@ def main_shape_phase(dev, rates):
     torch.cuda.empty_cache()
 
     scores = torch.randn(B_MAIN, N, generator=gen, device=dev)
-    got = nms_local_max(src, scores, 0.10)
-    ref = torch.cat([nms_local_max_plain(src[sl], scores[sl], 0.10)
-                     for sl in slices])
-    errs["nms_local_max"] = (got - ref).abs().max().item()
-    if errs["nms_local_max"] != 0:
-        fail(f"B={B_MAIN}: nms_local_max disagrees with its plain version")
+    nms_row = nms_check(f"B={B_MAIN}", src, scores, slices, rates)
+    errs["nms_local_max"] = nms_row["max_abs_err"]
+    print(f"nms_local_max at B={B_MAIN}: {json.dumps(nms_row)}", flush=True)
 
     seed_errs, knn_rows = seed_kernels_check(
         f"B={B_MAIN}", gen, prob["gt_trans"], src, tgt, mask, S, slices,
         rates)
     errs.update(seed_errs)
-    return errs, knn_rows
+    return errs, knn_rows, nms_row
 
 
 # the bf16 forward core (compat_flash_fwd_tc) at the edges of its tiles:
@@ -803,15 +831,22 @@ CORE_N = (1, 63, 64, 65, 127, 128, 129, 333, 5000)
 CORE_D = (32, 128)
 CORE_MODES = ("stream", "build", "cached_int8", "cached_bf16", "cached_f32",
               "none")
+# the f32 core (compat_flash_fwd_split): key counts around its 32-key
+# slots and 64-query blocks, a ragged 333 and the training shape's 1000;
+# its modes and the variants' other instances (v0, v3, v6)
+F32_CORE_N = (1, 31, 32, 33, 64, 65, 333, 1000)
+F32_CORE_MODES = CORE_MODES + ("v0", "v3", "v6")
+CACHE_OF = {"cached_int8": torch.int8, "cached_bf16": torch.bfloat16,
+            "cached_f32": torch.float32}
 
 
-def core_inputs(gen, b, n, d, dev):
-    """bf16 q, k, v [b, n, d], keypoints in a 2.5 m cube with 40% of the
-    targets near their sources, and the mask: pair 0 with masked keys in
-    the middle of its tiles (keys 20..39 of every 64 and every key of
-    index 3 mod 7), pair 1 with every key masked, the others none."""
-    q, k, v = (torch.randn(b, n, d, generator=gen, device=dev)
-               .to(torch.bfloat16) for _ in range(3))
+def core_inputs(gen, b, n, d, dev, dtype=torch.bfloat16):
+    """q, k, v [b, n, d] of ``dtype``, keypoints in a 2.5 m cube with 40%
+    of the targets near their sources, and the mask: pair 0 with masked
+    keys in the middle of its tiles (keys 20..39 of every 64 and every key
+    of index 3 mod 7), pair 1 with every key masked, the others none."""
+    q, k, v = (torch.randn(b, n, d, generator=gen, device=dev).to(dtype)
+               for _ in range(3))
     src = 2.5 * torch.rand(b, n, 3, generator=gen, device=dev)
     tgt = torch.where(torch.rand(b, n, 1, generator=gen, device=dev) < 0.4,
                       src + 0.02 * torch.randn(b, n, 3, generator=gen,
@@ -825,29 +860,54 @@ def core_inputs(gen, b, n, d, dev):
     return q, k, v, src, tgt, mask
 
 
-def core_case(mode, q, k, v, src, tgt, mask, pairs=slice(None)):
-    """One bf16 mode of the forward core on the card and its plain version
-    on the pairs ``pairs``: ((out, lse), (ref_out, ref_lse)), lse None
-    where the kernel writes none (build+attend, the variants). The
-    build+attend cache must equal the plain one in every byte, and its
-    output the cached kernel's on that cache exactly."""
-    from gmf_tpu_torch.ops.flash_variants import (flash_variant,
-                                                  flash_variant_plain)
+def core_run(mode, q, k, v, src, tgt, mask):
+    """One launch of the forward core in ``mode``: (out, lse or None,
+    the cache it built or read, or None). The cached modes build their
+    cache first."""
+    from gmf_tpu_torch.ops.flash_variants import flash_variant
     from gmf_tpu_torch.ops.fused_attention import (
         _cached_forward, _streaming_forward, build_compat_cache,
-        build_compat_cache_plain, compat_attention_cached_plain,
-        compat_attention_plain, compat_flash_attention,
         compat_flash_attention_build)
 
-    p = pairs
     if mode == "stream":
-        out, lse = _streaming_forward(q, k, v, src, tgt, mask, 0.10, True)
+        return (*_streaming_forward(q, k, v, src, tgt, mask, 0.10, True),
+                None)
+    if mode == "build":
+        out, cache = compat_flash_attention_build(q, k, v, src, tgt,
+                                                  mask=mask)
+        return out, None, cache
+    if mode in CACHE_OF:
+        cache = build_compat_cache(src, tgt, 0.10, CACHE_OF[mode])
+        return (*_cached_forward(q, k, v, cache, mask, True), cache)
+    variant = "v1" if mode == "none" else mode
+    return flash_variant(q, k, v, src, tgt, mask=mask, variant=variant), \
+        None, None
+
+
+def core_case(mode, q, k, v, src, tgt, mask, pairs=slice(None)):
+    """One mode of the forward core on the card and its plain version on
+    the pairs ``pairs``: ((out, lse), (ref_out, ref_lse)), lse None where
+    the kernel writes none (build+attend, the variants). The build+attend
+    cache must equal the plain one in every byte, and its output the
+    cached kernel's on that cache exactly. In f32 a second launch must
+    give the same bits."""
+    from gmf_tpu_torch.ops.flash_variants import flash_variant_plain
+    from gmf_tpu_torch.ops.fused_attention import (
+        build_compat_cache_plain, compat_attention_cached_plain,
+        compat_attention_plain, compat_flash_attention)
+
+    p = pairs
+    out, lse, cache = core_run(mode, q, k, v, src, tgt, mask)
+    if q.dtype == torch.float32:
+        again, again_lse, _ = core_run(mode, q, k, v, src, tgt, mask)
+        if not (torch.equal(again[p], out[p]) and (
+                lse is None or torch.equal(again_lse[p], lse[p]))):
+            fail(f"core {mode} f32: two launches differ")
+        del again, again_lse
+    if mode == "stream":
         ref = compat_attention_plain(q[p], k[p], v[p], src[p], tgt[p],
                                      mask[p], return_lse=True)
     elif mode == "build":
-        out, cache = compat_flash_attention_build(q, k, v, src, tgt,
-                                                  mask=mask)
-        lse = None
         ref_cache = build_compat_cache_plain(src, tgt, 0.10, torch.int8)
         if not torch.equal(cache, ref_cache):
             fail(f"core {mode}: the int8 cache differs from the plain one")
@@ -858,27 +918,46 @@ def core_case(mode, q, k, v, src, tgt, mask, pairs=slice(None)):
                  "kernel's on the cache it built")
         ref = compat_attention_cached_plain(q[p], k[p], v[p], ref_cache[p],
                                             mask[p], return_lse=True)
-    elif mode.startswith("cached"):
-        cdt = {"int8": torch.int8, "bf16": torch.bfloat16,
-               "f32": torch.float32}[mode.split("_")[1]]
-        cache = build_compat_cache(src, tgt, 0.10, cdt)
-        out, lse = _cached_forward(q, k, v, cache, mask, True)
+    elif mode in CACHE_OF:
         ref = compat_attention_cached_plain(q[p], k[p], v[p], cache[p],
                                             mask[p], return_lse=True)
     else:
-        out, lse = flash_variant(q, k, v, src, tgt, mask=mask,
-                                 variant="v1"), None
+        variant = "v1" if mode == "none" else mode
         ref = flash_variant_plain(q[p], k[p], v[p], src[p], tgt[p],
-                                  mask=mask[p], variant="v1"), None
+                                  mask=mask[p], variant=variant), None
     return (out[p], None if lse is None else lse[p]), ref
 
 
-def core_errors(where, got, ref):
-    """Output within attention_tol (2 bf16 ulps of the largest output),
-    lse within 1e-5 (summation order) on every row of a pair with a valid
-    key; returns (out err, lse err or None)."""
+def core_psum_err(where, mode, q, k, src, tgt, mask, lse):
+    """f32: each row of a pair with a valid key recomputes p = exp2(s -
+    lse) from the kernel's lse, as the backward does; the p of a row must
+    sum to 1 within 1e-5. Returns the largest error."""
+    from gmf_tpu_torch.ops.fused_attention import (
+        _load_compat, _logits_plain, _stream_compat_plain,
+        build_compat_cache)
+
+    if mode == "stream":
+        compat = _stream_compat_plain(src, tgt, 0.10)
+    else:
+        compat = _load_compat(build_compat_cache(src, tgt, 0.10,
+                                                 CACHE_OF[mode]), q.shape[1])
+    rows = (mask > 0).any(-1, keepdim=True).expand_as(mask)
+    if not rows.any():
+        return 0.0
+    psum = torch.exp2(_logits_plain(q, k, compat, mask)
+                      - lse[..., None]).sum(-1)
+    err = (psum[rows] - 1.0).abs().max().item()
+    if not err <= 1e-5:
+        fail(f"{where}: p sums to 1 within {err} only")
+    return err
+
+
+def core_errors(where, got, ref, dtype=torch.bfloat16):
+    """Output within attention_tol (2 bf16 ulps of the largest output,
+    f32 1e-5), lse within 1e-5 (summation order) on every row of a pair
+    with a valid key; returns (out err, lse err or None)."""
     (out, lse), (ref_out, ref_lse) = got, ref
-    tol, _ = attention_tol(ref_out, torch.bfloat16)
+    tol, _ = attention_tol(ref_out, dtype)
     err = (out.float() - ref_out.float()).abs().max().item()
     if not err <= tol:
         fail(f"{where}: max abs err {err} > {tol}")
@@ -897,41 +976,56 @@ def max_measured(a, b):
     return a if b is None else b if a is None else max(a, b)
 
 
-def core_phase(dev):
-    """The bf16 forward core in each mode (streaming, build+attend, cached
-    on int8, bf16 and f32 caches, no compat) at D = 32 and 128 and every N
-    of CORE_N, 3 pairs (core_inputs' masks), against its plain version
+def core_phase(dev, dtype=torch.bfloat16):
+    """The forward core of ``dtype`` in each mode (streaming, build+attend,
+    cached on int8, bf16 and f32 caches, no compat; in f32 also the
+    variants v0, v3, v6) at D = 32 and 128 and every N of CORE_N (f32:
+    F32_CORE_N), 3 pairs (core_inputs' masks), against its plain version
     (core_case, core_errors). Then the pair boundary at N = 333, whose
-    last tile reaches 51 rows into the next pair: 2 pairs, pair 1's k and
-    v all inf and its mask 1; pair 0's output and lse against the plain
-    version of pair 0 alone, with the same limits. Returns each mode's
-    largest errors; the lse error is None for the modes that write no lse
-    (build, none)."""
-    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
-    worst = {m: [0.0, None] for m in CORE_MODES}
+    last tile reaches into the next pair: 2 pairs, pair 1's k and v all
+    inf and its mask 1; pair 0's output and lse against the plain version
+    of pair 0 alone, with the same limits. f32 also: two launches equal in
+    every bit, and p recomputed from the lse summing to 1 within 1e-5
+    (core_psum_err). Returns each mode's largest errors; the lse error is
+    None for the modes that write no lse (build, the variants)."""
+    f32 = dtype == torch.float32
+    modes = F32_CORE_MODES if f32 else CORE_MODES
+    sizes = F32_CORE_N if f32 else CORE_N
+    name = "f32" if f32 else "bf16"
+    gen = torch.Generator(device=dev).manual_seed(SEED + (6 if f32 else 5))
+    worst = {m: [0.0, None, None] for m in modes}
+
+    def record(where, mode, inputs, pairs=slice(None)):
+        got, ref = core_case(mode, *inputs, pairs)
+        err, lse_err = core_errors(where, got, ref, dtype)
+        w = worst[mode]
+        w[0] = max(w[0], err)
+        w[1] = max_measured(w[1], lse_err)
+        if f32 and got[1] is not None:
+            q, k, _, src, tgt, mask = inputs
+            w[2] = max_measured(w[2], core_psum_err(
+                where, mode, q[pairs], k[pairs], src[pairs], tgt[pairs],
+                mask[pairs], got[1]))
+
     for d in CORE_D:
-        for n in CORE_N:
-            inputs = core_inputs(gen, 3, n, d, dev)
-            for mode in CORE_MODES:
-                err, lse_err = core_errors(f"core {mode} D={d} N={n}",
-                                           *core_case(mode, *inputs))
-                worst[mode][0] = max(worst[mode][0], err)
-                worst[mode][1] = max_measured(worst[mode][1], lse_err)
+        for n in sizes:
+            inputs = core_inputs(gen, 3, n, d, dev, dtype)
+            for mode in modes:
+                record(f"core {name} {mode} D={d} N={n}", mode, inputs)
             del inputs
-        q, k, v, src, tgt, _ = core_inputs(gen, 2, 333, d, dev)
+        q, k, v, src, tgt, _ = core_inputs(gen, 2, 333, d, dev, dtype)
         k[1], v[1] = math.inf, math.inf
         mask = torch.ones(2, 333, device=dev)
-        for mode in CORE_MODES:
-            err, lse_err = core_errors(
-                f"core {mode} D={d} pair boundary",
-                *core_case(mode, q, k, v, src, tgt, mask, slice(0, 1)))
-            worst[mode][0] = max(worst[mode][0], err)
-            worst[mode][1] = max_measured(worst[mode][1], lse_err)
+        for mode in modes:
+            record(f"core {name} {mode} D={d} pair boundary", mode,
+                   (q, k, v, src, tgt, mask), slice(0, 1))
     torch.cuda.empty_cache()
-    out = {m: {"max_abs_err": e, "lse_max_abs_err": le}
-           for m, (e, le) in worst.items()}
-    print(f"bf16 core checks passed (N {list(CORE_N)}, D {list(CORE_D)}, "
-          f"pair boundary): {json.dumps(out)}", flush=True)
+    out = {m: {"max_abs_err": e, "lse_max_abs_err": le,
+               **({"p_sum_err": pe} if f32 else {})}
+           for m, (e, le, pe) in worst.items()}
+    print(f"{name} core checks passed (N {list(sizes)}, D {list(CORE_D)}, "
+          f"pair boundary{', two launches equal' if f32 else ''}): "
+          f"{json.dumps(out)}", flush=True)
     return out
 
 
@@ -1155,9 +1249,11 @@ def backward_phase(dev, rates):
             row["dkv_bound"] = bwd_bound(rates, dtype, side, alu, sfu, 4, 2)
             row["dq_bound"] = bwd_bound(rates, dtype, side, alu, sfu, 3, 1)
             if dtype == f32 and cdt in (None, f32):
-                # the forward at the training shape, with and without lse
+                # the forward at the training shape, with and without lse,
+                # beside its bound there
                 row["fwd_ms_lse"] = cuda_ms(lambda: fwd(True), reps=10)
                 row["fwd_ms_no_lse"] = cuda_ms(lambda: fwd(False), reps=10)
+                row["fwd_bound"] = attention_bound(rates, f32, cdt, b=b, n=n)
             res[tag] = row
             del inp, out, lse, cache
             torch.cuda.empty_cache()
@@ -1211,6 +1307,8 @@ def backward_phase(dev, rates):
         extra[name] = dict(
             b16_n1000_f32_ms_with_lse=r["fwd_ms_lse"],
             b16_n1000_f32_ms_without_lse=r["fwd_ms_no_lse"],
+            b16_n1000_f32_bound_ms=r["fwd_bound"][0],
+            b16_n1000_f32_bound_by=r["fwd_bound"][1],
             b16_n1000_f32_max_abs_err=r["fwd_err"],
             b16_n1000_bf16_max_abs_err=max(res[t]["fwd_err"]
                                            for t in bf16_tags),
@@ -1901,7 +1999,10 @@ def main():
     # 3. kernels vs plain
     rows = kernel_phase(dev, rates)
     torch.cuda.empty_cache()
-    errs, knn_rows = main_shape_phase(dev, rates)
+    errs, knn_rows, nms_row = main_shape_phase(dev, rates)
+    rows["nms_local_max"].update({f"b{B_MAIN}_{k}": v
+                                  for k, v in nms_row.items()
+                                  if k not in ("tolerance", "shape")})
     for name, err in errs.items():
         rows[name][f"b{B_MAIN}_max_abs_err"] = err
     for name, row in knn_rows.items():  # both kNN instances at b=64
@@ -1909,6 +2010,7 @@ def main():
                            if k != "tolerance"})
     torch.cuda.empty_cache()
     core = core_phase(dev)
+    core32 = core_phase(dev, torch.float32)
     print("kernel checks passed", flush=True)
 
     rows_bwd, train_extra = backward_phase(dev, rates)
@@ -1931,6 +2033,10 @@ def main():
                          ["cached_int8", "cached_bf16", "cached_f32"]),
                         (VARIANT_KERNELS["v1"], ["none"])):
         rows[name]["bf16_core_checks"] = {m: core[m] for m in modes}
+        rows[name]["f32_core_checks"] = {m: core32[m] for m in modes}
+    for variant in ("v0", "v3", "v6"):
+        rows[VARIANT_KERNELS[variant]]["f32_core_checks"] = {
+            variant: core32[variant]}
     torch.cuda.empty_cache()
 
     # 4. the served paths at full width; the main path first

@@ -20,8 +20,9 @@
 // and p.v), ~20 f32 ALU ops of compat, 2 sqrt and 1 exp2 on the SFU;
 // bytes are O(N*D) per pair. bf16: the products run on the tensor cores
 // (wgmma), so the SFU's 3 ops per (i, j) bound it, the products next;
-// compat is computed on S's fragment in registers. f32: the products are
-// FMAs on the CUDA cores and bound it.
+// compat is computed on S's fragment in registers. f32: the products run
+// on the tensor cores as six bf16 products of a three-term split (989 / 6
+// TFLOP/s), which bound it.
 
 #include "compat_flash_core.cuh"
 

@@ -14,7 +14,7 @@
 // code / 254 + 0.5, not on the unquantized compat. That makes layer 1
 // consistent with the layers that stream the cache: the cache equals the
 // standalone int8 cache in every byte and the output equals the cached
-// kernel's on that cache. Each block writes its own BQ x BK tiles (every
+// kernel's on that cache. Each block writes its own tiles of codes (every
 // (i, j) is visited once); pad columns N..ld-1 are written as 0. The
 // kernel is the Compat::kBuild instance of compat_flash_core.cuh.
 //
@@ -23,7 +23,9 @@
 // exp2; the cache store adds B*N*ld bytes. bf16: the products run on the
 // tensor cores and the code's ALU and SFU ops bound it; each warp stages
 // its 16 rows of codes in shared memory and stores them 16 bytes a lane.
-// f32: the FMAs on the CUDA cores bound it.
+// f32: the products as six bf16 products of a three-term split on the
+// tensor cores (989 / 6 TFLOP/s) bound it; the same staging of the codes,
+// 32 keys a tile.
 
 #include "compat_flash_core.cuh"
 

@@ -9,8 +9,8 @@
 // tile is the only O(N^2) stream read from device memory. bf16: the block's
 // cache tile (128 x 128 int8 entries, 128 x 64 bf16 or f32) travels by
 // cp.async with K and V, one tile ahead of its use, and each thread reads its entries from shared memory in the
-// S fragment's layout; f32: each thread loads 4 neighbouring entries of a
-// row with one vector load, in flight during the products. Masked keys are
+// S fragment's layout; f32: the producer warpgroup stages the 64 x 32
+// tile beside the k and v terms, read in the same layout. Masked keys are
 // excluded by the mask, as in the streaming kernel; the cache holds
 // entries for them. The kernel is the Compat::kCached instance of
 // compat_flash_core.cuh.
@@ -19,7 +19,9 @@
 // the cache, B*N*ld elements, plus O(N*D) per pair. bf16: the products on
 // the tensor cores bound it at D=128 (0.83 ms at 64 x 5000), the int8
 // cache's bytes next (0.48 ms), a bf16 or f32 cache's bytes first. f32:
-// the FMAs on the CUDA cores bound it.
+// the products as six bf16 products of a three-term split on the tensor
+// cores (989 / 6 TFLOP/s) bound it (0.050 ms at 16 x 1000, 0.62 ms at 8 x
+// 5000).
 
 #include "compat_flash_core.cuh"
 

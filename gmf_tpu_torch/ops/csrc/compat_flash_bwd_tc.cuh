@@ -16,9 +16,10 @@
 // lse_i = 1e9 on masked query rows (from the caller) makes their p, and so
 // their dq, exactly 0; keys and queries past N carry no weight.
 //
-// Every product runs on wgmma (compat_flash_core.cuh's descriptors,
-// swizzles and wrappers). A block is two warpgroups: warpgroup 1 produces,
-// warpgroup 0 consumes.
+// Every product runs on wgmma, with compat_flash_core.cuh's descriptors,
+// swizzles and wrappers and its three-term split machinery, which the f32
+// forward (compat_flash_fwd_split) shares. A block is two warpgroups:
+// warpgroup 1 produces, warpgroup 0 consumes.
 //
 //   compat_flash_bwd_dkv_tc  one block per (64-key tile, pair): k and v
 //       stay resident, the query tiles stream through a ring of two
@@ -41,18 +42,11 @@
 // producer to consumer (FULL) and back (EMPTY). No atomics: each block
 // owns its outputs, so two launches give the same bits.
 //
-// f32 q/k/v keep f32 accuracy by a three-term bf16 split: on its way into
-// shared memory (and, for p and dlogits, in registers) x becomes hi =
-// bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), both subtractions
-// exact in f32, and each product is the six terms lo.hi + hi.lo + mid.mid
-// + mid.hi + hi.mid + hi.hi, summed smallest first in an f32 accumulator:
-// some 2^-24 of the operands' scale, as f32 itself (the terms dropped,
-// mid.lo, lo.mid and lo.lo, are below 2^-24). The tensor cores' f32
-// accumulation truncates, so dV, dK and dQ take each slot's products into
-// a zeroed tile sum and add it with rounded f32 adds (mma_rs). Plain TF32
-// keeps 10 bits and misses the 1e-5 limit the f32 path is held to; TF32
-// wgmma also takes K-major operands only, which would need a transposed
-// copy of q and do that does not fit beside the tiles. The f32 instance
+// f32 q/k/v keep f32 accuracy by the three-term bf16 split
+// (compat_flash_core.cuh): dV, dK and dQ take each slot's six products
+// into a zeroed tile sum and add it with rounded f32 adds (mma_rs). TF32
+// keeps 10 bits, and TF32 wgmma takes K-major operands only, which would
+// need a transposed copy of q and do that does not fit beside the tiles. The f32 instance
 // folds qscale into S in registers (qscale * (q . k)): one f32 rounding
 // more than the plain version's (q * qscale) . k, some 6e-8 of s, where a
 // scaled copy of q would cost three more tiles.
@@ -82,165 +76,7 @@
 
 namespace {
 
-constexpr int BT_ROWS = 64;    // resident rows per block: wgmma's M
-constexpr int BT_STREAM = 32;  // rows of a streamed tile (one ring slot)
-constexpr int BT_STAGES = 2;   // ring slots
-constexpr int BT_THREADS = 256;  // warpgroup 0 consumes, 1 produces
-constexpr int BT_WG = 128;
-// named barriers (0 is __syncthreads): slot s is FULL at 1 + s, EMPTY at
-// 1 + BT_STAGES + s
-constexpr int BAR_FULL = 1, BAR_EMPTY = 1 + BT_STAGES;
 constexpr float LSE_PAD = 1e9f;  // lse of rows past N: p = 0
-
-// bf16 terms an operand of type T is split into
-template <typename T>
-__host__ __device__ constexpr int bt_terms() {
-  return std::is_same<T, float>::value ? 3 : 1;
-}
-
-// the six products of a split operand pair in the order they are summed,
-// smallest first: (a term, b term) = lo.hi, hi.lo, mid.mid, mid.hi,
-// hi.mid, hi.hi (0 hi, 1 mid, 2 lo); one term: hi.hi alone
-__host__ __device__ constexpr int term_a(int p) {
-  return p == 0 ? 2 : p == 2 || p == 3 ? 1 : 0;
-}
-__host__ __device__ constexpr int term_b(int p) {
-  return p == 1 ? 2 : p == 2 || p == 4 ? 1 : 0;
-}
-template <int TERMS>
-__host__ __device__ constexpr int first_product() {
-  return TERMS == 3 ? 0 : 5;
-}
-
-__device__ __forceinline__ void bar_sync(int id) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(BT_THREADS) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(BT_THREADS)
-               : "memory");
-}
-
-// d += A B: A 64 x 16 (shared, K-major), B 16 x 32 (shared, K-major)
-__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a,
-                                         uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
-      "%14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-// x -> TERMS bf16 values packed in pairs: hi, then the rounded remainders
-template <int TERMS>
-__device__ __forceinline__ void split2(float x0, float x1,
-                                       uint32_t (&w)[TERMS]) {
-#pragma unroll
-  for (int t = 0; t < TERMS; ++t) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-    w[t] = *reinterpret_cast<const uint32_t*>(&h);
-    const float2 f = __bfloat1622float2(h);
-    x0 -= f.x;  // exact: x0 - bf16(x0) has at most 16 significant bits
-    x1 -= f.y;
-  }
-}
-
-__device__ __forceinline__ void widen8(const float4 (&raw)[2],
-                                       float (&x)[8]) {
-  x[0] = raw[0].x; x[1] = raw[0].y; x[2] = raw[0].z; x[3] = raw[0].w;
-  x[4] = raw[1].x; x[5] = raw[1].y; x[6] = raw[1].z; x[7] = raw[1].w;
-}
-
-// 8 consecutive elements (one 16-byte chunk of the bf16 tile) of row i <
-// N, zeros past N
-template <typename T>
-__device__ __forceinline__ void fetch8(const T* row, bool in,
-                                       float4 (&raw)[2]) {
-  if constexpr (std::is_same<T, float>::value) {
-    raw[0] = in ? reinterpret_cast<const float4*>(row)[0]
-                : make_float4(0.f, 0.f, 0.f, 0.f);
-    raw[1] = in ? reinterpret_cast<const float4*>(row)[1]
-                : make_float4(0.f, 0.f, 0.f, 0.f);
-  } else {
-    const uint4 u = in ? *reinterpret_cast<const uint4*>(row)
-                       : make_uint4(0u, 0u, 0u, 0u);
-    raw[0] = make_float4(__uint_as_float(u.x << 16),
-                         __uint_as_float(u.x & 0xffff0000u),
-                         __uint_as_float(u.y << 16),
-                         __uint_as_float(u.y & 0xffff0000u));
-    raw[1] = make_float4(__uint_as_float(u.z << 16),
-                         __uint_as_float(u.z & 0xffff0000u),
-                         __uint_as_float(u.w << 16),
-                         __uint_as_float(u.w & 0xffff0000u));
-  }
-}
-
-// Rows [r0, r0 + ROWS) of a [N, D] tensor of T into shared memory, NT
-// threads (thread `tid`) sharing the work, rows past N as zeros:
-//   split:  its bf16_terms<T>() terms, tile t at split + t * ROWS * D * 2;
-//   scaled: bf16(x * mul), one tile (the bf16 instance's qs).
-// Either may be null. Tiles are TcTile<D>-swizzled, 1024-byte aligned.
-template <typename T, int D, int ROWS, int NT>
-__device__ __forceinline__ void load_tile(uint8_t* split, uint8_t* scaled,
-                                          const T* src, int r0, int N,
-                                          int tid, float mul) {
-  using Tile = TcTile<D>;
-  constexpr int TERMS = bt_terms<T>();
-  constexpr int CHUNKS = D / 8;  // 16-byte bf16 chunks of a row
-  constexpr int ITERS = ROWS * CHUNKS / NT;
-  static_assert(ROWS * CHUNKS % NT == 0, "tile not a multiple of threads");
-  float4 raw[ITERS][2];
-#pragma unroll
-  for (int it = 0; it < ITERS; ++it) {
-    const int e = tid + it * NT, r = e / CHUNKS, ch = e % CHUNKS;
-    const int i = r0 + r;
-    fetch8(src + (size_t)(i < N ? i : 0) * D + ch * 8, i < N, raw[it]);
-  }
-#pragma unroll
-  for (int it = 0; it < ITERS; ++it) {
-    const int e = tid + it * NT;
-    const uint32_t off = Tile::offset(e / CHUNKS, e % CHUNKS, ROWS);
-    float x[8];
-    widen8(raw[it], x);
-    if (split != nullptr) {
-      uint32_t w[4][TERMS];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) split2<TERMS>(x[2 * c], x[2 * c + 1], w[c]);
-#pragma unroll
-      for (int t = 0; t < TERMS; ++t)
-        *reinterpret_cast<uint4*>(split + t * ROWS * D * 2 + off) =
-            make_uint4(w[0][t], w[1][t], w[2][t], w[3][t]);
-    }
-    if (scaled != nullptr)
-      *reinterpret_cast<uint4*>(scaled + off) = make_uint4(
-          pack_bf16(x[0] * mul, x[1] * mul), pack_bf16(x[2] * mul, x[3] * mul),
-          pack_bf16(x[4] * mul, x[5] * mul), pack_bf16(x[6] * mul, x[7] * mul));
-  }
-}
-
-// A cache tile: rows [r0, r0 + ROWS) (queries), columns [c0, c0 + COLS)
-// (keys) of this pair's [N, ld] cache into rows of `crow` bytes; entries
-// past row N or column ld are zeros. 16-byte chunks (ld keeps every row
-// 16-byte aligned, so a chunk never straddles a row).
-template <typename CT, int ROWS, int COLS>
-__device__ __forceinline__ void load_cache_tile(uint8_t* dst, const CT* cache,
-                                                int r0, int c0, int N, int ld,
-                                                int crow, int tid) {
-  constexpr int EPC = 16 / (int)sizeof(CT);  // entries per chunk
-  constexpr int CPR = COLS / EPC;            // chunks per tile row
-  for (int e = tid; e < ROWS * CPR; e += BT_WG) {
-    const int r = e / CPR, ch = e % CPR, i = r0 + r, jc = c0 + ch * EPC;
-    const bool in = i < N && jc < ld;
-    *reinterpret_cast<uint4*>(dst + r * crow + ch * 16) =
-        in ? *reinterpret_cast<const uint4*>(cache + (size_t)i * ld + jc)
-           : make_uint4(0u, 0u, 0u, 0u);
-  }
-}
 
 // one cache entry as compat (int8: dequantized with the forward's FMA)
 __device__ __forceinline__ float compat_at(const float* p) { return *p; }
@@ -250,125 +86,6 @@ __device__ __forceinline__ float compat_at(const __nv_bfloat16* p) {
 }
 __device__ __forceinline__ float compat_at(const int8_t* p) {
   return dequant_i8((float)*p);
-}
-
-// acc (64 x BROWS) += A B^T over depth D, both operands split into TERMS
-// tiles in shared memory, K-major: A of 64 rows at a, B of BROWS rows at b
-template <int TERMS, int D, int BROWS, int R>
-__device__ __forceinline__ void mma_ss(float (&acc)[R], uint32_t a,
-                                       uint32_t b) {
-  using Tile = TcTile<D>;
-  constexpr int RB = Tile::RB;
-#pragma unroll
-  for (int p = first_product<TERMS>(); p < 6; ++p)
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-      const uint32_t blk = ks * 32 / RB, col = ks * 32 % RB;
-      wgmma_ss(acc,
-               Tile::desc(a + term_a(p) * BT_ROWS * D * 2 +
-                              blk * BT_ROWS * RB + col,
-                          16, 8 * RB),
-               Tile::desc(b + term_b(p) * BROWS * D * 2 + blk * BROWS * RB +
-                              col,
-                          16, 8 * RB));
-    }
-}
-
-// d += A B: the products of mma_rs, issued and waited for
-template <int TERMS, int D, int KROWS>
-__device__ __forceinline__ void issue_rs(
-    float (&d)[D / 2], const uint32_t (&a)[TERMS][KROWS / 16][4],
-    uint32_t b) {
-  using Tile = TcTile<D>;
-  constexpr int RB = Tile::RB;
-  wgmma_fence();
-#pragma unroll
-  for (int p = first_product<TERMS>(); p < 6; ++p)
-#pragma unroll
-    for (int kk = 0; kk < KROWS / 16; ++kk)
-      wgmma_rs(d, a[term_a(p)][kk],
-               Tile::desc(b + term_b(p) * KROWS * D * 2 + kk * 16 * RB,
-                          KROWS * RB, 8 * RB));
-  wgmma_commit();
-  wgmma_wait_all();
-  fence_regs(d);
-}
-
-// acc (64 x D) += A B over depth KROWS: A in registers (TERMS split
-// fragments of KROWS / 16 k-steps), B the KROWS x D tile split into TERMS
-// tiles at b, read MN-major. One term: straight into acc. Three terms:
-// into a zeroed tile sum, added to acc with rounded f32 adds. The tensor
-// cores' f32 accumulation truncates; into acc itself, every slot's steps
-// would each cost up to an ulp of the whole sum (on an H100, 7.4e-6 of
-// the largest entry at N = 1000 against the plain version, whose limit is
-// 1e-5; 1.5-2.3e-6 with the tile sums), into the tile's own sum they cost
-// an ulp of that.
-template <int TERMS, int D, int KROWS>
-__device__ __forceinline__ void mma_rs(
-    float (&acc)[D / 2], const uint32_t (&a)[TERMS][KROWS / 16][4],
-    uint32_t b) {
-  if constexpr (TERMS == 1) {
-    issue_rs<TERMS, D, KROWS>(acc, a, b);
-  } else {
-    float part[D / 2];
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) part[i] = 0.f;
-    issue_rs<TERMS, D, KROWS>(part, a, b);
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] += part[i];
-  }
-}
-
-// an m64nK accumulator's columns as the A fragments of K / 16 k-steps
-// (column groups 2 kk and 2 kk + 1), split into TERMS bf16 terms
-template <int TERMS, int K>
-__device__ __forceinline__ void to_frags(const float (&x)[K / 2],
-                                         uint32_t (&a)[TERMS][K / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      uint32_t w[TERMS];
-      split2<TERMS>(x[8 * kk + 2 * c], x[8 * kk + 2 * c + 1], w);
-#pragma unroll
-      for (int t = 0; t < TERMS; ++t) a[t][kk][c] = w[t];
-    }
-}
-
-// an accumulator (64 x D, this thread's rows r and r + 8) to rows < N of
-// out, two neighbouring columns a store
-template <int D>
-__device__ __forceinline__ void store_rows(float* out, const float (&acc)[D / 2],
-                                           int row, int N, int quad) {
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    if (row + 8 * rr >= N) continue;
-#pragma unroll
-    for (int jg = 0; jg < D / 8; ++jg)
-      *reinterpret_cast<float2*>(out + (size_t)(row + 8 * rr) * D + jg * 8 +
-                                 2 * quad) =
-          make_float2(acc[jg * 4 + rr * 2], acc[jg * 4 + rr * 2 + 1]);
-  }
-}
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* out,
-                                           const float (&acc)[D / 2], int row,
-                                           int N, int quad) {
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    if (row + 8 * rr >= N) continue;
-#pragma unroll
-    for (int jg = 0; jg < D / 8; ++jg)
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(row + 8 * rr) * D +
-                                         jg * 8 + 2 * quad) =
-          __floats2bfloat162_rn(acc[jg * 4 + rr * 2],
-                                acc[jg * 4 + rr * 2 + 1]);
-  }
-}
-
-// key state of key j: 1 valid, 0 masked (logit -1e9), -1 past N (weight 0)
-__device__ __forceinline__ float key_state(const float* mask, int j, int N) {
-  return j >= N ? -1.f : (mask[j] > 0.f ? 1.f : 0.f);
 }
 
 // Shared-memory layout of both kernels: the resident operands (two of

@@ -29,7 +29,8 @@
 // folded into q once. It writes out in q's type and, when asked, the rows'
 // base-2 log-sum-exp m + log2(max(l, 1e-30)) that the backward reads.
 //
-// Two specialisations, chosen by q's element type in launch_flash:
+// Two kernels, both on the tensor cores, chosen by q's element type in
+// launch_flash: one bf16 term per operand, or three:
 //
 //   bf16  compat_flash_fwd_tc: both products on the tensor cores (wgmma),
 //         K/V and cache tiles by cp.async in a two-slot ring, compat and
@@ -38,12 +39,13 @@
 //         their products, as the TPU kernels do; l sums the unrounded p.
 //         Bound: the products, 4 D flop per (i, j) at 989 TFLOP/s, next to
 //         one exp2 per (i, j) on the SFU.
-//   f32   compat_flash_fwd: the products as f32 FMAs on the CUDA cores,
-//         64 queries x 32 keys a block, register micro-tiles fed from
-//         shared memory. TF32 keeps 10 mantissa bits and would change
-//         the training path's numbers; the three-term bf16 split of
-//         compat_flash_bwd_tc.cuh keeps f32 accuracy on the tensor cores.
-//         Bound: the products (at 989 / 6 TFLOP/s by that split).
+//   f32   compat_flash_fwd_split: the same products and softmax on the
+//         tensor cores with every operand split into three bf16 terms (six
+//         products each), a producer warpgroup splitting k and v on their
+//         way into shared memory (design below, before the kernel). Within
+//         1e-5 of the plain version, not equal to it in every bit. TF32
+//         keeps 10 mantissa bits and would change the training path's
+//         numbers. Bound: the products at 989 / 6 TFLOP/s.
 //
 // The cache is [B, N, ld]: row i of a pair holds its N compat entries and
 // ld - N pad entries (zeros), ld chosen so every row starts 16-byte
@@ -65,9 +67,8 @@
 
 namespace {
 
-constexpr int BQ = 64;        // the f32 kernel's query rows per block
-constexpr int BK = 32;        // and keys per streamed tile
-constexpr int THREADS = 256;  // its threads (the backward kernels' too)
+constexpr int THREADS = 256;  // the standalone cache's and the streaming
+                              // backward's threads per block
 constexpr float MASKED = -1e9f;
 
 enum class Compat {
@@ -206,24 +207,7 @@ __device__ __forceinline__ float dequant_i8(float code) {
   return fmaf(code, 1.f / 254.f, 0.5f);
 }
 
-// ---- 4 neighbouring cache entries per access ----------------------------
-
-__device__ __forceinline__ void load4(const float* p, float (&c)[4]) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  c[0] = x.x; c[1] = x.y; c[2] = x.z; c[3] = x.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&c)[4]) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  c[0] = __uint_as_float(raw.x << 16);
-  c[1] = __uint_as_float(raw.x & 0xffff0000u);
-  c[2] = __uint_as_float(raw.y << 16);
-  c[3] = __uint_as_float(raw.y & 0xffff0000u);
-}
-__device__ __forceinline__ void load4(const int8_t* p, float (&c)[4]) {
-  const char4 x = *reinterpret_cast<const char4*>(p);
-  c[0] = dequant_i8((float)x.x); c[1] = dequant_i8((float)x.y);
-  c[2] = dequant_i8((float)x.z); c[3] = dequant_i8((float)x.w);
-}
+// ---- 4 neighbouring cache entries per store ----------------------------
 
 __device__ __forceinline__ void store4(float* p, const float (&c)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(c[0], c[1], c[2], c[3]);
@@ -241,253 +225,6 @@ __device__ __forceinline__ void store4(int8_t* p, const float (&c)[4]) {
   *reinterpret_cast<char4*>(p) = make_char4(
       (signed char)(int)c[0], (signed char)(int)c[1], (signed char)(int)c[2],
       (signed char)(int)c[3]);
-}
-
-// ---- the f32 instances: products on the CUDA cores ------------------------
-
-template <int D>
-constexpr size_t smem_floats() {
-  return BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1) + BK * 8 +
-         BQ * 8 + BQ;
-}
-
-// sigma_arg: 1 / sigma^2 (kStream), unused (kCached, kNone), sigma^2
-// (the others). cache: written (kBuild), read (kCached), unused (the
-// others).
-template <typename T, int D, Compat MODE, typename CT>
-__global__ void __launch_bounds__(THREADS)
-compat_flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ src,
-                 const float* __restrict__ tgt,
-                 const float* __restrict__ mask, T* __restrict__ out,
-                 float* __restrict__ lse, CT* __restrict__ cache, int N,
-                 int ld, float sigma_arg, float qscale) {
-  static_assert(D % 16 == 0, "D must be a multiple of 16");
-  constexpr bool kCoords = MODE != Compat::kCached && MODE != Compat::kNone;
-  constexpr bool kCache = MODE == Compat::kBuild || MODE == Compat::kCached;
-  constexpr int DP = D + 1;  // padded strides: column reads hit 32 banks
-  constexpr int PP = BK + 1;
-  constexpr int CPT = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* sQ = smem;            // [BQ][DP] q * scale * log2(e)
-  float* sK = sQ + BQ * DP;    // [BK][DP]
-  float* sV = sK + BK * DP;    // [BK][D]
-  float* sP = sV + BK * D;     // [BQ][PP] logits, then probabilities
-  float* sKp = sP + BQ * PP;   // [BK][8] s.xyz, t.xyz, key state
-  float* sQp = sKp + BK * 8;   // [BQ][8] s.xyz, t.xyz
-  float* sRow = sQp + BQ * 8;  // [BQ] alpha per tile, then l
-
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * BQ;
-  const size_t base = (size_t)blockIdx.y * N;
-  q += base * D;
-  k += base * D;
-  v += base * D;
-  out += base * D;
-  mask += base;
-  if (lse != nullptr) lse += base;
-  if constexpr (kCoords) {
-    src += base * 3;
-    tgt += base * 3;
-  }
-  if constexpr (kCache) cache += base * ld;
-
-  for (int e = tid; e < BQ * D; e += THREADS) {
-    const int r = e / D, d = e % D, i = q0 + r;
-    const float x = i < N ? load_f32(q + (size_t)i * D + d) : 0.f;
-    sQ[r * DP + d] = round_to<T>(x * qscale);
-  }
-  if constexpr (kCoords) {
-    for (int e = tid; e < BQ * 6; e += THREADS) {
-      const int r = e / 6, c = e % 6, i = q0 + r;
-      float x = 0.f;
-      if (i < N)
-        x = c < 3 ? src[(size_t)i * 3 + c] : tgt[(size_t)i * 3 + c - 3];
-      sQp[r * 8 + c] = x;
-    }
-  }
-  __syncthreads();
-
-  // phase 1 (logits): a 2 x 4 patch per thread
-  const int r1 = (tid / 8) * 2;
-  const int c1 = (tid % 8) * 4;
-  float qp[2][6];
-  if constexpr (kCoords) {
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr)
-#pragma unroll
-      for (int c = 0; c < 6; ++c) qp[rr][c] = sQp[(r1 + rr) * 8 + c];
-  }
-  // phase 2 (softmax): 4 neighbouring lanes per row, 8 keys each
-  const int r2 = tid / 4;
-  const int c2 = (tid % 4) * 8;
-  float m_run = -INFINITY, l_run = 0.f;
-  // phase 3 (p @ v): 4 rows x CPT strided columns per thread
-  const int r3 = (tid / 16) * 4;
-  const int c3 = tid % 16;
-  float acc[4][CPT];
-#pragma unroll
-  for (int rr = 0; rr < 4; ++rr)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[rr][j] = 0.f;
-
-  for (int k0 = 0; k0 < N; k0 += BK) {
-    for (int e = tid; e < BK * D; e += THREADS) {
-      const int c = e / D, d = e % D, j = k0 + c;
-      float kx = 0.f, vx = 0.f;
-      if (j < N) {
-        kx = load_f32(k + (size_t)j * D + d);
-        vx = load_f32(v + (size_t)j * D + d);
-      }
-      sK[c * DP + d] = kx;
-      sV[c * D + d] = vx;
-    }
-    if (tid < BK) {
-      const int j = k0 + tid;
-      const bool in = j < N;
-      if constexpr (kCoords) {
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          sKp[tid * 8 + c] = in ? src[(size_t)j * 3 + c] : 0.f;
-          sKp[tid * 8 + 3 + c] = in ? tgt[(size_t)j * 3 + c] : 0.f;
-        }
-      }
-      // key state: 1 valid, 0 masked (logit -1e9), -1 past N (weight 0)
-      sKp[tid * 8 + 6] = !in ? -1.f : (mask[j] > 0.f ? 1.f : 0.f);
-    }
-    // this thread's part of the cache tile: in flight during the q.k loop
-    const int j0 = k0 + c1;
-    float tile[2][4];
-    if constexpr (MODE == Compat::kCached) {
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const int i = q0 + r1 + rr;
-        if (i < N && j0 < ld) {
-          load4(cache + (size_t)i * ld + j0, tile[rr]);
-        } else {
-#pragma unroll
-          for (int cc = 0; cc < 4; ++cc) tile[rr][cc] = 0.f;
-        }
-      }
-    }
-    __syncthreads();
-
-    float s[2][4];
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr)
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) s[rr][cc] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float a0 = sQ[r1 * DP + d];
-      const float a1 = sQ[(r1 + 1) * DP + d];
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        const float kv = sK[(c1 + cc) * DP + d];
-        s[0][cc] = fmaf(a0, kv, s[0][cc]);
-        s[1][cc] = fmaf(a1, kv, s[1][cc]);
-      }
-    }
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-      const float* kp = sKp + (c1 + cc) * 8;
-      const float state = kp[6];
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        float compat;
-        if constexpr (MODE == Compat::kStream) {
-          compat = compat_stream(qp[rr], kp, sigma_arg);
-        } else if constexpr (MODE == Compat::kBuild) {
-          // pad columns (past N) hold code 0
-          const float code =
-              state < 0.f ? 0.f : compat_i8_code(qp[rr], kp, sigma_arg);
-          tile[rr][cc] = code;
-          compat = dequant_i8(code);
-        } else if constexpr (MODE == Compat::kCached) {
-          compat = tile[rr][cc];
-        } else {
-          compat = compat_variant<MODE>(qp[rr], kp, sigma_arg);
-        }
-        float logit = compat * s[rr][cc];
-        if (state == 0.f) logit = MASKED;
-        if (state < 0.f) logit = -INFINITY;
-        sP[(r1 + rr) * PP + c1 + cc] = logit;
-      }
-    }
-    if constexpr (MODE == Compat::kBuild) {
-      // every (i, j) is visited once: this block owns its BQ x BK tile
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const int i = q0 + r1 + rr;
-        if (i < N && j0 < ld) store4(cache + (size_t)i * ld + j0, tile[rr]);
-      }
-    }
-    __syncthreads();
-
-    {
-      float x[8];
-      float mloc = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        x[i] = sP[r2 * PP + c2 + i];
-        mloc = fmaxf(mloc, x[i]);
-      }
-      mloc = fmaxf(mloc, __shfl_xor_sync(0xffffffffu, mloc, 1));
-      mloc = fmaxf(mloc, __shfl_xor_sync(0xffffffffu, mloc, 2));
-      const float m_next = fmaxf(m_run, mloc);
-      const float alpha = m_run == -INFINITY ? 0.f : exp2f(m_run - m_next);
-      float psum = 0.f;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float p = exp2f(x[i] - m_next);
-        psum += p;
-        sP[r2 * PP + c2 + i] = round_to<T>(p);
-      }
-      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-      psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-      l_run = alpha * l_run + psum;
-      m_run = m_next;
-      if ((tid & 3) == 0) sRow[r2] = alpha;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int rr = 0; rr < 4; ++rr) {
-      const float al = sRow[r3 + rr];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) acc[rr][j] *= al;
-    }
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float p[4];
-#pragma unroll
-      for (int rr = 0; rr < 4; ++rr) p[rr] = sP[(r3 + rr) * PP + kk];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const float vv = sV[kk * D + c3 + 16 * j];
-#pragma unroll
-        for (int rr = 0; rr < 4; ++rr) acc[rr][j] = fmaf(p[rr], vv, acc[rr][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-  if ((tid & 3) == 0) {
-    const float l = fmaxf(l_run, 1e-30f);
-    sRow[r2] = l;
-    // base-2 log-sum-exp of the row, as the TPU kernel stores it
-    if (lse != nullptr && q0 + r2 < N) lse[q0 + r2] = m_run + log2f(l);
-  }
-  __syncthreads();
-#pragma unroll
-  for (int rr = 0; rr < 4; ++rr) {
-    const int i = q0 + r3 + rr;
-    if (i >= N) continue;
-    const float l = sRow[r3 + rr];
-#pragma unroll
-    for (int j = 0; j < CPT; ++j)
-      store_from_f32(out + (size_t)i * D + c3 + 16 * j, acc[rr][j] / l);
-  }
 }
 
 // ---- the bf16 instances: products on the tensor cores --------------------
@@ -734,7 +471,10 @@ constexpr size_t tc_smem_bytes() {
                                    : 0);
 }
 
-// The bf16 attention: arguments as compat_flash_fwd's.
+// The bf16 attention. q, k, v, out: [B, N, D]; src, tgt: [B, N, 3] (the
+// modes that compute compat); mask: [B, N]; lse: [B, N] or null.
+// sigma_arg: 1 / sigma^2 (kStream), unused (kCached, kNone), sigma^2 (the
+// others). cache: written (kBuild), read (kCached), unused (the others).
 template <int D, Compat MODE, typename CT>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 compat_flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
@@ -1028,6 +768,670 @@ compat_flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ---- the f32 instances: a three-term bf16 split on the tensor cores ------
+//
+// f32 q, k, v keep f32 accuracy on the bf16 tensor cores: on its way into
+// shared memory (and, for p, in registers) x becomes hi = bf16(x), mid =
+// bf16(x - hi), lo = bf16(x - hi - mid), both subtractions exact in f32,
+// and each product is the six terms lo.hi + hi.lo + mid.mid + mid.hi +
+// hi.mid + hi.hi, summed smallest first in an f32 accumulator: some 2^-24
+// of the operands' scale, as f32 itself (the terms dropped, mid.lo, lo.mid
+// and lo.lo, are below 2^-24). The tensor cores' f32 accumulation
+// truncates, so a sum over many slots goes into a zeroed tile sum per slot
+// and is added with rounded f32 adds (mma_rs). Plain TF32 keeps 10 bits
+// and misses the 1e-5 limit the f32 path is held to. The cached backward
+// (compat_flash_bwd_tc.cuh) shares this machinery.
+//
+// A block is two warpgroups: warpgroup 1 produces, warpgroup 0 consumes.
+// The producer loads each tile with 16-byte loads into registers, splits
+// it and stores the terms swizzled into a ring of BT_STAGES slots; rows
+// past N are stored as zeros, so the last tile of a pair never reads the
+// next pair. Named barriers hand a slot from producer to consumer (FULL)
+// and back (EMPTY).
+//
+// compat_flash_fwd_split, one block per (64-query tile, pair): the terms
+// of qs stay resident, 32-key tiles of k and v (and the cache tile, the
+// key data) stream through two slots. Per tile S = qs k^T (six products,
+// m64n32k16, both operands in shared memory) is issued and the tile's
+// compat formed while it runs; masks and the online softmax on S's
+// fragment in registers as in the bf16 kernel, then p split
+// into three A fragments and O += P V (six products, v read MN-major) into
+// a zeroed tile sum that is added to the rescaled O. No atomics: two
+// launches give the same bits. kBuild and kCached run this one template,
+// so the f32 build+attend output equals the cached kernel's on the cache it
+// wrote in every bit. The f32 output is not the plain version's in every
+// bit (another summation order, the split): within 1e-5, as f32's own
+// error.
+//
+// The forward's producer issues every load of a tile (k, v, the cache
+// tile, the key data) into registers before it waits for the slot, then
+// splits and stores: on an H100 at 16 x 1000 x 128 that took the f32
+// cache's instance from 0.20 to 0.16 ms (0.050 ms bound); forming compat
+// while S runs changed less than 2%.
+//
+// Shared memory at D = 128: 48 KB of resident q terms, two slots of 2 x 24
+// KB of k and v terms plus the cache tile and key data (49-59 KB each):
+// 147-169 KB, one block per SM. At the training shape (16 x 1000) the 64-
+// query blocks give 256 blocks on 132 SMs; a second consumer warpgroup
+// (128 queries a block) would leave 128 blocks and too few registers for
+// two 64 x D accumulators, a tile sum and the fragments each (one
+// consumer holds 218-240 registers, no spills).
+
+constexpr int BT_ROWS = 64;    // resident rows per block: wgmma's M
+constexpr int BT_STREAM = 32;  // rows of a streamed tile (one ring slot)
+constexpr int BT_STAGES = 2;   // ring slots
+constexpr int BT_THREADS = 256;  // warpgroup 0 consumes, 1 produces
+constexpr int BT_WG = 128;
+// named barriers (0 is __syncthreads): slot s is FULL at 1 + s, EMPTY at
+// 1 + BT_STAGES + s
+constexpr int BAR_FULL = 1, BAR_EMPTY = 1 + BT_STAGES;
+
+// bf16 terms an operand of type T is split into
+template <typename T>
+__host__ __device__ constexpr int bt_terms() {
+  return std::is_same<T, float>::value ? 3 : 1;
+}
+
+// the six products of a split operand pair in the order they are summed,
+// smallest first: (a term, b term) = lo.hi, hi.lo, mid.mid, mid.hi,
+// hi.mid, hi.hi (0 hi, 1 mid, 2 lo); one term: hi.hi alone
+__host__ __device__ constexpr int term_a(int p) {
+  return p == 0 ? 2 : p == 2 || p == 3 ? 1 : 0;
+}
+__host__ __device__ constexpr int term_b(int p) {
+  return p == 1 ? 2 : p == 2 || p == 4 ? 1 : 0;
+}
+template <int TERMS>
+__host__ __device__ constexpr int first_product() {
+  return TERMS == 3 ? 0 : 5;
+}
+
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(BT_THREADS) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(BT_THREADS)
+               : "memory");
+}
+
+// d += A B: A 64 x 16 (shared, K-major), B 16 x 32 (shared, K-major)
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// x -> TERMS bf16 values packed in pairs: hi, then the rounded remainders
+template <int TERMS>
+__device__ __forceinline__ void split2(float x0, float x1,
+                                       uint32_t (&w)[TERMS]) {
+#pragma unroll
+  for (int t = 0; t < TERMS; ++t) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    w[t] = *reinterpret_cast<const uint32_t*>(&h);
+    const float2 f = __bfloat1622float2(h);
+    x0 -= f.x;  // exact: x0 - bf16(x0) has at most 16 significant bits
+    x1 -= f.y;
+  }
+}
+
+__device__ __forceinline__ void widen8(const float4 (&raw)[2],
+                                       float (&x)[8]) {
+  x[0] = raw[0].x; x[1] = raw[0].y; x[2] = raw[0].z; x[3] = raw[0].w;
+  x[4] = raw[1].x; x[5] = raw[1].y; x[6] = raw[1].z; x[7] = raw[1].w;
+}
+
+// 8 consecutive elements (one 16-byte chunk of the bf16 tile) of row i <
+// N, zeros past N
+template <typename T>
+__device__ __forceinline__ void fetch8(const T* row, bool in,
+                                       float4 (&raw)[2]) {
+  if constexpr (std::is_same<T, float>::value) {
+    raw[0] = in ? reinterpret_cast<const float4*>(row)[0]
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+    raw[1] = in ? reinterpret_cast<const float4*>(row)[1]
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {
+    const uint4 u = in ? *reinterpret_cast<const uint4*>(row)
+                       : make_uint4(0u, 0u, 0u, 0u);
+    raw[0] = make_float4(__uint_as_float(u.x << 16),
+                         __uint_as_float(u.x & 0xffff0000u),
+                         __uint_as_float(u.y << 16),
+                         __uint_as_float(u.y & 0xffff0000u));
+    raw[1] = make_float4(__uint_as_float(u.z << 16),
+                         __uint_as_float(u.z & 0xffff0000u),
+                         __uint_as_float(u.w << 16),
+                         __uint_as_float(u.w & 0xffff0000u));
+  }
+}
+
+// Rows [r0, r0 + ROWS) of a [N, D] tensor of T on their way into shared
+// memory, NT threads (thread `tid`) sharing the work: fetch() loads this
+// thread's 16-byte chunks of them into registers (rows past N as zeros),
+// store() writes them swizzled:
+//   split:  their bt_terms<T>() terms, tile t at split + t * ROWS * D * 2,
+//           of x, or of x * mul rounded in f32 when kScaleSplit;
+//   scaled: bf16(x * mul), one tile (the bf16 backward's qs).
+// Either may be null. Tiles are TcTile<D>-swizzled, 1024-byte aligned.
+template <typename T, int D, int ROWS, int NT>
+struct RowChunks {
+  static constexpr int CHUNKS = D / 8;  // 16-byte bf16 chunks of a row
+  static constexpr int ITERS = ROWS * CHUNKS / NT;
+  static_assert(ROWS * CHUNKS % NT == 0, "tile not a multiple of threads");
+  float4 raw[ITERS][2];
+
+  __device__ __forceinline__ void fetch(const T* src, int r0, int N,
+                                        int tid) {
+#pragma unroll
+    for (int it = 0; it < ITERS; ++it) {
+      const int e = tid + it * NT, r = e / CHUNKS, ch = e % CHUNKS;
+      const int i = r0 + r;
+      fetch8(src + (size_t)(i < N ? i : 0) * D + ch * 8, i < N, raw[it]);
+    }
+  }
+
+  template <bool kScaleSplit = false>
+  __device__ __forceinline__ void store(uint8_t* split, uint8_t* scaled,
+                                        int tid, float mul) const {
+    using Tile = TcTile<D>;
+    constexpr int TERMS = bt_terms<T>();
+#pragma unroll
+    for (int it = 0; it < ITERS; ++it) {
+      const int e = tid + it * NT;
+      const uint32_t off = Tile::offset(e / CHUNKS, e % CHUNKS, ROWS);
+      float x[8];
+      widen8(raw[it], x);
+      if (split != nullptr) {
+        float y[8];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) y[c] = kScaleSplit ? x[c] * mul : x[c];
+        uint32_t w[4][TERMS];
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          split2<TERMS>(y[2 * c], y[2 * c + 1], w[c]);
+#pragma unroll
+        for (int t = 0; t < TERMS; ++t)
+          *reinterpret_cast<uint4*>(split + t * ROWS * D * 2 + off) =
+              make_uint4(w[0][t], w[1][t], w[2][t], w[3][t]);
+      }
+      if (scaled != nullptr)
+        *reinterpret_cast<uint4*>(scaled + off) =
+            make_uint4(pack_bf16(x[0] * mul, x[1] * mul),
+                       pack_bf16(x[2] * mul, x[3] * mul),
+                       pack_bf16(x[4] * mul, x[5] * mul),
+                       pack_bf16(x[6] * mul, x[7] * mul));
+    }
+  }
+};
+
+// RowChunks' fetch, then its store
+template <typename T, int D, int ROWS, int NT, bool kScaleSplit = false>
+__device__ __forceinline__ void load_tile(uint8_t* split, uint8_t* scaled,
+                                          const T* src, int r0, int N,
+                                          int tid, float mul) {
+  RowChunks<T, D, ROWS, NT> rows;
+  rows.fetch(src, r0, N, tid);
+  rows.template store<kScaleSplit>(split, scaled, tid, mul);
+}
+
+// A cache tile on its way into shared memory, a producer warpgroup's
+// threads sharing the work: rows [r0, r0 + ROWS) (queries), columns [c0,
+// c0 + COLS) (keys) of this pair's [N, ld] cache, entries past row N or
+// column ld as zeros; fetch() loads this thread's 16-byte chunks (ld
+// keeps every row 16-byte aligned, so a chunk never straddles a row),
+// store() writes them into rows of `crow` bytes.
+template <typename CT, int ROWS, int COLS>
+struct CacheChunks {
+  static constexpr int EPC = 16 / (int)sizeof(CT);  // entries per chunk
+  static constexpr int CPR = COLS / EPC;            // chunks per tile row
+  static constexpr int ITERS = ROWS * CPR / BT_WG;
+  static_assert(ROWS * CPR % BT_WG == 0, "tile not a multiple of threads");
+  uint4 raw[ITERS];
+
+  __device__ __forceinline__ void fetch(const CT* cache, int r0, int c0,
+                                        int N, int ld, int tid) {
+#pragma unroll
+    for (int it = 0; it < ITERS; ++it) {
+      const int e = tid + it * BT_WG, i = r0 + e / CPR;
+      const int jc = c0 + (e % CPR) * EPC;
+      raw[it] = i < N && jc < ld
+                    ? *reinterpret_cast<const uint4*>(cache +
+                                                      (size_t)i * ld + jc)
+                    : make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+
+  __device__ __forceinline__ void store(uint8_t* dst, int crow,
+                                        int tid) const {
+#pragma unroll
+    for (int it = 0; it < ITERS; ++it) {
+      const int e = tid + it * BT_WG;
+      *reinterpret_cast<uint4*>(dst + (e / CPR) * crow + (e % CPR) * 16) =
+          raw[it];
+    }
+  }
+};
+
+// CacheChunks' fetch, then its store
+template <typename CT, int ROWS, int COLS>
+__device__ __forceinline__ void load_cache_tile(uint8_t* dst, const CT* cache,
+                                                int r0, int c0, int N, int ld,
+                                                int crow, int tid) {
+  CacheChunks<CT, ROWS, COLS> chunks;
+  chunks.fetch(cache, r0, c0, N, ld, tid);
+  chunks.store(dst, crow, tid);
+}
+
+// acc (64 x BROWS) += A B^T over depth D, both operands split into TERMS
+// tiles in shared memory, K-major: A of 64 rows at a, B of BROWS rows at b
+template <int TERMS, int D, int BROWS, int R>
+__device__ __forceinline__ void mma_ss(float (&acc)[R], uint32_t a,
+                                       uint32_t b) {
+  using Tile = TcTile<D>;
+  constexpr int RB = Tile::RB;
+#pragma unroll
+  for (int p = first_product<TERMS>(); p < 6; ++p)
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const uint32_t blk = ks * 32 / RB, col = ks * 32 % RB;
+      wgmma_ss(acc,
+               Tile::desc(a + term_a(p) * BT_ROWS * D * 2 +
+                              blk * BT_ROWS * RB + col,
+                          16, 8 * RB),
+               Tile::desc(b + term_b(p) * BROWS * D * 2 + blk * BROWS * RB +
+                              col,
+                          16, 8 * RB));
+    }
+}
+
+// d += A B: the products of mma_rs, issued and waited for
+template <int TERMS, int D, int KROWS>
+__device__ __forceinline__ void issue_rs(
+    float (&d)[D / 2], const uint32_t (&a)[TERMS][KROWS / 16][4],
+    uint32_t b) {
+  using Tile = TcTile<D>;
+  constexpr int RB = Tile::RB;
+  wgmma_fence();
+#pragma unroll
+  for (int p = first_product<TERMS>(); p < 6; ++p)
+#pragma unroll
+    for (int kk = 0; kk < KROWS / 16; ++kk)
+      wgmma_rs(d, a[term_a(p)][kk],
+               Tile::desc(b + term_b(p) * KROWS * D * 2 + kk * 16 * RB,
+                          KROWS * RB, 8 * RB));
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(d);
+}
+
+// acc (64 x D) += A B over depth KROWS: A in registers (TERMS split
+// fragments of KROWS / 16 k-steps), B the KROWS x D tile split into TERMS
+// tiles at b, read MN-major. One term: straight into acc. Three terms:
+// into a zeroed tile sum, added to acc with rounded f32 adds. The tensor
+// cores' f32 accumulation truncates; into acc itself, every slot's steps
+// would each cost up to an ulp of the whole sum (on an H100, 7.4e-6 of
+// the largest entry at N = 1000 against the plain version, whose limit is
+// 1e-5; 1.5-2.3e-6 with the tile sums), into the tile's own sum they cost
+// an ulp of that.
+template <int TERMS, int D, int KROWS>
+__device__ __forceinline__ void mma_rs(
+    float (&acc)[D / 2], const uint32_t (&a)[TERMS][KROWS / 16][4],
+    uint32_t b) {
+  if constexpr (TERMS == 1) {
+    issue_rs<TERMS, D, KROWS>(acc, a, b);
+  } else {
+    float part[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) part[i] = 0.f;
+    issue_rs<TERMS, D, KROWS>(part, a, b);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] += part[i];
+  }
+}
+
+// an m64nK accumulator's columns as the A fragments of K / 16 k-steps
+// (column groups 2 kk and 2 kk + 1), split into TERMS bf16 terms
+template <int TERMS, int K>
+__device__ __forceinline__ void to_frags(const float (&x)[K / 2],
+                                         uint32_t (&a)[TERMS][K / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      uint32_t w[TERMS];
+      split2<TERMS>(x[8 * kk + 2 * c], x[8 * kk + 2 * c + 1], w);
+#pragma unroll
+      for (int t = 0; t < TERMS; ++t) a[t][kk][c] = w[t];
+    }
+}
+
+// an accumulator (64 x D, this thread's rows r and r + 8) to rows < N of
+// out, two neighbouring columns a store
+template <int D>
+__device__ __forceinline__ void store_rows(float* out, const float (&acc)[D / 2],
+                                           int row, int N, int quad) {
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    if (row + 8 * rr >= N) continue;
+#pragma unroll
+    for (int jg = 0; jg < D / 8; ++jg)
+      *reinterpret_cast<float2*>(out + (size_t)(row + 8 * rr) * D + jg * 8 +
+                                 2 * quad) =
+          make_float2(acc[jg * 4 + rr * 2], acc[jg * 4 + rr * 2 + 1]);
+  }
+}
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out,
+                                           const float (&acc)[D / 2], int row,
+                                           int N, int quad) {
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    if (row + 8 * rr >= N) continue;
+#pragma unroll
+    for (int jg = 0; jg < D / 8; ++jg)
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(row + 8 * rr) * D +
+                                         jg * 8 + 2 * quad) =
+          __floats2bfloat162_rn(acc[jg * 4 + rr * 2],
+                                acc[jg * 4 + rr * 2 + 1]);
+  }
+}
+
+// key state of key j: 1 valid, 0 masked (logit -1e9), -1 past N (weight 0)
+__device__ __forceinline__ float key_state(const float* mask, int j, int N) {
+  return j >= N ? -1.f : (mask[j] > 0.f ? 1.f : 0.f);
+}
+
+
+// Shared-memory layout of the f32 forward: the three terms of the 64
+// resident query rows, then BT_STAGES slots, each the three terms of the
+// k and of the v rows of a streamed 32-key tile, the cache tile (kCached:
+// 64 query rows of BT_STREAM entries, a row padded as the bf16 kernel
+// pads it) and KEY_FIELDS floats a key (s.xyz, t.xyz, the key state);
+// after the ring, kBuild's codes on their way to the cache (64 rows of
+// BT_STREAM bytes, padded to 48).
+template <int D, Compat MODE, typename CT>
+struct SplitLayout {
+  static constexpr int RES = 3 * BT_ROWS * D * 2;
+  static constexpr int STR = 3 * BT_STREAM * D * 2;
+  static constexpr int CROW =
+      BT_STREAM * (int)sizeof(CT) + (sizeof(CT) == 4 ? 32 : 16);
+  static constexpr int CODE_ROW = BT_STREAM + 16;
+  static constexpr int CACHE_OFF = 2 * STR;
+  static constexpr int SIDE_OFF =
+      CACHE_OFF + (MODE == Compat::kCached ? BT_ROWS * CROW : 0);
+  static constexpr int SLOT =
+      (SIDE_OFF + BT_STREAM * KEY_FIELDS * 4 + 1023) / 1024 * 1024;
+  static constexpr size_t BYTES =
+      1024 /* alignment */ + RES + BT_STAGES * SLOT +
+      (MODE == Compat::kBuild ? BT_ROWS * CODE_ROW : 0);
+};
+
+// The f32 attention: arguments as compat_flash_fwd_tc's, of f32.
+template <int D, Compat MODE, typename CT>
+__global__ void __launch_bounds__(BT_THREADS, 1)
+compat_flash_fwd_split(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const float* __restrict__ src,
+                       const float* __restrict__ tgt,
+                       const float* __restrict__ mask,
+                       float* __restrict__ out, float* __restrict__ lse,
+                       CT* __restrict__ cache, int N, int ld,
+                       float sigma_arg, float qscale) {
+  using L = SplitLayout<D, MODE, CT>;
+  static_assert(D % 32 == 0, "D must be a multiple of 32");
+  constexpr bool kCoords = MODE != Compat::kCached && MODE != Compat::kNone;
+  constexpr bool kCache = MODE == Compat::kBuild || MODE == Compat::kCached;
+  constexpr int NS = BT_STREAM / 8;  // 8-column groups of S
+  constexpr int NO = D / 8;          // of O
+  extern __shared__ __align__(16) uint8_t sp_smem[];
+  uint8_t* sQ = sp_smem + ((1024u - (smem_u32(sp_smem) & 1023u)) & 1023u);
+  uint8_t* ring = sQ + L::RES;
+  uint8_t* sCodes = ring + BT_STAGES * L::SLOT;  // kBuild
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * BT_ROWS;
+  const size_t base = (size_t)blockIdx.y * N;
+  q += base * D;
+  k += base * D;
+  v += base * D;
+  out += base * D;
+  mask += base;
+  if (lse != nullptr) lse += base;
+  if constexpr (kCoords) {
+    src += base * 3;
+    tgt += base * 3;
+  }
+  if constexpr (kCache) cache += base * ld;
+
+  // resident: the terms of qs = q * scale * log2(e), rounded in f32 before
+  // the split, as the plain version rounds it
+  load_tile<float, D, BT_ROWS, BT_THREADS, true>(sQ, nullptr, q, q0, N, tid,
+                                                 qscale);
+  fence_proxy_async();
+  __syncthreads();
+  const int tiles = (N + BT_STREAM - 1) / BT_STREAM;
+
+  if (tid >= BT_WG) {  // producer: the key tiles
+    const int ptid = tid - BT_WG;
+    constexpr int COORD_ITERS = (BT_STREAM * 6 + BT_WG - 1) / BT_WG;
+    for (int t = 0; t < tiles; ++t) {
+      const int s = t % BT_STAGES, k0 = t * BT_STREAM;
+      // every load of the tile in flight before the slot is free
+      RowChunks<float, D, BT_STREAM, BT_WG> kc, vc;
+      kc.fetch(k, k0, N, ptid);
+      vc.fetch(v, k0, N, ptid);
+      CacheChunks<CT, BT_ROWS, BT_STREAM> cc;
+      if constexpr (MODE == Compat::kCached)
+        cc.fetch(cache, q0, k0, N, ld, ptid);
+      const float state = ptid < BT_STREAM ? key_state(mask, k0 + ptid, N)
+                                           : 0.f;
+      float coord[COORD_ITERS];
+      if constexpr (kCoords) {
+#pragma unroll
+        for (int it = 0; it < COORD_ITERS; ++it) {
+          const int e = ptid + it * BT_WG, r = e / 6, c = e % 6;
+          const int j = k0 + r;
+          coord[it] = e >= BT_STREAM * 6 || j >= N ? 0.f
+                      : c < 3 ? src[(size_t)j * 3 + c]
+                              : tgt[(size_t)j * 3 + c - 3];
+        }
+      }
+      if (t >= BT_STAGES) bar_sync(BAR_EMPTY + s);
+      uint8_t* slot = ring + s * L::SLOT;
+      kc.store(slot, nullptr, ptid, 0.f);
+      vc.store(slot + L::STR, nullptr, ptid, 0.f);
+      if constexpr (MODE == Compat::kCached)
+        cc.store(slot + L::CACHE_OFF, L::CROW, ptid);
+      float* key = reinterpret_cast<float*>(slot + L::SIDE_OFF);
+      if (ptid < BT_STREAM) key[ptid * KEY_FIELDS + 6] = state;
+      if constexpr (kCoords) {
+#pragma unroll
+        for (int it = 0; it < COORD_ITERS; ++it) {
+          const int e = ptid + it * BT_WG;
+          if (e < BT_STREAM * 6)
+            key[(e / 6) * KEY_FIELDS + e % 6] = coord[it];
+        }
+      }
+      fence_proxy_async();
+      bar_arrive(BAR_FULL + s);
+    }
+    return;
+  }
+
+  // consumer: this warpgroup's 64 queries are wgmma's rows; a thread
+  // holds rows row0 and row0 + 8 and two neighbouring columns of every 8
+  const int warp = tid / 32, lane = tid % 32, quad = lane % 4;
+  const int row0 = warp * 16 + lane / 4;
+  float qp[2][6];
+  if constexpr (kCoords) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int i = q0 + row0 + 8 * rr;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        qp[rr][c] = i < N ? src[(size_t)i * 3 + c] : 0.f;
+        qp[rr][3 + c] = i < N ? tgt[(size_t)i * 3 + c] : 0.f;
+      }
+    }
+  }
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  // running max and sum of rows row0 and row0 + 8
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  const uint32_t q_addr = smem_u32(sQ);
+
+  for (int t = 0; t < tiles; ++t) {
+    const int s = t % BT_STAGES, k0 = t * BT_STREAM;
+    uint8_t* slot = ring + s * L::SLOT;
+    const uint32_t k_addr = smem_u32(slot);
+    bar_sync(BAR_FULL + s);
+
+    // S = qs k^T: six term products, 64 queries x BT_STREAM keys, in
+    // flight while the compat of the tile is formed
+    float st[BT_STREAM / 2];
+#pragma unroll
+    for (int i = 0; i < BT_STREAM / 2; ++i) st[i] = 0.f;
+    wgmma_fence();
+    mma_ss<3, D, BT_STREAM>(st, q_addr, k_addr);
+    wgmma_commit();
+
+    // compat of rows row0 + 8 rr and keys c0 + e of every 8
+    const float* key = reinterpret_cast<const float*>(slot + L::SIDE_OFF);
+    float cc[NS][2][2];
+#pragma unroll
+    for (int jg = 0; jg < NS; ++jg) {
+      const int c0 = jg * 8 + 2 * quad;
+      if constexpr (MODE == Compat::kCached) {
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr)
+          load2(reinterpret_cast<const CT*>(slot + L::CACHE_OFF +
+                                            (row0 + 8 * rr) * L::CROW) +
+                    c0,
+                cc[jg][rr]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float* kp = key + (c0 + e) * KEY_FIELDS;
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            if constexpr (MODE == Compat::kStream) {
+              cc[jg][rr][e] = compat_stream(qp[rr], kp, sigma_arg);
+            } else if constexpr (MODE == Compat::kBuild) {
+              // pad columns (past N) hold code 0
+              cc[jg][rr][e] =
+                  kp[6] < 0.f ? 0.f : compat_i8_code(qp[rr], kp, sigma_arg);
+            } else {
+              cc[jg][rr][e] = compat_variant<MODE>(qp[rr], kp, sigma_arg);
+            }
+          }
+        }
+      }
+      if constexpr (MODE == Compat::kBuild) {
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          *reinterpret_cast<char2*>(sCodes + (row0 + 8 * rr) * L::CODE_ROW +
+                                    c0) =
+              make_char2((signed char)(int)cc[jg][rr][0],
+                         (signed char)(int)cc[jg][rr][1]);
+          cc[jg][rr][0] = dequant_i8(cc[jg][rr][0]);
+          cc[jg][rr][1] = dequant_i8(cc[jg][rr][1]);
+        }
+      }
+    }
+    if constexpr (MODE == Compat::kBuild) {
+      // this warp's 16 rows of codes, 16 bytes a lane: every (i, j < ld)
+      // of the pair is written once, by the block that owns row i
+      __syncwarp();
+      const int r = warp * 16 + lane / 2, j = k0 + (lane % 2) * 16;
+      if (q0 + r < N && j < ld)
+        *reinterpret_cast<uint4*>(cache + (size_t)(q0 + r) * ld + j) =
+            *reinterpret_cast<const uint4*>(sCodes + r * L::CODE_ROW +
+                                            (j - k0));
+    }
+    wgmma_wait_all();
+    fence_regs(st);
+
+    // the logits: masked keys -1e9 after the multiply, keys past N -inf
+    // (weight 0)
+    float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int jg = 0; jg < NS; ++jg)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float state = key[(jg * 8 + 2 * quad + e) * KEY_FIELDS + 6];
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          float logit = cc[jg][rr][e] * st[jg * 4 + rr * 2 + e];
+          if (state == 0.f) logit = MASKED;
+          if (state < 0.f) logit = -INFINITY;
+          st[jg * 4 + rr * 2 + e] = logit;
+          mt[rr] = fmaxf(mt[rr], logit);
+        }
+      }
+
+    // online base-2 softmax: the tile's sum of p of a row, over its 4
+    // lanes, joins the running sum once per tile
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      mt[rr] = fmaxf(mt[rr], __shfl_xor_sync(0xffffffffu, mt[rr], 1));
+      mt[rr] = fmaxf(mt[rr], __shfl_xor_sync(0xffffffffu, mt[rr], 2));
+      const float m_next = fmaxf(m_run[rr], mt[rr]);
+      const float alpha =
+          m_run[rr] == -INFINITY ? 0.f : exp2f(m_run[rr] - m_next);
+      m_run[rr] = m_next;
+      float psum = 0.f;
+#pragma unroll
+      for (int jg = 0; jg < NS; ++jg)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = exp2f(st[jg * 4 + rr * 2 + e] - m_next);
+          psum += p;
+          st[jg * 4 + rr * 2 + e] = p;
+        }
+      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+      psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+      l_run[rr] = alpha * l_run[rr] + psum;
+#pragma unroll
+      for (int jg = 0; jg < NO; ++jg) {
+        o[jg * 4 + rr * 2] *= alpha;
+        o[jg * 4 + rr * 2 + 1] *= alpha;
+      }
+    }
+
+    // O += P V: p split into three terms in registers, the six products
+    // into a zeroed tile sum, added to the rescaled O with rounded adds
+    uint32_t pa[3][BT_STREAM / 16][4];
+    to_frags<3, BT_STREAM>(st, pa);
+    mma_rs<3, D, BT_STREAM>(o, pa, k_addr + L::STR);
+    if (t + BT_STAGES < tiles) bar_arrive(BAR_EMPTY + s);
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const float l = fmaxf(l_run[rr], 1e-30f);
+    const int i = q0 + row0 + 8 * rr;
+    // base-2 log-sum-exp of the row, as the TPU kernel stores it
+    if (lse != nullptr && quad == 0 && i < N) lse[i] = m_run[rr] + log2f(l);
+#pragma unroll
+    for (int jg = 0; jg < NO; ++jg) {
+      o[jg * 4 + rr * 2] /= l;
+      o[jg * 4 + rr * 2 + 1] /= l;
+    }
+  }
+  store_rows<D>(out + (size_t)q0 * D, o, row0, N - q0, quad);
+}
+
 template <typename T, int D, Compat MODE, typename CT>
 cudaError_t launch_flash(const void* q, const void* k, const void* v,
                          const float* src, const float* tgt,
@@ -1051,16 +1455,19 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v,
         static_cast<__nv_bfloat16*>(out), lse, cache, N, ld, sigma_arg,
         qscale);
   } else {
-    const size_t bytes = smem_floats<D>() * sizeof(float);
+    // 16-byte loads of q, k, v and the cache
+    if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)cache) & 15)
+      return cudaErrorMisalignedAddress;
+    const size_t bytes = SplitLayout<D, MODE, CT>::BYTES;
     cudaError_t err = cudaFuncSetAttribute(
-        compat_flash_fwd<T, D, MODE, CT>,
+        compat_flash_fwd_split<D, MODE, CT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return err;
-    const dim3 grid((N + BQ - 1) / BQ, B);
-    compat_flash_fwd<T, D, MODE, CT><<<grid, THREADS, bytes, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), src, tgt, mask, static_cast<T*>(out), lse,
-        cache, N, ld, sigma_arg, qscale);
+    const dim3 grid((N + BT_ROWS - 1) / BT_ROWS, B);
+    compat_flash_fwd_split<D, MODE, CT><<<grid, BT_THREADS, bytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), src, tgt, mask, static_cast<float*>(out),
+        lse, cache, N, ld, sigma_arg, qscale);
   }
   return cudaGetLastError();
 }

@@ -29,7 +29,8 @@
 // f32 ALU ops and 1-4 SFU ops (sqrt, division, exp2) of compat and
 // softmax; bytes are O(N*D) per pair. bf16: the products run on the tensor
 // cores, so v1 is bound by them and the others by their compat's SFU or
-// ALU ops; f32: the FMAs on the CUDA cores bound every variant. The
+// ALU ops; f32: the products, six bf16 products of a three-term split
+// each (989 / 6 TFLOP/s), bound every variant. The
 // microbenchmark times them beside each other to show what each compat
 // form adds.
 

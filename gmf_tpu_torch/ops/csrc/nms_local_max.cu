@@ -6,75 +6,210 @@
 //   is_local_max[i] = NOT OR_j ( |s_i - s_j|^2 < R^2  AND  score_j > score_i )
 //
 // A key suppresses only when its score is STRICTLY higher, so equal scores
-// never suppress. One thread owns one query point and loops over key tiles
-// staged in shared memory; the [N, N] distance and relation matrices never
-// exist. The batch is the grid's y dimension and keys past N are skipped by
-// the loop bound, so no 1e6-far padding points are needed. Distances are
-// the per-coordinate difference form with explicitly rounded products and
-// sums (no FMA contraction), the same operations the plain version does.
+// never suppress. Distances are the per-coordinate difference form with
+// explicitly rounded products and sums (no FMA contraction), the same
+// operations the plain version does, so the result is its result in every
+// bit; the [N, N] distance and relation matrices never exist.
 //
-// Bound on this card: ~10 f32 ALU ops per (i, j) and O(N) bytes per pair,
-// so it is f32-ALU bound; the comparison stops once a row is suppressed.
+// A sweep along x. nms_sort_kernel puts each pair's points in x order
+// (ties by index) and packs each as a float4 (x, y, z, score): one block
+// a pair, a bitonic sort of (x's order as an integer, index) in shared
+// memory, for pairs of up to NMS_SORT_MAX points; the wrapper
+// (ops/fused_nms.py, nms_sweep_order) sorts larger ones the same way with
+// torch.sort and passes them in. Then nms_local_max_kernel: a
+// block owns NMS_ROWS consecutive points of that order (one a thread) and
+// scans only the keys whose x lies near its own: key j is skipped when
+// round(round(x_first - x_j)^2) >= R^2 for the block's smallest x (keys
+// before it) or round(round(x_j - x_last)^2) >= R^2 for its largest (keys
+// after it). Rounding is monotone and the squared distance's rounded sum
+// is at least its x term, so every skipped key has a rounded distance of
+// at least R^2 to every row of the block, as the plain version computes
+// it: skipping it changes no bit. The bounds of the scanned range come
+// from two binary searches over the sorted x: the predicate is monotone
+// along every x but NaN, so a search skips a key only below (or above)
+// one it has tested, or a NaN key, which never suppresses. The keys of
+// the range stream through shared memory in tiles of NMS_ROWS float4,
+// four at a time a thread with no early exit among them, and a tile ends
+// the scan when every row of the block is suppressed (__syncthreads_and).
+// The result is written back in the pair's own order.
+//
+// Bound on this card: ~12 f32 ALU ops per (i, j) compared and 16 bytes per
+// point; a local maximum compares with every key of its block's range,
+// another row stops at its first suppressor. At 3DMatch's density (5000
+// points in a few metres, R = 0.10 m) a block's range is a tenth of the
+// pair. torch.sort of the keys took 0.2-0.6 ms on an H100 at 8 and at 64
+// pairs of 5000 (a segmented sort along N, or one sort of 64-bit keys),
+// 5-20 times the scan: hence the sort in shared memory.
 
 #include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int NMS_ROWS = 128;  // sorted points a block owns; its threads
+constexpr int SORT_THREADS = 1024;
+// points of a pair nms_sort_kernel takes: 8 bytes each in shared memory
+constexpr int NMS_SORT_MAX = 16384;
 
-__global__ void __launch_bounds__(THREADS)
-nms_local_max_kernel(const float* __restrict__ keypts,
-                     const float* __restrict__ scores,
-                     float* __restrict__ out, int N, float radius_sq) {
-  __shared__ float sx[THREADS], sy[THREADS], sz[THREADS], ss[THREADS];
-  const size_t base = (size_t)blockIdx.y * N;
+// x's bits as an unsigned integer of the same order: negative floats
+// reversed, -0 before +0, a NaN with its sign bit first, others last
+// (nms_sweep_order's key)
+__device__ __forceinline__ uint32_t x_order(float x) {
+  const uint32_t u = __float_as_uint(x);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// keypts: [B, N, 3], scores: [B, N] -> keys: [B, N] float4 (x, y, z,
+// score) in x order, order: [B, N] the pair index of each; P is the power
+// of two >= N of the shared entries (x order << 32 | index; entries past
+// N all ones, so they sort last)
+__global__ void __launch_bounds__(SORT_THREADS)
+nms_sort_kernel(const float* __restrict__ keypts,
+                const float* __restrict__ scores, float4* __restrict__ keys,
+                int* __restrict__ order, int N, int P) {
+  extern __shared__ unsigned long long ent[];
+  const size_t base = (size_t)blockIdx.x * N;
   keypts += base * 3;
   scores += base;
+  keys += base;
+  order += base;
+  for (int i = threadIdx.x; i < P; i += SORT_THREADS)
+    ent[i] = i < N ? (unsigned long long)x_order(keypts[(size_t)i * 3]) << 32 |
+                         (unsigned)i
+                   : ~0ull;
+  __syncthreads();
+  for (int k = 2; k <= P; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < P / 2; i += SORT_THREADS) {
+        const int a = 2 * i - (i & (j - 1)), c = a + j;  // this exchange
+        const unsigned long long x = ent[a], y = ent[c];
+        if ((x > y) == ((a & k) == 0)) {
+          ent[a] = y;
+          ent[c] = x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int r = threadIdx.x; r < N; r += SORT_THREADS) {
+    const int i = (int)(ent[r] & 0xffffffffu);
+    const float* p = keypts + (size_t)i * 3;
+    keys[r] = make_float4(p[0], p[1], p[2], scores[i]);
+    order[r] = i;
+  }
+}
+
+// index of the first key of [lo, hi) in x order for which skip(x) is
+// false; skip must be true on a prefix of [lo, hi) (binary search)
+template <typename Skip>
+__device__ int first_kept(const float4* keys, int lo, int hi, Skip skip) {
+  while (lo < hi) {
+    const int mid = lo + (hi - lo) / 2;
+    if (skip(keys[mid].x)) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// keys: [B, N] float4 (x, y, z, score), each pair sorted by x; order:
+// [B, N] int32, the pair index of each sorted point; out: [B, N] f32 in
+// the pair's own order, 1 = local maximum
+__global__ void __launch_bounds__(NMS_ROWS)
+nms_local_max_kernel(const float4* __restrict__ keys,
+                     const int* __restrict__ order, float* __restrict__ out,
+                     int N, float radius_sq) {
+  __shared__ float4 tile[NMS_ROWS];
+  __shared__ int range[2];
+  const size_t base = (size_t)blockIdx.y * N;
+  keys += base;
+  order += base;
   out += base;
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  float xi = 0.f, yi = 0.f, zi = 0.f, si = 0.f;
-  if (i < N) {
-    xi = keypts[(size_t)i * 3 + 0];
-    yi = keypts[(size_t)i * 3 + 1];
-    zi = keypts[(size_t)i * 3 + 2];
-    si = scores[i];
+  const int r0 = blockIdx.x * NMS_ROWS;
+  const int last = min(r0 + NMS_ROWS, N) - 1;
+  const int i = r0 + threadIdx.x;
+
+  // the scanned range [start, end): warp 0 finds start, warp 1 end
+  if (threadIdx.x == 0) {
+    const float x_first = keys[r0].x;
+    range[0] = first_kept(keys, 0, r0, [&](float x) {
+      const float d = __fsub_rn(x_first, x);
+      return __fmul_rn(d, d) >= radius_sq;
+    });
+  } else if (threadIdx.x == 32) {
+    const float x_last = keys[last].x;
+    // keys after the block: kept while round(x - x_last)^2 < R^2
+    range[1] = first_kept(keys, last + 1, N, [&](float x) {
+      const float d = __fsub_rn(x, x_last);
+      return !(__fmul_rn(d, d) >= radius_sq);
+    });
   }
+  float4 me = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (i < N) me = keys[i];
+  __syncthreads();
+  const int start = range[0], end = range[1];
+
   bool suppressed = false;
-  for (int j0 = 0; j0 < N; j0 += THREADS) {
+  for (int j0 = start; j0 < end; j0 += NMS_ROWS) {
     const int j = j0 + threadIdx.x;
-    if (j < N) {
-      sx[threadIdx.x] = keypts[(size_t)j * 3 + 0];
-      sy[threadIdx.x] = keypts[(size_t)j * 3 + 1];
-      sz[threadIdx.x] = keypts[(size_t)j * 3 + 2];
-      ss[threadIdx.x] = scores[j];
-    }
+    // past the range: a score of -inf never suppresses
+    tile[threadIdx.x] =
+        j < end ? keys[j] : make_float4(0.f, 0.f, 0.f, -INFINITY);
     __syncthreads();
-    const int cnt = min(THREADS, N - j0);
-    for (int jj = 0; jj < cnt && !suppressed; ++jj) {
-      const float dx = __fsub_rn(xi, sx[jj]);
-      const float dy = __fsub_rn(yi, sy[jj]);
-      const float dz = __fsub_rn(zi, sz[jj]);
-      const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx),
-                                           __fmul_rn(dy, dy)),
-                                 __fmul_rn(dz, dz));
-      suppressed = (d2 < radius_sq) && (ss[jj] > si);
+    const int cnt = min(NMS_ROWS, end - j0);
+    for (int jj = 0; jj < cnt && !suppressed; jj += 4) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float4 kj = tile[jj + u];
+        const float dx = __fsub_rn(me.x, kj.x);
+        const float dy = __fsub_rn(me.y, kj.y);
+        const float dz = __fsub_rn(me.z, kj.z);
+        const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx),
+                                             __fmul_rn(dy, dy)),
+                                   __fmul_rn(dz, dz));
+        suppressed |= (d2 < radius_sq) && (kj.w > me.w);
+      }
     }
-    __syncthreads();
+    // also the barrier before the next tile overwrites this one
+    if (__syncthreads_and(suppressed || i >= N)) break;
   }
-  if (i < N) out[i] = suppressed ? 0.f : 1.f;
+  if (i < N) out[order[i]] = suppressed ? 0.f : 1.f;
 }
 
 }  // namespace
 
-// keypts: [B, N, 3] f32; scores: [B, N] f32; out: [B, N] f32 (1 = local max)
+// keypts: [B, N, 3] f32, scores: [B, N] f32, N <= NMS_SORT_MAX: sorted
+// here into keys [B, N, 4] f32 and order [B, N] int32 (scratch); or, with
+// keypts and scores null, keys and order already in x order
+// (nms_sweep_order). out: [B, N] f32 (1 = local max), in the pair's own
+// order.
 extern "C" int gmf_nms_local_max(const void* keypts, const void* scores,
-                                 void* out, int B, int N, float radius_sq,
-                                 void* stream) {
+                                 void* keys, void* order, void* out, int B,
+                                 int N, float radius_sq, void* stream) {
   if (B <= 0 || N <= 0)
     return cudaErrorInvalidValue;  // nothing to launch
-  const dim3 grid((N + THREADS - 1) / THREADS, B);
-  nms_local_max_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(keypts), static_cast<const float*>(scores),
+  auto st = static_cast<cudaStream_t>(stream);
+  if (keypts != nullptr) {
+    if (N > NMS_SORT_MAX) return cudaErrorInvalidValue;
+    int P = 2;
+    while (P < N) P <<= 1;
+    const size_t bytes = (size_t)P * sizeof(unsigned long long);
+    cudaError_t err = cudaFuncSetAttribute(
+        nms_sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    nms_sort_kernel<<<B, SORT_THREADS, bytes, st>>>(
+        static_cast<const float*>(keypts), static_cast<const float*>(scores),
+        static_cast<float4*>(keys), static_cast<int*>(order), N, P);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((N + NMS_ROWS - 1) / NMS_ROWS, B);
+  nms_local_max_kernel<<<grid, NMS_ROWS, 0, st>>>(
+      static_cast<const float4*>(keys), static_cast<const int*>(order),
       static_cast<float*>(out), N, radius_sq);
   return static_cast<int>(cudaGetLastError());
 }

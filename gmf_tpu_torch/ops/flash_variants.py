@@ -45,7 +45,10 @@ Numerics:
   p are rounded to bf16 before their products (the script rounds q and
   k, applies the scale after the product, uses exp and rounds p). Kernel
   against plain version: 1e-5 in f32, 2 bf16 ulps of the largest |out|
-  in bf16 (``chip_smoke.py``'s limits for every attention kernel).
+  in bf16 (``chip_smoke.py``'s limits for every attention kernel). The
+  f32 kernels form their products from a three-term bf16 split on the
+  tensor cores: within 1e-5 of the plain version, not equal to it in
+  every bit.
 - No padding: N may be any size and every key past N has weight 0. The
   script pads N to its tile and masks the padded keys, and reads [:N].
 """
@@ -71,7 +74,7 @@ KERNELS = {v: f"compat_flash_variant_{v}" for v in _VARIANT_IDS}
 CACHE_DTYPES = {"v4": torch.bfloat16, "v5": torch.float32}
 # query rows per block and keys per tile of each variant's bf16 kernel
 # (csrc/compat_flash_core.cuh: TC_BQ, tc_bk; 64 keys beside a bf16 or f32
-# cache; the f32 kernels: 64 x 32)
+# cache; the f32 kernels: BT_ROWS x BT_STREAM, 64 x 32)
 TILES = {v: (128, 64 if v in CACHE_DTYPES else 128) for v in VARIANTS}
 # f32 elements of one [B, rows, N] temporary of the plain version
 PLAIN_CHUNK = 1 << 26

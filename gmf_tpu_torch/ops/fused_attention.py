@@ -30,6 +30,16 @@ The int8 cache holds ``round(254 c - 127)`` and is read as
 ``ds2 + dt2 - 2 sqrt(ds2 dt2)``, the f32 and bf16 caches from the two-sqrt
 difference, as in the reference.
 
+Numerics: bf16 q, k, v take their products on the tensor cores in bf16,
+rounding q * scale * log2(e) and p to bf16 as the TPU kernels do. f32
+q, k, v take them on the tensor cores too, each operand split into three
+bf16 terms and each product into six term products
+(``csrc/compat_flash_core.cuh``): some 2^-24 of the operands' scale, as
+f32 itself, so the f32 kernels stay within 1e-5 of their plain versions
+but are not equal to them in every bit. The int8 cache is equal in every
+byte across its three producers, and the build+attend output equals the
+cached kernel's on that cache in every bit, in f32 and bf16.
+
 Cache layout (the port's own): ``[B, N, ld]``, exactly N valid entries
 per row and a row stride ``ld = cache_row_stride(N, dtype)`` that keeps
 every row 16-byte aligned; entries past column N are zero and are never
@@ -277,7 +287,8 @@ def compat_flash_attention_build_plain(q, k, v, src_keypts, tgt_keypts,
 def _check_qkv(name, q, k, v, forward: bool = False):
     """Device, type and shape checks shared by the attention wrappers;
     returns contiguous q, k, v. ``forward``: the caller launches a forward
-    kernel, whose bf16 form also needs q, k and v 16-byte aligned."""
+    kernel, which needs q, k and v 16-byte aligned (bf16: refused
+    otherwise; f32: copied)."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -290,10 +301,15 @@ def _check_qkv(name, q, k, v, forward: bool = False):
         raise ValueError(
             f"{name}: head width {q.shape[-1]} not built (32/128)")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    # the bf16 forward kernels copy q, k and v in 16-byte chunks
-    if forward and q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
-                                                     for t in (q, k, v)):
-        raise ValueError(f"{name}: bf16 q/k/v must start 16-byte aligned")
+    # the forward kernels move q, k and v in 16-byte chunks: a bf16 view
+    # that starts off a boundary is refused, an f32 one copied to fresh
+    # storage (as bwd_inputs copies the backward's)
+    if forward and any(t.data_ptr() % 16 for t in (q, k, v)):
+        if q.dtype == torch.bfloat16:
+            raise ValueError(f"{name}: bf16 q/k/v must start 16-byte "
+                             "aligned")
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v))
     return q, k, v
 
 

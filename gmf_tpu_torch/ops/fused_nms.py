@@ -7,7 +7,12 @@ Counterpart of ``gmf_tpu/ops/fused_nms.py``, batched over pairs:
 Every row of the bucket takes part, masked ones included, as in the JAX
 package; the mask only keeps masked rows from becoming seeds.
 ``nms_local_max`` launches ``csrc/nms_local_max.cu`` on CUDA tensors and
-uses ``nms_local_max_plain`` only for CPU tensors.
+uses ``nms_local_max_plain`` only for CPU tensors. The kernel sweeps
+along x: it sorts each pair's points by x and packs them (a pair of more
+than ``NMS_SORT_MAX`` points is sorted by ``nms_sweep_order`` instead, to
+the same order), and a block of points skips the keys whose x alone puts
+them at least the radius away (the kernel's header says why no bit
+changes).
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ from gmf_tpu_torch.geometry.nms import topk_total_order
 from gmf_tpu_torch.ops import _build
 
 KERNEL = "nms_local_max"
+# points of a pair the kernel sorts itself (csrc/nms_local_max.cu)
+NMS_SORT_MAX = 16384
 
 
 def nms_local_max_plain(src_keypts, scores, radius: float):
@@ -32,6 +39,28 @@ def nms_local_max_plain(src_keypts, scores, radius: float):
     return (~suppressed).float()
 
 
+def nms_sweep_order(src_keypts, scores):
+    """The NMS kernel's input: each pair's points sorted by x (ties by
+    index) and packed as (x, y, z, score), [B, N, 4] f32, and the pair
+    index of each sorted point, [B, N] int32.
+
+    One sort of B N 64-bit keys, the pair above x's order as an integer
+    (a float's bits with the negative ones reversed: -0 before +0, a NaN
+    with its sign bit first, others last): the kernel's own sort's
+    order."""
+    kp = src_keypts.float()
+    B, N, _ = kp.shape
+    bits = kp[..., 0].contiguous().view(torch.int32).to(torch.int64)
+    x_order = torch.where(bits < 0, -(bits & 0x7FFFFFFF) - 1, bits)
+    pair = torch.arange(B, device=kp.device)[:, None]
+    key = (pair << 32) + (x_order + 2 ** 31)
+    flat = torch.sort(key.view(-1), stable=True).indices
+    packed = torch.cat([kp, scores.float()[..., None]], dim=-1)
+    keys = packed.view(B * N, 4)[flat].view(B, N, 4)
+    order = flat.view(B, N) - pair * N
+    return keys, order.to(torch.int32)
+
+
 def nms_local_max(src_keypts, scores, radius: float):
     """is_local_max [B, N] f32 for keypoints [B, N, 3] and scores [B, N]."""
     if src_keypts.device.type == "cpu":
@@ -41,13 +70,20 @@ def nms_local_max(src_keypts, scores, radius: float):
     B, N, _ = src_keypts.shape
     if src_keypts.shape != (B, N, 3) or scores.shape != (B, N):
         raise ValueError(f"{KERNEL}: expected [B, N, 3] and [B, N]")
-    kp = src_keypts.float().contiguous()
-    sc = scores.float().contiguous()
-    out = torch.empty(B, N, device=kp.device)
+    out = torch.empty(B, N, device=src_keypts.device)
     if out.numel() == 0:
         return out  # nothing to launch
+    kp = src_keypts.float().contiguous()
+    sc = scores.float().contiguous()
+    if N <= NMS_SORT_MAX:  # the kernel sorts into these
+        keys = torch.empty(B, N, 4, device=kp.device)
+        order = torch.empty(B, N, dtype=torch.int32, device=kp.device)
+        unsorted = (kp.data_ptr(), sc.data_ptr())
+    else:
+        keys, order = nms_sweep_order(kp, sc)
+        unsorted = (0, 0)
     code = _build.load().gmf_nms_local_max(
-        kp.data_ptr(), sc.data_ptr(), out.data_ptr(), B, N,
+        *unsorted, keys.data_ptr(), order.data_ptr(), out.data_ptr(), B, N,
         float(radius) ** 2, _build.stream_of(kp))
     _build.check(code, KERNEL)
     return out

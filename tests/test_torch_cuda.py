@@ -26,12 +26,15 @@ from gmf_tpu_torch.ops.fused_attention import (
     compat_attention_cached_plain, compat_attention_plain,
     compat_flash_attention, compat_flash_attention_build,
     compat_flash_attention_build_plain, compat_flash_attention_bwd)
-from gmf_tpu_torch.ops.fused_nms import nms_local_max, nms_local_max_plain
+from gmf_tpu_torch.ops.fused_nms import (NMS_SORT_MAX, nms_local_max,
+                                         nms_local_max_plain,
+                                         nms_sweep_order)
 from gmf_tpu_torch.ops.fused_scoring import (seed_hypothesis_counts,
                                              seed_hypothesis_counts_plain)
 from gmf_tpu_torch.ops.fused_seed_solver import (fused_seed_transforms,
                                                  fused_seed_weights,
                                                  fused_seed_weights_plain)
+from gmf_tpu_torch.ops.fused_topk import KERNELS as KNN_KERNELS
 from gmf_tpu_torch.ops.fused_topk import seed_knn_topk, seed_knn_topk_plain
 
 pytestmark = pytest.mark.cuda
@@ -206,12 +209,12 @@ _CACHE_OF = {"cached_int8": torch.int8, "cached_bf16": torch.bfloat16,
              "cached_f32": torch.float32}
 
 
-def _core_inputs(gen, cuda, B, N, D):
-    """bf16 q, k, v and keypoints; pair 0 has masked keys inside its
-    64-key tiles (keys 20..39 of each, and every index 3 mod 7), pair 1
-    has every key masked, pair 2 none."""
+def _core_inputs(gen, cuda, B, N, D, dtype=torch.bfloat16):
+    """q, k, v of ``dtype`` and keypoints; pair 0 has masked keys inside
+    its 64-key tiles (keys 20..39 of each, and every index 3 mod 7), pair
+    1 has every key masked, pair 2 none."""
     q, k, v = (_t(gen.randn(B, N, D).astype(np.float32), cuda)
-               .to(torch.bfloat16) for _ in range(3))
+               .to(dtype) for _ in range(3))
     src = gen.rand(B, N, 3).astype(np.float32) * 2.5
     tgt = src + 0.02 * gen.randn(B, N, 3).astype(np.float32)
     tgt[:, ::3] = gen.rand(B, (N + 2) // 3, 3).astype(np.float32) * 2.5
@@ -222,20 +225,37 @@ def _core_inputs(gen, cuda, B, N, D):
     return q, k, v, _t(src, cuda), _t(tgt, cuda), _t(mask, cuda)
 
 
+def _core_run(mode, q, k, v, src, tgt, m):
+    """One launch of the forward core in ``mode``: (out, lse or None,
+    the cache it built or read, or None)."""
+    if mode == "stream":
+        return (*_streaming_forward(q, k, v, src, tgt, m, 0.10, True), None)
+    if mode == "build":
+        out, cache = compat_flash_attention_build(q, k, v, src, tgt, mask=m)
+        return out, None, cache
+    if mode in _CACHE_OF:
+        cache = build_compat_cache(src, tgt, 0.10, _CACHE_OF[mode])
+        return (*_cached_forward(q, k, v, cache, m, True), cache)
+    variant = "v1" if mode == "none" else mode
+    return flash_variant(q, k, v, src, tgt, mask=m, variant=variant), None, \
+        None
+
+
 def _core_check(mode, q, k, v, src, tgt, m, p=slice(None)):
     """The kernel against its plain version on pairs ``p``: the output
     within 2 bf16 ulps of the largest one (both round q*scale and p to
-    bf16, then the output), the lse (where the kernel writes one) within
-    1e-5 on every row of a pair with a valid key (summation order);
+    bf16, then the output) or, in f32, within 1e-5 (the three-term split
+    and another summation order), the lse (where the kernel writes one)
+    within 1e-5 on every row of a pair with a valid key (summation order);
     build+attend's cache equal to the plain one in every byte and its
-    output to the cached kernel's on it."""
-    lse = ref_lse = None
+    output to the cached kernel's on it. Returns the kernel's (out, lse)
+    on pairs ``p``."""
+    out, lse, cache = _core_run(mode, q, k, v, src, tgt, m)
+    ref_lse = None
     if mode == "stream":
-        out, lse = _streaming_forward(q, k, v, src, tgt, m, 0.10, True)
         ref, ref_lse = compat_attention_plain(q[p], k[p], v[p], src[p],
                                               tgt[p], m[p], return_lse=True)
     elif mode == "build":
-        out, cache = compat_flash_attention_build(q, k, v, src, tgt, mask=m)
         ref_cache = build_compat_cache_plain(src, tgt, 0.10, torch.int8)
         assert torch.equal(cache, ref_cache)
         cached = compat_flash_attention(q, k, v, None, None, mask=m,
@@ -244,21 +264,20 @@ def _core_check(mode, q, k, v, src, tgt, m, p=slice(None)):
         ref = compat_attention_cached_plain(q[p], k[p], v[p], ref_cache[p],
                                             mask=m[p])
     elif mode in _CACHE_OF:
-        cache = build_compat_cache(src, tgt, 0.10, _CACHE_OF[mode])
-        out, lse = _cached_forward(q, k, v, cache, m, True)
         ref, ref_lse = compat_attention_cached_plain(
             q[p], k[p], v[p], cache[p], m[p], return_lse=True)
     else:
-        out = flash_variant(q, k, v, src, tgt, mask=m, variant="v1")
+        variant = "v1" if mode == "none" else mode
         ref = flash_variant_plain(q[p], k[p], v[p], src[p], tgt[p],
-                                  mask=m[p], variant="v1")
-    assert out.dtype == torch.bfloat16
+                                  mask=m[p], variant=variant)
+    assert out.dtype == q.dtype
     torch.testing.assert_close(out[p].float(), ref.float(),
-                               atol=_out_atol(ref, torch.bfloat16), rtol=0)
+                               atol=_out_atol(ref, q.dtype), rtol=0)
     if lse is not None:
         rows = ref_lse > -1e8  # a pair with every key masked: -1e9
         torch.testing.assert_close(lse[p][rows], ref_lse[rows], atol=1e-5,
                                    rtol=0)
+    return out[p], None if lse is None else lse[p]
 
 
 @pytest.mark.parametrize("N", [1, 63, 64, 65, 127, 128, 129, 333, 5000])
@@ -314,6 +333,83 @@ def test_bf16_core_pair_boundary(gen, cuda, mode, D):
     k[1], v[1] = float("inf"), float("inf")
     m = torch.ones(2, 333, device=cuda)
     _core_check(mode, q, k, v, src, tgt, m, slice(0, 1))
+
+
+# the f32 forward core (compat_flash_fwd_split): every mode, the variant
+# instances of the microbenchmark (v0, v3, v6) too
+_F32_CORE_MODES = _CORE_MODES + ["v0", "v3", "v6"]
+
+
+def _f32_core_check(mode, q, k, v, src, tgt, m, p=slice(None)):
+    """_core_check in f32, and: each valid row's p = exp2(s - lse) sums to
+    1 within 1e-5 (the backward recomputes p from this lse); a second
+    launch gives the same bits."""
+    out, lse = _core_check(mode, q, k, v, src, tgt, m, p)
+    again, again_lse, _ = _core_run(mode, q, k, v, src, tgt, m)
+    assert torch.equal(again[p], out)
+    if lse is None:
+        return
+    assert torch.equal(again_lse[p], lse)
+    if mode == "stream":
+        compat = _stream_compat_plain(src[p], tgt[p], 0.10)
+    else:
+        compat = _load_compat(build_compat_cache(src[p], tgt[p], 0.10,
+                                                 _CACHE_OF[mode]),
+                              q.shape[1])
+    valid = m[p] > 0
+    if not valid.any():
+        return
+    rows = valid.any(-1, keepdim=True).expand_as(valid)
+    psum = torch.exp2(_logits_plain(q[p], k[p], compat, m[p])
+                      - lse[..., None]).sum(-1)
+    torch.testing.assert_close(psum[rows], torch.ones_like(psum[rows]),
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("N", [1, 65, 333, 1000])
+@pytest.mark.parametrize("D", [32, 128])
+@pytest.mark.parametrize("mode", _F32_CORE_MODES)
+def test_f32_core_edges(gen, cuda, mode, D, N):
+    """The f32 forward core on the tensor cores: one key, one past a
+    64-row block, a ragged 333 and the training shape's 1000 (no multiple
+    of the 32-key slots); masked keys inside the tiles of pair 0, a fully
+    masked pair 1, pair 2 without a mask. Output and lse within 1e-5, p
+    summing to 1, two launches equal in every bit, build+attend's cache
+    equal to the plain one in every byte and its output to the cached
+    kernel's on it in every bit."""
+    _f32_core_check(mode, *_core_inputs(gen, cuda, 3, N, D, torch.float32))
+
+
+@pytest.mark.parametrize("D", [32, 128])
+@pytest.mark.parametrize("mode", _F32_CORE_MODES)
+def test_f32_core_pair_boundary(gen, cuda, mode, D):
+    """Pair 0's last tile (N = 333) reaches 19 rows into pair 1, whose k
+    and v are all inf: the f32 kernel must not read them."""
+    q, k, v, src, tgt, _ = _core_inputs(gen, cuda, 2, 333, D, torch.float32)
+    k[1], v[1] = float("inf"), float("inf")
+    m = torch.ones(2, 333, device=cuda)
+    _f32_core_check(mode, q, k, v, src, tgt, m, slice(0, 1))
+
+
+def test_f32_core_copies_misaligned(gen, cuda):
+    """The f32 forward kernels load q, k and v 16 bytes at a time: every
+    forward wrapper copies a view that starts off a 16-byte boundary to
+    fresh storage before the launch, and gives the aligned input's
+    output in every bit."""
+    q, k, v, src, tgt, m = _core_inputs(gen, cuda, 3, 333, 128,
+                                        torch.float32)
+    flat = torch.zeros(3, q.numel() + 1, device=cuda)
+    shifted = [f[1:].view(q.shape) for f in flat]
+    for s, x in zip(shifted, (q, k, v)):
+        s.copy_(x)
+        assert s.data_ptr() % 16
+    for mode in _F32_CORE_MODES:
+        got = _core_run(mode, *shifted, src, tgt, m)
+        ref = _core_run(mode, q, k, v, src, tgt, m)
+        for g, r in zip(got, ref):
+            assert (g is None) == (r is None)
+            if g is not None:
+                assert torch.equal(g, r)
 
 
 @pytest.mark.parametrize("cache_dtype",
@@ -495,6 +591,47 @@ def test_nms_kernel(gen, cuda):
                                atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("B,N", [(64, 5000), (3, 333), (2, 1), (2, 129),
+                                 (1, NMS_SORT_MAX + 1)])
+def test_nms_kernel_sweep_edges(gen, cuda, B, N):
+    """The x sweep (csrc/nms_local_max.cu) at the serving path's b=64, at
+    ragged N, and past the points its own sort takes (there the wrapper
+    sorts): a third of the points on a lattice of half the radius (pairs
+    at exactly the radius, which do not suppress; many equal x), scores
+    from 20 values (ties never suppress), the last pair's scores
+    negative, and in pair 0 of the ragged sizes a non-finite point (NaN
+    and +inf x: never suppressed, never suppressing). Equal to the plain
+    version in every bit, one launch a call; the kernel's sort gives
+    nms_sweep_order's keys and order exactly."""
+    radius = 0.25
+    pts = (gen.rand(B, N, 3) * 3).astype(np.float32)
+    lattice = gen.randint(0, 6, size=(B, N // 3, 3)).astype(np.float32)
+    pts[:, : N // 3] = lattice * (radius / 2)
+    scores = gen.randint(0, 20, size=(B, N)).astype(np.float32) / 20
+    scores[-1] -= 0.5
+    if B < 64 and N > 2:
+        pts[0, 1, 0], pts[0, 2, 0] = np.nan, np.inf
+    pts, scores = _t(pts, cuda), _t(scores, cuda)
+    before = _build.launches["nms_local_max"]
+    got = nms_local_max(pts, scores, radius)
+    assert _build.launches["nms_local_max"] == before + 1
+    ref = torch.cat([nms_local_max_plain(pts[s0:s0 + 8], scores[s0:s0 + 8],
+                                         radius) for s0 in range(0, B, 8)])
+    assert torch.equal(got, ref)
+    if N <= NMS_SORT_MAX:
+        keys = torch.empty(B, N, 4, device=cuda)
+        order = torch.empty(B, N, dtype=torch.int32, device=cuda)
+        out = torch.empty(B, N, device=cuda)
+        assert _build.load().gmf_nms_local_max(
+            pts.data_ptr(), scores.data_ptr(), keys.data_ptr(),
+            order.data_ptr(), out.data_ptr(), B, N, radius ** 2,
+            torch.cuda.current_stream().cuda_stream) == 0
+        want_keys, want_order = nms_sweep_order(pts, scores)
+        assert torch.equal(order, want_order)
+        assert torch.equal(keys.nan_to_num(), want_keys.nan_to_num())
+        assert torch.equal(out, ref)
+
+
 # (N, S, k) per case: N past a multiple of the 64-key tile (1000, 333, 65),
 # S past a multiple of the 64-seed block (50, 1, 65), k at both list widths
 KNN_CASES = {
@@ -604,8 +741,10 @@ def test_small_slice_kernels_vs_plain_on_cpu(cuda, mode, seed_solver):
         "compat_flash_attention", "compat_flash_attention_build",
         "compat_flash_attention_cached", "build_compat_cache")
     ) == _SLICE_LAUNCHES[mode]
+    # the f32 model's seed kNN takes its f32 instance
     assert min(_build.launches[n] for n in (
-        "nms_local_max", "seed_knn_topk", "seed_hypothesis_counts")) == 1
+        "nms_local_max", KNN_KERNELS[torch.float32],
+        "seed_hypothesis_counts")) == 1
     assert _build.launches["fused_seed_weights"] == (seed_solver == "fused")
     ref = PointDSCRegistrar(cpu, buckets=(512,)).register_batch(samples)
     for (tg, lg), (tr, lr) in zip(got, ref):

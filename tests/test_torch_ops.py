@@ -22,6 +22,7 @@ from gmf_tpu_torch.ops.fused_attention import (build_compat_cache,
                                                compat_flash_attention,
                                                compat_flash_attention_build)
 from gmf_tpu_torch.ops.fused_nms import (nms_local_max, nms_local_max_plain,
+                                         nms_sweep_order,
                                          pick_seeds_nms_fused)
 from gmf_tpu_torch.ops.fused_scoring import seed_hypothesis_counts
 from gmf_tpu_torch.ops.fused_seed_solver import (fused_seed_transforms,
@@ -300,6 +301,80 @@ def test_nms_local_max_matches_pallas_interpret(rng):
         np.testing.assert_array_equal(got[b].numpy(), np.asarray(ref))
 
 
+def _first_kept(x, lo, hi, skip):
+    """The kernel's binary search: the first index of [lo, hi) at which
+    ``skip`` (true on a prefix) is false."""
+    while lo < hi:
+        mid = lo + (hi - lo) // 2
+        if skip(x[mid]):
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def _nms_sweep_schedule(keys, order, radius, rows=128):
+    """The NMS kernel's schedule (csrc/nms_local_max.cu) on the CPU, from
+    nms_sweep_order's keys and order: per block of ``rows`` sorted points
+    the range of keys its two binary searches keep (the rounded x
+    predicates, in f32), the rounded distances and the strict score test
+    on that range only, written back in each pair's own order. Returns
+    is_local_max and the share of (i, j) the ranges skip."""
+    B, N, _ = keys.shape
+    r2 = torch.tensor(float(radius) ** 2, dtype=torch.float32)
+    out, skipped = torch.empty(B, N), 0
+    for b in range(B):
+        x = keys[b, :, 0]
+        for r0 in range(0, N, rows):
+            last = min(r0 + rows, N) - 1
+            start = _first_kept(
+                x, 0, r0, lambda xj: bool((x[r0] - xj) ** 2 >= r2))
+            end = _first_kept(
+                x, last + 1, N, lambda xj: not bool((xj - x[last]) ** 2 >= r2))
+            me, ks = keys[b, r0:last + 1], keys[b, start:end]
+            d = [me[:, None, c] - ks[None, :, c] for c in range(3)]
+            d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+            sup = ((d2 < r2) & (ks[None, :, 3] > me[:, None, 3])).any(-1)
+            out[b, order[b, r0:last + 1].long()] = (~sup).float()
+            skipped += (last + 1 - r0) * (N - (end - start))
+    return out, skipped / (B * N * N)
+
+
+@pytest.mark.parametrize("N", [300, 1000])
+def test_nms_sweep_matches_plain_and_pallas_interpret(rng, N):
+    """The NMS kernel's x sweep skips keys by their x alone: equal in
+    every bit to the dense plain version and to the Pallas kernel in
+    interpret mode. Ragged N (no multiple of the 128-point blocks); a
+    third of the points on a lattice of half the radius, so many pairs lie
+    at exactly the radius (squared distances exact, equal to R^2: no
+    suppression) and many share an x (ties in the sort); scores drawn from
+    20 values (ties never suppress) with one pair's scores negative; a NaN
+    and an infinite x in pair 0 (sorted last; never suppressed, never
+    suppressing)."""
+    B, radius = 2, 0.25
+    pts = (rng.rand(B, N, 3) * 3).astype(np.float32)
+    lattice = rng.randint(0, 6, size=(B, N // 3, 3)).astype(np.float32)
+    pts[:, : N // 3] = lattice * (radius / 2)
+    scores = rng.randint(0, 20, size=(B, N)).astype(np.float32) / 20
+    scores[1] -= 0.5
+    pts[0, 1, 0], pts[0, 2, 0] = np.nan, np.inf
+    keys, order = nms_sweep_order(_t(pts), _t(scores))
+    got, skipped = _nms_sweep_schedule(keys, order, radius)
+    ref = nms_local_max_plain(_t(pts), _t(scores), radius)
+    assert torch.equal(got, ref)
+    assert torch.equal(nms_local_max(_t(pts), _t(scores), radius), ref)
+    for b in range(B):
+        want = jnms.nms_local_max(jnp.asarray(pts[b]), jnp.asarray(scores[b]),
+                                  radius=radius, block_q=128, block_k=128,
+                                  interpret=True)
+        np.testing.assert_array_equal(got[b].numpy(), np.asarray(want))
+    # the lattice puts pairs at exactly the radius, and the sweep skips
+    with np.errstate(invalid="ignore"):
+        d2 = ((pts[:, :, None] - pts[:, None]) ** 2).sum(-1)
+    assert (d2 == radius ** 2).sum() > 200
+    assert 0 < ref.mean() < 1 and skipped > 0.3
+
+
 def test_pick_seeds_signed_zero_ranking(rng):
     """Negative and positive scores: non-maxima rank as +0.0 or -0.0, and
     with more seeds than local maxima those ties pick seeds; the port must
@@ -441,3 +516,120 @@ def test_three_term_bf16_split_keeps_f32_accuracy(rng, contraction):
     f32 = err(a @ b)
     assert err(_split_product(a, b, 6)) <= 2 * f32
     assert err(_split_product(a, b, 3)) > 5 * f32
+
+
+def _truncate_f32(x64):
+    """f64 -> f32 rounded toward zero: the model of the tensor cores'
+    truncating f32 accumulation."""
+    y = x64.float()
+    over = y.double().abs() > x64.abs()
+    return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _wgmma_steps(acc, a_terms, b_terms, terms):
+    """acc += A B as wgmma forms it from split operands: for each term
+    product, smallest first, and each 16-deep k-step, the step's exact
+    sum added to the f32 accumulator and the result truncated to f32."""
+    order = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))[6 - terms:]
+    for i, j in order:
+        a, b = a_terms[i].double(), b_terms[j].double()
+        for k0 in range(0, a.shape[1], 16):
+            acc = _truncate_f32(acc.double() + a[:, k0:k0 + 16]
+                                @ b[k0:k0 + 16])
+    return acc
+
+
+def _f32_forward_schedule(qs, k, v, compat, key_state, terms=6,
+                          straight=False):
+    """The f32 forward kernel's schedule (csrc/compat_flash_core.cuh,
+    compat_flash_fwd_split) for one pair on the CPU: qs, k, v split into
+    three bf16 terms, 32-key tiles, S from the term products, compat and
+    the key states (1 valid, 0 masked, -1 past N), the online base-2
+    softmax, p split into three terms and each tile's P V into a zeroed
+    tile sum added to the rescaled O with a rounded f32 add (``straight``:
+    into O itself). k, v and compat are padded to whole tiles."""
+    n = qs.shape[0]
+    m = torch.full((n,), -float("inf"))
+    l, o = torch.zeros(n), torch.zeros(n, v.shape[1])
+    q3 = _split3(qs)
+    for k0 in range(0, k.shape[0], 32):
+        ks = slice(k0, k0 + 32)
+        s = _wgmma_steps(torch.zeros(n, 32), q3,
+                         _split3(k[ks].T.contiguous()), terms)
+        logit = compat[:, ks] * s
+        logit = torch.where(key_state[ks] == 0, torch.full_like(logit, -1e9),
+                            logit)
+        logit = torch.where(key_state[ks] < 0,
+                            torch.full_like(logit, -float("inf")), logit)
+        m_next = torch.maximum(m, logit.amax(-1))
+        alpha = torch.where(m == -float("inf"), torch.zeros_like(m),
+                            torch.exp2(m - m_next))
+        p = torch.exp2(logit - m_next[:, None])
+        l, m = alpha * l + p.sum(-1), m_next
+        o = o * alpha[:, None]
+        p3, v3 = _split3(p), _split3(v[ks])
+        if straight:
+            o = _wgmma_steps(o, p3, v3, terms)
+        else:
+            o = o + _wgmma_steps(torch.zeros_like(o), p3, v3, terms)
+    return o / torch.clamp(l, min=1e-30)[:, None]
+
+
+def test_f32_forward_schedule_keeps_f32_accuracy(rng):
+    """The error model behind holding the f32 forward attention to 1e-5
+    of its plain version on the tensor cores. At the training shape (N =
+    1000 queries and keys, D = 128, the streaming compat, the last tenth
+    of the keys masked), with wgmma's f32 accumulation modelled as
+    truncating after every 16-deep step, the kernel's schedule (six term
+    products, each tile's P V into a zeroed tile sum) stays within f32's
+    own error of an f64 attention (twice the plain f32 version's, as for
+    the backward's split) and within 1e-5 of compat_attention_plain.
+    Dropping mid.mid, hi.lo and lo.hi, or accumulating P V straight into
+    O, does not, and lies at least 3 times farther from f64 than the
+    kernel's schedule. In this model, relative to the largest output
+    (0.31): 1.0e-6 six with tile sums, 5.7e-6 three, 1.2e-5 straight,
+    1.3e-6 the plain f32 version; the kernel's schedule lies 4.2e-7 from
+    the plain version."""
+    from gmf_tpu_torch.ops.fused_attention import (_qscale,
+                                                   _stream_compat_plain,
+                                                   compat_attention_plain)
+
+    N, D, tiles = 1000, 128, 1024
+    q, k, v = (torch.tensor(rng.randn(1, N, D).astype(np.float32))
+               for _ in range(3))
+    src = torch.tensor((rng.rand(1, N, 3) * 2.5).astype(np.float32))
+    tgt = src + torch.tensor(0.02 * rng.randn(1, N, 3).astype(np.float32))
+    mask = torch.ones(1, N)
+    mask[0, N - N // 10:] = 0.0
+    compat = _stream_compat_plain(src, tgt, 0.10)[0]
+    plain = compat_attention_plain(q, k, v, src, tgt, mask)[0]
+
+    qs64 = q[0].double() * (1.4426950408889634 / np.sqrt(D))
+    logits = compat.double() * (qs64 @ k[0].double().T)
+    logits = torch.where(mask[0] > 0, logits, torch.full_like(logits, -1e9))
+    p = torch.exp2(logits - logits.amax(-1, keepdim=True))
+    exact = (p @ v[0].double()) / p.sum(-1, keepdim=True)
+    scale = exact.abs().max().item()
+
+    def err(x):
+        return (x.double() - exact).abs().max().item() / scale
+
+    def pad(x, cols=False):
+        out = torch.zeros((x.shape[0], tiles) if cols
+                          else (tiles, x.shape[1]))
+        if cols:
+            out[:, :N] = x
+        else:
+            out[:N] = x
+        return out
+
+    state = torch.full((tiles,), -1.0)
+    state[:N] = mask[0]
+    args = (q[0] * _qscale(D), pad(k[0]), pad(v[0]), pad(compat, True),
+            state)
+    f32, kernel = err(plain), _f32_forward_schedule(*args)
+    assert err(kernel) <= 2 * f32
+    assert (kernel - plain).abs().max().item() <= 1e-5
+    for worse in (_f32_forward_schedule(*args, terms=3),
+                  _f32_forward_schedule(*args, straight=True)):
+        assert err(worse) > 2 * f32 and err(worse) > 3 * err(kernel)
