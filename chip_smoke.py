@@ -18,8 +18,9 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
    kernel's on that cache. Then the five kernels of the main path once
    more at that path's B=64 (bf16 attention, every pair with its own
    count of valid rows), with the same limits, their plain versions run
-   in slices of 8 pairs; NMS at both sizes timed beside its plain version
-   and its work-based bound. The seed kNN in both its instances (bf16 on
+   in slices of 8 pairs; NMS at both sizes timed (its call, its sort and
+   its scan) beside its plain version and the bound of the work NMS needs
+   (a local maximum against the keys within the radius). The seed kNN in both its instances (bf16 on
    the tensor cores, the main path's; f32 on the CUDA cores, training's)
    on unit features rounded to the instance's type, its plain version fed
    the same values, at B=8 and at B=64, each timed beside its plain
@@ -39,7 +40,8 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
    twice for the same bits and across the pair boundary: pair 0 at
    N=333, pair 1's k, v and do all inf), the streaming and cached
    forward (output and the lse they write; the f32 ones timed beside
-   their bound), the standalone cache of each type (every byte), kNN and
+   their bound and held to twice the plain f32 version's distance from
+   the attention in f64), the standalone cache of each type (every byte), kNN and
    counts at S=100 seeds, each against its plain version with the limits
    above. Then the
    attention-variant microbenchmark (variants_phase): the four instances
@@ -669,14 +671,17 @@ def knn_check(where, seeds, feats, mask, slices, rates):
 
 def nms_check(where, src, scores, slices, rates):
     """NMS at radius 0.10 against its plain version run on each slice of
-    pairs: equal in every bit. Returns its row: the times of the kernel
-    (its sort included) and of the plain version over all pairs, and
-    the work-based bound: per (i, j) compared ~10 ALU ops; a local maximum
-    compared with every key within the radius in x (the least a sweep
-    along x can compare), every other row with one key (its first
-    suppressor); 16 bytes a point read, 4 written. Beside it the bound of
-    a kernel whose local maxima compare with every key of the pair (the
-    kernel before the sweep): the sweep runs below it."""
+    pairs: equal in every bit. Returns its row: the times of the kernel's
+    call, of its sort and its scan alone, and of the plain version over
+    all pairs, and the bound of the work NMS needs: ~10 ALU ops per (i, j)
+    compared, a local maximum compared with every key within the radius
+    (the plain version's d2 < R^2), every other row with one key (its
+    first suppressor); 20 bytes a point (the point and its score read, the
+    flag written). Beside it, as the sweep's own work: the pairs it
+    compares at least (a local maximum against every key within the radius
+    in x, ``sweep_pairs``) and their bound, and the bound of a kernel whose
+    local maxima compare with every key (PRs 1-8's bound)."""
+    from gmf_tpu_torch.ops import _build
     from gmf_tpu_torch.ops.fused_nms import (nms_local_max,
                                              nms_local_max_plain)
 
@@ -688,21 +693,52 @@ def nms_check(where, src, scores, slices, rates):
         fail(f"{where}: nms_local_max disagrees with its plain version "
              f"({err})")
     b, n, _ = src.shape
+    n_max = int(ref.sum().item())
+    # keys within the radius of each local maximum, as the plain version
+    # measures it
+    near = 0
+    for sl in slices:
+        s = src[sl]
+        d = [s[:, :, None, c] - s[:, None, :, c] for c in range(3)]
+        d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        near += int(((d2 < 0.10 ** 2).sum(-1) * ref[sl]).sum().item())
+        del d, d2
     # keys within the radius in x of each row
     x = src[..., 0].contiguous()
     xs = torch.sort(x, dim=1).values
-    near = (torch.searchsorted(xs, x + 0.10)
+    slab = (torch.searchsorted(xs, x + 0.10)
             - torch.searchsorted(xs, x - 0.10, right=True))
-    n_max = int(ref.sum().item())
-    needed = int(near[ref > 0].sum().item()) + (b * n - n_max)
+    needed = near + (b * n - n_max)
+    sweep = int(slab[ref > 0].sum().item()) + (b * n - n_max)
     all_keys = n_max * n + (b * n - n_max)
-    del xs, near
+    del xs, slab
+    lib, stream = _build.load(), _build.stream_of(src)
+    kp, sc = src.float().contiguous(), scores.float().contiguous()
+    keys = torch.empty(b, n, 4, device=src.device)
+    order = torch.empty(b, n, dtype=torch.int32, device=src.device)
+    out = torch.empty(b, n, device=src.device)
+
+    def sort():
+        return lib.gmf_nms_sort(kp.data_ptr(), sc.data_ptr(),
+                                keys.data_ptr(), order.data_ptr(), b, n,
+                                stream)
+
+    def scan():
+        return lib.gmf_nms_scan(keys.data_ptr(), order.data_ptr(),
+                                out.data_ptr(), b, n, 0.10 ** 2, stream)
+
+    if sort() != 0 or scan() != 0 or not torch.equal(out, ref):
+        fail(f"{where}: nms sort and scan called alone disagree with the "
+             "plain version")
     return dict(
         max_abs_err=err, tolerance=0.0, shape=[b, n],
         ms=cuda_ms(lambda: nms_local_max(src, scores, 0.10), reps=10),
+        sort_ms=cuda_ms(sort, reps=10), scan_ms=cuda_ms(scan, reps=10),
         plain_ms=cuda_ms(lambda: [nms_local_max_plain(
             src[sl], scores[sl], 0.10) for sl in slices], reps=3, warmup=1),
-        local_maxima=n_max, pairs_compared_at_least=needed,
+        local_maxima=n_max, pairs_needed=needed,
+        sweep_pairs=sweep, bound_sweep_ms=rates.bound(
+            b * n * 20, {"alu": 10 * sweep / rates.alu})[0],
         bound_all_keys_ms=rates.bound(
             b * n * 20, {"alu": 10 * all_keys / rates.alu})[0],
         **dict(zip(("bound_ms", "bound_by"), rates.bound(
@@ -1086,6 +1122,43 @@ def bwd_tol(ref, dtype) -> float:
     return 1e-5 * scale if dtype == torch.float32 else 4 * bf16_ulp(scale)
 
 
+# the CPU model of the f32 forward's schedule at the training shape
+# (tests/test_torch_ops.py, test_f32_forward_schedule_keeps_f32_accuracy):
+# distance from an f64 attention over the largest output
+F32_FWD_MODEL = {"six_terms_tile_sums": 1.0e-6, "three_terms": 5.7e-6,
+                 "straight_into_o": 1.2e-5, "plain_f32": 1.3e-6}
+
+
+def f32_forward_f64_check(tag, q, k, v, compat, mask, out, ref_out):
+    """The f32 forward and its plain version against the attention in f64
+    on the same f32 inputs and compat, each over the largest output, on
+    the valid query rows. The kernel must lie within twice the plain f32
+    version's distance, f32's own error, as in the CPU model of its
+    schedule (F32_FWD_MODEL), where three term products or P V straight
+    into O lie outside it. 1e-5 of the plain version does not tell those
+    apart; this does."""
+    from gmf_tpu_torch.ops.fused_attention import _qscale
+
+    qs = q.double() * _qscale(q.shape[-1])
+    logits = compat.double() * (qs @ k.double().transpose(-1, -2))
+    logits = torch.where(mask[:, None, :] > 0, logits,
+                         torch.full_like(logits, -1e9))
+    p = torch.exp2(logits - logits.amax(-1, keepdim=True))
+    exact = (p @ v.double()) / p.sum(-1, keepdim=True)
+    del logits, p
+    valid = mask > 0
+    scale = exact[valid].abs().max().item()
+    kernel = (out.double() - exact)[valid].abs().max().item() / scale
+    plain = (ref_out.double() - exact)[valid].abs().max().item() / scale
+    rel_plain = (out - ref_out)[valid].abs().max().item() / scale
+    if not kernel <= 2 * plain:
+        fail(f"forward {tag}: {kernel} of the largest output from the f64 "
+             f"attention, more than twice the plain f32 version's {plain}")
+    return dict(kernel=kernel, plain=plain, limit=2 * plain,
+                kernel_vs_plain=rel_plain, largest=scale,
+                cpu_model=F32_FWD_MODEL)
+
+
 def cached_bwd_pair_boundary(dev, gen):
     """The cached dK/dV and dQ kernels across the pair boundary: pair 0 at
     N = 333, whose last tiles reach into pair 1, with pair 1's k, v and do
@@ -1190,6 +1263,10 @@ def backward_phase(dev, rates):
             fwd_err = (out.float() - ref_out.float()).abs().max().item()
             if not fwd_err <= fwd_tol:
                 fail(f"forward {tag}: max abs err {fwd_err} > {fwd_tol}")
+            f64_errs = None
+            if dtype == f32:
+                f64_errs = f32_forward_f64_check(tag, q, k, v, compat, mask,
+                                                 out, ref_out)
             del ref_out
             lse_err = (lse - ref_lse)[valid].abs().max().item()
             if not lse_err <= 1e-5:
@@ -1228,7 +1305,7 @@ def backward_phase(dev, rates):
                 fail(f"backward {tag}: masked query rows got a gradient")
             del got_q, got_k, got_v, ref_q, ref_k, ref_v
             row = dict(fwd_err=fwd_err, fwd_tol=fwd_tol, lse_err=lse_err,
-                       psum_err=psum_err, errs=errs)
+                       psum_err=psum_err, errs=errs, fwd_f64=f64_errs)
             row["dkv_ms"] = cuda_ms(
                 lambda: bwd_dkv(inp, src, tgt, 0.10, cache), reps=10)
             row["dq_ms"] = cuda_ms(
@@ -1260,7 +1337,7 @@ def backward_phase(dev, rates):
         del q, k, v, do
     boundary = cached_bwd_pair_boundary(dev, gen)
     summary = {t: {"fwd_err": r["fwd_err"], "lse_err": r["lse_err"],
-                   "psum_err": r["psum_err"],
+                   "psum_err": r["psum_err"], "fwd_f64": r["fwd_f64"],
                    **{p: e[0] for p, e in r["errs"].items()},
                    "dkv_ms": r["dkv_ms"], "dq_ms": r["dq_ms"]}
                for t, r in res.items()}

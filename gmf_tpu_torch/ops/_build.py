@@ -78,9 +78,10 @@ SIGNATURES = {
     # feats, src_knn, tgt_knn, sigma, out, n_seeds, k, C, is_bf16,
     # sigma_d_sq, num_iters, stream
     "gmf_fused_seed_weights": [P, P, P, P, P, I, I, I, I, F, I, P],
-    # keypts, scores (null: keys and order given sorted), keys, order, out,
-    # B, N, radius_sq, stream
-    "gmf_nms_local_max": [P, P, P, P, P, I, I, F, P],
+    # keypts, scores, keys, order, B, N, stream
+    "gmf_nms_sort": [P, P, P, P, I, I, P],
+    # keys, order, out, B, N, radius_sq, stream
+    "gmf_nms_scan": [P, P, P, I, I, F, P],
     # seeds, feats, mask, idx, val, B, S, N, C, K, is_bf16, stream
     "gmf_seed_knn_topk": [P, P, P, P, P, I, I, I, I, I, I, P],
     # trans, src, tgt, mask, counts, B, S, N, thr_sq, stream

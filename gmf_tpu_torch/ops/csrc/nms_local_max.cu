@@ -13,10 +13,12 @@
 //
 // A sweep along x. nms_sort_kernel puts each pair's points in x order
 // (ties by index) and packs each as a float4 (x, y, z, score): one block
-// a pair, a bitonic sort of (x's order as an integer, index) in shared
-// memory, for pairs of up to NMS_SORT_MAX points; the wrapper
-// (ops/fused_nms.py, nms_sweep_order) sorts larger ones the same way with
-// torch.sort and passes them in. Then nms_local_max_kernel: a
+// a run of up to NMS_RUN points of a pair, a bitonic sort of (x's order as
+// an integer, index) in shared memory. A pair of one run is packed there;
+// a longer one is merged, two neighbouring runs a pass (nms_merge_kernel:
+// each entry finds its place by a binary search in the other run; all
+// entries differ, by their index), then packed (nms_pack_kernel). Then
+// nms_local_max_kernel: a
 // block owns NMS_ROWS consecutive points of that order (one a thread) and
 // scans only the keys whose x lies near its own: key j is skipped when
 // round(round(x_first - x_j)^2) >= R^2 for the block's smallest x (keys
@@ -33,13 +35,14 @@
 // the scan when every row of the block is suppressed (__syncthreads_and).
 // The result is written back in the pair's own order.
 //
-// Bound on this card: ~12 f32 ALU ops per (i, j) compared and 16 bytes per
-// point; a local maximum compares with every key of its block's range,
-// another row stops at its first suppressor. At 3DMatch's density (5000
-// points in a few metres, R = 0.10 m) a block's range is a tenth of the
-// pair. torch.sort of the keys took 0.2-0.6 ms on an H100 at 8 and at 64
-// pairs of 5000 (a segmented sort along N, or one sort of 64-bit keys),
-// 5-20 times the scan: hence the sort in shared memory.
+// Bound on this card: ~10 f32 ALU ops per (i, j) compared and 20 bytes a
+// point; to prove a local maximum it is compared with every key within
+// the radius, another row with one key (its first suppressor). The sweep
+// compares more: a local maximum meets every key of its block's range,
+// at 3DMatch's density (5000 points in a few metres, R = 0.10 m) about a
+// tenth of the pair. torch.sort of the keys took 0.2-0.6 ms on an H100 at
+// 8 and at 64 pairs of 5000 (a segmented sort along N, or one sort of
+// 64-bit keys), 5-20 times the scan: hence the sort in shared memory.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -49,55 +52,107 @@ namespace {
 
 constexpr int NMS_ROWS = 128;  // sorted points a block owns; its threads
 constexpr int SORT_THREADS = 1024;
-// points of a pair nms_sort_kernel takes: 8 bytes each in shared memory
-constexpr int NMS_SORT_MAX = 16384;
+// points of a run nms_sort_kernel sorts: 8 bytes each in shared memory
+constexpr int NMS_RUN = 16384;
+constexpr int MERGE_THREADS = 256;
 
 // x's bits as an unsigned integer of the same order: negative floats
 // reversed, -0 before +0, a NaN with its sign bit first, others last
-// (nms_sweep_order's key)
 __device__ __forceinline__ uint32_t x_order(float x) {
   const uint32_t u = __float_as_uint(x);
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-// keypts: [B, N, 3], scores: [B, N] -> keys: [B, N] float4 (x, y, z,
-// score) in x order, order: [B, N] the pair index of each; P is the power
-// of two >= N of the shared entries (x order << 32 | index; entries past
-// N all ones, so they sort last)
+// keypts: [B, N, 3], scores: [B, N]; block (run, pair) sorts the run's
+// points, [run NMS_RUN, +NMS_RUN) of the pair, by (x order, index). P is
+// the power of two >= the run's length of the shared entries (x order
+// << 32 | index; entries past the run all ones, so they sort last). With
+// ent null (one run a pair) it writes keys: [B, N] float4 (x, y, z,
+// score) in x order and order: [B, N], the pair index of each; else the
+// sorted entries to ent: [B, N].
 __global__ void __launch_bounds__(SORT_THREADS)
 nms_sort_kernel(const float* __restrict__ keypts,
                 const float* __restrict__ scores, float4* __restrict__ keys,
-                int* __restrict__ order, int N, int P) {
-  extern __shared__ unsigned long long ent[];
-  const size_t base = (size_t)blockIdx.x * N;
+                int* __restrict__ order, unsigned long long* __restrict__ ent,
+                int N, int P) {
+  extern __shared__ unsigned long long sh[];
+  const size_t base = (size_t)blockIdx.y * N;
+  const int r0 = blockIdx.x * NMS_RUN, n = min(NMS_RUN, N - r0);
   keypts += base * 3;
   scores += base;
-  keys += base;
-  order += base;
   for (int i = threadIdx.x; i < P; i += SORT_THREADS)
-    ent[i] = i < N ? (unsigned long long)x_order(keypts[(size_t)i * 3]) << 32 |
-                         (unsigned)i
-                   : ~0ull;
+    sh[i] = i < n ? (unsigned long long)x_order(keypts[(size_t)(r0 + i) * 3])
+                            << 32 |
+                        (unsigned)(r0 + i)
+                  : ~0ull;
   __syncthreads();
   for (int k = 2; k <= P; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
       for (int i = threadIdx.x; i < P / 2; i += SORT_THREADS) {
         const int a = 2 * i - (i & (j - 1)), c = a + j;  // this exchange
-        const unsigned long long x = ent[a], y = ent[c];
+        const unsigned long long x = sh[a], y = sh[c];
         if ((x > y) == ((a & k) == 0)) {
-          ent[a] = y;
-          ent[c] = x;
+          sh[a] = y;
+          sh[c] = x;
         }
       }
       __syncthreads();
     }
   }
-  for (int r = threadIdx.x; r < N; r += SORT_THREADS) {
-    const int i = (int)(ent[r] & 0xffffffffu);
-    const float* p = keypts + (size_t)i * 3;
-    keys[r] = make_float4(p[0], p[1], p[2], scores[i]);
-    order[r] = i;
+  for (int r = threadIdx.x; r < n; r += SORT_THREADS) {
+    if (ent != nullptr) {
+      ent[base + r0 + r] = sh[r];
+    } else {
+      const int i = (int)(sh[r] & 0xffffffffu);
+      const float* p = keypts + (size_t)i * 3;
+      keys[base + r] = make_float4(p[0], p[1], p[2], scores[i]);
+      order[base + r] = i;
+    }
   }
+}
+
+// src: [B, N] entries, sorted in runs of len; merges each two neighbouring
+// runs into one of dst, or with dst null (the last pass) writes each
+// entry's index to order: [B, N]. An entry's place is its place in its
+// run plus the entries of the other run below it.
+__global__ void __launch_bounds__(MERGE_THREADS)
+nms_merge_kernel(const unsigned long long* __restrict__ src,
+                 unsigned long long* __restrict__ dst, int* __restrict__ order,
+                 int N, long long len) {
+  const long long r = (long long)blockIdx.x * MERGE_THREADS + threadIdx.x;
+  if (r >= N) return;
+  const size_t base = (size_t)blockIdx.y * N;
+  const unsigned long long e = src[base + r];
+  const long long run = r / len, lo = (run ^ 1) * len;
+  long long a = lo, b = max(lo, min(lo + len, (long long)N));
+  while (a < b) {
+    const long long mid = a + (b - a) / 2;
+    if (src[base + mid] < e) {
+      a = mid + 1;
+    } else {
+      b = mid;
+    }
+  }
+  const long long dest = min(run, run ^ 1) * len + (r - run * len) + (a - lo);
+  if (dst != nullptr) {
+    dst[base + dest] = e;
+  } else {
+    order[base + dest] = (int)(e & 0xffffffffu);
+  }
+}
+
+// keys: [B, N] float4 (x, y, z, score) of each point of order: [B, N]
+__global__ void __launch_bounds__(MERGE_THREADS)
+nms_pack_kernel(const float* __restrict__ keypts,
+                const float* __restrict__ scores, float4* __restrict__ keys,
+                const int* __restrict__ order, int N) {
+  const int r = blockIdx.x * MERGE_THREADS + threadIdx.x;
+  if (r >= N) return;
+  const size_t base = (size_t)blockIdx.y * N;
+  const size_t i = base + order[base + r];
+  keys[base + r] =
+      make_float4(keypts[i * 3], keypts[i * 3 + 1], keypts[i * 3 + 2],
+                  scores[i]);
 }
 
 // index of the first key of [lo, hi) in x order for which skip(x) is
@@ -181,34 +236,52 @@ nms_local_max_kernel(const float4* __restrict__ keys,
 
 }  // namespace
 
-// keypts: [B, N, 3] f32, scores: [B, N] f32, N <= NMS_SORT_MAX: sorted
-// here into keys [B, N, 4] f32 and order [B, N] int32 (scratch); or, with
-// keypts and scores null, keys and order already in x order
-// (nms_sweep_order). out: [B, N] f32 (1 = local max), in the pair's own
-// order.
-extern "C" int gmf_nms_local_max(const void* keypts, const void* scores,
-                                 void* keys, void* order, void* out, int B,
-                                 int N, float radius_sq, void* stream) {
+// keypts: [B, N, 3] f32, scores: [B, N] f32 -> keys: [B, N, 4] f32 (x, y,
+// z, score), each pair sorted by x (ties by index), and order: [B, N]
+// int32, the pair index of each sorted point. A pair of more than NMS_RUN
+// points is merged through keys' memory, two [B, N] entry buffers.
+extern "C" int gmf_nms_sort(const void* keypts, const void* scores,
+                            void* keys, void* order, int B, int N,
+                            void* stream) {
   if (B <= 0 || N <= 0)
     return cudaErrorInvalidValue;  // nothing to launch
   auto st = static_cast<cudaStream_t>(stream);
-  if (keypts != nullptr) {
-    if (N > NMS_SORT_MAX) return cudaErrorInvalidValue;
-    int P = 2;
-    while (P < N) P <<= 1;
-    const size_t bytes = (size_t)P * sizeof(unsigned long long);
-    cudaError_t err = cudaFuncSetAttribute(
-        nms_sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    nms_sort_kernel<<<B, SORT_THREADS, bytes, st>>>(
-        static_cast<const float*>(keypts), static_cast<const float*>(scores),
-        static_cast<float4*>(keys), static_cast<int*>(order), N, P);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const auto* kp = static_cast<const float*>(keypts);
+  const auto* sc = static_cast<const float*>(scores);
+  auto* packed = static_cast<float4*>(keys);
+  auto* idx = static_cast<int*>(order);
+  const int runs = (N + NMS_RUN - 1) / NMS_RUN;
+  int P = 2;
+  while (P < min(N, NMS_RUN)) P <<= 1;
+  const size_t bytes = (size_t)P * sizeof(unsigned long long);
+  cudaError_t err = cudaFuncSetAttribute(
+      nms_sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  unsigned long long* ent[2] = {
+      static_cast<unsigned long long*>(keys),
+      static_cast<unsigned long long*>(keys) + (size_t)B * N};
+  nms_sort_kernel<<<dim3(runs, B), SORT_THREADS, bytes, st>>>(
+      kp, sc, packed, idx, runs > 1 ? ent[0] : nullptr, N, P);
+  if (runs == 1) return static_cast<int>(cudaGetLastError());
+  const dim3 grid((N + MERGE_THREADS - 1) / MERGE_THREADS, B);
+  int cur = 0;
+  for (long long len = NMS_RUN; len < N; len *= 2, cur ^= 1)
+    nms_merge_kernel<<<grid, MERGE_THREADS, 0, st>>>(
+        ent[cur], 2 * len >= N ? nullptr : ent[cur ^ 1], idx, N, len);
+  nms_pack_kernel<<<grid, MERGE_THREADS, 0, st>>>(kp, sc, packed, idx, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// keys: [B, N, 4] f32 and order: [B, N] int32 as gmf_nms_sort leaves them
+// -> out: [B, N] f32 (1 = local max), in the pair's own order.
+extern "C" int gmf_nms_scan(const void* keys, const void* order, void* out,
+                            int B, int N, float radius_sq, void* stream) {
+  if (B <= 0 || N <= 0)
+    return cudaErrorInvalidValue;  // nothing to launch
   const dim3 grid((N + NMS_ROWS - 1) / NMS_ROWS, B);
-  nms_local_max_kernel<<<grid, NMS_ROWS, 0, st>>>(
+  nms_local_max_kernel<<<grid, NMS_ROWS, 0, static_cast<cudaStream_t>(
+                                             stream)>>>(
       static_cast<const float4*>(keys), static_cast<const int*>(order),
       static_cast<float*>(out), N, radius_sq);
   return static_cast<int>(cudaGetLastError());

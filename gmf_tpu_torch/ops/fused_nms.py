@@ -8,11 +8,10 @@ Every row of the bucket takes part, masked ones included, as in the JAX
 package; the mask only keeps masked rows from becoming seeds.
 ``nms_local_max`` launches ``csrc/nms_local_max.cu`` on CUDA tensors and
 uses ``nms_local_max_plain`` only for CPU tensors. The kernel sweeps
-along x: it sorts each pair's points by x and packs them (a pair of more
-than ``NMS_SORT_MAX`` points is sorted by ``nms_sweep_order`` instead, to
-the same order), and a block of points skips the keys whose x alone puts
-them at least the radius away (the kernel's header says why no bit
-changes).
+along x: it sorts each pair's points by x and packs them
+(``gmf_nms_sort``), and a block of points skips the keys whose x alone
+puts them at least the radius away (``gmf_nms_scan``; the kernel's header
+says why no bit changes).
 """
 
 from __future__ import annotations
@@ -23,8 +22,6 @@ from gmf_tpu_torch.geometry.nms import topk_total_order
 from gmf_tpu_torch.ops import _build
 
 KERNEL = "nms_local_max"
-# points of a pair the kernel sorts itself (csrc/nms_local_max.cu)
-NMS_SORT_MAX = 16384
 
 
 def nms_local_max_plain(src_keypts, scores, radius: float):
@@ -37,28 +34,6 @@ def nms_local_max_plain(src_keypts, scores, radius: float):
     suppressed = ((d2 < float(radius) ** 2)
                   & (sc[:, None, :] > sc[:, :, None])).any(-1)
     return (~suppressed).float()
-
-
-def nms_sweep_order(src_keypts, scores):
-    """The NMS kernel's input: each pair's points sorted by x (ties by
-    index) and packed as (x, y, z, score), [B, N, 4] f32, and the pair
-    index of each sorted point, [B, N] int32.
-
-    One sort of B N 64-bit keys, the pair above x's order as an integer
-    (a float's bits with the negative ones reversed: -0 before +0, a NaN
-    with its sign bit first, others last): the kernel's own sort's
-    order."""
-    kp = src_keypts.float()
-    B, N, _ = kp.shape
-    bits = kp[..., 0].contiguous().view(torch.int32).to(torch.int64)
-    x_order = torch.where(bits < 0, -(bits & 0x7FFFFFFF) - 1, bits)
-    pair = torch.arange(B, device=kp.device)[:, None]
-    key = (pair << 32) + (x_order + 2 ** 31)
-    flat = torch.sort(key.view(-1), stable=True).indices
-    packed = torch.cat([kp, scores.float()[..., None]], dim=-1)
-    keys = packed.view(B * N, 4)[flat].view(B, N, 4)
-    order = flat.view(B, N) - pair * N
-    return keys, order.to(torch.int32)
 
 
 def nms_local_max(src_keypts, scores, radius: float):
@@ -75,16 +50,16 @@ def nms_local_max(src_keypts, scores, radius: float):
         return out  # nothing to launch
     kp = src_keypts.float().contiguous()
     sc = scores.float().contiguous()
-    if N <= NMS_SORT_MAX:  # the kernel sorts into these
-        keys = torch.empty(B, N, 4, device=kp.device)
-        order = torch.empty(B, N, dtype=torch.int32, device=kp.device)
-        unsorted = (kp.data_ptr(), sc.data_ptr())
-    else:
-        keys, order = nms_sweep_order(kp, sc)
-        unsorted = (0, 0)
-    code = _build.load().gmf_nms_local_max(
-        *unsorted, keys.data_ptr(), order.data_ptr(), out.data_ptr(), B, N,
-        float(radius) ** 2, _build.stream_of(kp))
+    # the sort's output, the scan's input (and the sort's scratch)
+    keys = torch.empty(B, N, 4, device=kp.device)
+    order = torch.empty(B, N, dtype=torch.int32, device=kp.device)
+    lib, stream = _build.load(), _build.stream_of(kp)
+    code = lib.gmf_nms_sort(kp.data_ptr(), sc.data_ptr(), keys.data_ptr(),
+                            order.data_ptr(), B, N, stream)
+    if code == 0:
+        code = lib.gmf_nms_scan(keys.data_ptr(), order.data_ptr(),
+                                out.data_ptr(), B, N, float(radius) ** 2,
+                                stream)
     _build.check(code, KERNEL)
     return out
 

@@ -1,25 +1,32 @@
 """Time the NMS kernel of two builds of gmf_tpu_torch on one card, in turns.
 
     python -m gmf_tpu_torch.tools.compare_nms_builds --base DIR [--out PATH]
+    python -m gmf_tpu_torch.tools.compare_nms_builds --without FEATURE
 
-DIR is an unpacked checkout of another commit (``git archive``). At the
-serving shapes, 8 and 64 pairs of N=5000 synthetic correspondences
-(``make_correspondence_problem``, as ``chip_smoke.py``), radius 0.10 and
-random scores, it times ``REPS`` calls of each build's NMS entry point in
-the order base, this, this, base (CUDA events, after one warm call): a
-build whose entry also takes the scratch of its sort (9 arguments) gets
-it, one that takes the points alone (7) does not. Then this build's scan
-alone on keys sorted by ``ops/fused_nms.py::nms_sweep_order``, and that
-sort (torch.sort) alone. Both builds' outputs must equal
-``nms_local_max_plain`` in every bit (run in slices of 8 pairs). Prints
-the card, one line per shape and one JSON line; exits non-zero if an
-output differs.
+DIR is an unpacked checkout of another commit (``git archive``); with
+``--without`` the other build is this tree's with one feature of the
+scan (``csrc/nms_local_max.cu``) taken out, written under
+``gmf_tpu_torch/ops/build/``: ``block_exit`` (a tile no longer ends the
+scan when every row of its block is suppressed) or ``float4`` (the
+scan's tile of keys in shared memory as four arrays of floats, read with
+four loads a key, instead of one float4). At the serving shapes, 8 and
+64 pairs of N=5000 synthetic correspondences (``make_correspondence_
+problem``, as ``chip_smoke.py``), radius 0.10 and random scores, and at
+2 pairs of 20000 (two runs of the kernel's sort, one merge pass), it
+times ``REPS`` calls of each build's NMS in the order base, this, this,
+base (CUDA events, after one warm call): a build with ``gmf_nms_sort``
+gets the sort and the scan, one without it its one entry point, which
+takes the points alone. Then this build's sort alone and its scan alone.
+Both builds' outputs must equal ``nms_local_max_plain`` in every bit (run
+in slices of 8 pairs). Prints the card, one line per shape and one JSON
+line; exits non-zero if an output differs.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import sys
 from pathlib import Path
 
@@ -30,29 +37,90 @@ from gmf_tpu_torch.tools.build_compare import (card, load_build, open_lib,
                                                speedup, time_turns)
 
 ROOT = Path(__file__).resolve().parents[2]
-SHAPES = ((8, 5000), (64, 5000))
+SHAPES = ((8, 5000), (64, 5000), (2, 20000))
 RADIUS = 0.10
 REPS = 20
 
+# FEATURE -> the scan's source lines that hold it, and what replaces them
+WITHOUT = {
+    "block_exit": [(
+        "    if (__syncthreads_and(suppressed || i >= N)) break;",
+        "    __syncthreads();")],
+    "float4": [
+        ("  __shared__ float4 tile[NMS_ROWS];",
+         "  __shared__ float tile[4][NMS_ROWS];"),
+        ("    tile[threadIdx.x] =\n"
+         "        j < end ? keys[j] : make_float4(0.f, 0.f, 0.f, -INFINITY);",
+         "    const float4 kv =\n"
+         "        j < end ? keys[j] : make_float4(0.f, 0.f, 0.f, -INFINITY);\n"
+         "    tile[0][threadIdx.x] = kv.x;\n"
+         "    tile[1][threadIdx.x] = kv.y;\n"
+         "    tile[2][threadIdx.x] = kv.z;\n"
+         "    tile[3][threadIdx.x] = kv.w;"),
+        ("        const float4 kj = tile[jj + u];",
+         "        const float4 kj = make_float4(tile[0][jj + u], "
+         "tile[1][jj + u],\n"
+         "                                      tile[2][jj + u], "
+         "tile[3][jj + u]);")],
+}
 
-def nms_call(lib, nargs, src, scores, out, keys, order):
-    """One call of ``lib``'s NMS entry point, with its sort's scratch
-    where it takes one (``nargs`` 9); returns its code."""
+
+def tree_without(feature: str) -> Path:
+    """A copy of this tree's package with ``feature`` taken out of the
+    scan; raises if the source no longer holds the lines."""
+    tree = ROOT / "gmf_tpu_torch" / "ops" / "build" / f"without_{feature}"
+    shutil.rmtree(tree, ignore_errors=True)
+    shutil.copytree(ROOT / "gmf_tpu_torch", tree / "gmf_tpu_torch",
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    src = tree / "gmf_tpu_torch" / "ops" / "csrc" / "nms_local_max.cu"
+    text = src.read_text()
+    for old, new in WITHOUT[feature]:
+        if text.count(old) != 1:
+            raise RuntimeError(f"nms_local_max.cu: {old!r} not found once")
+        text = text.replace(old, new)
+    src.write_text(text)
+    return tree
+
+
+def nms_call(lib, src, scores, out, keys, order):
+    """One NMS of ``lib``: its sort and scan, or its one entry point;
+    returns the first non-zero code."""
     b, n, _ = src.shape
-    scratch = (keys.data_ptr(), order.data_ptr()) if nargs == 9 else ()
-    return lib.gmf_nms_local_max(src.data_ptr(), scores.data_ptr(), *scratch,
-                                 out.data_ptr(), b, n, RADIUS ** 2,
-                                 torch.cuda.current_stream().cuda_stream)
+    stream = torch.cuda.current_stream().cuda_stream
+    if not hasattr(lib, "gmf_nms_sort"):
+        return lib.gmf_nms_local_max(src.data_ptr(), scores.data_ptr(),
+                                     out.data_ptr(), b, n, RADIUS ** 2,
+                                     stream)
+    code = lib.gmf_nms_sort(src.data_ptr(), scores.data_ptr(),
+                            keys.data_ptr(), order.data_ptr(), b, n, stream)
+    return code or lib.gmf_nms_scan(keys.data_ptr(), order.data_ptr(),
+                                    out.data_ptr(), b, n, RADIUS ** 2, stream)
+
+
+def alone(fn):
+    """Mean ms of ``REPS`` calls of ``fn`` (CUDA events, one warm call)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(REPS):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / REPS
 
 
 def main(argv=None):
     from gmf_tpu_torch.data.synthetic import make_correspondence_problem
-    from gmf_tpu_torch.ops.fused_nms import (nms_local_max_plain,
-                                             nms_sweep_order)
+    from gmf_tpu_torch.ops.fused_nms import nms_local_max_plain
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--base", required=True, type=Path,
-                    help="unpacked checkout of the commit to compare with")
+    other = ap.add_mutually_exclusive_group(required=True)
+    other.add_argument("--base", type=Path,
+                       help="unpacked checkout of the commit to compare with")
+    other.add_argument("--without", choices=sorted(WITHOUT),
+                       help="compare with this tree less one scan feature")
     ap.add_argument("--out", help="also write the JSON here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -60,12 +128,11 @@ def main(argv=None):
     device = card()
     print(device, flush=True)
     dev = torch.device("cuda")
-    trees = {"base": args.base.resolve(), "this": ROOT}
-    builds = {who: load_build(tree, f"_build_{who}")
-              for who, tree in trees.items()}
-    libs = {who: open_lib(build)[0] for who, build in builds.items()}
-    nargs = {who: len(build.SIGNATURES["gmf_nms_local_max"])
-             for who, build in builds.items()}
+    base = (args.base.resolve() if args.base is not None
+            else tree_without(args.without))
+    trees = {"base": base, "this": ROOT}
+    libs = {who: open_lib(load_build(tree, f"_build_{who}"))[0]
+            for who, tree in trees.items()}
 
     rows, ok = {}, True
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -84,42 +151,28 @@ def main(argv=None):
         equal = {}
         for who, lib in libs.items():
             out.fill_(-1.0)
-            code = nms_call(lib, nargs[who], src, scores, out, keys, order)
+            code = nms_call(lib, src, scores, out, keys, order)
             torch.cuda.synchronize()
             equal[who] = code == 0 and torch.equal(out, ref)
             ok &= equal[who]
 
-        def run(lib):
-            who = "base" if lib is libs["base"] else "this"
-            return nms_call(lib, nargs[who], src, scores, out, keys, order)
-
-        t = time_turns(libs, run, REPS)
-
-        def alone(fn):
-            fn()
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(REPS):
-                fn()
-            end.record()
-            end.synchronize()
-            return start.elapsed_time(end) / REPS
-
-        sorted_keys, sorted_order = nms_sweep_order(src, scores)
-        stream = torch.cuda.current_stream().cuda_stream
+        t = time_turns(libs, lambda lib: nms_call(lib, src, scores, out,
+                                                  keys, order), REPS)
+        this, stream = libs["this"], torch.cuda.current_stream().cuda_stream
         rows[f"{b}x{n}"] = dict(
             base_ms=t["base"], this_ms=t["this"], speedup=speedup(t),
-            this_scan_ms=alone(lambda: libs["this"].gmf_nms_local_max(
-                0, 0, sorted_keys.data_ptr(), sorted_order.data_ptr(),
-                out.data_ptr(), b, n, RADIUS ** 2, stream)),
-            torch_sort_ms=alone(lambda: nms_sweep_order(src, scores)),
+            this_sort_ms=alone(lambda: this.gmf_nms_sort(
+                src.data_ptr(), scores.data_ptr(), keys.data_ptr(),
+                order.data_ptr(), b, n, stream)),
+            this_scan_ms=alone(lambda: this.gmf_nms_scan(
+                keys.data_ptr(), order.data_ptr(), out.data_ptr(), b, n,
+                RADIUS ** 2, stream)),
             local_maxima=int(ref.sum().item()), equal_to_plain=equal)
         print(f"nms {b}x{n}: {json.dumps(rows[f'{b}x{n}'])}", flush=True)
-        del src, scores, ref, out, keys, order, sorted_keys, sorted_order
-    res = dict(card=device, radius=RADIUS, reps=REPS, rows=rows,
-               entry_args=nargs, ok=ok)
+        del src, scores, ref, out, keys, order
+        torch.cuda.empty_cache()
+    res = dict(card=device, base=str(base), radius=RADIUS, reps=REPS,
+               rows=rows, ok=ok)
     if args.out:
         Path(args.out).write_text(json.dumps(res, indent=1))
     print(json.dumps(res), flush=True)

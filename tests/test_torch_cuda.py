@@ -26,9 +26,7 @@ from gmf_tpu_torch.ops.fused_attention import (
     compat_attention_cached_plain, compat_attention_plain,
     compat_flash_attention, compat_flash_attention_build,
     compat_flash_attention_build_plain, compat_flash_attention_bwd)
-from gmf_tpu_torch.ops.fused_nms import (NMS_SORT_MAX, nms_local_max,
-                                         nms_local_max_plain,
-                                         nms_sweep_order)
+from gmf_tpu_torch.ops.fused_nms import nms_local_max, nms_local_max_plain
 from gmf_tpu_torch.ops.fused_scoring import (seed_hypothesis_counts,
                                              seed_hypothesis_counts_plain)
 from gmf_tpu_torch.ops.fused_seed_solver import (fused_seed_transforms,
@@ -591,18 +589,21 @@ def test_nms_kernel(gen, cuda):
                                atol=0, rtol=0)
 
 
+# b=64 x 5000 (the serving path), ragged N, and past one run of the
+# kernel's sort (16384 points): two runs, and three (two merge passes)
 @pytest.mark.parametrize("B,N", [(64, 5000), (3, 333), (2, 1), (2, 129),
-                                 (1, NMS_SORT_MAX + 1)])
+                                 (1, 16385), (1, 33000)])
 def test_nms_kernel_sweep_edges(gen, cuda, B, N):
     """The x sweep (csrc/nms_local_max.cu) at the serving path's b=64, at
-    ragged N, and past the points its own sort takes (there the wrapper
-    sorts): a third of the points on a lattice of half the radius (pairs
-    at exactly the radius, which do not suppress; many equal x), scores
-    from 20 values (ties never suppress), the last pair's scores
-    negative, and in pair 0 of the ragged sizes a non-finite point (NaN
-    and +inf x: never suppressed, never suppressing). Equal to the plain
-    version in every bit, one launch a call; the kernel's sort gives
-    nms_sweep_order's keys and order exactly."""
+    ragged N, and past the points one block of its sort takes (there its
+    runs are merged): a third of the points on a lattice of half the
+    radius (pairs at exactly the radius, which do not suppress; many
+    equal x), scores from 20 values (ties never suppress), the last
+    pair's scores negative, and in pair 0 of the ragged sizes a
+    non-finite point (NaN and +inf x: never suppressed, never
+    suppressing). Equal to the plain version in every bit, one launch a
+    call; the sort orders each pair by x, ties by index, NaN last (no x
+    here is -0 or a negative NaN), and packs (x, y, z, score)."""
     radius = 0.25
     pts = (gen.rand(B, N, 3) * 3).astype(np.float32)
     lattice = gen.randint(0, 6, size=(B, N // 3, 3)).astype(np.float32)
@@ -618,18 +619,16 @@ def test_nms_kernel_sweep_edges(gen, cuda, B, N):
     ref = torch.cat([nms_local_max_plain(pts[s0:s0 + 8], scores[s0:s0 + 8],
                                          radius) for s0 in range(0, B, 8)])
     assert torch.equal(got, ref)
-    if N <= NMS_SORT_MAX:
-        keys = torch.empty(B, N, 4, device=cuda)
-        order = torch.empty(B, N, dtype=torch.int32, device=cuda)
-        out = torch.empty(B, N, device=cuda)
-        assert _build.load().gmf_nms_local_max(
-            pts.data_ptr(), scores.data_ptr(), keys.data_ptr(),
-            order.data_ptr(), out.data_ptr(), B, N, radius ** 2,
-            torch.cuda.current_stream().cuda_stream) == 0
-        want_keys, want_order = nms_sweep_order(pts, scores)
-        assert torch.equal(order, want_order)
-        assert torch.equal(keys.nan_to_num(), want_keys.nan_to_num())
-        assert torch.equal(out, ref)
+    keys = torch.empty(B, N, 4, device=cuda)
+    order = torch.empty(B, N, dtype=torch.int32, device=cuda)
+    assert _build.load().gmf_nms_sort(
+        pts.data_ptr(), scores.data_ptr(), keys.data_ptr(), order.data_ptr(),
+        B, N, torch.cuda.current_stream().cuda_stream) == 0
+    want = torch.sort(pts[..., 0], dim=1, stable=True).indices
+    packed = torch.cat([pts, scores[..., None]], dim=-1)
+    assert torch.equal(order.long(), want)
+    assert torch.equal(keys.nan_to_num(), torch.take_along_dim(
+        packed, want[..., None], dim=1).nan_to_num())
 
 
 # (N, S, k) per case: N past a multiple of the 64-key tile (1000, 333, 65),

@@ -22,7 +22,6 @@ from gmf_tpu_torch.ops.fused_attention import (build_compat_cache,
                                                compat_flash_attention,
                                                compat_flash_attention_build)
 from gmf_tpu_torch.ops.fused_nms import (nms_local_max, nms_local_max_plain,
-                                         nms_sweep_order,
                                          pick_seeds_nms_fused)
 from gmf_tpu_torch.ops.fused_scoring import seed_hypothesis_counts
 from gmf_tpu_torch.ops.fused_seed_solver import (fused_seed_transforms,
@@ -313,9 +312,19 @@ def _first_kept(x, lo, hi, skip):
     return lo
 
 
+def _x_sorted(pts, scores):
+    """The NMS kernel's sort (gmf_nms_sort) for points with no -0 or
+    negative NaN x: each pair's points by x, ties by index, NaN last,
+    packed as (x, y, z, score), and the pair index of each."""
+    order = torch.sort(pts[..., 0], dim=1, stable=True).indices
+    packed = torch.cat([pts, scores[..., None]], dim=-1)
+    keys = torch.take_along_dim(packed, order[..., None], dim=1)
+    return keys, order.to(torch.int32)
+
+
 def _nms_sweep_schedule(keys, order, radius, rows=128):
     """The NMS kernel's schedule (csrc/nms_local_max.cu) on the CPU, from
-    nms_sweep_order's keys and order: per block of ``rows`` sorted points
+    the sorted keys and order (_x_sorted): per block of ``rows`` sorted points
     the range of keys its two binary searches keep (the rounded x
     predicates, in f32), the rounded distances and the strict score test
     on that range only, written back in each pair's own order. Returns
@@ -358,7 +367,7 @@ def test_nms_sweep_matches_plain_and_pallas_interpret(rng, N):
     scores = rng.randint(0, 20, size=(B, N)).astype(np.float32) / 20
     scores[1] -= 0.5
     pts[0, 1, 0], pts[0, 2, 0] = np.nan, np.inf
-    keys, order = nms_sweep_order(_t(pts), _t(scores))
+    keys, order = _x_sorted(_t(pts), _t(scores))
     got, skipped = _nms_sweep_schedule(keys, order, radius)
     ref = nms_local_max_plain(_t(pts), _t(scores), radius)
     assert torch.equal(got, ref)
