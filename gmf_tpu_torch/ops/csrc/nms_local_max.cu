@@ -31,9 +31,10 @@
 // along every x but NaN, so a search skips a key only below (or above)
 // one it has tested, or a NaN key, which never suppresses. The keys of
 // the range stream through shared memory in tiles of NMS_ROWS float4,
-// four at a time a thread with no early exit among them, and a tile ends
-// the scan when every row of the block is suppressed (__syncthreads_and).
-// The result is written back in the pair's own order.
+// four at a time a thread with no early exit among them; a thread stops
+// comparing at its first suppressor, but the block walks the whole range
+// (an exit once every row of the block is suppressed saved nothing at
+// the serving shapes, where most blocks hold a local maximum). The result is written back in the pair's own order.
 //
 // Bound on this card: ~10 f32 ALU ops per (i, j) compared and 20 bytes a
 // point; to prove a local maximum it is compared with every key within
@@ -228,8 +229,7 @@ nms_local_max_kernel(const float4* __restrict__ keys,
         suppressed |= (d2 < radius_sq) && (kj.w > me.w);
       }
     }
-    // also the barrier before the next tile overwrites this one
-    if (__syncthreads_and(suppressed || i >= N)) break;
+    __syncthreads();  // before the next tile overwrites this one
   }
   if (i < N) out[order[i]] = suppressed ? 0.f : 1.f;
 }

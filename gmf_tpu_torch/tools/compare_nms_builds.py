@@ -1,15 +1,13 @@
 """Time the NMS kernel of two builds of gmf_tpu_torch on one card, in turns.
 
     python -m gmf_tpu_torch.tools.compare_nms_builds --base DIR [--out PATH]
-    python -m gmf_tpu_torch.tools.compare_nms_builds --without FEATURE
+    python -m gmf_tpu_torch.tools.compare_nms_builds --without float4
 
 DIR is an unpacked checkout of another commit (``git archive``); with
-``--without`` the other build is this tree's with one feature of the
-scan (``csrc/nms_local_max.cu``) taken out, written under
-``gmf_tpu_torch/ops/build/``: ``block_exit`` (a tile no longer ends the
-scan when every row of its block is suppressed) or ``float4`` (the
-scan's tile of keys in shared memory as four arrays of floats, read with
-four loads a key, instead of one float4). At the serving shapes, 8 and
+``--without float4`` the other build is this tree's with the scan's
+tile of keys in shared memory (``csrc/nms_local_max.cu``) as four arrays
+of floats, read with four loads a key, instead of one float4, written
+under ``gmf_tpu_torch/ops/build/``. At the serving shapes, 8 and
 64 pairs of N=5000 synthetic correspondences (``make_correspondence_
 problem``, as ``chip_smoke.py``), radius 0.10 and random scores, and at
 2 pairs of 20000 (two runs of the kernel's sort, one merge pass), it
@@ -43,9 +41,6 @@ REPS = 20
 
 # FEATURE -> the scan's source lines that hold it, and what replaces them
 WITHOUT = {
-    "block_exit": [(
-        "    if (__syncthreads_and(suppressed || i >= N)) break;",
-        "    __syncthreads();")],
     "float4": [
         ("  __shared__ float4 tile[NMS_ROWS];",
          "  __shared__ float tile[4][NMS_ROWS];"),
