@@ -1,16 +1,11 @@
 """Time the NMS kernel of two builds of gmf_tpu_torch on one card, in turns.
 
     python -m gmf_tpu_torch.tools.compare_nms_builds --base DIR [--out PATH]
-    python -m gmf_tpu_torch.tools.compare_nms_builds --without float4
 
-DIR is an unpacked checkout of another commit (``git archive``); with
-``--without float4`` the other build is this tree's with the scan's
-tile of keys in shared memory (``csrc/nms_local_max.cu``) as four arrays
-of floats, read with four loads a key, instead of one float4, written
-under ``gmf_tpu_torch/ops/build/``. At the serving shapes, 8 and
-64 pairs of N=5000 synthetic correspondences (``make_correspondence_
-problem``, as ``chip_smoke.py``), radius 0.10 and random scores, and at
-2 pairs of 20000 (two runs of the kernel's sort, one merge pass), it
+DIR is an unpacked checkout of another commit (``git archive``). At the
+serving shapes, 8 and 64 pairs of N=5000 synthetic correspondences
+(``make_correspondence_problem``, as ``chip_smoke.py``), radius 0.10 and
+random scores, and at 2 pairs of 20000 (two runs of the kernel's sort, one merge pass), it
 times ``REPS`` calls of each build's NMS in the order base, this, this,
 base (CUDA events, after one warm call): a build with ``gmf_nms_sort``
 gets the sort and the scan, one without it its one entry point, which
@@ -24,7 +19,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import shutil
 import sys
 from pathlib import Path
 
@@ -38,44 +32,6 @@ ROOT = Path(__file__).resolve().parents[2]
 SHAPES = ((8, 5000), (64, 5000), (2, 20000))
 RADIUS = 0.10
 REPS = 20
-
-# FEATURE -> the scan's source lines that hold it, and what replaces them
-WITHOUT = {
-    "float4": [
-        ("  __shared__ float4 tile[NMS_ROWS];",
-         "  __shared__ float tile[4][NMS_ROWS];"),
-        ("    tile[threadIdx.x] =\n"
-         "        j < end ? keys[j] : make_float4(0.f, 0.f, 0.f, -INFINITY);",
-         "    const float4 kv =\n"
-         "        j < end ? keys[j] : make_float4(0.f, 0.f, 0.f, -INFINITY);\n"
-         "    tile[0][threadIdx.x] = kv.x;\n"
-         "    tile[1][threadIdx.x] = kv.y;\n"
-         "    tile[2][threadIdx.x] = kv.z;\n"
-         "    tile[3][threadIdx.x] = kv.w;"),
-        ("        const float4 kj = tile[jj + u];",
-         "        const float4 kj = make_float4(tile[0][jj + u], "
-         "tile[1][jj + u],\n"
-         "                                      tile[2][jj + u], "
-         "tile[3][jj + u]);")],
-}
-
-
-def tree_without(feature: str) -> Path:
-    """A copy of this tree's package with ``feature`` taken out of the
-    scan; raises if the source no longer holds the lines."""
-    tree = ROOT / "gmf_tpu_torch" / "ops" / "build" / f"without_{feature}"
-    shutil.rmtree(tree, ignore_errors=True)
-    shutil.copytree(ROOT / "gmf_tpu_torch", tree / "gmf_tpu_torch",
-                    ignore=shutil.ignore_patterns("build", "__pycache__"))
-    src = tree / "gmf_tpu_torch" / "ops" / "csrc" / "nms_local_max.cu"
-    text = src.read_text()
-    for old, new in WITHOUT[feature]:
-        if text.count(old) != 1:
-            raise RuntimeError(f"nms_local_max.cu: {old!r} not found once")
-        text = text.replace(old, new)
-    src.write_text(text)
-    return tree
-
 
 def nms_call(lib, src, scores, out, keys, order):
     """One NMS of ``lib``: its sort and scan, or its one entry point;
@@ -111,11 +67,8 @@ def main(argv=None):
     from gmf_tpu_torch.ops.fused_nms import nms_local_max_plain
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    other = ap.add_mutually_exclusive_group(required=True)
-    other.add_argument("--base", type=Path,
-                       help="unpacked checkout of the commit to compare with")
-    other.add_argument("--without", choices=sorted(WITHOUT),
-                       help="compare with this tree less one scan feature")
+    ap.add_argument("--base", required=True, type=Path,
+                    help="unpacked checkout of the commit to compare with")
     ap.add_argument("--out", help="also write the JSON here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -123,9 +76,7 @@ def main(argv=None):
     device = card()
     print(device, flush=True)
     dev = torch.device("cuda")
-    base = (args.base.resolve() if args.base is not None
-            else tree_without(args.without))
-    trees = {"base": base, "this": ROOT}
+    trees = {"base": args.base.resolve(), "this": ROOT}
     libs = {who: open_lib(load_build(tree, f"_build_{who}"))[0]
             for who, tree in trees.items()}
 
@@ -166,7 +117,7 @@ def main(argv=None):
         print(f"nms {b}x{n}: {json.dumps(rows[f'{b}x{n}'])}", flush=True)
         del src, scores, ref, out, keys, order
         torch.cuda.empty_cache()
-    res = dict(card=device, base=str(base), radius=RADIUS, reps=REPS,
+    res = dict(card=device, base=str(trees["base"]), radius=RADIUS, reps=REPS,
                rows=rows, ok=ok)
     if args.out:
         Path(args.out).write_text(json.dumps(res, indent=1))
