@@ -20,10 +20,10 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
    count of valid rows), with the same limits, their plain versions run
    in slices of 8 pairs; NMS at both sizes timed (its call, its sort and
    its scan) beside its plain version and the bound of the work NMS needs
-   (a local maximum against the keys within the radius). The seed kNN in both its instances (bf16 on
-   the tensor cores, the main path's; f32 on the CUDA cores, training's)
-   on unit features rounded to the instance's type, its plain version fed
-   the same values, at B=8 and at B=64, each timed beside its plain
+   (a local maximum against the keys within the radius). The seed kNN in
+   both its instances (bf16 on the tensor cores, the main path's; f32 on
+   the CUDA cores, training's) on unit features rounded to the instance's
+   type, its plain version fed the same values, at B=8 and at B=64, each timed beside its plain
    version at both. Then the bf16 forward core (core_phase) in each
    of its modes (streaming, build+attend, cached on int8, bf16 and f32
    caches, no compat) at D=32 and 128 and N in 1, 63-65, 127-129, 333,
@@ -41,8 +41,8 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
    N=333, pair 1's k, v and do all inf), the streaming and cached
    forward (output and the lse they write; the f32 ones timed beside
    their bound and held to twice the plain f32 version's distance from
-   the attention in f64), the standalone cache of each type (every byte), kNN and
-   counts at S=100 seeds, each against its plain version with the limits
+   the attention in f64), the standalone cache of each type (every
+   byte), kNN and counts at S=100 seeds, each against its plain version with the limits
    above. Then the
    attention-variant microbenchmark (variants_phase): the four instances
    of compat_flash_variants.cu (v0, v1, v3, v6) against their plain
