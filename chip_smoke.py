@@ -37,8 +37,10 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
    paths at the training shape, B=16, N=1000, D=128 with the last 10% of
    pair 0 masked, f32 and bf16: the four backward kernels (dK/dV and dQ,
    streaming and cached, the cached ones on each cache type, launched
-   twice for the same bits and across the pair boundary: pair 0 at
-   N=333, pair 1's k, v and do all inf), the streaming and cached
+   twice for the same bits, in f32 held to twice the plain f32
+   backward's distance from the backward in f64, and across the pair
+   boundary: pair 0 at N=333, pair 1's k, v, do and, streaming, its
+   keypoints all inf), the streaming and cached
    forward (output and the lse they write; the f32 ones timed beside
    their bound and held to twice the plain f32 version's distance from
    the attention in f64), the standalone cache of each type (every
@@ -1159,44 +1161,98 @@ def f32_forward_f64_check(tag, q, k, v, compat, mask, out, ref_out):
                 cpu_model=F32_FWD_MODEL)
 
 
-def cached_bwd_pair_boundary(dev, gen):
-    """The cached dK/dV and dQ kernels across the pair boundary: pair 0 at
-    N = 333, whose last tiles reach into pair 1, with pair 1's k, v and do
-    all inf. The kernels must not read them: pair 0's gradients meet
-    ``bwd_tol`` against the plain backward on pair 0 alone. f32 and bf16,
-    each cache type. Returns the largest error over its limit, by kernel."""
+# the backward kernels by (kernel, streaming): their names in the kernels line
+BWD_KERNELS = {("dkv", True): "compat_flash_attention_bwd_dkv",
+               ("dq", True): "compat_flash_attention_bwd_dq",
+               ("dkv", False): "compat_flash_attention_cached_bwd_dkv",
+               ("dq", False): "compat_flash_attention_cached_bwd_dq"}
+
+
+def f32_backward_f64_check(tag, q, k, v, do, compat, mask, got, ref):
+    """The f32 backward kernels and the plain f32 backward against the
+    backward in f64 on the same f32 inputs and compat (out, lse and delta
+    exact too; masked query rows carry no p, as in the kernels), each
+    gradient over its largest entry. A kernel must lie within twice the
+    plain f32 version's distance, f32's own error: 1e-5 of the plain
+    version does not tell six term products from three. ``got``, ``ref``:
+    (dq, dk, dv) of the kernels and of the plain version."""
+    from gmf_tpu_torch.ops.fused_attention import _qscale
+
+    d = q.shape[-1]
+    q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
+    logits = compat.double() * ((q64 * _qscale(d)) @ k64.transpose(-1, -2))
+    logits = torch.where(mask[:, None, :] > 0, logits,
+                         torch.full_like(logits, -1e9))
+    p = torch.exp2(logits - logits.amax(-1, keepdim=True))
+    p = p / p.sum(-1, keepdim=True) * (mask[..., None] > 0)
+    del logits
+    delta = (do64 * (p @ v64)).sum(-1, keepdim=True)
+    ds = p * (do64 @ v64.transpose(-1, -2) - delta) * compat.double() / (
+        math.sqrt(d))
+    exact = (ds @ k64, ds.transpose(-1, -2) @ q64,
+             p.transpose(-1, -2) @ do64)
+    del p, ds
+    res = {}
+    for part, g, r, x in zip(("dq", "dk", "dv"), got, ref, exact):
+        scale = x.abs().max().item()
+        kernel = (g.double() - x).abs().max().item() / scale
+        plain = (r.double() - x).abs().max().item() / scale
+        if not kernel <= 2 * plain:
+            fail(f"backward {tag} {part}: {kernel} of the largest entry from "
+                 f"the f64 backward, more than twice the plain f32 "
+                 f"version's {plain}")
+        res[part] = dict(kernel=kernel, plain=plain, limit=2 * plain)
+    return res
+
+
+def bwd_pair_boundary(dev, gen):
+    """The four backward kernels across the pair boundary: pair 0 at N =
+    333, whose last tiles reach into pair 1, with pair 1's k, v and do all
+    inf, and for the streaming kernels its keypoints too. The kernels must
+    not read them: pair 0's gradients meet ``bwd_tol`` against the plain
+    backward on pair 0 alone. f32 and bf16, streaming and each cache type.
+    Returns the largest error over its limit, by kernel name."""
     from gmf_tpu_torch.ops.fused_attention import (
-        _cached_forward, build_compat_cache, bwd_dkv, bwd_dq, bwd_inputs,
-        compat_attention_bwd_plain)
+        _cached_forward, _streaming_forward, build_compat_cache, bwd_dkv,
+        bwd_dq, bwd_inputs, compat_attention_bwd_plain)
 
     n, p = 333, slice(0, 1)
     src = 2.5 * torch.rand(2, n, 3, generator=gen, device=dev)
     tgt = src + 0.02 * torch.randn(2, n, 3, generator=gen, device=dev)
+    src_inf, tgt_inf = src.clone(), tgt.clone()
+    src_inf[1] = float("inf")
+    tgt_inf[1] = float("inf")
     mask = torch.ones(2, n, device=dev)
-    worst = {"dkv": 0.0, "dq": 0.0}
+    worst = dict.fromkeys(BWD_KERNELS.values(), 0.0)
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, do = (torch.randn(2, n, D, generator=gen, device=dev)
                        .to(dtype) for _ in range(4))
         for t in (k, v, do):
             t[1] = float("inf")
-        for cdt in (torch.float32, torch.bfloat16, torch.int8):
-            cache = build_compat_cache(src, tgt, 0.10, cdt)
-            out, lse = _cached_forward(q, k, v, cache, mask, True)
+        for cdt in (None, torch.float32, torch.bfloat16, torch.int8):
+            if cdt is None:
+                cache = None
+                out, lse = _streaming_forward(q, k, v, src_inf, tgt_inf, mask,
+                                              0.10, True)
+            else:
+                cache = build_compat_cache(src, tgt, 0.10, cdt)
+                out, lse = _cached_forward(q, k, v, cache, mask, True)
             inp = bwd_inputs(q, k, v, do, out, lse, mask)
-            got_k, got_v = bwd_dkv(inp, compat=cache)
-            got_q = bwd_dq(inp, compat=cache)
+            got_k, got_v = bwd_dkv(inp, src_inf, tgt_inf, 0.10, cache)
+            got_q = bwd_dq(inp, src_inf, tgt_inf, 0.10, cache)
             refs = compat_attention_bwd_plain(
-                q[p], k[p], v[p], do[p], out[p], lse[p], mask[p],
-                compat=cache[p])
+                q[p], k[p], v[p], do[p], out[p], lse[p], mask[p], src[p],
+                tgt[p], 0.10, compat=None if cache is None else cache[p])
             for part, g, r in zip(("dq", "dk", "dv"), (got_q, got_k, got_v),
                                   refs):
                 tol = bwd_tol(r, dtype)
                 err = (g[p].float() - r.float()).abs().max().item()
                 if not err <= tol:
-                    fail(f"cached backward {part} at the pair boundary "
-                         f"({dtype}, {cdt} cache): max abs err {err} > {tol}")
-                kernel = "dq" if part == "dq" else "dkv"
-                worst[kernel] = max(worst[kernel], err / tol)
+                    fail(f"backward {part} at the pair boundary ({dtype}, "
+                         f"{cdt or 'streaming'}): max abs err {err} > {tol}")
+                name = BWD_KERNELS[("dq" if part == "dq" else "dkv",
+                                    cache is None)]
+                worst[name] = max(worst[name], err / tol)
     return worst
 
 
@@ -1211,8 +1267,10 @@ def backward_phase(dev, rates):
     the plain backward. Limits: forward outputs as in kernel_phase
     (attention_tol); backward ``bwd_tol``; lse 1e-5 absolute (summation
     order), and each valid row's p = exp2(s - lse) sums to 1 within 1e-5
-    (f32). The cached kernels must also give the same bits in two launches
-    and hold across the pair boundary (``cached_bwd_pair_boundary``)."""
+    (f32). The backward kernels must also give the same bits in two
+    launches, hold across the pair boundary (``bwd_pair_boundary``) and,
+    in f32, lie within twice the plain f32 backward's distance from the
+    f64 backward (``f32_backward_f64_check``)."""
     from gmf_tpu_torch.data.synthetic import make_correspondence_problem
     from gmf_tpu_torch.ops.fused_attention import (
         _cached_forward, _load_compat, _logits_plain, _stream_compat_plain,
@@ -1280,19 +1338,24 @@ def backward_phase(dev, rates):
                 if not psum_err <= 1e-5:
                     fail(f"lse {tag}: recomputed p sums to 1 within "
                          f"{psum_err} only")
-            del compat
             inp = bwd_inputs(q, k, v, do, out, lse, mask)
             got_k, got_v = bwd_dkv(inp, src, tgt, 0.10, cache)
             got_q = bwd_dq(inp, src, tgt, 0.10, cache)
             ref_q, ref_k, ref_v = compat_attention_bwd_plain(
                 q, k, v, do, out, lse, mask, src, tgt, 0.10, compat=cache)
-            if cache is not None:
-                again_k, again_v = bwd_dkv(inp, compat=cache)
-                if not (torch.equal(again_k, got_k)
-                        and torch.equal(again_v, got_v)
-                        and torch.equal(bwd_dq(inp, compat=cache), got_q)):
-                    fail(f"backward {tag}: two launches differ")
-                del again_k, again_v
+            again_k, again_v = bwd_dkv(inp, src, tgt, 0.10, cache)
+            if not (torch.equal(again_k, got_k)
+                    and torch.equal(again_v, got_v)
+                    and torch.equal(bwd_dq(inp, src, tgt, 0.10, cache),
+                                    got_q)):
+                fail(f"backward {tag}: two launches differ")
+            del again_k, again_v
+            bwd_f64 = None
+            if dtype == f32:
+                bwd_f64 = f32_backward_f64_check(
+                    tag, q, k, v, do, compat, mask, (got_q, got_k, got_v),
+                    (ref_q, ref_k, ref_v))
+            del compat
             errs = {}
             for part, g, r in (("dq", got_q, ref_q), ("dk", got_k, ref_k),
                                ("dv", got_v, ref_v)):
@@ -1305,7 +1368,8 @@ def backward_phase(dev, rates):
                 fail(f"backward {tag}: masked query rows got a gradient")
             del got_q, got_k, got_v, ref_q, ref_k, ref_v
             row = dict(fwd_err=fwd_err, fwd_tol=fwd_tol, lse_err=lse_err,
-                       psum_err=psum_err, errs=errs, fwd_f64=f64_errs)
+                       psum_err=psum_err, errs=errs, fwd_f64=f64_errs,
+                       bwd_f64=bwd_f64)
             row["dkv_ms"] = cuda_ms(
                 lambda: bwd_dkv(inp, src, tgt, 0.10, cache), reps=10)
             row["dq_ms"] = cuda_ms(
@@ -1335,14 +1399,15 @@ def backward_phase(dev, rates):
             del inp, out, lse, cache
             torch.cuda.empty_cache()
         del q, k, v, do
-    boundary = cached_bwd_pair_boundary(dev, gen)
+    boundary = bwd_pair_boundary(dev, gen)
     summary = {t: {"fwd_err": r["fwd_err"], "lse_err": r["lse_err"],
                    "psum_err": r["psum_err"], "fwd_f64": r["fwd_f64"],
+                   "bwd_f64": r["bwd_f64"],
                    **{p: e[0] for p, e in r["errs"].items()},
                    "dkv_ms": r["dkv_ms"], "dq_ms": r["dq_ms"]}
                for t, r in res.items()}
     print(f"training-shape kernels passed: {json.dumps(seed_errs)} "
-          f"{json.dumps(summary)}; cached backward at the pair boundary, "
+          f"{json.dumps(summary)}; backward at the pair boundary, "
           f"error over limit: {json.dumps(boundary)}", flush=True)
 
     def rows_for(main, name_dkv, name_dq):
@@ -1392,10 +1457,14 @@ def backward_phase(dev, rates):
             b16_n1000_lse_max_abs_err=r["lse_err"],
             b16_n1000_p_sum_err=r["psum_err"])
     extra["build_compat_cache"] = dict(b16_n1000_equal_to_plain=True)
-    for kernel, name in (("dkv", "compat_flash_attention_cached_bwd_dkv"),
-                         ("dq", "compat_flash_attention_cached_bwd_dq")):
-        extra[name] = dict(two_launches_same_bits=True,
-                           pair_boundary_n333_err_over_limit=boundary[kernel])
+    for (kernel, stream), name in BWD_KERNELS.items():
+        grads = ("dk", "dv") if kernel == "dkv" else ("dq",)
+        extra[name] = dict(
+            two_launches_same_bits=True,
+            pair_boundary_n333_err_over_limit=boundary[name],
+            f32_vs_f64={t: {g: res[t]["bwd_f64"][g] for g in grads}
+                        for t in res if res[t]["bwd_f64"] is not None
+                        and t.endswith("stream") == stream})
     for name, err in seed_errs.items():
         extra[name] = {"b16_n1000_max_abs_err": err}
     for name, row in knn_rows.items():  # the training shape's kNN

@@ -5,22 +5,22 @@
 // both over _bwd_tile: the custom_vjp backward (_flash_bwd) of the
 // streaming attention that every PointDSC NonLocal layer runs in training
 // when no compat cache is kept. The kernels are the Compat::kStream
-// instances of compat_flash_bwd_core.cuh; compat is rebuilt per (i, j) by
-// compat_flash_core.cuh's compat_stream(), the forward's own function, so
-// p = exp2(s - lse) recomputes the forward's probabilities.
+// instances of compat_flash_bwd_tc.cuh, the cached backward's kernels:
+// every product on the tensor cores (wgmma), f32 q/k/v split into three
+// bf16 terms and six products, bf16 as one term. Compat is rebuilt per
+// (i, j) from the keypoints by compat_flash_core.cuh's compat_stream(), the
+// forward's own function on the same operands, so p = exp2(s - lse)
+// recomputes the forward's probabilities.
 //
 // Bound on this card, per (i, j): the dK/dV kernel does 4 products of depth
-// D (s, dp, dV, dK: 4 D FMAs = 8 D flop), the dQ kernel 3 (6 D flop); each
-// adds ~20 f32 ALU ops of compat, ~6 of p and dlogits, 2 sqrt and 1 exp2.
-// Bytes are O(N D) per pair. At D = 128 in f32 the FMAs on the CUDA cores
-// bound both (f32-ALU bound: at B = 16, N = 1000, about 0.24 ms and 0.18 ms
-// at 67 TFLOP/s). The design keeps every [N, N] quantity in shared memory
-// and registers: k, v of the block's keys (dK/dV) or q, do of its queries
-// (dQ) stay resident while the other side streams through, and register
-// micro-tiles (2 x 4 logits, 2 x D/16 or 4 x D/16 accumulators a thread)
-// keep the shared-memory reads per FMA low. Tensor cores are later work.
+// D (s, dp, dV, dK: 8 D flop), the dQ kernel 3 (6 D flop); each adds ~20
+// f32 ALU ops of compat, ~6 of p and dlogits, 2 sqrt and 1 exp2. Bytes are
+// O(N D) per pair. At D = 128 the products bound both: in bf16 at 989
+// TFLOP/s, in f32 at 989 / 6 (six bf16 products per f32 product): at B =
+// 16, N = 1000, about 0.10 ms (dK/dV) and 0.075 ms (dQ) in f32. The compat
+// of a slot is formed on the CUDA cores while its S and dP products run.
 
-#include "compat_flash_bwd_core.cuh"
+#include "compat_flash_bwd_tc.cuh"
 
 // q, k, v, dout: [B, N, D] (f32, or bf16 when is_bf16); lse: [B, N] f32
 // base-2 log-sum-exp of the forward, 1e9 on masked query rows; delta:
@@ -33,9 +33,9 @@ extern "C" int gmf_compat_flash_attention_bwd_dkv(
     const void* mask, void* dk, void* dv, int B, int N, int D, int is_bf16,
     float sigma_sq, float qscale, float scale, void* stream) {
   if (B <= 0 || N <= 0) return cudaErrorInvalidValue;  // nothing to launch
-  return static_cast<int>(dispatch_bwd<Compat::kStream, int8_t>(
-      false, q, k, v, dout, lse, delta, src, tgt, mask, nullptr, dk, dv, B,
-      N, D, 0, is_bf16, 1.f / sigma_sq, qscale, scale, stream));
+  return static_cast<int>(dispatch_bwd_tc<int8_t, Compat::kStream>(
+      false, q, k, v, dout, lse, delta, mask, nullptr, dk, dv, B, N, D, 0,
+      is_bf16, qscale, scale, src, tgt, 1.f / sigma_sq, stream));
 }
 
 // the same inputs -> dq: [B, N, D] of q's type
@@ -45,7 +45,7 @@ extern "C" int gmf_compat_flash_attention_bwd_dq(
     const void* mask, void* dq, int B, int N, int D, int is_bf16,
     float sigma_sq, float qscale, float scale, void* stream) {
   if (B <= 0 || N <= 0) return cudaErrorInvalidValue;
-  return static_cast<int>(dispatch_bwd<Compat::kStream, int8_t>(
-      true, q, k, v, dout, lse, delta, src, tgt, mask, nullptr, dq, nullptr,
-      B, N, D, 0, is_bf16, 1.f / sigma_sq, qscale, scale, stream));
+  return static_cast<int>(dispatch_bwd_tc<int8_t, Compat::kStream>(
+      true, q, k, v, dout, lse, delta, mask, nullptr, dq, nullptr, B, N, D,
+      0, is_bf16, qscale, scale, src, tgt, 1.f / sigma_sq, stream));
 }

@@ -6,9 +6,9 @@
 // (fused_attention.py:1009), both over _bwd_tile_cached: the custom_vjp
 // backward (_flash_cached_bwd) of the cached attention, which the PointDSC
 // NonLocal layers run in training when they share one compat matrix. The
-// kernels are compat_flash_bwd_tc.cuh's: every product on the tensor cores
-// (wgmma), f32 q/k/v split into three bf16 terms and six products, bf16
-// as one term. They read the forward's [B, N, ld] cache (rows are
+// kernels are the Compat::kCached instances of compat_flash_bwd_tc.cuh:
+// every product on the tensor cores (wgmma), f32 q/k/v split into three
+// bf16 terms and six products, bf16 as one term. They read the forward's [B, N, ld] cache (rows are
 // queries), f32 and bf16 widened, int8 dequantized as code / 254 + 0.5
 // with the forward's one FMA, so p = exp2(s - lse) recomputes the
 // forward's probabilities. The cache carries no gradient.
@@ -32,9 +32,10 @@ cudaError_t cached_bwd(bool dq_kernel, const void* q, const void* k,
                        const void* delta, const void* cache, const void* mask,
                        void* out0, void* out1, int B, int N, int D, int ld,
                        int is_bf16, float qscale, float scale, void* stream) {
-  return dispatch_bwd_tc<CT>(dq_kernel, q, k, v, dout, lse, delta, mask,
-                             static_cast<const CT*>(cache), out0, out1, B, N,
-                             D, ld, is_bf16, qscale, scale, stream);
+  return dispatch_bwd_tc<CT, Compat::kCached>(
+      dq_kernel, q, k, v, dout, lse, delta, mask,
+      static_cast<const CT*>(cache), out0, out1, B, N, D, ld, is_bf16,
+      qscale, scale, nullptr, nullptr, 0.f, stream);
 }
 
 // cache element type (0 f32, 1 bf16, 2 int8); rows 16-byte aligned; q,

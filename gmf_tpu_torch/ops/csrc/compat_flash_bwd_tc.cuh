@@ -1,7 +1,9 @@
-// The cached compat-modulated flash attention BACKWARD on Hopper's tensor
-// cores, sm_90a: dK/dV and dQ of compat_flash_core.cuh's cached forward,
-// recomputed from the forward's base-2 log-sum-exp. Both q/k/v types (f32
-// and bf16), three cache types (f32, bf16, int8 codes), D = 32 and 128.
+// The compat-modulated flash attention BACKWARD on Hopper's tensor cores,
+// sm_90a: dK/dV and dQ of compat_flash_core.cuh's cached and streaming
+// forwards, recomputed from the forward's base-2 log-sum-exp. Both q/k/v
+// types (f32 and bf16), D = 32 and 128; MODE Compat::kCached reads compat
+// from the forward's cache (f32, bf16 or int8 codes), Compat::kStream
+// rebuilds it per (i, j) from the keypoints.
 //
 // For pair b, query i and key j (qs = q * scale * log2(e); lse and delta
 // per query row; the cache is [B, N, ld], rows are queries):
@@ -23,24 +25,33 @@
 //
 //   compat_flash_bwd_dkv_tc  one block per (64-key tile, pair): k and v
 //       stay resident, the query tiles stream through a ring of two
-//       32-query slots (q, do, their cache tile, lse, delta). Per slot
-//       S^T = k qs^T and dP^T = v do^T with the keys as wgmma's 64 rows
-//       (both operands K-major); p and dlogits on the accumulators in
-//       registers; then dV += P^T do and dK += dS^T q with P^T, dS^T as
-//       the register A operand (the accumulator's layout is the A
-//       fragment's) and do, q read MN-major through the descriptor's
-//       transpose bit, from the tiles S^T just read K-major. The cache
-//       tile is read transposed from shared memory.
+//       32-query slots (q, do, their cache tile or keypoints, lse,
+//       delta). Per slot S^T = k qs^T and dP^T = v do^T with the keys as
+//       wgmma's 64 rows (both operands K-major); p and dlogits on the
+//       accumulators in registers; then dV += P^T do and dK += dS^T q
+//       with P^T, dS^T as the register A operand (the accumulator's
+//       layout is the A fragment's) and do, q read MN-major through the
+//       descriptor's transpose bit, from the tiles S^T just read K-major.
+//       The cache tile is read transposed from shared memory.
 //   compat_flash_bwd_dq_tc   one block per (64-query tile, pair): qs and
 //       do stay resident, the key tiles stream through the same ring (k,
-//       v, the cache tile, the key states). S = qs k^T, dP = do v^T, then
-//       dQ += dS k with k read MN-major.
+//       v, the cache tile or keypoints, the key states). S = qs k^T, dP =
+//       do v^T, then dQ += dS k with k read MN-major.
+//
+// kStream keeps the keypoints of the 64 resident rows beside the resident
+// tiles and those of a slot's 32 rows in the slot, field-major (a warp's
+// reads fall in distinct banks), and forms each compat on the S fragment's
+// (i, j) with compat_stream(), the streaming forward's own function on the
+// same operands (query, key), while S and dP run on the tensor cores; so p
+// = exp2(s - lse) recomputes the forward's probabilities. The resident
+// rows' keypoints stay in shared memory, not in registers, which the f32
+// dK/dV instance has none to spare for.
 //
 // The producer loads each tile with 16-byte loads into registers and
-// stores it swizzled; rows past N are stored as zeros, so the last tile
-// of a pair never reads the next pair. Named barriers hand a slot from
-// producer to consumer (FULL) and back (EMPTY). No atomics: each block
-// owns its outputs, so two launches give the same bits.
+// stores it swizzled; rows past N are stored as zeros (keypoints too), so
+// the last tile of a pair never reads the next pair. Named barriers hand a
+// slot from producer to consumer (FULL) and back (EMPTY). No atomics: each
+// block owns its outputs, so two launches give the same bits.
 //
 // f32 q/k/v keep f32 accuracy by the three-term bf16 split
 // (compat_flash_core.cuh): dV, dK and dQ take each slot's six products
@@ -58,7 +69,8 @@
 //
 // Shared memory, f32, D = 128: resident 2 x 3 terms x 64 x 128 bf16 (96
 // KB) and two slots of 2 x 3 x 32 x 128 bf16 plus the cache tile (57-59
-// KB each): 211-215 KB, one block per SM. Two 32-row slots beat one of 64
+// KB each): 211-215 KB, one block per SM; kStream 2 KB of resident
+// keypoints and slots of 49 KB: 197 KB. Two 32-row slots beat one of 64
 // rows, which the same bytes allow (no overlap of loads with products).
 //
 // Bound: the products, 4 (dK/dV) or 3 (dQ) of depth D per (i, j), at 989
@@ -89,11 +101,12 @@ __device__ __forceinline__ float compat_at(const int8_t* p) {
 }
 
 // Shared-memory layout of both kernels: the resident operands (two of
-// TERMS tiles of 64 rows), then BT_STAGES slots, each two streamed
-// operands (TERMS tiles of BT_STREAM rows), the bf16 dK/dV instance's qs
-// tile, a cache tile of CROWS rows of `crow` bytes and SIDE floats a row
-// of the stream (lse and delta, or the key state).
-template <typename T, int D, typename CT, bool kDkv>
+// TERMS tiles of 64 rows) and, kStream, the resident rows' keypoints;
+// then BT_STAGES slots, each two streamed operands (TERMS tiles of
+// BT_STREAM rows), the bf16 dK/dV instance's qs tile, kCached's cache tile
+// of CROWS rows of `crow` bytes and SIDE floats a row of the stream (lse
+// and delta, or the key state; then kStream's keypoints).
+template <typename T, int D, typename CT, bool kDkv, Compat MODE>
 struct BtLayout {
   static constexpr int TERMS = bt_terms<T>();
   static constexpr int RES = TERMS * BT_ROWS * D * 2;
@@ -106,18 +119,46 @@ struct BtLayout {
   static constexpr int CROW =
       kDkv ? BT_ROWS * (int)sizeof(CT) + 16
            : BT_STREAM * (int)sizeof(CT) + (sizeof(CT) == 4 ? 32 : 16);
-  static constexpr int SIDE = kDkv ? 2 : 1;
+  // keypoints: s.xyz, t.xyz of row r at [c * rows + r]
+  static constexpr int COORDS = MODE == Compat::kStream ? 6 : 0;
+  static constexpr int RCOORD = (COORDS * BT_ROWS * 4 + 1023) / 1024 * 1024;
+  static constexpr int SIDE = (kDkv ? 2 : 1) + COORDS;
   static constexpr int CACHE_OFF = 2 * STR + QS;
-  static constexpr int SIDE_OFF = CACHE_OFF + CROWS * CROW;
+  static constexpr int SIDE_OFF =
+      CACHE_OFF + (MODE == Compat::kCached ? CROWS * CROW : 0);
   static constexpr int SLOT =
       (SIDE_OFF + SIDE * BT_STREAM * 4 + 1023) / 1024 * 1024;
-  static constexpr size_t BYTES = 1024 /* alignment */ + 2 * RES +
+  static constexpr size_t BYTES = 1024 /* alignment */ + 2 * RES + RCOORD +
                                   BT_STAGES * SLOT;
 };
 
-// q, k, v, dout: [B, N, D] of T; lse, delta, mask: [B, N] f32; cache: [B,
-// N, ld] -> dk, dv [B, N, D] of T
-template <typename T, int D, typename CT>
+// the keypoints of rows [r0, r0 + ROWS) of a pair into dst, field-major
+// (s.xyz, t.xyz of row r at dst[c * ROWS + r]), rows past N as zeros; NT
+// threads share the work
+template <int ROWS, int NT>
+__device__ __forceinline__ void load_coords(float* dst, const float* src,
+                                            const float* tgt, int r0, int N,
+                                            int tid) {
+  for (int e = tid; e < 6 * ROWS; e += NT) {
+    const int half = e / (3 * ROWS), f = e % (3 * ROWS), r = f / 3;
+    const float* p = half == 0 ? src : tgt;
+    dst[(3 * half + f % 3) * ROWS + r] =
+        r0 + r < N ? p[(size_t)r0 * 3 + f] : 0.f;
+  }
+}
+
+// the keypoints of row r of a field-major block of ROWS rows
+template <int ROWS>
+__device__ __forceinline__ void coords_of(const float* block, int r,
+                                          float (&c)[6]) {
+#pragma unroll
+  for (int f = 0; f < 6; ++f) c[f] = block[f * ROWS + r];
+}
+
+// q, k, v, dout: [B, N, D] of T; lse, delta, mask: [B, N] f32; kCached:
+// cache [B, N, ld]; kStream: src, tgt [B, N, 3] f32 and 1 / sigma^2 -> dk,
+// dv [B, N, D] of T
+template <typename T, int D, typename CT, Compat MODE>
 __global__ void __launch_bounds__(BT_THREADS, 1)
 compat_flash_bwd_dkv_tc(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
@@ -126,14 +167,17 @@ compat_flash_bwd_dkv_tc(const T* __restrict__ q, const T* __restrict__ k,
                         const float* __restrict__ mask,
                         const CT* __restrict__ cache, T* __restrict__ dk,
                         T* __restrict__ dv, int N, int ld, float qscale,
-                        float scale) {
-  using L = BtLayout<T, D, CT, true>;
+                        float scale, const float* __restrict__ src,
+                        const float* __restrict__ tgt, float inv_sigma_sq) {
+  using L = BtLayout<T, D, CT, true, MODE>;
   constexpr int TERMS = L::TERMS;
+  constexpr bool kStream = MODE == Compat::kStream;
   static_assert(D % 32 == 0, "D must be a multiple of 32");
   extern __shared__ __align__(16) uint8_t bt_smem[];
   uint8_t* sK = bt_smem + ((1024u - (smem_u32(bt_smem) & 1023u)) & 1023u);
   uint8_t* sV = sK + L::RES;
-  uint8_t* ring = sV + L::RES;
+  float* sKc = reinterpret_cast<float*>(sV + L::RES);  // kStream
+  uint8_t* ring = sV + L::RES + L::RCOORD;
 
   const int tid = threadIdx.x;
   const int k0 = blockIdx.x * BT_ROWS;
@@ -147,10 +191,17 @@ compat_flash_bwd_dkv_tc(const T* __restrict__ q, const T* __restrict__ k,
   lse += base;
   delta += base;
   mask += base;
-  cache += base * ld;
+  if constexpr (kStream) {
+    src += base * 3;
+    tgt += base * 3;
+  } else {
+    cache += base * ld;
+  }
 
   load_tile<T, D, BT_ROWS, BT_THREADS>(sK, nullptr, k, k0, N, tid, 0.f);
   load_tile<T, D, BT_ROWS, BT_THREADS>(sV, nullptr, v, k0, N, tid, 0.f);
+  if constexpr (kStream)
+    load_coords<BT_ROWS, BT_THREADS>(sKc, src, tgt, k0, N, tid);
   fence_proxy_async();
   __syncthreads();
   const int tiles = (N + BT_STREAM - 1) / BT_STREAM;
@@ -166,8 +217,13 @@ compat_flash_bwd_dkv_tc(const T* __restrict__ q, const T* __restrict__ k,
           qscale);
       load_tile<T, D, BT_STREAM, BT_WG>(slot + L::STR, nullptr, dout, q0, N,
                                         ptid, 0.f);
-      load_cache_tile<CT, BT_STREAM, BT_ROWS>(slot + L::CACHE_OFF, cache, q0,
-                                              k0, N, ld, L::CROW, ptid);
+      if constexpr (kStream)
+        load_coords<BT_STREAM, BT_WG>(
+            reinterpret_cast<float*>(slot + L::SIDE_OFF) + 2 * BT_STREAM,
+            src, tgt, q0, N, ptid);
+      else
+        load_cache_tile<CT, BT_STREAM, BT_ROWS>(slot + L::CACHE_OFF, cache,
+                                                q0, k0, N, ld, L::CROW, ptid);
       if (ptid < BT_STREAM) {
         float* side = reinterpret_cast<float*>(slot + L::SIDE_OFF);
         const int i = q0 + ptid;
@@ -204,6 +260,28 @@ compat_flash_bwd_dkv_tc(const T* __restrict__ q, const T* __restrict__ k,
                                   TERMS == 1 ? q_addr + 2 * L::STR : q_addr);
       mma_ss<TERMS, D, BT_STREAM>(dpt, v_addr, do_addr);
       wgmma_commit();
+
+      // kStream: compat of keys row0 + 8 rr and queries c of every 8,
+      // formed while the products run
+      float sc[BT_STREAM / 8][2][2];
+      if constexpr (kStream) {
+        const float* qcs =
+            reinterpret_cast<const float*>(slot + L::SIDE_OFF) +
+            2 * BT_STREAM;
+        float kc[2][6];
+        coords_of<BT_ROWS>(sKc, row0, kc[0]);
+        coords_of<BT_ROWS>(sKc, row0 + 8, kc[1]);
+#pragma unroll
+        for (int jg = 0; jg < BT_STREAM / 8; ++jg)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float qc[6];
+            coords_of<BT_STREAM>(qcs, jg * 8 + 2 * quad + e, qc);
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr)
+              sc[jg][rr][e] = compat_stream(qc, kc[rr], inv_sigma_sq);
+          }
+      }
       wgmma_wait_all();
       fence_regs(st);
       fence_regs(dpt);
@@ -224,8 +302,12 @@ compat_flash_bwd_dkv_tc(const T* __restrict__ q, const T* __restrict__ k,
             const int idx = jg * 4 + rr * 2 + e;
             float p = 0.f, ds = 0.f;
             if (q_in && state[rr] >= 0.f) {
-              const float compat = compat_at(reinterpret_cast<const CT*>(
-                  ctile + c * L::CROW) + row0 + 8 * rr);
+              float compat;
+              if constexpr (kStream)
+                compat = sc[jg][rr][e];
+              else
+                compat = compat_at(reinterpret_cast<const CT*>(
+                    ctile + c * L::CROW) + row0 + 8 * rr);
               float logit = compat * (sfold * st[idx]);
               if (state[rr] == 0.f) logit = MASKED;
               p = exp2f(logit - l);
@@ -251,7 +333,7 @@ compat_flash_bwd_dkv_tc(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // the same inputs -> dq [B, N, D] of T
-template <typename T, int D, typename CT>
+template <typename T, int D, typename CT, Compat MODE>
 __global__ void __launch_bounds__(BT_THREADS, 1)
 compat_flash_bwd_dq_tc(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const T* __restrict__ dout,
@@ -259,14 +341,18 @@ compat_flash_bwd_dq_tc(const T* __restrict__ q, const T* __restrict__ k,
                        const float* __restrict__ delta,
                        const float* __restrict__ mask,
                        const CT* __restrict__ cache, T* __restrict__ dq,
-                       int N, int ld, float qscale, float scale) {
-  using L = BtLayout<T, D, CT, false>;
+                       int N, int ld, float qscale, float scale,
+                       const float* __restrict__ src,
+                       const float* __restrict__ tgt, float inv_sigma_sq) {
+  using L = BtLayout<T, D, CT, false, MODE>;
   constexpr int TERMS = L::TERMS;
+  constexpr bool kStream = MODE == Compat::kStream;
   static_assert(D % 32 == 0, "D must be a multiple of 32");
   extern __shared__ __align__(16) uint8_t bt_smem[];
   uint8_t* sQ = bt_smem + ((1024u - (smem_u32(bt_smem) & 1023u)) & 1023u);
   uint8_t* sDO = sQ + L::RES;
-  uint8_t* ring = sDO + L::RES;
+  float* sQc = reinterpret_cast<float*>(sDO + L::RES);  // kStream
+  uint8_t* ring = sDO + L::RES + L::RCOORD;
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * BT_ROWS;
@@ -279,7 +365,12 @@ compat_flash_bwd_dq_tc(const T* __restrict__ q, const T* __restrict__ k,
   lse += base;
   delta += base;
   mask += base;
-  cache += base * ld;
+  if constexpr (kStream) {
+    src += base * 3;
+    tgt += base * 3;
+  } else {
+    cache += base * ld;
+  }
 
   // resident: the q terms (f32; qscale is folded into S) or bf16(q *
   // qscale), and do
@@ -287,6 +378,8 @@ compat_flash_bwd_dq_tc(const T* __restrict__ q, const T* __restrict__ k,
                                        TERMS == 1 ? sQ : nullptr, q, q0, N,
                                        tid, qscale);
   load_tile<T, D, BT_ROWS, BT_THREADS>(sDO, nullptr, dout, q0, N, tid, 0.f);
+  if constexpr (kStream)
+    load_coords<BT_ROWS, BT_THREADS>(sQc, src, tgt, q0, N, tid);
   fence_proxy_async();
   __syncthreads();
   const int tiles = (N + BT_STREAM - 1) / BT_STREAM;
@@ -300,8 +393,13 @@ compat_flash_bwd_dq_tc(const T* __restrict__ q, const T* __restrict__ k,
       load_tile<T, D, BT_STREAM, BT_WG>(slot, nullptr, k, k0, N, ptid, 0.f);
       load_tile<T, D, BT_STREAM, BT_WG>(slot + L::STR, nullptr, v, k0, N,
                                         ptid, 0.f);
-      load_cache_tile<CT, BT_ROWS, BT_STREAM>(slot + L::CACHE_OFF, cache, q0,
-                                              k0, N, ld, L::CROW, ptid);
+      if constexpr (kStream)
+        load_coords<BT_STREAM, BT_WG>(
+            reinterpret_cast<float*>(slot + L::SIDE_OFF) + BT_STREAM, src,
+            tgt, k0, N, ptid);
+      else
+        load_cache_tile<CT, BT_ROWS, BT_STREAM>(slot + L::CACHE_OFF, cache,
+                                                q0, k0, N, ld, L::CROW, ptid);
       if (ptid < BT_STREAM)
         reinterpret_cast<float*>(slot + L::SIDE_OFF)[ptid] =
             key_state(mask, k0 + ptid, N);
@@ -340,6 +438,27 @@ compat_flash_bwd_dq_tc(const T* __restrict__ q, const T* __restrict__ k,
       mma_ss<TERMS, D, BT_STREAM>(st, q_addr, k_addr);
       mma_ss<TERMS, D, BT_STREAM>(dp, do_addr, k_addr + L::STR);
       wgmma_commit();
+
+      // kStream: compat of queries row0 + 8 rr and keys c of every 8,
+      // formed while the products run
+      float sc[BT_STREAM / 8][2][2];
+      if constexpr (kStream) {
+        const float* kcs =
+            reinterpret_cast<const float*>(slot + L::SIDE_OFF) + BT_STREAM;
+        float qc[2][6];
+        coords_of<BT_ROWS>(sQc, row0, qc[0]);
+        coords_of<BT_ROWS>(sQc, row0 + 8, qc[1]);
+#pragma unroll
+        for (int jg = 0; jg < BT_STREAM / 8; ++jg)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float kc[6];
+            coords_of<BT_STREAM>(kcs, jg * 8 + 2 * quad + e, kc);
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr)
+              sc[jg][rr][e] = compat_stream(qc[rr], kc, inv_sigma_sq);
+          }
+      }
       wgmma_wait_all();
       fence_regs(st);
       fence_regs(dp);
@@ -354,11 +473,17 @@ compat_flash_bwd_dq_tc(const T* __restrict__ q, const T* __restrict__ k,
         const int c0 = jg * 8 + 2 * quad;
         float cc[2][2];
 #pragma unroll
-        for (int rr = 0; rr < 2; ++rr)
-          load2(reinterpret_cast<const CT*>(ctile +
-                                            (row0 + 8 * rr) * L::CROW) +
-                    c0,
-                cc[rr]);
+        for (int rr = 0; rr < 2; ++rr) {
+          if constexpr (kStream) {
+            cc[rr][0] = sc[jg][rr][0];
+            cc[rr][1] = sc[jg][rr][1];
+          } else {
+            load2(reinterpret_cast<const CT*>(ctile +
+                                              (row0 + 8 * rr) * L::CROW) +
+                      c0,
+                  cc[rr]);
+          }
+        }
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const float state = kstate[c0 + e];
@@ -388,15 +513,17 @@ compat_flash_bwd_dq_tc(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// Launch one cached backward kernel. dq_kernel selects compat_flash_bwd_dq_tc
-// (out0 = dq) over compat_flash_bwd_dkv_tc (out0 = dk, out1 = dv).
-template <typename T, int D, typename CT>
+// Launch one backward kernel. dq_kernel selects compat_flash_bwd_dq_tc
+// (out0 = dq) over compat_flash_bwd_dkv_tc (out0 = dk, out1 = dv). kCached
+// reads cache and ld; kStream src, tgt and inv_sigma_sq.
+template <typename T, int D, typename CT, Compat MODE>
 cudaError_t launch_bwd_tc(bool dq_kernel, const void* q, const void* k,
                           const void* v, const void* dout, const float* lse,
                           const float* delta, const float* mask,
                           const CT* cache, void* out0, void* out1, int B,
                           int N, int ld, float qscale, float scale,
-                          cudaStream_t stream) {
+                          const float* src, const float* tgt,
+                          float inv_sigma_sq, cudaStream_t stream) {
   // 16-byte loads of q, k, v, do and the cache
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout |
        (uintptr_t)cache) & 15)
@@ -407,43 +534,49 @@ cudaError_t launch_bwd_tc(bool dq_kernel, const void* q, const void* k,
   const auto* tdo = static_cast<const T*>(dout);
   const dim3 grid((N + BT_ROWS - 1) / BT_ROWS, B);
   if (dq_kernel) {
-    const size_t bytes = BtLayout<T, D, CT, false>::BYTES;
+    const size_t bytes = BtLayout<T, D, CT, false, MODE>::BYTES;
     cudaError_t err = cudaFuncSetAttribute(
-        compat_flash_bwd_dq_tc<T, D, CT>,
+        compat_flash_bwd_dq_tc<T, D, CT, MODE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return err;
-    compat_flash_bwd_dq_tc<T, D, CT><<<grid, BT_THREADS, bytes, stream>>>(
-        tq, tk, tv, tdo, lse, delta, mask, cache, static_cast<T*>(out0), N,
-        ld, qscale, scale);
+    compat_flash_bwd_dq_tc<T, D, CT, MODE>
+        <<<grid, BT_THREADS, bytes, stream>>>(
+            tq, tk, tv, tdo, lse, delta, mask, cache, static_cast<T*>(out0),
+            N, ld, qscale, scale, src, tgt, inv_sigma_sq);
   } else {
-    const size_t bytes = BtLayout<T, D, CT, true>::BYTES;
+    const size_t bytes = BtLayout<T, D, CT, true, MODE>::BYTES;
     cudaError_t err = cudaFuncSetAttribute(
-        compat_flash_bwd_dkv_tc<T, D, CT>,
+        compat_flash_bwd_dkv_tc<T, D, CT, MODE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return err;
-    compat_flash_bwd_dkv_tc<T, D, CT><<<grid, BT_THREADS, bytes, stream>>>(
-        tq, tk, tv, tdo, lse, delta, mask, cache, static_cast<T*>(out0),
-        static_cast<T*>(out1), N, ld, qscale, scale);
+    compat_flash_bwd_dkv_tc<T, D, CT, MODE>
+        <<<grid, BT_THREADS, bytes, stream>>>(
+            tq, tk, tv, tdo, lse, delta, mask, cache, static_cast<T*>(out0),
+            static_cast<T*>(out1), N, ld, qscale, scale, src, tgt,
+            inv_sigma_sq);
   }
   return cudaGetLastError();
 }
 
 // q/k/v element type (f32 or bf16) and head width (32 or 128)
-template <typename CT>
+template <typename CT, Compat MODE>
 cudaError_t dispatch_bwd_tc(bool dq_kernel, const void* q, const void* k,
                             const void* v, const void* dout, const void* lse,
                             const void* delta, const void* mask,
                             const CT* cache, void* out0, void* out1, int B,
                             int N, int D, int ld, int is_bf16, float qscale,
-                            float scale, void* stream) {
+                            float scale, const void* src, const void* tgt,
+                            float inv_sigma_sq, void* stream) {
   const auto* l = static_cast<const float*>(lse);
   const auto* dl = static_cast<const float*>(delta);
   const auto* m = static_cast<const float*>(mask);
+  const auto* s = static_cast<const float*>(src);
+  const auto* t = static_cast<const float*>(tgt);
   auto st = static_cast<cudaStream_t>(stream);
-#define GMF_BWD_TC_CASE(T, WIDTH)                                        \
-  return launch_bwd_tc<T, WIDTH, CT>(dq_kernel, q, k, v, dout, l, dl, m, \
-                                     cache, out0, out1, B, N, ld, qscale, \
-                                     scale, st)
+#define GMF_BWD_TC_CASE(T, WIDTH)                                          \
+  return launch_bwd_tc<T, WIDTH, CT, MODE>(                                \
+      dq_kernel, q, k, v, dout, l, dl, m, cache, out0, out1, B, N, ld,     \
+      qscale, scale, s, t, inv_sigma_sq, st)
   if (D == 32) {
     if (is_bf16) GMF_BWD_TC_CASE(__nv_bfloat16, 32);
     GMF_BWD_TC_CASE(float, 32);

@@ -67,8 +67,7 @@
 
 namespace {
 
-constexpr int THREADS = 256;  // the standalone cache's and the streaming
-                              // backward's threads per block
+constexpr int THREADS = 256;  // the standalone cache's threads per block
 constexpr float MASKED = -1e9f;
 
 enum class Compat {
@@ -83,21 +82,6 @@ enum class Compat {
 
 // cache element types as the C entry points number them
 constexpr int CACHE_F32 = 0, CACHE_BF16 = 1, CACHE_INT8 = 2;
-
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_from_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return x; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 // ---- compat arithmetic of the cache (a, b: s.xyz then t.xyz) -----------
 

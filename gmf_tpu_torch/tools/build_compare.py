@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import importlib.util
+import os
 import re
 import subprocess
 from pathlib import Path
@@ -83,27 +84,42 @@ def speedup(times) -> float:
     return base / this if this > 0 else float("inf")
 
 
-def sass(path: Path) -> dict:
+def demangle(names) -> list:
+    """C++ names as cu++filt (the CUDA toolkit's) prints them."""
+    tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin"
+    out = subprocess.run([str(tool / "cu++filt")], input="\n".join(names),
+                         capture_output=True, text=True, check=True).stdout
+    return out.splitlines()
+
+
+def sass(path: Path, demangled: bool = False) -> dict:
     """{kernel name: SASS lines} of a library, with the file hashes in the
     names and the numbers of the compiler's internal subroutines (division,
     sqrt slow paths, numbered per source file) masked, runs of blanks
     collapsed (the listing pads each line to its file's longest
-    instruction) and the source paths (``identifier = ...``) left out."""
+    instruction) and the source paths (``identifier = ...``) left out.
+    ``demangled``: the names as C++ declarations (anonymous namespaces
+    then carry no hash)."""
     text = subprocess.run(["cuobjdump", "-sass", str(path)], check=True,
                           capture_output=True, text=True).stdout
     masks = ((re.compile(r"_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}"),
               "_GLOBAL_"), (re.compile(r"__internal_\d+_"), "__internal_"))
     funcs, name = {}, None
     for line in text.splitlines():
-        for pattern, repl in masks:
-            line = pattern.sub(repl, line)
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             name = m.group(1)
             funcs[name] = []
-        elif name is not None and "identifier =" not in line:
+            continue
+        for pattern, repl in masks:
+            line = pattern.sub(repl, line)
+        if name is not None and "identifier =" not in line:
             funcs[name].append(" ".join(line.split()))
-    return funcs
+    names = list(funcs)
+    keys = demangle(names) if demangled else names
+    if not demangled:
+        keys = [masks[0][0].sub(masks[0][1], n) for n in keys]
+    return dict(zip(keys, (funcs[n] for n in names)))
 
 
 def first_diff(a, b, count=3):

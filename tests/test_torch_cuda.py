@@ -490,27 +490,40 @@ def _bwd_case(gen, cuda, B, N, D, dtype):
     return q, k, v, do, _t(src, cuda), _t(tgt, cuda), _t(mask, cuda)
 
 
-def _cached_bwd_check(q, k, v, do, src, tgt, m, cache_dtype, p=slice(None)):
-    """The cached dK/dV and dQ kernels (csrc/compat_flash_bwd_tc.cuh) on
-    the forward kernel's out and lse, against the plain backward on pairs
+def _bwd_check(q, k, v, do, src, tgt, m, cache_dtype, p=slice(None)):
+    """The dK/dV and dQ kernels (csrc/compat_flash_bwd_tc.cuh), streaming
+    (``cache_dtype`` None: compat from the keypoints) or cached, on the
+    forward kernel's out and lse, against the plain backward on pairs
     ``p``: f32 within 1e-5 of the largest entry (the three-term bf16 split
     and another summation order), bf16 within 4 bf16 ulps of it; masked
     query rows get a dq of exactly 0; a second launch gives the same bits
     on those pairs."""
-    cache = build_compat_cache(src, tgt, 0.10, cache_dtype)
-    out, lse = _cached_forward(q, k, v, cache, m, True)
+    if cache_dtype is None:
+        cache = None
+        out, lse = _streaming_forward(q, k, v, src, tgt, m, 0.10, True)
+        names = ("compat_flash_attention_bwd_dkv",
+                 "compat_flash_attention_bwd_dq")
+    else:
+        cache = build_compat_cache(src, tgt, 0.10, cache_dtype)
+        out, lse = _cached_forward(q, k, v, cache, m, True)
+        names = ("compat_flash_attention_cached_bwd_dkv",
+                 "compat_flash_attention_cached_bwd_dq")
     inp = bwd_inputs(q, k, v, do, out, lse, m)
+
+    def run():
+        return (bwd_dq(inp, src, tgt, 0.10, cache),
+                *bwd_dkv(inp, src, tgt, 0.10, cache))
+
     _build.reset_launches()
-    got = (bwd_dq(inp, compat=cache), *bwd_dkv(inp, compat=cache))
-    assert [_build.launches[n] for n in (
-        "compat_flash_attention_cached_bwd_dkv",
-        "compat_flash_attention_cached_bwd_dq")] == [1, 1]
-    again = (bwd_dq(inp, compat=cache), *bwd_dkv(inp, compat=cache))
+    got = run()
+    assert [_build.launches[n] for n in names] == [1, 1]
+    again = run()
     for g, a in zip(got, again):
         assert torch.equal(g[p], a[p])
     assert (got[0][p][m[p] == 0] == 0).all()
-    refs = compat_attention_bwd_plain(q[p], k[p], v[p], do[p], out[p],
-                                      lse[p], m[p], compat=cache[p])
+    refs = compat_attention_bwd_plain(
+        q[p], k[p], v[p], do[p], out[p], lse[p], m[p], src[p], tgt[p], 0.10,
+        compat=None if cache is None else cache[p])
     for g, r in zip(got, refs):
         scale = r.float().abs().max().item()
         atol = (1e-5 * scale if q.dtype == torch.float32
@@ -529,7 +542,7 @@ def test_cached_backward_edges(gen, cuda, D, N, dtype, cache_dtype):
     training shape's 1000 (no multiple of the 32-row slots); masked keys
     inside the tiles of pair 0, a fully masked pair 1 (every gradient 0),
     pair 2 without a mask."""
-    _cached_bwd_check(*_bwd_case(gen, cuda, 3, N, D, dtype), cache_dtype)
+    _bwd_check(*_bwd_case(gen, cuda, 3, N, D, dtype), cache_dtype)
 
 
 @pytest.mark.parametrize("cache_dtype",
@@ -544,7 +557,32 @@ def test_cached_backward_pair_boundary(gen, cuda, D, dtype, cache_dtype):
     for t in (k, v, do):
         t[1] = float("inf")
     m = torch.ones(2, 333, device=cuda)
-    _cached_bwd_check(q, k, v, do, src, tgt, m, cache_dtype, slice(0, 1))
+    _bwd_check(q, k, v, do, src, tgt, m, cache_dtype, slice(0, 1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [65, 333, 1000])
+@pytest.mark.parametrize("D", [32, 128])
+def test_streaming_backward_edges(gen, cuda, D, N, dtype):
+    """The streaming kernels, compat rebuilt per tile from the keypoints,
+    at the cached edges' counts and masks: one past a 64-row block, a
+    ragged 333, the training shape's 1000; masked keys inside the tiles
+    of pair 0, a fully masked pair 1, pair 2 without a mask."""
+    _bwd_check(*_bwd_case(gen, cuda, 3, N, D, dtype), None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 128])
+def test_streaming_backward_pair_boundary(gen, cuda, D, dtype):
+    """Pair 0's last tiles (N = 333) reach into pair 1, whose k, v, do and
+    keypoints are all inf: the streaming kernels must not read them, so
+    pair 0's gradients meet the limits against the plain backward on pair
+    0 alone."""
+    q, k, v, do, src, tgt, _ = _bwd_case(gen, cuda, 2, 333, D, dtype)
+    for t in (k, v, do, src, tgt):
+        t[1] = float("inf")
+    m = torch.ones(2, 333, device=cuda)
+    _bwd_check(q, k, v, do, src, tgt, m, None, slice(0, 1))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
