@@ -116,10 +116,10 @@ def sass(path: Path, demangled: bool = False) -> dict:
         if name is not None and "identifier =" not in line:
             funcs[name].append(" ".join(line.split()))
     names = list(funcs)
-    keys = demangle(names) if demangled else names
-    if not demangled:
-        keys = [masks[0][0].sub(masks[0][1], n) for n in keys]
-    return dict(zip(keys, (funcs[n] for n in names)))
+    pattern, repl = masks[0]
+    keys = (demangle(names) if demangled
+            else [pattern.sub(repl, n) for n in names])
+    return dict(zip(keys, funcs.values()))
 
 
 def first_diff(a, b, count=3):

@@ -211,12 +211,8 @@ def main():
                 print(f"{tag}: {json.dumps(rows[tag])}", flush=True)
             torch.cuda.empty_cache()
 
-    listings = {who: sass(paths[who], demangled=True) for who in paths}
-    base_sass = cached_instances(listings["base"])
-    this_sass = cached_instances(listings["this"])
-    if len(this_sass) != len(base_sass):
-        print("backward kernels here: " + json.dumps(
-            [n for n in listings["this"] if "bwd_d" in n][:4]), flush=True)
+    base_sass = cached_instances(sass(paths["base"], demangled=True))
+    this_sass = cached_instances(sass(paths["this"], demangled=True))
     cached = sorted(set(base_sass) & set(this_sass))
     differ = [n for n in cached if base_sass[n] != this_sass[n]]
     print(f"SASS: {len(cached)} cached backward kernels in both builds "
