@@ -24,7 +24,11 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
    both its instances (bf16 on the tensor cores, the main path's; f32 on
    the CUDA cores, training's) on unit features rounded to the instance's
    type, its plain version fed the same values, at B=8 and at B=64, each timed beside its plain
-   version at both. Then the bf16 forward core (core_phase) in each
+   version at both; the seed solver on each instance's features (bf16,
+   the served model's, and f32) and the neighbourhoods it chose, at both,
+   timed; the hypothesis counts equal to their plain version in every
+   count, two launches equal, at B=8, at B=64 and at 16 x 1000, timed at
+   each. Then the bf16 forward core (core_phase) in each
    of its modes (streaming, build+attend, cached on int8, bf16 and f32
    caches, no compat) at D=32 and 128 and N in 1, 63-65, 127-129, 333,
    5000, with masked keys inside a tile and a pair whose keys are all
@@ -85,7 +89,14 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
    int8 cache and with compat_cache="off". The same request with bf16
    modules and the int8 cache, the serving path's numerics, held on the
    pairs where the same correspondence's seed won on both (the two
-   devices round bf16 apart; bf16_slice_check). Take one f32 train step of 16
+   devices round bf16 apart; bf16_slice_check). Then where that request
+   parts on the two devices (bf16_seed_stage_check): each step of the
+   seed stage run on the CPU from the card's own inputs to it, one line a
+   step (the encoder output's distance in bf16 ulps, NMS seeds, kNN
+   indices, seed transforms, counts, winners, and the card's winner among
+   the CPU's tied seeds), every step that runs a kernel held to its plain
+   version, and the CPU's seed stage from the card's encoder output held
+   to the card's winner on every pair. Take one f32 train step of 16
    pairs of N=1000 on the card and on the CPU, same weights and batch,
    "auto" and "off": the loss and each parameter's gradient against the
    same step in f64 on the CPU, within the CPU tests' bound on that
@@ -532,17 +543,21 @@ def attention_phase(dev, rates, gen, src, tgt, mask):
 
 
 def seed_solver_phase(rates, feats, src, tgt, knn_idx):
-    """Kernel 12 on the neighbourhoods the kNN kernel chose."""
+    """Kernel 12 on the neighbourhoods the kNN kernel chose, on features of
+    the kNN's dtype (bf16: the served model's; f32): the weights within
+    1e-5 of the plain version, the transforms from them within the
+    reference's bounds; timed beside the plain version and the bound."""
     from gmf_tpu_torch.geometry.kabsch import rigid_transform_3d
     from gmf_tpu_torch.ops.fused_seed_solver import (
         fused_seed_weights, fused_seed_weights_plain)
 
-    k = K1 - 1
+    b, n, c = feats.shape
+    s, k = knn_idx.shape[1], K1 - 1
     rows_idx = (knn_idx[..., 1:].long() + (
-        torch.arange(B, device=feats.device) * N)[:, None, None]).reshape(-1)
-    knn_feats = feats.reshape(B * N, D)[rows_idx].reshape(B, S, k, D)
-    src_knn = src.reshape(B * N, 3)[rows_idx].reshape(B, S, k, 3)
-    tgt_knn = tgt.reshape(B * N, 3)[rows_idx].reshape(B, S, k, 3)
+        torch.arange(b, device=feats.device) * n)[:, None, None]).reshape(-1)
+    knn_feats = feats.reshape(b * n, c)[rows_idx].reshape(b, s, k, c)
+    src_knn = src.reshape(b * n, 3)[rows_idx].reshape(b, s, k, 3)
+    tgt_knn = tgt.reshape(b * n, 3)[rows_idx].reshape(b, s, k, 3)
     sigma = torch.tensor([SEED_SIGMA], device=feats.device)
     args = (knn_feats, src_knn, tgt_knn, sigma, 0.10)
     got = fused_seed_weights(*args, num_iters=NUM_ITERS)
@@ -553,8 +568,9 @@ def seed_solver_phase(rates, feats, src, tgt, knn_idx):
     # order; the iteration amplifies that where the two leading
     # eigenvalues are close, so the transforms are compared too, with the
     # bounds of the reference's own test (eigenvector conditioning).
+    where = f"fused_seed_weights ({feats.dtype}, B={b})"
     if not err <= 1e-5:
-        fail(f"fused_seed_weights: weights differ by {err} > 1e-5")
+        fail(f"{where}: weights differ by {err} > 1e-5")
 
     def trans(w):
         return rigid_transform_3d(src_knn.reshape(-1, k, 3),
@@ -565,12 +581,13 @@ def seed_solver_phase(rates, feats, src, tgt, knn_idx):
     rot_err = (Tg[:, :3, :3] - Tr[:, :3, :3]).abs().max().item()
     trn_err = (Tg[:, :3, 3] - Tr[:, :3, 3]).abs().max().item()
     if not (rot_err <= 5e-4 and trn_err <= 5e-3):
-        fail(f"fused_seed_weights: transforms differ, rotation {rot_err} "
-             f"(> 5e-4) or translation {trn_err} (> 5e-3)")
-    seeds = B * S
+        fail(f"{where}: transforms differ, rotation {rot_err} (> 5e-4) or "
+             f"translation {trn_err} (> 5e-3)")
+    del Tg, Tr
+    seeds = b * s
     bound_ms, bound_by = rates.bound(
-        seeds * k * (D * 4 + 24 + 4),
-        {"gram": 2 * seeds * k * k * D / F32_PRODUCT_FLOPS,
+        seeds * k * (c * feats.element_size() + 24 + 4),
+        {"gram": 2 * seeds * k * k * c / product_rate(feats.dtype),
          "alu": seeds * k * k * (25 + 2 * NUM_ITERS) / rates.alu,
          "sfu": 4 * seeds * k * k / rates.sfu})  # 2 sqrt, 2 divisions
     return dict(
@@ -581,6 +598,13 @@ def seed_solver_phase(rates, feats, src, tgt, knn_idx):
         plain_ms=cuda_ms(lambda: fused_seed_weights_plain(
             *args, num_iters=NUM_ITERS), reps=3, warmup=1),
         bound_ms=bound_ms, bound_by=bound_by)
+
+
+def solver_row(rows):
+    """The seed solver's row from its two instances: the bf16 one's keys
+    (the served model's features) and the f32 one's prefixed ``f32_``."""
+    return {**rows[torch.bfloat16],
+            **{f"f32_{k}": v for k, v in rows[torch.float32].items()}}
 
 
 def perturbed_hypotheses(gt_trans, dev, s=S):
@@ -747,11 +771,44 @@ def nms_check(where, src, scores, slices, rates):
             b * n * 20, {"alu": 10 * needed / rates.alu}))))
 
 
-def kernel_phase(dev, rates):
-    """Phase 3: every kernel vs its plain version at main-path shapes."""
+def counts_check(where, rates, trans, src, tgt, mask, slices):
+    """The hypothesis counts against their plain version run on each slice
+    of pairs: equal in every count, as the two form the residual with the
+    same rounded operations in the same order, and a second launch equal
+    to the first. Returns the row: the times of the kernel and of the
+    plain version over all pairs, and the function's own bound, ~16 ALU
+    ops per (seed, point) with fused multiply-adds (the kernel's
+    exact-rounding form issues ~28), the transforms, the points and the
+    mask read once, the counts written."""
     from gmf_tpu_torch.ops.fused_scoring import (
         seed_hypothesis_counts, seed_hypothesis_counts_plain)
 
+    got = seed_hypothesis_counts(trans, src, tgt, 0.10, mask=mask)
+    ref = torch.cat([seed_hypothesis_counts_plain(
+        trans[sl], src[sl], tgt[sl], 0.10, mask=mask[sl]) for sl in slices])
+    err = (got - ref).abs().max().item()
+    if err != 0:
+        fail(f"{where}: seed_hypothesis_counts: counts differ by {err}")
+    if not torch.equal(seed_hypothesis_counts(trans, src, tgt, 0.10,
+                                              mask=mask), got):
+        fail(f"{where}: seed_hypothesis_counts: two launches differ")
+    b, s = trans.shape[:2]
+    n = src.shape[1]
+    return dict(
+        max_abs_err=err, tolerance=0, shape=[b, s, n],
+        mean_count=got.float().mean().item(),
+        ms=cuda_ms(lambda: seed_hypothesis_counts(trans, src, tgt, 0.10,
+                                                  mask=mask), reps=10),
+        plain_ms=cuda_ms(lambda: [seed_hypothesis_counts_plain(
+            trans[sl], src[sl], tgt[sl], 0.10, mask=mask[sl])
+            for sl in slices], reps=3, warmup=1),
+        **dict(zip(("bound_ms", "bound_by"), rates.bound(
+            b * s * 64 + b * n * 28 + b * s * 4,
+            {"alu": 16 * b * s * n / rates.alu}))))
+
+
+def kernel_phase(dev, rates):
+    """Phase 3: every kernel vs its plain version at main-path shapes."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     prob, src, tgt, mask = make_inputs(dev)
     rows = attention_phase(dev, rates, gen, src, tgt, mask)
@@ -761,33 +818,21 @@ def kernel_phase(dev, rates):
     rows["nms_local_max"] = nms_check(f"B={B}", src, scores, [slice(None)],
                                       rates)
 
-    # -- seed kNN, both instances --------------------------------------------
+    # -- seed kNN, both instances, and the seed solver on each one's
+    # features and the neighbourhoods it chose ----------------------------
+    solver = {}
     for dtype in (torch.bfloat16, torch.float32):
         seeds, feats = knn_inputs(gen, mask, S, dtype)
         got_i, rows[KNN_KERNELS[dtype]] = knn_check(
             f"B={B}", seeds, feats, mask, [slice(None)], rates)
-    # the seed solver on the f32 features and their neighbours (the last)
-    rows["fused_seed_weights"] = seed_solver_phase(rates, feats, src, tgt,
-                                                   got_i)
-    del feats, seeds
+        solver[dtype] = seed_solver_phase(rates, feats, src, tgt, got_i)
+        del feats, seeds, got_i
+    rows["fused_seed_weights"] = solver_row(solver)
 
     # -- hypothesis scoring ------------------------------------------------
     trans = perturbed_hypotheses(prob["gt_trans"], dev)
-    got = seed_hypothesis_counts(trans, src, tgt, 0.10, mask=mask)
-    ref = seed_hypothesis_counts_plain(trans, src, tgt, 0.10, mask=mask)
-    err = (got - ref).abs().max().item()
-    # the two residual forms round differently only at the d == thr edge
-    if not err <= 2:
-        fail(f"seed_hypothesis_counts: counts differ by {err}")
-    rows["seed_hypothesis_counts"] = dict(
-        max_abs_err=err, tolerance=2, mean_count=got.float().mean().item(),
-        ms=cuda_ms(lambda: seed_hypothesis_counts(trans, src, tgt, 0.10,
-                                                  mask=mask), reps=10),
-        plain_ms=cuda_ms(lambda: seed_hypothesis_counts_plain(
-            trans, src, tgt, 0.10, mask=mask), reps=3, warmup=1),
-        **dict(zip(("bound_ms", "bound_by"), rates.bound(
-            B * S * 64 + B * N * 28 + B * S * 4,
-            {"alu": 16 * B * S * N / rates.alu}))))
+    rows["seed_hypothesis_counts"] = counts_check(
+        f"B={B}", rates, trans, src, tgt, mask, [slice(None)])
     return rows
 
 
@@ -854,11 +899,11 @@ def main_shape_phase(dev, rates):
     errs["nms_local_max"] = nms_row["max_abs_err"]
     print(f"nms_local_max at B={B_MAIN}: {json.dumps(nms_row)}", flush=True)
 
-    seed_errs, knn_rows = seed_kernels_check(
+    seed_errs, seed_rows = seed_kernels_check(
         f"B={B_MAIN}", gen, prob["gt_trans"], src, tgt, mask, S, slices,
-        rates)
+        rates, solver=True)
     errs.update(seed_errs)
-    return errs, knn_rows, nms_row
+    return errs, seed_rows, nms_row
 
 
 # the bf16 forward core (compat_flash_fwd_tc) at the edges of its tiles:
@@ -1068,34 +1113,33 @@ def core_phase(dev, dtype=torch.bfloat16):
 
 
 def seed_kernels_check(where, gen, gt_trans, src, tgt, mask, s, slices,
-                       rates):
+                       rates, solver=False):
     """The seed kNN, both instances, and the hypothesis counts at the
     shapes of one path: ``s`` seeds per pair among its valid rows, unit
-    features of depth D, hypotheses near each pair's true transform. The
-    plain versions run on each slice of pairs; kernel_phase's limits.
-    Returns each kernel's largest error and each kNN instance's row
-    (knn_check)."""
-    from gmf_tpu_torch.ops.fused_scoring import (
-        seed_hypothesis_counts, seed_hypothesis_counts_plain)
-
-    errs, knn_rows = {}, {}
+    features of depth D, hypotheses near each pair's true transform; with
+    ``solver`` also the seed solver on each kNN instance's features and
+    neighbourhoods. The plain versions run on each slice of pairs;
+    kernel_phase's limits. Returns each kernel's largest error and its row
+    (knn_check, counts_check, solver_row), each timed."""
+    errs, rows, solved = {}, {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         seeds, feats = knn_inputs(gen, mask, s, dtype)
-        _, row = knn_check(where, seeds, feats, mask, slices, rates)
+        got_i, row = knn_check(where, seeds, feats, mask, slices, rates)
         errs[KNN_KERNELS[dtype]] = row["max_abs_err"]
-        knn_rows[KNN_KERNELS[dtype]] = row
-        del seeds, feats
+        rows[KNN_KERNELS[dtype]] = row
+        if solver:
+            solved[dtype] = seed_solver_phase(rates, feats, src, tgt, got_i)
+        del seeds, feats, got_i
+        torch.cuda.empty_cache()
+    if solver:
+        rows["fused_seed_weights"] = solver_row(solved)
 
-    dev = mask.device
-    trans = perturbed_hypotheses(gt_trans, dev, s)
-    got = seed_hypothesis_counts(trans, src, tgt, 0.10, mask=mask)
-    ref = torch.cat([seed_hypothesis_counts_plain(
-        trans[sl], src[sl], tgt[sl], 0.10, mask=mask[sl]) for sl in slices])
-    counts = (got - ref).abs().max().item()
-    if not counts <= 2:
-        fail(f"{where}: seed_hypothesis_counts: counts differ by {counts}")
-    errs["seed_hypothesis_counts"] = counts
-    return errs, knn_rows
+    trans = perturbed_hypotheses(gt_trans, mask.device, s)
+    rows["seed_hypothesis_counts"] = counts_check(where, rates, trans, src,
+                                                  tgt, mask, slices)
+    errs["seed_hypothesis_counts"] = rows["seed_hypothesis_counts"][
+        "max_abs_err"]
+    return errs, rows
 
 
 def bwd_bound(rates, dtype, nbytes_side, alu, sfu, products, out_tensors,
@@ -1291,7 +1335,7 @@ def backward_phase(dev, rates):
     mask = torch.ones(b, n, device=dev)
     mask[0, n - n // 10:] = 0.0
     valid = mask > 0
-    seed_errs, knn_rows = seed_kernels_check(
+    seed_errs, seed_rows = seed_kernels_check(
         f"B={b}, N={n}", gen, prob["gt_trans"], src, tgt, mask, S_TRAIN,
         [slice(0, b)], rates)
     res = {}
@@ -1467,7 +1511,7 @@ def backward_phase(dev, rates):
                         and t.endswith("stream") == stream})
     for name, err in seed_errs.items():
         extra[name] = {"b16_n1000_max_abs_err": err}
-    for name, row in knn_rows.items():  # the training shape's kNN
+    for name, row in seed_rows.items():  # the training shape's kNN, counts
         extra[name].update({f"b16_n1000_{k}": v for k, v in row.items()
                             if k in ("ms", "plain_ms", "bound_ms")})
     return rows, extra
@@ -2116,6 +2160,221 @@ def bf16_slice_check(dev, request):
                 min_label_agreement=agree, seconds=seconds)
 
 
+def bf16_ulps(a, b):
+    """|a - b| in bf16 ulps at the larger magnitude, elementwise (f32)."""
+    a, b = a.float(), b.float()
+    big = torch.maximum(a.abs(), b.abs()).clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    return (a - b).abs() / ulp
+
+
+def bf16_seed_stage_check(dev, request):
+    """Phase 5: where the bf16 int8-cache request of bf16_slice_check parts
+    on the card from the CPU. The request runs on the card (kernels) and on
+    the CPU (plain versions), same weights, the encoder outputs and the
+    models' inputs captured by hooks. The card's seed stage is then run
+    again step by step from its own encoder output (PointDSC's seed-stage
+    methods; it must reproduce the card's forward), and every step is run
+    on the CPU from the card's own inputs to it: NMS from the card's
+    confidence, the kNN from the card's seeds and normalised features, the
+    seed transforms from the card's neighbourhoods, the counts from the
+    card's seed transforms, the winner from the card's counts. One line a
+    step. The card's bf16 encoder must lie no farther from the f32 encoder
+    (the same weights, on the CPU) than 1.5x the CPU's bf16 encoder, the
+    bound tests/test_torch_model_bf16.py holds the port to against
+    gmf_tpu. A step whose inputs are equal on both devices and that runs a
+    kernel of the port must agree with its plain version: the seeds on
+    every pair, the kNN's chosen scores within 1e-5, the counts exactly,
+    the winners on every pair. Last, the CPU's seed stage chained from the
+    card's encoder output (its features and confidence) must pick the
+    card's winning correspondence on every pair."""
+    from gmf_tpu_torch.eval.registration import PointDSCRegistrar
+
+    reg16 = make_registrar(dev, torch.bfloat16, compat_cache="int8")
+    models = {"card": reg16.model,
+              "cpu": copy.deepcopy(reg16.model).to("cpu"),
+              # the same weights in f32: the encoder both bf16 runs round
+              # away from
+              "cpu32": copy.deepcopy(reg16.model).to("cpu", torch.float32)}
+    cap = {}
+    hooks = []
+    for side, model in models.items():
+        hooks.append(model.register_forward_hook(
+            lambda mod, args, kwargs, out, side=side: cap.update(
+                {side: (args, kwargs["corr_mask"], out)}), with_kwargs=True))
+        hooks.append(model.encoder.register_forward_hook(
+            lambda mod, args, out, side=side: cap.update(
+                {side + "_enc": out})))
+    t0 = time.perf_counter()
+    reg16.register_batch(request)
+    for side in ("cpu", "cpu32"):
+        PointDSCRegistrar(models[side], buckets=(N,)).register_batch(request)
+    for h in hooks:
+        h.remove()
+    args, mask, out = cap["card"]
+    src, tgt = args[1].float(), args[2].float()
+    feats = cap["card_enc"]
+    pairs = len(request)
+    card, cpu = models["card"], models["cpu"]
+
+    def c(x):
+        return x.cpu()
+
+    stages = {}
+    with torch.inference_mode():
+        # the card, step by step from its encoder output
+        normed, sigma, conf = card._seed_features(feats)
+        seeds = card._pick_seeds(src, conf, mask)
+        knn = card._seed_knn(seeds, normed, mask)
+        strans = card._seed_transforms(normed, sigma, src, tgt, knn, True)
+        counts, fit = card._seed_fitness(strans, src, tgt, mask)
+        best = fit.argmax(-1)
+        if not (torch.equal(conf, out["confidence"])
+                and torch.equal(best, out["seed_fitness"].argmax(-1))):
+            fail("bf16 seed stages: the step-by-step run does not reproduce "
+                 "the card's forward")
+        win = c(seeds.gather(1, best[:, None])[:, 0])
+        valid = c(mask) > 0
+
+        # 1. the encoder: the two devices end to end
+        cpu_args, cpu_mask, cpu_out = cap["cpu"]
+        enc = bf16_ulps(c(feats), cap["cpu_enc"])[valid]
+        diff = (c(feats).float() - cap["cpu_enc"].float()).abs()[valid]
+        scale = cap["cpu32_enc"].abs()[valid].max().item()
+        # each bf16 encoder's distance from the f32 one (same weights)
+        from_f32 = {side: (cap[side + "_enc"].float().cpu()
+                           - cap["cpu32_enc"]).abs()[valid].max().item()
+                    for side in ("card", "cpu")}
+        c_normed, _, c_conf = cpu._seed_features(c(feats))
+        stages["encoder"] = dict(
+            feats_max_ulps=enc.max().item(),
+            feats_median_ulps=enc.median().item(),
+            feats_share_apart=(enc > 0).float().mean().item(),
+            feats_max_abs_diff=diff.max().item(),
+            feats_max_abs_diff_in_ulps_at_scale=diff.max().item()
+            / bf16_ulp(scale),
+            card_from_f32=from_f32["card"], cpu_from_f32=from_f32["cpu"],
+            confidence_max_abs_diff=(c(conf) - cpu_out["confidence"]).abs()
+            .max().item(),
+            from_card_feats_confidence_max_abs_diff=(c_conf - c(conf)).abs()
+            .max().item(),
+            from_card_feats_normed_max_ulps=bf16_ulps(c_normed, c(normed))[
+                valid].max().item())
+        # 2. NMS from the card's confidence
+        c_seeds = cpu._pick_seeds(c(src), c(conf), c(mask))
+        stages["nms"] = dict(seeds_equal_pairs=int(
+            (c_seeds == c(seeds)).all(-1).sum()))
+        # 3. the kNN from the card's seeds and normalised features
+        c_knn = cpu._seed_knn(c(seeds), c(normed), c(mask))
+        nf = c(normed).float()
+        sf = nf.gather(1, c(seeds)[..., None].expand(-1, -1, nf.shape[-1]))
+        score = torch.matmul(sf, nf.transpose(-1, -2))
+        stages["knn"] = dict(
+            index_agreement=(c_knn == c(knn)).float().mean().item(),
+            chosen_scores_max_abs_diff=(score.gather(-1, c(knn))
+                                        - score.gather(-1, c_knn)).abs()
+            .max().item())
+        del score
+        # 4. the seed transforms from the card's neighbourhoods
+        c_strans = cpu._seed_transforms(c(normed), c(sigma), c(src), c(tgt),
+                                        c(knn), True)
+        stages["seed_trans"] = dict(
+            max_abs_diff=(c_strans - c(strans)).abs().max().item())
+        # 5. the counts from the card's seed transforms; 6. the winner
+        c_counts, c_fit = cpu._seed_fitness(c(strans), c(src), c(tgt),
+                                            c(mask))
+        stages["counts"] = dict(
+            max_abs_diff=(c_counts - c(counts)).abs().max().item())
+        stages["winner"] = dict(equal_pairs=int(
+            (c_fit.argmax(-1) == c(best)).sum()))
+        # 7. end to end: the card's winner among the CPU's seeds tied at the
+        # CPU's largest fitness
+        e_seeds = cpu._pick_seeds(cpu_args[1].float(), cpu_out["confidence"],
+                                  cpu_mask.float())
+        e_fit = cpu_out["seed_fitness"]
+        tied = e_fit == e_fit.max(-1, keepdim=True).values
+        e_win = e_seeds.gather(1, e_fit.argmax(-1)[:, None])[:, 0]
+        shared = (c(seeds)[:, :, None] == e_seeds[:, None]).any(-1)
+        stages["end_to_end"] = dict(
+            seed_overlap=shared.float().mean().item(),
+            winner_among_cpu_seeds_pairs=int(
+                (e_seeds == win[:, None]).any(-1).sum()),
+            same_winner_pairs=int((e_win == win).sum()),
+            winner_in_cpu_ties_pairs=int(
+                ((e_seeds == win[:, None]) & tied).any(-1).sum()),
+            cpu_tied_seeds=tied.sum(-1).tolist())
+        # the hold: the CPU's seed stage chained from the card's encoder
+        # output
+        h_normed, h_sigma, _ = cpu._seed_features(c(feats))
+        h_seeds = cpu._pick_seeds(c(src), c(conf), c(mask))
+        h_knn = cpu._seed_knn(h_seeds, h_normed, c(mask))
+        h_strans = cpu._seed_transforms(h_normed, h_sigma, c(src), c(tgt),
+                                        h_knn, True)
+        _, h_fit = cpu._seed_fitness(h_strans, c(src), c(tgt), c(mask))
+        h_win = h_seeds.gather(1, h_fit.argmax(-1)[:, None])[:, 0]
+        stages["hold"] = dict(same_winner_pairs=int((h_win == win).sum()))
+    seconds = time.perf_counter() - t0
+
+    lines = (
+        ("1 encoder", "card vs CPU end to end: features up to "
+         f"{stages['encoder']['feats_max_ulps']:.0f} bf16 ulps apart "
+         f"(median {stages['encoder']['feats_median_ulps']:.0f}, share "
+         f"apart {stages['encoder']['feats_share_apart']:.4f}; max |d| "
+         f"{stages['encoder']['feats_max_abs_diff']:.3e}, "
+         f"{stages['encoder']['feats_max_abs_diff_in_ulps_at_scale']:.1f} "
+         "ulps at the features' scale); from the f32 encoder (same "
+         f"weights) the card's {stages['encoder']['card_from_f32']:.3e}, "
+         f"the CPU's {stages['encoder']['cpu_from_f32']:.3e} (limit 1.5x "
+         "the CPU's); confidence max |d| "
+         f"{stages['encoder']['confidence_max_abs_diff']:.3e}; from the "
+         "card's features the CPU's confidence max |d| "
+         f"{stages['encoder']['from_card_feats_confidence_max_abs_diff']:.3e}"
+         ", normalised features "
+         f"{stages['encoder']['from_card_feats_normed_max_ulps']:.0f} ulps"),
+        ("2 NMS", "from the card's confidence: seeds equal on "
+         f"{stages['nms']['seeds_equal_pairs']} of {pairs} pairs"),
+        ("3 kNN", "from the card's seeds and normalised features: index "
+         f"agreement {stages['knn']['index_agreement']:.6f}, chosen scores "
+         f"max |d| {stages['knn']['chosen_scores_max_abs_diff']:.2e} (limit "
+         "1e-5)"),
+        ("4 seed_trans", "from the card's neighbourhoods: max |d| "
+         f"{stages['seed_trans']['max_abs_diff']:.3e}"),
+        ("5 counts", "from the card's seed_trans: max |d| "
+         f"{stages['counts']['max_abs_diff']} (limit 0)"),
+        ("6 winners", "from the card's counts: equal on "
+         f"{stages['winner']['equal_pairs']} of {pairs} pairs"),
+        ("7 end to end", "NMS seeds shared "
+         f"{stages['end_to_end']['seed_overlap']:.4f}, the card's winner "
+         "among the CPU's seeds on "
+         f"{stages['end_to_end']['winner_among_cpu_seeds_pairs']} of "
+         f"{pairs} pairs and among its seeds tied at its largest fitness on "
+         f"{stages['end_to_end']['winner_in_cpu_ties_pairs']} of {pairs} "
+         f"pairs (tied seeds {stages['end_to_end']['cpu_tied_seeds']}); "
+         f"the same winner on {stages['end_to_end']['same_winner_pairs']}"),
+        ("hold", "the CPU's seed stage from the card's encoder output picks "
+         f"the card's winner on {stages['hold']['same_winner_pairs']} of "
+         f"{pairs} pairs (limit {pairs})"))
+    for tag, text in lines:
+        print(f"bf16 seed stage {tag}: {text}", flush=True)
+    if from_f32["card"] > 1.5 * from_f32["cpu"]:
+        fail("bf16 seed stages: the card's bf16 encoder lies farther from "
+             "the f32 encoder than 1.5x the CPU's")
+    if stages["nms"]["seeds_equal_pairs"] != pairs:
+        fail("bf16 seed stages: NMS picks other seeds from the same "
+             "confidence")
+    if not stages["knn"]["chosen_scores_max_abs_diff"] <= 1e-5:
+        fail("bf16 seed stages: the kNN chooses other scores from the same "
+             "features")
+    if stages["counts"]["max_abs_diff"] != 0:
+        fail("bf16 seed stages: other counts from the same seed transforms")
+    if stages["winner"]["equal_pairs"] != pairs:
+        fail("bf16 seed stages: another winner from the same counts")
+    if stages["hold"]["same_winner_pairs"] != pairs:
+        fail("bf16 seed stages: from the card's encoder output the CPU picks "
+             "another winning correspondence")
+    return dict(pairs=pairs, seconds=seconds, **stages)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the result JSON here")
@@ -2145,13 +2404,14 @@ def main():
     # 3. kernels vs plain
     rows = kernel_phase(dev, rates)
     torch.cuda.empty_cache()
-    errs, knn_rows, nms_row = main_shape_phase(dev, rates)
+    errs, seed_rows, nms_row = main_shape_phase(dev, rates)
     rows["nms_local_max"].update({f"b{B_MAIN}_{k}": v
                                   for k, v in nms_row.items()
                                   if k not in ("tolerance", "shape")})
     for name, err in errs.items():
         rows[name][f"b{B_MAIN}_max_abs_err"] = err
-    for name, row in knn_rows.items():  # both kNN instances at b=64
+    # both kNN instances, the counts and both seed-solver instances at b=64
+    for name, row in seed_rows.items():
         rows[name].update({f"b{B_MAIN}_{k}": v for k, v in row.items()
                            if k != "tolerance"})
     torch.cuda.empty_cache()
@@ -2236,6 +2496,7 @@ def main():
     slices = [f32_slice_check(dev, requests8[0], "int8"),
               f32_slice_check(dev, requests8[0], "off"),
               bf16_slice_check(dev, requests8[0])]
+    seed_stages = bf16_seed_stage_check(dev, requests8[0])
     train_checks = [train_cpu_check(dev, "auto"), train_cpu_check(dev, "off")]
 
     # 6. the training command line
@@ -2277,7 +2538,8 @@ def main():
              "pairs_per_s": main_path["pairs_per_s"],
              "pairs_per_request": B_MAIN, "bucket": N, "build_s": build_s,
              "peak_memory_bytes": main_path["peak_memory_bytes"],
-             "paths": paths, "f32_slices": slices, "card": card,
+             "paths": paths, "f32_slices": slices,
+             "bf16_seed_stages": seed_stages, "card": card,
              "sm_clock_max_hz": rates.clock_hz,
              "seed_solver_fused_vs_xla": {
                  "pairs": total, "same_seed": same,

@@ -301,12 +301,7 @@ class PointDSC(nn.Module):
                              q_image.to(self.dtype), mask, src, tgt,
                              compat_cache=cache, build_cache=build_cache)
         del cache
-        # in seed_dtype, as the reference: under bf16 modules the kNN,
-        # feat_M and M see bf16 features
-        f = feats.to(self.seed_dtype)
-        normed = f / torch.sqrt((f * f).sum(-1, keepdim=True) + 1e-12)
-        sigma = self.sigma.to(self.seed_dtype)
-        confidence = self.classification(feats)[..., 0].float()
+        normed, sigma, confidence = self._seed_features(feats)
 
         M = None
         if not testing:
@@ -315,20 +310,11 @@ class PointDSC(nn.Module):
             M = torch.clamp(1.0 - (1.0 - M) / sigma ** 2, 0.0, 1.0)
             M = M * (1.0 - torch.eye(N, dtype=M.dtype, device=M.device))
 
-        num_seeds = max(int(N * self.ratio), 1)
-        if testing:
-            seeds = pick_seeds_nms_fused(src, confidence, self.nms_radius,
-                                         num_seeds, mask=mask)
-        else:
-            ranked = confidence.detach()
-            if mask is not None:
-                ranked = torch.where(mask > 0, ranked,
-                                     torch.full_like(ranked, -math.inf))
-            # stable, as jnp.argsort: ties keep their index order
-            seeds = torch.argsort(-ranked, dim=-1, stable=True)[:, :num_seeds]
+        seeds = self._pick_seeds(src, confidence, mask, testing)
         seed_trans, seed_fitness, final_trans, final_labels = (
-            self._cal_seed_trans(seeds, normed, sigma, src, tgt, mask,
-                                 testing))
+            self._seed_trans_from_knn(normed, sigma, src, tgt, mask,
+                                      self._seed_knn(seeds, normed, mask),
+                                      testing))
         if testing:
             final_trans = self._post_refinement(final_trans, src, tgt, mask)
         else:
@@ -363,23 +349,66 @@ class PointDSC(nn.Module):
             return None, True
         return build_compat_cache(src, tgt, self.sigma_d, dtype), False
 
-    def _cal_seed_trans(self, seeds, feats, sigma, src, tgt, mask, testing):
-        """Seed-row kNN (fused kernel on detached features; column 0, the
-        seed itself, dropped)."""
+    # The seed stage, one method a step, so that a caller can run each step
+    # on its own inputs (chip_smoke.py compares the card's with the CPU's).
+
+    def _seed_features(self, feats):
+        """The encoder output [B, N, C] -> (normalised features, sigma,
+        confidence [B, N] f32). In seed_dtype, as the reference: under bf16
+        modules the kNN, feat_M and M see bf16 features."""
+        f = feats.to(self.seed_dtype)
+        normed = f / torch.sqrt((f * f).sum(-1, keepdim=True) + 1e-12)
+        sigma = self.sigma.to(self.seed_dtype)
+        confidence = self.classification(feats)[..., 0].float()
+        return normed, sigma, confidence
+
+    def _pick_seeds(self, src, confidence, mask, testing: bool = True):
+        """Seed indices [B, max(N * ratio, 1)]: NMS on the confidence in
+        test mode, a stable argsort of it in the train branch."""
+        num_seeds = max(int(src.shape[1] * self.ratio), 1)
+        if testing:
+            return pick_seeds_nms_fused(src, confidence, self.nms_radius,
+                                        num_seeds, mask=mask)
+        ranked = confidence.detach()
+        if mask is not None:
+            ranked = torch.where(mask > 0, ranked,
+                                 torch.full_like(ranked, -math.inf))
+        # stable, as jnp.argsort: ties keep their index order
+        return torch.argsort(-ranked, dim=-1, stable=True)[:, :num_seeds]
+
+    def _seed_knn(self, seeds, feats, mask):
+        """Seed-row kNN [B, S, k] int64 (fused kernel on detached features;
+        column 0, the seed itself, dropped)."""
         B, N, C = feats.shape
         k = min(self.k, N - 1)
         plain = feats.detach()
         seed_feats = torch.gather(plain, 1, seeds[..., None].expand(-1, -1, C))
         knn_idx, _ = seed_knn_topk(seed_feats, plain, k + 1, mask=mask)
-        return self._seed_trans_from_knn(feats, sigma, src, tgt, mask,
-                                         knn_idx[..., 1:].long(), testing)
+        return knn_idx[..., 1:].long()
 
     def _seed_trans_from_knn(self, feats, sigma, src, tgt, mask, knn_idx,
                              testing):
-        """Seed-local spectral matching, weighted Kabsch, scoring. The
-        train branch always takes the plain chain with the fixed iteration
-        count: the fused solver and the early exit are eval-only, as in
-        the reference."""
+        """Seed-local spectral matching and weighted Kabsch
+        (``_seed_transforms``), scoring (``_seed_fitness``), the best
+        seed's transform and its labels."""
+        B = feats.shape[0]
+        seed_trans = self._seed_transforms(feats, sigma, src, tgt, knn_idx,
+                                           testing)
+        _, fitness = self._seed_fitness(seed_trans, src, tgt, mask)
+        best = fitness.argmax(-1)
+        final_trans = seed_trans[torch.arange(B, device=feats.device), best]
+        final_L2 = torch.linalg.vector_norm(transform(src, final_trans) - tgt,
+                                            dim=-1)
+        labels = (final_L2 < self.inlier_threshold).float()
+        if mask is not None:
+            labels = labels * mask
+        return seed_trans, fitness, final_trans, labels
+
+    def _seed_transforms(self, feats, sigma, src, tgt, knn_idx, testing):
+        """Seed-local spectral matching and the weighted Kabsch: [B, S, 4,
+        4] f32. The train branch always takes the plain chain with the
+        fixed iteration count: the fused solver and the early exit are
+        eval-only, as in the reference."""
         B, N, C = feats.shape
         S, k = knn_idx.shape[1:]
         rows = (knn_idx + (torch.arange(B, device=feats.device) * N)[
@@ -414,10 +443,13 @@ class PointDSC(nn.Module):
                          num_iters=self.num_iterations)
             weight = weight.reshape(B, S, k)
             weight = weight / (weight.sum(-1, keepdim=True) + 1e-6)
-        seed_trans = rigid_transform_3d(
+        return rigid_transform_3d(
             src_knn.reshape(B * S, k, 3), tgt_knn.reshape(B * S, k, 3),
             weight.reshape(B * S, k)).reshape(B, S, 4, 4)
 
+    def _seed_fitness(self, seed_trans, src, tgt, mask):
+        """(inlier counts [B, S] int32, fitness [B, S] in seed_dtype)."""
+        N = src.shape[1]
         counts = seed_hypothesis_counts(seed_trans.detach(), src, tgt,
                                         self.inlier_threshold, mask=mask)
         # the f32 ratio rounded to the modules' dtype before the argmax, as
@@ -427,15 +459,7 @@ class PointDSC(nn.Module):
             fitness = counts.float() / N
         else:
             fitness = counts.float() / (mask.sum(-1)[:, None] + 1e-6)
-        fitness = fitness.to(self.seed_dtype)
-        best = fitness.argmax(-1)
-        final_trans = seed_trans[torch.arange(B, device=feats.device), best]
-        final_L2 = torch.linalg.vector_norm(transform(src, final_trans) - tgt,
-                                            dim=-1)
-        labels = (final_L2 < self.inlier_threshold).float()
-        if mask is not None:
-            labels = labels * mask
-        return seed_trans, fitness, final_trans, labels
+        return counts, fitness.to(self.seed_dtype)
 
     def _post_refinement(self, trans, src, tgt, mask):
         """Up to 20 weighted refits with weights inlier/(1+(d/tau)^2); the

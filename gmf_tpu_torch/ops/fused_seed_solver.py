@@ -10,11 +10,13 @@ Every seed's k gathered neighbours give one weight vector:
     w = v / (sum(v) + 1e-6)
 
 ``fused_seed_weights`` launches ``csrc/fused_seed_weights.cu`` on CUDA
-tensors (one block per seed, M in shared memory, no [*, k, k] tensor in
-device memory) and uses ``fused_seed_weights_plain`` only for CPU tensors.
-The iteration count is fixed: the model's default chain exits early on a
-batch-global test instead, and the two agree at convergence only. All
-accumulation is f32 whatever the feature type. Forward only.
+tensors (one warp per seed, the Gram on the tensor cores, M in shared
+memory, no [*, k, k] tensor in device memory) and uses
+``fused_seed_weights_plain`` only for CPU tensors. The iteration count is
+fixed: the model's default chain exits early on a batch-global test
+instead, and the two agree at convergence only. All accumulation is f32
+whatever the feature type; f32 features reach the tensor cores as three
+bf16 terms each (the kernel's header). Forward only.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from gmf_tpu_torch.geometry.spectral import leading_eigenvector_fixed
 from gmf_tpu_torch.ops import _build
 
 KERNEL = "fused_seed_weights"
-MAX_K = 128  # one thread per neighbour in the kernel's iteration
+MAX_K = 128  # the kernel's largest neighbourhood (csrc/fused_seed_weights.cu)
 
 
 def _as_sigma(sigma, device):
@@ -39,18 +41,25 @@ def fused_seed_weights_plain(knn_features, src_knn, tgt_knn, sigma,
     """Plain version: the dense chain with [B, S, k, k] tensors and the
     fixed-count iteration, f32."""
     f = knn_features.float()
+    return weights_from_gram(torch.matmul(f, f.transpose(-1, -2)), src_knn,
+                             tgt_knn, sigma, sigma_d, num_iters)
+
+
+def weights_from_gram(gram, src_knn, tgt_knn, sigma, sigma_d: float,
+                      num_iters: int = 10):
+    """The plain chain from the features' Gram [..., k, k] on: feat_M,
+    spatial_M, M, the fixed-count iteration and the sum normalisation."""
     src_knn, tgt_knn = src_knn.float(), tgt_knn.float()
-    k = f.shape[-2]
-    sig = _as_sigma(sigma, f.device)
-    feat_M = torch.matmul(f, f.transpose(-1, -2))
-    feat_M = torch.clamp(1.0 - (1.0 - feat_M) / sig ** 2, min=0.0)
+    k = gram.shape[-1]
+    sig = _as_sigma(sigma, gram.device)
+    feat_M = torch.clamp(1.0 - (1.0 - gram) / sig ** 2, min=0.0)
     src_d = torch.linalg.vector_norm(
         src_knn[..., :, None, :] - src_knn[..., None, :, :], dim=-1)
     tgt_d = torch.linalg.vector_norm(
         tgt_knn[..., :, None, :] - tgt_knn[..., None, :, :], dim=-1)
     spatial_M = torch.clamp(1.0 - (src_d - tgt_d) ** 2 / sigma_d ** 2,
                             min=0.0)
-    total_M = feat_M * spatial_M * (1.0 - torch.eye(k, device=f.device))
+    total_M = feat_M * spatial_M * (1.0 - torch.eye(k, device=gram.device))
     w = leading_eigenvector_fixed(total_M, num_iters=num_iters)
     return w / (w.sum(-1, keepdim=True) + 1e-6)
 

@@ -618,6 +618,73 @@ def test_seed_solver_kernel(gen, cuda, dtype, S, k, C):
                                rtol=0)
 
 
+def _solver_case(gen, cuda, B, S, k, C, dtype):
+    f = gen.randn(B, S, k, C).astype(np.float32)
+    f += 1.5 * gen.randn(B, S, 1, C).astype(np.float32)  # related features
+    f /= np.linalg.norm(f, axis=-1, keepdims=True)
+    src = (gen.rand(B, S, k, 3) * 3).astype(np.float32)
+    tgt = src + np.array([0.2, -0.1, 0.4], np.float32)
+    tgt = tgt + 0.02 * gen.randn(B, S, k, 3).astype(np.float32)
+    out = gen.rand(B, S, k) < 0.33
+    tgt = np.where(out[..., None], gen.rand(B, S, k, 3) * 3, tgt)
+    return (_t(f, cuda).to(dtype), _t(src, cuda),
+            _t(tgt.astype(np.float32), cuda))
+
+
+def _solver_check(f, src, tgt, sigma=1.2):
+    """One launch counted; weights within 1e-5 of the plain version, the
+    transforms from them within rotation 5e-4 and translation 5e-3 of
+    those from the plain weights (test_seed_solver_kernel's limits)."""
+    from gmf_tpu_torch.geometry.kabsch import rigid_transform_3d
+
+    B, S, k, _ = f.shape
+    sig = torch.tensor([sigma], device=f.device)
+    before = _build.launches["fused_seed_weights"]
+    got = fused_seed_weights(f, src, tgt, sig, 0.10)
+    assert _build.launches["fused_seed_weights"] == before + 1
+    ref = fused_seed_weights_plain(f, src, tgt, sig, 0.10)
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+
+    def trans(w):
+        return rigid_transform_3d(src.reshape(-1, k, 3),
+                                  tgt.reshape(-1, k, 3), w.reshape(-1, k))
+
+    T, T_ref = trans(got), trans(ref)
+    torch.testing.assert_close(T[:, :3, :3], T_ref[:, :3, :3], atol=5e-4,
+                               rtol=0)
+    torch.testing.assert_close(T[:, :3, 3], T_ref[:, :3, 3], atol=5e-3,
+                               rtol=0)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [16, 32, 128])
+@pytest.mark.parametrize("k", [1, 10, 17, 40, 64, 128])
+def test_seed_solver_kernel_shapes(gen, cuda, k, C, dtype):
+    """Every instance of the tensor-core kernel (k padded to 16, 32, 48,
+    64, and the one-row-tile-a-pass instance past 64) and chunk edges of
+    C, against the plain version."""
+    got = _solver_check(*_solver_case(gen, cuda, 2, 13, k, C, dtype))
+    if k > 1:
+        assert got.max().item() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_seed_solver_kernel_ragged_and_misaligned(gen, cuda, dtype):
+    """C = 20 and C = 129 (rows not 16-byte aligned: element loads), and
+    features starting past a 16-byte boundary: the same limits, and the
+    misaligned features give the aligned ones' weights in every bit."""
+    for C in (20, 129):
+        _solver_check(*_solver_case(gen, cuda, 2, 9, 40, C, dtype))
+    f, src, tgt = _solver_case(gen, cuda, 2, 9, 40, 128, dtype)
+    want = _solver_check(f, src, tgt)
+    buf = torch.empty(f.numel() + 1, dtype=dtype, device=f.device)
+    buf[1:] = f.reshape(-1)
+    shifted = buf[1:].view(f.shape)
+    assert shifted.data_ptr() % 16 != 0
+    assert torch.equal(_solver_check(shifted, src, tgt), want)
+
+
 def test_nms_kernel(gen, cuda):
     pts = _t((gen.rand(2, 1000, 3) * 2).astype(np.float32), cuda)
     sc = _t(gen.rand(2, 1000).astype(np.float32), cuda)
@@ -745,8 +812,93 @@ def test_scoring_kernel(gen, cuda):
     m = _t(mask, cuda)
     got = seed_hypothesis_counts(*args, 0.10, mask=m)
     ref = seed_hypothesis_counts_plain(*args, 0.10, mask=m)
-    # the two residual forms round differently only at the knife edge
-    assert (got - ref).abs().max().item() <= 2
+    # the kernel and the plain version form the residual with the same
+    # rounded operations in the same order: every count equal
+    assert torch.equal(got, ref)
+
+
+def _scoring_case(gen, cuda, B, S, N, extent=3.0):
+    """Hypotheses near the identity (turned ~0.05 rad, shifted ~5 cm),
+    src in a cube of side ``extent``, tgt = src + 8 cm gaussian; pair b's
+    points from N - 37 b on masked, and a tenth of the others at random."""
+    src = (gen.rand(B, N, 3) * extent).astype(np.float32)
+    a = 0.05 * gen.randn(B, S)
+    T = np.tile(np.eye(4, dtype=np.float32), (B, S, 1, 1))
+    T[..., 0, 0], T[..., 0, 1] = np.cos(a), -np.sin(a)
+    T[..., 1, 0], T[..., 1, 1] = np.sin(a), np.cos(a)
+    T[..., :3, 3] = 0.05 * gen.randn(B, S, 3)
+    tgt = (src + 0.08 * gen.randn(B, N, 3)).astype(np.float32)
+    mask = (gen.rand(B, N) > 0.1).astype(np.float32)
+    mask[np.arange(N)[None] >= N - 37 * np.arange(B)[:, None]] = 0.0
+    return (_t(T, cuda), _t(src, cuda), _t(tgt, cuda), _t(mask, cuda))
+
+
+def _counts_check(T, src, tgt, m, thr=0.10, pairs=8):
+    """One launch counted, equal to the plain version (run on ``pairs``
+    pairs at a time) in every count, and a second launch equal to the
+    first."""
+    before = _build.launches["seed_hypothesis_counts"]
+    got = seed_hypothesis_counts(T, src, tgt, thr, mask=m)
+    assert _build.launches["seed_hypothesis_counts"] == before + 1
+    assert got.dtype == torch.int32 and got.shape == T.shape[:2]
+    ref = torch.cat([seed_hypothesis_counts_plain(
+        T[b:b + pairs], src[b:b + pairs], tgt[b:b + pairs], thr,
+        mask=None if m is None else m[b:b + pairs])
+        for b in range(0, T.shape[0], pairs)])
+    assert torch.equal(got, ref)
+    assert torch.equal(seed_hypothesis_counts(T, src, tgt, thr, mask=m), got)
+    return got
+
+
+@pytest.mark.parametrize("N", [1, 333, 5000])
+@pytest.mark.parametrize("S", [1, 7, 9, 500])
+def test_scoring_kernel_edges(gen, cuda, S, N):
+    """Seed counts around the kernel's 4 seeds a thread and 512 a block,
+    point counts around its chunks: equal to the plain version in every
+    count, with and without a mask, and the same counts from two
+    launches."""
+    T, src, tgt, m = _scoring_case(gen, cuda, 3, S, N)
+    got = _counts_check(T, src, tgt, m)
+    _counts_check(T, src, tgt, None)
+    if N > 1:
+        assert int(got.max()) > 0
+
+
+def test_scoring_kernel_masked_pair_and_boundary(gen, cuda):
+    """A pair whose points are all masked counts 0; a pair whose points
+    (src and tgt) are all inf counts 0 and leaves its neighbour's counts as
+    they are alone (the pair boundary)."""
+    T, src, tgt, m = _scoring_case(gen, cuda, 3, 100, 333)
+    m[0] = 0.0
+    src[2], tgt[2] = float("inf"), float("inf")
+    got = _counts_check(T, src, tgt, m)
+    assert int(got[0].max()) == 0 and int(got[2].max()) == 0
+    alone = seed_hypothesis_counts(T[1:2], src[1:2], tgt[1:2], 0.10,
+                                   mask=m[1:2])
+    assert torch.equal(got[1:2], alone) and int(alone.max()) > 0
+
+
+def test_scoring_kernel_b64(gen, cuda):
+    """The serving path's shape: 64 pairs of N=5000, S=500."""
+    T, src, tgt, m = _scoring_case(gen, cuda, 64, 500, 5000)
+    _counts_check(T, src, tgt, m)
+
+
+def test_scoring_kernel_misaligned(gen, cuda):
+    """src and tgt starting 4 bytes past a 16-byte boundary (their
+    staging's first and last floats are loaded one at a time), trans 4
+    bytes past one (the wrapper copies it): the same counts."""
+    T, src, tgt, m = _scoring_case(gen, cuda, 2, 60, 333)
+    want = _counts_check(T, src, tgt, m)
+
+    def shifted(x):
+        buf = torch.empty(x.numel() + 1, device=x.device)
+        buf[1:] = x.reshape(-1)
+        return buf[1:].view(x.shape)
+
+    args = [shifted(x) for x in (T, src, tgt)]
+    assert all(a.data_ptr() % 16 == 4 for a in args)
+    assert torch.equal(_counts_check(*args, m), want)
 
 
 _SLICE_LAUNCHES = {

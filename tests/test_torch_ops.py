@@ -439,25 +439,31 @@ def test_seed_knn_topk_matches_pallas_interpret(rng, case, dtype):
         np.testing.assert_array_equal(got[b].numpy(), np.asarray(ref))
 
 
-def _scoring_problem(rng, B=2, S=40, N=300, thr=0.10):
-    src = (rng.rand(B, N, 3) * 3).astype(np.float32)
+def _scoring_problem(rng, B=2, S=40, N=300, thr=0.10, extent=3.0,
+                     turn=0.05, shift=0.05, noise=0.08, edge=1e-4,
+                     centred=False):
+    """Hypotheses turned by ~``turn`` rad about z and shifted by ~``shift``
+    from the identity, src in a cube of side ``extent`` (``centred``: about
+    the origin), tgt = src + ``noise`` gaussian; pair 1's last 50 points
+    masked, and every point within ``edge`` of the threshold under some
+    seed: only the float knife-edge may differ between the residual and
+    the bilinear form."""
+    src = rng.rand(B, N, 3) * extent - (extent / 2 if centred else 0.0)
+    src = src.astype(np.float32)
     T = np.tile(np.eye(4, dtype=np.float32), (B, S, 1, 1))
     for b in range(B):
         for s in range(S):
-            ang = 0.05 * rng.randn(3)
+            ang = turn * rng.randn(3)
             c, sn = np.cos(ang[2]), np.sin(ang[2])
             T[b, s, :3, :3] = np.array([[c, -sn, 0], [sn, c, 0], [0, 0, 1]])
-            T[b, s, :3, 3] = 0.05 * rng.randn(3)
-    tgt = (src + 0.08 * rng.randn(B, N, 3)).astype(np.float32)
+            T[b, s, :3, 3] = shift * rng.randn(3)
+    tgt = (src + noise * rng.randn(B, N, 3)).astype(np.float32)
     mask = np.ones((B, N), np.float32)
-    mask[1, 250:] = 0.0
-    # drop points within 1e-4 of the threshold under any seed: only the
-    # float knife-edge may differ between the residual and bilinear forms
+    mask[1, N - 50:] = 0.0
     res = (np.einsum("bsij,bnj->bsni", T[..., :3, :3].astype(np.float64),
                      src) + T[:, :, None, :3, 3] - tgt[:, None])
     d = np.linalg.norm(res, axis=-1)
-    edge = (np.abs(d - thr) < 1e-4).any(1)
-    mask[edge] = 0.0
+    mask[(np.abs(d - thr) < edge).any(1)] = 0.0
     return T, src, tgt, mask
 
 
@@ -473,6 +479,63 @@ def test_seed_hypothesis_counts_matches_pallas_interpret(rng):
         np.testing.assert_array_equal(got[b].numpy(),
                                       np.asarray(ref).astype(np.int32))
     assert 0 < int(got.max()) < int(mask.sum(-1).max())
+
+
+def test_seed_hypothesis_counts_matches_pallas_interpret_kitti(rng):
+    """KITTI LiDAR scale: coordinates of tens of metres (+-40 m), the 0.6 m
+    threshold. The bilinear form rounds d^2 to ~eps |coords|^2 (~1e-3 m^2
+    here, gmf_tpu/ops/fused_scoring.py:33-45, ~2 mm in d at 0.6 m), so
+    points within 5 mm of the threshold under some seed are masked; every
+    other count equals the Pallas kernel's."""
+    T, src, tgt, mask = _scoring_problem(
+        rng, S=24, thr=0.6, extent=80.0, centred=True, turn=0.002,
+        shift=0.05, noise=0.35, edge=5e-3)
+    assert mask.mean() > 0.6
+    got = seed_hypothesis_counts(_t(T), _t(src), _t(tgt), 0.6, mask=_t(mask))
+    for b in range(T.shape[0]):
+        ref = jscore.seed_hypothesis_counts(
+            jnp.asarray(T[b]), jnp.asarray(src[b]), jnp.asarray(tgt[b]),
+            0.6, mask=jnp.asarray(mask[b]), interpret=True)
+        np.testing.assert_array_equal(got[b].numpy(),
+                                      np.asarray(ref).astype(np.int32))
+    assert 0 < int(got.min()) and int(got.max()) < int(mask.sum(-1).min())
+
+
+@pytest.mark.parametrize("scale", ["3dmatch", "kitti"])
+def test_seed_hypothesis_counts_plain_is_the_kernel_order(rng, scale):
+    """The plain counts are the CUDA kernel's operations, each a rounded
+    f32 operation, in its order: per coordinate ((R0 x + R1 y) + R2 z) + t
+    - u, then (px^2 + py^2) + pz^2, no matrix product, no fused
+    multiply-add. numpy's f32 ufuncs evaluated in that order give the same
+    squared residuals in every bit, and so the same counts."""
+    from gmf_tpu_torch.ops.fused_scoring import seed_residuals_sq_plain
+
+    kitti = scale == "kitti"
+    thr = 0.6 if kitti else 0.10
+    T, src, tgt, mask = _scoring_problem(
+        rng, thr=thr, extent=80.0 if kitti else 3.0, centred=kitti,
+        turn=0.002 if kitti else 0.05, noise=0.35 if kitti else 0.08,
+        edge=0.0)
+    T[0, 0, :3, :3] = 0.0  # a degenerate hypothesis: every point at t0
+    got = seed_residuals_sq_plain(_t(T), _t(src), _t(tgt))
+    assert got.dtype == torch.float32
+    x, y, z = (src[:, None, :, c] for c in range(3))
+
+    def coord(r):
+        R = T[:, :, r, :, None]
+        return ((R[:, :, 0] * x + R[:, :, 1] * y) + R[:, :, 2] * z
+                + R[:, :, 3]) - tgt[:, None, :, r]
+
+    px, py, pz = coord(0), coord(1), coord(2)
+    ref = (px * px + py * py) + pz * pz
+    assert ref.dtype == np.float32
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  ref.view(np.uint32))
+    counts = seed_hypothesis_counts(_t(T), _t(src), _t(tgt), thr,
+                                    mask=_t(mask))
+    want = ((ref < np.float32(thr * thr)) & (mask[:, None] > 0)).sum(-1)
+    np.testing.assert_array_equal(counts.numpy(), want.astype(np.int32))
+    assert 0 < int(counts.max()) < int(mask.sum(-1).max())
 
 
 def _split3(x):
@@ -642,3 +705,57 @@ def test_f32_forward_schedule_keeps_f32_accuracy(rng):
     for worse in (_f32_forward_schedule(*args, terms=3),
                   _f32_forward_schedule(*args, straight=True)):
         assert err(worse) > 2 * f32 and err(worse) > 3 * err(kernel)
+
+
+def _seed_gram_model(f, terms):
+    """The seed solver kernel's Gram (csrc/fused_seed_weights.cu) on the
+    CPU: f [..., k, C] as ``terms`` bf16 terms (3: hi, mid, lo; 1: f is
+    bf16-valued), mma.sync's 16-deep k-steps in order, each step's term
+    products smallest first, every step's exact sum added to the f32
+    accumulator and the result truncated to f32 (the tensor cores'
+    accumulation, as in _wgmma_steps). One term: hi = bf16(f) alone."""
+    parts = _split3(f) if terms == 3 else (f.to(torch.bfloat16).float(),)
+    order = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))[
+        0 if terms == 3 else 5:]
+    acc = torch.zeros(f.shape[:-1] + f.shape[-2:-1])
+    for k0 in range(0, f.shape[-1], 16):
+        for i, j in order:
+            a = parts[i][..., k0:k0 + 16].double()
+            b = parts[j][..., k0:k0 + 16].double()
+            acc = _truncate_f32(acc.double() + a @ b.transpose(-1, -2))
+    return acc
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,k,C", [(24, 40, 128), (12, 17, 32), (6, 128, 48)])
+def test_seed_solver_split_gram_keeps_f32_accuracy(rng, S, k, C, dtype):
+    """The error model behind holding the tensor-core seed solver to 1e-5
+    of fused_seed_weights_plain. f32 features: the three-term split, six
+    products straight into the f32 accumulator, lies within 4x the plain
+    f32 Gram's distance from f64 (measured ~1.9x), and the weights from it
+    (through the plain chain, ``weights_from_gram``) within 1e-5 of the
+    plain version's; the hi term alone lies over 100x farther. bf16
+    features: one term, every product exact in f32."""
+    from gmf_tpu_torch.ops.fused_seed_solver import (fused_seed_weights_plain,
+                                                     weights_from_gram)
+
+    feats, src, tgt = _seed_problem(rng, 1, S, k, C)
+    # neighbourhoods of related features, so that feat_M is not all zero
+    feats = feats + 1.5 * rng.randn(1, S, 1, C).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=-1, keepdims=True)
+    f = _t(feats).to(dtype).float()
+    s, t = _t(src), _t(tgt)
+    exact = f.double() @ f.double().transpose(-1, -2)
+
+    def err(g):
+        return (g.double() - exact).abs().max().item()
+
+    model = _seed_gram_model(f, 3 if dtype == torch.float32 else 1)
+    ref = fused_seed_weights_plain(f.to(dtype), s, t, 1.2, 0.10)
+    got = weights_from_gram(model, s, t, 1.2, 0.10)
+    assert (got - ref).abs().max().item() <= 1e-5
+    assert 0 < ref.max().item()
+    plain = err(f @ f.transpose(-1, -2))
+    assert err(model) <= 4 * plain
+    if dtype == torch.float32:
+        assert err(_seed_gram_model(f, 1)) > 100 * err(model)
