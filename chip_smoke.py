@@ -546,7 +546,8 @@ def seed_solver_phase(rates, feats, src, tgt, knn_idx):
     """Kernel 12 on the neighbourhoods the kNN kernel chose, on features of
     the kNN's dtype (bf16: the served model's; f32): the weights within
     1e-5 of the plain version, the transforms from them within the
-    reference's bounds; timed beside the plain version and the bound."""
+    reference's bounds, f32 also against the chain in f64
+    (solver_f64_check); timed beside the plain version and the bound."""
     from gmf_tpu_torch.geometry.kabsch import rigid_transform_3d
     from gmf_tpu_torch.ops.fused_seed_solver import (
         fused_seed_weights, fused_seed_weights_plain)
@@ -571,6 +572,8 @@ def seed_solver_phase(rates, feats, src, tgt, knn_idx):
     where = f"fused_seed_weights ({feats.dtype}, B={b})"
     if not err <= 1e-5:
         fail(f"{where}: weights differ by {err} > 1e-5")
+    extra = {} if feats.dtype != torch.float32 else dict(
+        vs_f64=solver_f64_check(where, args, got, ref))
 
     def trans(w):
         return rigid_transform_3d(src_knn.reshape(-1, k, 3),
@@ -597,14 +600,39 @@ def seed_solver_phase(rates, feats, src, tgt, knn_idx):
                    reps=10),
         plain_ms=cuda_ms(lambda: fused_seed_weights_plain(
             *args, num_iters=NUM_ITERS), reps=3, warmup=1),
-        bound_ms=bound_ms, bound_by=bound_by)
+        bound_ms=bound_ms, bound_by=bound_by, **extra)
 
 
 def solver_row(rows):
-    """The seed solver's row from its two instances: the bf16 one's keys
-    (the served model's features) and the f32 one's prefixed ``f32_``."""
-    return {**rows[torch.bfloat16],
-            **{f"f32_{k}": v for k, v in rows[torch.float32].items()}}
+    """The seed solver's row from its two instances: the f32 one's keys
+    (the instance this row has timed since the port began) and the bf16
+    one's (the served model's features) prefixed ``bf16_``."""
+    return {**rows[torch.float32],
+            **{f"bf16_{k}": v for k, v in rows[torch.bfloat16].items()}}
+
+
+def solver_f64_check(where, args, got, ref):
+    """The f32 instance's weights and the plain version's against the
+    chain in f64 on the same inputs (weights_from_gram on the f64 Gram and
+    keypoints). The kernel must lie within twice the plain f32 version's
+    distance. 1e-5 of the plain version does not tell the three-term split
+    from its hi term alone; this does (the CPU model,
+    tests/test_torch_ops.py::test_seed_solver_split_gram_keeps_f32_accuracy:
+    the split 0.6-1.4x the plain distance, the hi term over 1000x)."""
+    from gmf_tpu_torch.ops.fused_seed_solver import weights_from_gram
+
+    feats, src_knn, tgt_knn, sigma, sigma_d = args
+    f = feats.double()
+    exact = weights_from_gram(f @ f.transpose(-1, -2), src_knn.double(),
+                              tgt_knn.double(), sigma, sigma_d,
+                              num_iters=NUM_ITERS)
+    del f
+    kernel = (got.double() - exact).abs().max().item()
+    plain = (ref.double() - exact).abs().max().item()
+    if not kernel <= 2 * plain:
+        fail(f"{where}: weights {kernel} from the f64 chain, more than "
+             f"twice the plain f32 version's {plain}")
+    return dict(kernel=kernel, plain=plain, limit=2 * plain)
 
 
 def perturbed_hypotheses(gt_trans, dev, s=S):
@@ -2119,28 +2147,50 @@ def winning_correspondences(model, out):
     return model.register_forward_hook(hook, with_kwargs=True)
 
 
-def bf16_slice_check(dev, request):
-    """Phase 5, the serving dtype: bf16 modules with the int8 cache, the
-    card through the kernels against the CPU through the plain versions,
-    same weights, the f32 slices' pairs. The two round bf16 apart (cuBLAS
-    and the CPU's kernels; the kernels within 2 ulps of their plain
-    versions), so their confidences, and with them the seeds, may differ.
-    A pair whose winning seed is the same correspondence on both is held
-    to the f32 slices' bounds (final_trans 1e-3, labels >= 0.99); the
-    others are counted, and at least half the pairs must be held."""
+def bf16_request(dev, request):
+    """The bf16 int8-cache request that bf16_slice_check and
+    bf16_seed_stage_check read, run once on the card (kernels) and once on
+    the CPU (plain versions, a deepcopy of the same weights). Per side:
+    the model, its results, the correspondence whose seed won each pair
+    (winning_correspondences), the forward's inputs, mask and output and
+    the encoder's output (hooks); and the seconds the two runs took."""
     from gmf_tpu_torch.eval.registration import PointDSCRegistrar
 
     reg16 = make_registrar(dev, torch.bfloat16, compat_cache="int8")
-    cpu_model = copy.deepcopy(reg16.model).to("cpu")
-    won, won_cpu = [], []
-    hooks = [winning_correspondences(reg16.model, won),
-             winning_correspondences(cpu_model, won_cpu)]
+    runs = {"card": dict(model=reg16.model, won=[]),
+            "cpu": dict(model=copy.deepcopy(reg16.model).to("cpu"), won=[])}
+    hooks = []
+    for run in runs.values():
+        model = run["model"]
+        hooks += [winning_correspondences(model, run["won"]),
+                  model.register_forward_hook(
+                      lambda mod, args, kwargs, out, run=run: run.update(
+                          args=args, mask=kwargs["corr_mask"], out=out),
+                      with_kwargs=True),
+                  model.encoder.register_forward_hook(
+                      lambda mod, args, out, run=run: run.update(enc=out))]
     t0 = time.perf_counter()
-    got = reg16.register_batch(request)
-    ref = PointDSCRegistrar(cpu_model, buckets=(N,)).register_batch(request)
+    runs["card"]["results"] = reg16.register_batch(request)
+    runs["cpu"]["results"] = PointDSCRegistrar(
+        runs["cpu"]["model"], buckets=(N,)).register_batch(request)
     seconds = time.perf_counter() - t0
     for h in hooks:
         h.remove()
+    return runs, seconds
+
+
+def bf16_slice_check(request, runs, seconds):
+    """Phase 5, the serving dtype: bf16 modules with the int8 cache, the
+    card through the kernels against the CPU through the plain versions,
+    same weights, the f32 slices' pairs (bf16_request's runs). The two
+    round bf16 apart (cuBLAS and the CPU's kernels; the kernels within 2
+    ulps of their plain versions), so their confidences, and with them the
+    seeds, may differ. A pair whose winning seed is the same
+    correspondence on both is held to the f32 slices' bounds (final_trans
+    1e-3, labels >= 0.99); the others are counted, and at least half the
+    pairs must be held."""
+    got, ref = runs["card"]["results"], runs["cpu"]["results"]
+    won, won_cpu = runs["card"]["won"], runs["cpu"]["won"]
     held = [i for i in range(len(request)) if won[i] == won_cpu[i]]
     trans_err = max((float(np.abs(got[i][0] - ref[i][0]).max())
                      for i in held), default=0.0)
@@ -2168,60 +2218,50 @@ def bf16_ulps(a, b):
     return (a - b).abs() / ulp
 
 
-def bf16_seed_stage_check(dev, request):
-    """Phase 5: where the bf16 int8-cache request of bf16_slice_check parts
-    on the card from the CPU. The request runs on the card (kernels) and on
-    the CPU (plain versions), same weights, the encoder outputs and the
-    models' inputs captured by hooks. The card's seed stage is then run
-    again step by step from its own encoder output (PointDSC's seed-stage
-    methods; it must reproduce the card's forward), and every step is run
-    on the CPU from the card's own inputs to it: NMS from the card's
-    confidence, the kNN from the card's seeds and normalised features, the
-    seed transforms from the card's neighbourhoods, the counts from the
-    card's seed transforms, the winner from the card's counts. One line a
-    step. The card's bf16 encoder must lie no farther from the f32 encoder
-    (the same weights, on the CPU) than 1.5x the CPU's bf16 encoder, the
-    bound tests/test_torch_model_bf16.py holds the port to against
-    gmf_tpu. A step whose inputs are equal on both devices and that runs a
-    kernel of the port must agree with its plain version: the seeds on
-    every pair, the kNN's chosen scores within 1e-5, the counts exactly,
-    the winners on every pair. Last, the CPU's seed stage chained from the
-    card's encoder output (its features and confidence) must pick the
-    card's winning correspondence on every pair."""
-    from gmf_tpu_torch.eval.registration import PointDSCRegistrar
+# how much farther than the CPU's bf16 encoder the card's may lie from the
+# f32 encoder of the same weights, in its largest and in its mean distance
+# (measured 0.987x in the largest and 1.004x in the mean, H100 80GB HBM3)
+ENCODER_FROM_F32_LIMIT = 1.1
 
-    reg16 = make_registrar(dev, torch.bfloat16, compat_cache="int8")
-    models = {"card": reg16.model,
-              "cpu": copy.deepcopy(reg16.model).to("cpu"),
-              # the same weights in f32: the encoder both bf16 runs round
-              # away from
-              "cpu32": copy.deepcopy(reg16.model).to("cpu", torch.float32)}
-    cap = {}
-    hooks = []
-    for side, model in models.items():
-        hooks.append(model.register_forward_hook(
-            lambda mod, args, kwargs, out, side=side: cap.update(
-                {side: (args, kwargs["corr_mask"], out)}), with_kwargs=True))
-        hooks.append(model.encoder.register_forward_hook(
-            lambda mod, args, out, side=side: cap.update(
-                {side + "_enc": out})))
+
+def bf16_seed_stage_check(runs):
+    """Phase 5: where the bf16 int8-cache request of bf16_slice_check
+    (bf16_request's runs) parts on the card from the CPU. The card's seed
+    stage is run again step by step from its own encoder output
+    (PointDSC's seed-stage methods; it must reproduce the card's forward),
+    and every step is run on the CPU from the card's own inputs to it: NMS
+    from the card's confidence, the kNN from the card's seeds and
+    normalised features, the seed transforms from the card's
+    neighbourhoods, the counts and fitness from the card's seed
+    transforms. One line a step. The card's bf16 encoder must lie no
+    farther from the f32 encoder (the same weights, on the CPU, on the
+    CPU run's inputs) than ENCODER_FROM_F32_LIMIT times the CPU's bf16
+    encoder, in the largest and in the mean distance. A step whose inputs
+    are equal on both devices and that runs a kernel of the port must
+    agree with its plain version: the seeds on every pair, the kNN's
+    chosen scores within 1e-5, the counts exactly, the winners on every
+    pair. Last, the CPU's seed stage chained from the card's encoder
+    output (its features and confidence) must pick the card's winning
+    correspondence on every pair."""
+    card, cpu = runs["card"]["model"], runs["cpu"]["model"]
     t0 = time.perf_counter()
-    reg16.register_batch(request)
-    for side in ("cpu", "cpu32"):
-        PointDSCRegistrar(models[side], buckets=(N,)).register_batch(request)
-    for h in hooks:
-        h.remove()
-    args, mask, out = cap["card"]
-    src, tgt = args[1].float(), args[2].float()
-    feats = cap["card_enc"]
-    pairs = len(request)
-    card, cpu = models["card"], models["cpu"]
+    src, tgt = (x.float() for x in runs["card"]["args"][1:3])
+    mask, out, feats = (runs["card"][k] for k in ("mask", "out", "enc"))
+    cpu_args, cpu_mask, cpu_out = (runs["cpu"][k]
+                                   for k in ("args", "mask", "out"))
+    pairs = src.shape[0]
 
     def c(x):
         return x.cpu()
 
     stages = {}
     with torch.inference_mode():
+        # the f32 encoder of the same weights, on the CPU run's inputs
+        cpu32 = copy.deepcopy(cpu).to("cpu", torch.float32)
+        enc32 = cpu32._encode(cpu_args[0], cpu_args[1].float(),
+                              cpu_args[2].float(), cpu_args[3], cpu_args[4],
+                              cpu_mask.float(), True)
+        del cpu32
         # the card, step by step from its encoder output
         normed, sigma, conf = card._seed_features(feats)
         seeds = card._pick_seeds(src, conf, mask)
@@ -2237,15 +2277,13 @@ def bf16_seed_stage_check(dev, request):
         valid = c(mask) > 0
 
         # 1. the encoder: the two devices end to end
-        cpu_args, cpu_mask, cpu_out = cap["cpu"]
-        enc = bf16_ulps(c(feats), cap["cpu_enc"])[valid]
-        diff = (c(feats).float() - cap["cpu_enc"].float()).abs()[valid]
-        scale = cap["cpu32_enc"].abs()[valid].max().item()
+        enc = bf16_ulps(c(feats), runs["cpu"]["enc"])[valid]
+        diff = (c(feats).float() - runs["cpu"]["enc"].float()).abs()[valid]
+        scale = enc32.abs()[valid].max().item()
         # each bf16 encoder's distance from the f32 one (same weights)
-        from_f32 = {side: (cap[side + "_enc"].float().cpu()
-                           - cap["cpu32_enc"]).abs()[valid].max().item()
-                    for side in ("card", "cpu")}
-        c_normed, _, c_conf = cpu._seed_features(c(feats))
+        from_f32 = {side: (runs[side]["enc"].float().cpu() - enc32).abs()[
+            valid] for side in ("card", "cpu")}
+        c_normed, c_sigma, c_conf = cpu._seed_features(c(feats))
         stages["encoder"] = dict(
             feats_max_ulps=enc.max().item(),
             feats_median_ulps=enc.median().item(),
@@ -2253,13 +2291,15 @@ def bf16_seed_stage_check(dev, request):
             feats_max_abs_diff=diff.max().item(),
             feats_max_abs_diff_in_ulps_at_scale=diff.max().item()
             / bf16_ulp(scale),
-            card_from_f32=from_f32["card"], cpu_from_f32=from_f32["cpu"],
+            **{f"{side}_from_f32_{stat}": getattr(d, stat)().item()
+               for side, d in from_f32.items() for stat in ("max", "mean")},
             confidence_max_abs_diff=(c(conf) - cpu_out["confidence"]).abs()
             .max().item(),
             from_card_feats_confidence_max_abs_diff=(c_conf - c(conf)).abs()
             .max().item(),
             from_card_feats_normed_max_ulps=bf16_ulps(c_normed, c(normed))[
                 valid].max().item())
+        del enc, diff, from_f32, enc32
         # 2. NMS from the card's confidence
         c_seeds = cpu._pick_seeds(c(src), c(conf), c(mask))
         stages["nms"] = dict(seeds_equal_pairs=int(
@@ -2280,13 +2320,16 @@ def bf16_seed_stage_check(dev, request):
                                         c(knn), True)
         stages["seed_trans"] = dict(
             max_abs_diff=(c_strans - c(strans)).abs().max().item())
-        # 5. the counts from the card's seed transforms; 6. the winner
+        # 5. the counts and fitness from the card's seed transforms; 6. the
+        # winner: the argmax of that fitness against the card's
         c_counts, c_fit = cpu._seed_fitness(c(strans), c(src), c(tgt),
                                             c(mask))
         stages["counts"] = dict(
             max_abs_diff=(c_counts - c(counts)).abs().max().item())
-        stages["winner"] = dict(equal_pairs=int(
-            (c_fit.argmax(-1) == c(best)).sum()))
+        stages["winner"] = dict(
+            fitness_max_abs_diff=(c_fit.float() - c(fit).float()).abs()
+            .max().item(),
+            equal_pairs=int((c_fit.argmax(-1) == c(best)).sum()))
         # 7. end to end: the card's winner among the CPU's seeds tied at the
         # CPU's largest fitness
         e_seeds = cpu._pick_seeds(cpu_args[1].float(), cpu_out["confidence"],
@@ -2304,33 +2347,32 @@ def bf16_seed_stage_check(dev, request):
                 ((e_seeds == win[:, None]) & tied).any(-1).sum()),
             cpu_tied_seeds=tied.sum(-1).tolist())
         # the hold: the CPU's seed stage chained from the card's encoder
-        # output
-        h_normed, h_sigma, _ = cpu._seed_features(c(feats))
-        h_seeds = cpu._pick_seeds(c(src), c(conf), c(mask))
-        h_knn = cpu._seed_knn(h_seeds, h_normed, c(mask))
-        h_strans = cpu._seed_transforms(h_normed, h_sigma, c(src), c(tgt),
+        # output (step 1's features, step 2's seeds)
+        h_knn = cpu._seed_knn(c_seeds, c_normed, c(mask))
+        h_strans = cpu._seed_transforms(c_normed, c_sigma, c(src), c(tgt),
                                         h_knn, True)
         _, h_fit = cpu._seed_fitness(h_strans, c(src), c(tgt), c(mask))
-        h_win = h_seeds.gather(1, h_fit.argmax(-1)[:, None])[:, 0]
+        h_win = c_seeds.gather(1, h_fit.argmax(-1)[:, None])[:, 0]
         stages["hold"] = dict(same_winner_pairs=int((h_win == win).sum()))
     seconds = time.perf_counter() - t0
 
+    e = stages["encoder"]
+    limit = ENCODER_FROM_F32_LIMIT
     lines = (
         ("1 encoder", "card vs CPU end to end: features up to "
-         f"{stages['encoder']['feats_max_ulps']:.0f} bf16 ulps apart "
-         f"(median {stages['encoder']['feats_median_ulps']:.0f}, share "
-         f"apart {stages['encoder']['feats_share_apart']:.4f}; max |d| "
-         f"{stages['encoder']['feats_max_abs_diff']:.3e}, "
-         f"{stages['encoder']['feats_max_abs_diff_in_ulps_at_scale']:.1f} "
-         "ulps at the features' scale); from the f32 encoder (same "
-         f"weights) the card's {stages['encoder']['card_from_f32']:.3e}, "
-         f"the CPU's {stages['encoder']['cpu_from_f32']:.3e} (limit 1.5x "
-         "the CPU's); confidence max |d| "
-         f"{stages['encoder']['confidence_max_abs_diff']:.3e}; from the "
+         f"{e['feats_max_ulps']:.0f} bf16 ulps apart (median "
+         f"{e['feats_median_ulps']:.0f}, share apart "
+         f"{e['feats_share_apart']:.4f}; max |d| "
+         f"{e['feats_max_abs_diff']:.3e}, "
+         f"{e['feats_max_abs_diff_in_ulps_at_scale']:.1f} ulps at the "
+         "features' scale); from the f32 encoder (same weights) the card's "
+         f"max {e['card_from_f32_max']:.4e} mean {e['card_from_f32_mean']:.4e}"
+         f", the CPU's max {e['cpu_from_f32_max']:.4e} mean "
+         f"{e['cpu_from_f32_mean']:.4e} (limit {limit}x the CPU's); "
+         f"confidence max |d| {e['confidence_max_abs_diff']:.3e}; from the "
          "card's features the CPU's confidence max |d| "
-         f"{stages['encoder']['from_card_feats_confidence_max_abs_diff']:.3e}"
-         ", normalised features "
-         f"{stages['encoder']['from_card_feats_normed_max_ulps']:.0f} ulps"),
+         f"{e['from_card_feats_confidence_max_abs_diff']:.3e}, normalised "
+         f"features {e['from_card_feats_normed_max_ulps']:.0f} ulps"),
         ("2 NMS", "from the card's confidence: seeds equal on "
          f"{stages['nms']['seeds_equal_pairs']} of {pairs} pairs"),
         ("3 kNN", "from the card's seeds and normalised features: index "
@@ -2341,7 +2383,9 @@ def bf16_seed_stage_check(dev, request):
          f"{stages['seed_trans']['max_abs_diff']:.3e}"),
         ("5 counts", "from the card's seed_trans: max |d| "
          f"{stages['counts']['max_abs_diff']} (limit 0)"),
-        ("6 winners", "from the card's counts: equal on "
+        ("6 winners", "the CPU's fitness from step 5's counts against the "
+         "card's: max |d| "
+         f"{stages['winner']['fitness_max_abs_diff']}, argmax equal on "
          f"{stages['winner']['equal_pairs']} of {pairs} pairs"),
         ("7 end to end", "NMS seeds shared "
          f"{stages['end_to_end']['seed_overlap']:.4f}, the card's winner "
@@ -2356,9 +2400,10 @@ def bf16_seed_stage_check(dev, request):
          f"{pairs} pairs (limit {pairs})"))
     for tag, text in lines:
         print(f"bf16 seed stage {tag}: {text}", flush=True)
-    if from_f32["card"] > 1.5 * from_f32["cpu"]:
-        fail("bf16 seed stages: the card's bf16 encoder lies farther from "
-             "the f32 encoder than 1.5x the CPU's")
+    for stat in ("max", "mean"):
+        if e[f"card_from_f32_{stat}"] > limit * e[f"cpu_from_f32_{stat}"]:
+            fail(f"bf16 seed stages: the card's bf16 encoder lies farther "
+                 f"from the f32 encoder ({stat}) than {limit}x the CPU's")
     if stages["nms"]["seeds_equal_pairs"] != pairs:
         fail("bf16 seed stages: NMS picks other seeds from the same "
              "confidence")
@@ -2494,9 +2539,11 @@ def main():
     # versions on the CPU
     torch.set_num_threads(8)
     slices = [f32_slice_check(dev, requests8[0], "int8"),
-              f32_slice_check(dev, requests8[0], "off"),
-              bf16_slice_check(dev, requests8[0])]
-    seed_stages = bf16_seed_stage_check(dev, requests8[0])
+              f32_slice_check(dev, requests8[0], "off")]
+    bf16_runs = bf16_request(dev, requests8[0])
+    slices.append(bf16_slice_check(requests8[0], *bf16_runs))
+    seed_stages = bf16_seed_stage_check(bf16_runs[0])
+    del bf16_runs
     train_checks = [train_cpu_check(dev, "auto"), train_cpu_check(dev, "off")]
 
     # 6. the training command line

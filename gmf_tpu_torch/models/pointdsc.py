@@ -295,12 +295,8 @@ class PointDSC(nn.Module):
         src = src_keypts.float()
         tgt = tgt_keypts.float()
         mask = None if corr_mask is None else corr_mask.float()
-        with torch.no_grad():  # compat is data, as in the reference
-            cache, build_cache = self._build_compat_cache(src, tgt, testing)
-        feats = self.encoder(corr_pos.to(self.dtype), p_image.to(self.dtype),
-                             q_image.to(self.dtype), mask, src, tgt,
-                             compat_cache=cache, build_cache=build_cache)
-        del cache
+        feats = self._encode(corr_pos, src, tgt, p_image, q_image, mask,
+                             testing)
         normed, sigma, confidence = self._seed_features(feats)
 
         M = None
@@ -327,6 +323,15 @@ class PointDSC(nn.Module):
             "seed_fitness": seed_fitness,
             "confidence": confidence,
         }
+
+    def _encode(self, corr_pos, src, tgt, p_image, q_image, mask, testing):
+        """The encoder's output [B, N, C] in the modules' dtype, with this
+        request's compat cache (src, tgt f32; mask f32 or None)."""
+        with torch.no_grad():  # compat is data, as in the reference
+            cache, build_cache = self._build_compat_cache(src, tgt, testing)
+        return self.encoder(corr_pos.to(self.dtype), p_image.to(self.dtype),
+                            q_image.to(self.dtype), mask, src, tgt,
+                            compat_cache=cache, build_cache=build_cache)
 
     def _build_compat_cache(self, src, tgt, testing: bool = True):
         """Resolve ``compat_cache`` for this request: ``(cache,

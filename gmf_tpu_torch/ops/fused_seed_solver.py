@@ -48,10 +48,12 @@ def fused_seed_weights_plain(knn_features, src_knn, tgt_knn, sigma,
 def weights_from_gram(gram, src_knn, tgt_knn, sigma, sigma_d: float,
                       num_iters: int = 10):
     """The plain chain from the features' Gram [..., k, k] on: feat_M,
-    spatial_M, M, the fixed-count iteration and the sum normalisation."""
-    src_knn, tgt_knn = src_knn.float(), tgt_knn.float()
+    spatial_M, M, the fixed-count iteration and the sum normalisation. In
+    f32, or in f64 all through for an f64 Gram (an exact reference)."""
+    dtype = torch.promote_types(gram.dtype, torch.float32)
+    src_knn, tgt_knn = src_knn.to(dtype), tgt_knn.to(dtype)
     k = gram.shape[-1]
-    sig = _as_sigma(sigma, gram.device)
+    sig = _as_sigma(sigma, gram.device).to(dtype)
     feat_M = torch.clamp(1.0 - (1.0 - gram) / sig ** 2, min=0.0)
     src_d = torch.linalg.vector_norm(
         src_knn[..., :, None, :] - src_knn[..., None, :, :], dim=-1)

@@ -734,8 +734,12 @@ def test_seed_solver_split_gram_keeps_f32_accuracy(rng, S, k, C, dtype):
     products straight into the f32 accumulator, lies within 4x the plain
     f32 Gram's distance from f64 (measured ~1.9x), and the weights from it
     (through the plain chain, ``weights_from_gram``) within 1e-5 of the
-    plain version's; the hi term alone lies over 100x farther. bf16
-    features: one term, every product exact in f32."""
+    plain version's and within twice the plain version's distance from the
+    chain in f64; the hi term alone lies over 100x farther, in its Gram and
+    in its weights (measured 1400-5000x; 1e-5 of the plain weights does not
+    tell it apart: 0.85-1.1e-5 at k = 128), which is why chip_smoke.py
+    holds the kernel's f32 instance to the f64 chain too. bf16 features:
+    one term, every product exact in f32."""
     from gmf_tpu_torch.ops.fused_seed_solver import (fused_seed_weights_plain,
                                                      weights_from_gram)
 
@@ -757,5 +761,15 @@ def test_seed_solver_split_gram_keeps_f32_accuracy(rng, S, k, C, dtype):
     assert 0 < ref.max().item()
     plain = err(f @ f.transpose(-1, -2))
     assert err(model) <= 4 * plain
+    exact_w = weights_from_gram(exact, s.double(), t.double(), 1.2, 0.10)
+
+    def err_w(w):
+        return (w.double() - exact_w).abs().max().item()
+
+    assert exact_w.dtype == torch.float64
+    assert err_w(got) <= 2 * err_w(ref)
     if dtype == torch.float32:
-        assert err(_seed_gram_model(f, 1)) > 100 * err(model)
+        one_term = _seed_gram_model(f, 1)
+        assert err(one_term) > 100 * err(model)
+        assert err_w(weights_from_gram(one_term, s, t, 1.2, 0.10)) > \
+            100 * err_w(ref)
