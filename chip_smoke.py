@@ -15,8 +15,12 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
    compat cache in f32, bf16 and int8. The int8 cache of the build+attend
    kernel, of the standalone cache kernel and of the plain version must agree
    in every byte, and the build+attend output must equal the cached
-   kernel's on that cache. Then the five kernels of the main path once
-   more at that path's B=64 (bf16 attention, every pair with its own
+   kernel's on that cache. Every standalone cache must also equal its
+   transpose, hold zeros in its pad columns and come out the same from a
+   second launch (cache_checks); its bound counts the unordered pairs,
+   the bound over all entries beside it (cache_bound). Then the five
+   kernels of the main path once more at that path's B=64 (bf16
+   attention, every pair with its own
    count of valid rows), with the same limits, their plain versions run
    in slices of 8 pairs; NMS at both sizes timed (its call, its sort and
    its scan) beside its plain version and the bound of the work NMS needs
@@ -48,7 +52,8 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
    forward (output and the lse they write; the f32 ones timed beside
    their bound and held to twice the plain f32 version's distance from
    the attention in f64), the standalone cache of each type (every
-   byte), kNN and counts at S=100 seeds, each against its plain version with the limits
+   byte, its transpose, zero pads, two launches equal; timed), kNN and
+   counts at S=100 seeds, each against its plain version with the limits
    above. Then the
    attention-variant microbenchmark (variants_phase): the four instances
    of compat_flash_variants.cu (v0, v1, v3, v6) against their plain
@@ -59,7 +64,7 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
    just before it and read just after it; and one layer of each
    variant's kernel on the benchmark's own input (64 x 5000, q = k = v)
    against its plain version run in slices of 8 pairs, with the limits
-   above, v4 and v5's caches every byte.
+   above, v4 and v5's caches every byte (and cache_checks), timed.
 4. Serve register_batch requests through PointDSCRegistrar at full width
    (12 layers, 128 channels, k=40, ratio 0.1, 120x160 images, bucket 5000;
    bf16 modules, f32 geometry). Launch counts are reset just before each
@@ -390,17 +395,48 @@ def attention_bound(rates, dtype, cache_dtype=None, build=False, b=B, n=N):
 
 
 def cache_bound(rates, cdt, b=B, n=N):
-    """(bound_ms, bound_by) of the standalone cache of ``cdt`` at [b, n]:
-    the keypoints read, the cache written; per (i, j) 20 ALU and 3 SFU
-    ops (two-sqrt form, f32 and bf16) or 26 and 2 (one-sqrt int8 code)."""
+    """Bounds of the standalone cache of ``cdt`` at [b, n]: the keypoints
+    read, the cache written; per (i, j) 20 ALU and 3 SFU ops (two-sqrt
+    form, f32 and bf16) or 26 and 2 (one-sqrt int8 code). The cache is
+    symmetric, so its work is the b n (n + 1) / 2 unordered pairs:
+    {bound_ms, bound_by} over those, and the bound over all b n^2 entries
+    beside it ({bound_all_entries_ms, bound_all_entries_by})."""
     from gmf_tpu_torch.ops.fused_attention import cache_row_stride
 
     two_sqrt = cdt != torch.int8
     esize = torch.empty((), dtype=cdt).element_size()
-    return rates.bound(
-        b * n * cache_row_stride(n, cdt) * esize + b * n * 6 * 4,
-        {"alu": (20 if two_sqrt else 26) * b * n * n / rates.alu,
-         "sfu": (3 if two_sqrt else 2) * b * n * n / rates.sfu})
+    nbytes = b * n * cache_row_stride(n, cdt) * esize + b * n * 6 * 4
+    alu, sfu = (20, 3) if two_sqrt else (26, 2)
+    out = {}
+    for tag, entries in (("", b * n * (n + 1) / 2),
+                         ("_all_entries", b * n * n)):
+        ms, by = rates.bound(nbytes, {"alu": alu * entries / rates.alu,
+                                      "sfu": sfu * entries / rates.sfu})
+        out.update({f"bound{tag}_ms": ms, f"bound{tag}_by": by})
+    return out
+
+
+def cache_checks(where, got, ref, rebuild):
+    """The standalone cache ``got`` of [b, n] pairs against ``ref``, its
+    plain version (None: the caller holds it), in every byte; equal to its
+    transpose over [:n, :n] (the kernel computes each tile pair once and
+    stores the tile and its transpose); pad columns 0; ``rebuild()`` (a
+    second launch) the same bytes. Checked in slices of B pairs."""
+    n = got.shape[1]
+    for s0 in range(0, got.shape[0], B):
+        c = got[s0:s0 + B]
+        if ref is not None and not torch.equal(c, ref[s0:s0 + B]):
+            diff = (c.float() - ref[s0:s0 + B].float()).abs()
+            fail(f"build_compat_cache {where}: differs from its plain "
+                 f"version on {(diff > 0).float().mean().item():.2e} of "
+                 f"the entries, by at most {diff.max().item()}")
+        if not torch.equal(c[:, :, :n], c[:, :, :n].transpose(1, 2)):
+            fail(f"build_compat_cache {where}: not equal to its transpose")
+    if got[:, :, n:].any():
+        fail(f"build_compat_cache {where}: a pad column is not 0")
+    again = rebuild()
+    if not torch.equal(again, got):
+        fail(f"build_compat_cache {where}: two launches differ")
 
 
 def attention_tol(ref, dtype):
@@ -429,28 +465,24 @@ def attention_phase(dev, rates, gen, src, tgt, mask):
     caches, cache_row = {}, {}
     for cdt in (i8, bf16, f32):
         got = build_compat_cache(src, tgt, 0.10, cdt)
-        ref = build_compat_cache_plain(src, tgt, 0.10, cdt)
-        if not torch.equal(got, ref):
-            diff = (got.float() - ref.float()).abs()
-            fail(f"build_compat_cache {names[cdt]}: differs from its plain "
-                 f"version on {(diff > 0).float().mean().item():.2e} of the "
-                 f"entries, by at most {diff.max().item()}")
-        del ref
+        cache_checks(f"{names[cdt]} at B={B}, N={N}", got,
+                     build_compat_cache_plain(src, tgt, 0.10, cdt),
+                     lambda: build_compat_cache(src, tgt, 0.10, cdt))
         caches[cdt] = got
-        bound_ms, bound_by = cache_bound(rates, cdt)
         cache_row[cdt] = dict(
             ms=cuda_ms(lambda: build_compat_cache(src, tgt, 0.10, cdt),
                        reps=5),
             plain_ms=cuda_ms(lambda: build_compat_cache_plain(
                 src, tgt, 0.10, cdt), reps=2, warmup=1),
-            bound_ms=bound_ms, bound_by=bound_by)
+            **cache_bound(rates, cdt))
         torch.cuda.empty_cache()
     rows["build_compat_cache"] = dict(
         dtype="f32", max_abs_err=0.0, tolerance=0.0, **cache_row[f32],
         **{f"{names[c]}_{k}": v for c in (bf16, i8)
            for k, v in cache_row[c].items()},
         int8_share_above_minus127=(caches[i8][:, :, :N] > -127).float()
-        .mean().item())
+        .mean().item(),
+        symmetric_pads_zero_two_launches_equal=True)
 
     # -- kernels 1, 5, 6 in f32 and bf16 ------------------------------------
     att = {name: {} for name in ("compat_flash_attention",
@@ -1333,7 +1365,9 @@ def backward_phase(dev, rates):
     N=1000, D=128 with the last 10% of pair 0 masked: kernels 2, 3, 7 and
     8 against the plain backward; kernels 1 and 6 (output and lse) against
     the plain forward; kernel 4's cache of each type against its plain
-    version in every byte; kNN and counts at S=100 seeds, k=40 with
+    version in every byte, to its transpose, to zero pads and to a second
+    launch (``cache_checks``), and timed; kNN and counts at S=100 seeds,
+    k=40 with
     kernel_phase's limits. Attention in f32 and bf16, the cached kernels
     on each cache type. The backward kernels get the same out and lse as
     the plain backward. Limits: forward outputs as in kernel_phase
@@ -1366,7 +1400,7 @@ def backward_phase(dev, rates):
     seed_errs, seed_rows = seed_kernels_check(
         f"B={b}, N={n}", gen, prob["gt_trans"], src, tgt, mask, S_TRAIN,
         [slice(0, b)], rates)
-    res = {}
+    res, cache_rows = {}, {}
     for dtype in (f32, bf16):
         q, k, v, do = (torch.randn(b, n, D, generator=gen, device=dev)
                        .to(dtype) for _ in range(4))
@@ -1381,10 +1415,15 @@ def backward_phase(dev, rates):
                     q, k, v, src, tgt, mask, return_lse=True)
                 compat = _stream_compat_plain(src, tgt, 0.10)
             else:
-                if dtype == f32 and not torch.equal(
-                        cache, build_compat_cache_plain(src, tgt, 0.10, cdt)):
-                    fail(f"build_compat_cache {names[cdt]} at B={b}, N={n}: "
-                         "differs from its plain version")
+                if dtype == f32:
+                    cache_checks(
+                        f"{names[cdt]} at B={b}, N={n}", cache,
+                        build_compat_cache_plain(src, tgt, 0.10, cdt),
+                        lambda: build_compat_cache(src, tgt, 0.10, cdt))
+                    cache_rows[cdt] = dict(
+                        ms=cuda_ms(lambda: build_compat_cache(
+                            src, tgt, 0.10, cdt), reps=20),
+                        **cache_bound(rates, cdt, b, n))
                 out, lse = _cached_forward(q, k, v, cache, mask, True)
                 ref_out, ref_lse = compat_attention_cached_plain(
                     q, k, v, cache, mask, return_lse=True)
@@ -1528,7 +1567,11 @@ def backward_phase(dev, rates):
                                            for t in bf16_tags),
             b16_n1000_lse_max_abs_err=r["lse_err"],
             b16_n1000_p_sum_err=r["psum_err"])
-    extra["build_compat_cache"] = dict(b16_n1000_equal_to_plain=True)
+    extra["build_compat_cache"] = dict(
+        b16_n1000_equal_to_plain=True,
+        b16_n1000_symmetric_pads_zero_two_launches_equal=True,
+        **{f"b16_n1000_{names[c]}_{k}": v for c, r in cache_rows.items()
+           for k, v in r.items()})
     for (kernel, stream), name in BWD_KERNELS.items():
         grads = ("dk", "dv") if kernel == "dkv" else ("dq",)
         extra[name] = dict(
@@ -1571,25 +1614,31 @@ def variant_bound(rates, variant, b, n, dtype=torch.bfloat16):
 def precompute_row(rates, cdt, src, tgt, slices, cache):
     """The standalone cache of ``cdt`` (kernel 4, the microbenchmark's
     precompute) that the kernel built from ``src`` and ``tgt``, held
-    against its plain version on each slice of pairs in every byte, as
-    kernel_phase holds it; the plain version's time and the bound at that
-    shape."""
-    from gmf_tpu_torch.ops.fused_attention import build_compat_cache_plain
+    against its plain version on each slice of pairs in every byte, to its
+    transpose, its pad columns to 0 and a second launch to the same bytes
+    (``cache_checks``); its time (CUDA events, this script's own) and the
+    plain version's, the bounds at that shape."""
+    from gmf_tpu_torch.ops.fused_attention import (build_compat_cache,
+                                                   build_compat_cache_plain)
 
     def plain():
         return [build_compat_cache_plain(src[sl], tgt[sl], 0.10, cdt)
                 for sl in slices]
 
+    b, n, _ = src.shape
     for sl, ref in zip(slices, plain()):
         if not torch.equal(cache[sl], ref):
-            fail(f"build_compat_cache {cdt} at B={src.shape[0]}, pairs "
+            fail(f"build_compat_cache {cdt} at B={b}, pairs "
                  f"{sl.start}..{sl.stop - 1}: differs from its plain "
                  "version")
         del ref
-    b, n, _ = src.shape
-    bound_ms, bound_by = cache_bound(rates, cdt, b, n)
-    return dict(precompute_plain_ms=cuda_ms(plain, reps=1, warmup=0),
-                precompute_bound_ms=bound_ms, precompute_bound_by=bound_by)
+    cache_checks(f"{cdt} at B={b}", cache, None,
+                 lambda: build_compat_cache(src, tgt, 0.10, cdt))
+    return dict(precompute_kernel_ms=cuda_ms(
+        lambda: build_compat_cache(src, tgt, 0.10, cdt), reps=5),
+        precompute_plain_ms=cuda_ms(plain, reps=1, warmup=0),
+        **{f"precompute_{k}": v
+           for k, v in cache_bound(rates, cdt, b, n).items()})
 
 
 def variants_phase(dev, rates):
@@ -1761,7 +1810,16 @@ def variants_phase(dev, rates):
              "compat_flash_attention_cached": {
                  f"bench_{v}_b64_max_abs_err": summary[v]["max_abs_err"]
                  for v in CACHE_DTYPES},
-             "build_compat_cache": {"bench_b64_bf16_f32_max_abs_err": 0.0}}
+             "build_compat_cache": {
+                 "bench_b64_bf16_f32_max_abs_err": 0.0,
+                 "b64_symmetric_pads_zero_two_launches_equal": True,
+                 **{f"b64_{names[CACHE_DTYPES[v]]}_{key}": summary[v][k]
+                    for v in CACHE_DTYPES
+                    for key, k in (("ms", "precompute_kernel_ms"),
+                                   ("bound_ms", "precompute_bound_ms"),
+                                   ("bound_by", "precompute_bound_by"),
+                                   ("bound_all_entries_ms",
+                                    "precompute_bound_all_entries_ms"))}}}
     return rows, out, extra
 
 

@@ -67,7 +67,6 @@
 
 namespace {
 
-constexpr int THREADS = 256;  // the standalone cache's threads per block
 constexpr float MASKED = -1e9f;
 
 enum class Compat {
@@ -189,26 +188,6 @@ __device__ __forceinline__ float compat_stream(const float* a, const float* b,
 // code / 254 + 0.5 as one FMA (127 / 254 is exactly 0.5)
 __device__ __forceinline__ float dequant_i8(float code) {
   return fmaf(code, 1.f / 254.f, 0.5f);
-}
-
-// ---- 4 neighbouring cache entries per store ----------------------------
-
-__device__ __forceinline__ void store4(float* p, const float (&c)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(c[0], c[1], c[2], c[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&c)[4]) {
-  uint2 raw;
-  raw.x = (uint32_t)__bfloat16_as_ushort(__float2bfloat16(c[0])) |
-          ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(c[1])) << 16);
-  raw.y = (uint32_t)__bfloat16_as_ushort(__float2bfloat16(c[2])) |
-          ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(c[3])) << 16);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
-// c holds integral codes in [-127, 127]
-__device__ __forceinline__ void store4(int8_t* p, const float (&c)[4]) {
-  *reinterpret_cast<char4*>(p) = make_char4(
-      (signed char)(int)c[0], (signed char)(int)c[1], (signed char)(int)c[2],
-      (signed char)(int)c[3]);
 }
 
 // ---- the bf16 instances: products on the tensor cores --------------------

@@ -117,6 +117,53 @@ def test_build_compat_cache_kernel(gen, cuda, dtype, extent):
         ).mean() < 1.0  # the problem is not all-zero compat
 
 
+def _cache_checks(got, ref, N):
+    """Every byte equal to the plain version's, equal to its transpose over
+    [:N, :N] (the kernel computes each tile pair once and stores the tile
+    and its transpose), pad columns 0."""
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    assert torch.equal(got, ref)
+    assert torch.equal(got[:, :, :N], got[:, :, :N].transpose(1, 2))
+    assert not got[:, :, N:].any()
+
+
+@pytest.mark.parametrize("extent", [2.5, 120.0])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("N", [1, 2, 63, 64, 65, 127, 128, 129, 333, 1000])
+def test_build_compat_cache_kernel_edges(gen, cuda, N, dtype, B, extent):
+    """Around the 64-entry tiles (a lone diagonal tile, ragged last row and
+    column tiles, pad columns in the last column tile): every byte against
+    the plain version, symmetric, pads 0, two launches equal, one launch
+    counted per call."""
+    src = gen.rand(B, N, 3).astype(np.float32) * extent
+    tgt = src + 0.02 * extent * gen.randn(B, N, 3).astype(np.float32)
+    tgt[:, ::3] = gen.rand(B, (N + 2) // 3, 3).astype(np.float32) * extent
+    src, tgt = _t(src, cuda), _t(tgt, cuda)
+    sigma_d = 0.10 if extent < 10 else 1.2
+    before = _build.launches["build_compat_cache"]
+    got = build_compat_cache(src, tgt, sigma_d, dtype)
+    again = build_compat_cache(src, tgt, sigma_d, dtype)
+    assert _build.launches["build_compat_cache"] == before + 2
+    _cache_checks(got, build_compat_cache_plain(src, tgt, sigma_d, dtype), N)
+    assert torch.equal(got, again)
+
+
+def test_build_compat_cache_pair_boundary(gen, cuda):
+    """Pair 0 (N = 333) next to a pair whose keypoints are all inf: its
+    last tiles must not read them, so pair 0's cache equals its plain
+    cache computed alone, in each type."""
+    N = 333
+    src = gen.rand(2, N, 3).astype(np.float32) * 2.5
+    tgt = src + 0.02 * gen.randn(2, N, 3).astype(np.float32)
+    src[1], tgt[1] = np.inf, np.inf
+    src, tgt = _t(src, cuda), _t(tgt, cuda)
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        got = build_compat_cache(src, tgt, 0.10, dtype)
+        _cache_checks(got[:1], build_compat_cache_plain(src[:1], tgt[:1],
+                                                        0.10, dtype), N)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [32, 128])
 def test_build_attend_kernel(gen, cuda, dtype, D):

@@ -171,6 +171,35 @@ def test_build_compat_cache_int8_kitti_extents(rng):
         assert low <= gap <= high, (extent, gap)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("extent", [2.5, 120.0])
+def test_compat_cache_is_exactly_symmetric(rng, extent, dtype):
+    """The cache kernel computes each tile pair (I, J), I <= J, once and
+    stores the tile at (I, J) and its transpose at (J, I). That rests on
+    c(i, j) == c(j, i) bit for bit: a - b is exactly -(b - a), so the
+    squares and sums run on the same values in the same order. Held here
+    on the plain version, which rounds every operation as the kernel does,
+    at N = 333 (no multiple of a tile) and at metre and 120 m extents
+    (sigma_d 0.10 / 1.2). A third of the points keep their place (tgt =
+    src) and a third are mirrored (tgt = -src): pairs within either group
+    have ds2 == dt2 exactly, where the one-sqrt int8 form's clamp at 0
+    decides."""
+    B, N = 2, 333
+    src = (rng.rand(B, N, 3) * extent).astype(np.float32)
+    tgt = (src + 0.01 * extent * rng.randn(B, N, 3)).astype(np.float32)
+    tgt[:, :111] = src[:, :111]
+    tgt[:, 111:222] = -src[:, 111:222]
+    sigma_d = 0.10 if extent < 10 else 1.2
+    cache = build_compat_cache(_t(src), _t(tgt), sigma_d, dtype)
+    c = cache[:, :, :N]
+    assert torch.equal(c, c.transpose(1, 2))
+    assert not cache[:, :, N:].any()
+    ds2 = ((src[:, :, None] - src[:, None]) ** 2).sum(-1)
+    dt2 = ((tgt[:, :, None] - tgt[:, None]) ** 2).sum(-1)
+    assert (ds2 == dt2).mean() > 0.2  # the equal-distance pairs are there
+    assert 0.02 < (c.float() > c.float().min()).float().mean() < 1.0
+
+
 def test_build_attend_matches_pallas_interpret(rng):
     """Cache equal to the port's own standalone int8 cache, and at most 1
     code from gmf_tpu's build kernel's on at most 2e-3 of the entries (XLA's
