@@ -77,7 +77,18 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
    - compat_cache="off" at 8 pairs (12 streaming launches);
    - compat_cache="int8" with seed_solver="fused" at 8 pairs (1 solver
      launch), its transforms held against seed_solver="xla" on every pair
-     where the same seed won.
+     where the same seed won;
+   - fused_attention=False at 8 pairs (dense_b8), the reference's dense
+     path: the [8, 5000, 5000] f32 compat and dense attention in every
+     layer, dense NMS; no attention or NMS launch, one of kNN and counts.
+   Then the raw-descriptor path (raw_b16): 2 requests of 16 pairs drawn
+   from 8 synthetic fragments of 5000 keypoints with 32-d unit
+   descriptors, matched on the card in the model's call, through
+   dispatch_batch/fetch_batch and a DeviceFragmentCache (int8 cache, bf16
+   modules; the main path's launches a forward): cache hits on the second
+   request, the transforms equal to register_batch's on the same pairs
+   without the cache, and the matched rows equal to build_correspondences
+   on the host.
    Then train through Trainer.train_step at the reference's 3DMatch
    configuration (16 pairs of N=1000 per step, 120x160 images, the same
    full-width model, f32, Adam), counts reset before each path:
@@ -87,11 +98,16 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
      of kNN and counts;
    - compat_cache="off": 12 each of the streaming forward and its two
      backward kernels per step; compat_cache="int8": the cached kernels
-     on int8 codes. Every step applied, every loss finite.
+     on int8 codes;
+   - fused_attention=False (train_dense), the reference's default
+     training: 5 steps, no attention kernel, one of kNN (f32) and counts
+     a step. Every step applied, every loss finite.
 5. Serve one request of 8 pairs with f32 modules on the card through the
    kernels and on the CPU through the plain versions, with the same
    weights and inputs, and compare final transforms and labels: with the
-   int8 cache and with compat_cache="off". The same request with bf16
+   int8 cache and with compat_cache="off" (these two at CUT_LAYERS = 2
+   layers), and on the dense path (fused_attention=False, 12 layers).
+   The same request with bf16
    modules and the int8 cache, the serving path's numerics, held on the
    pairs where the same correspondence's seed won on both (the two
    devices round bf16 apart; bf16_slice_check). Then where that request
@@ -103,15 +119,18 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
    version, and the CPU's seed stage from the card's encoder output held
    to the card's winner on every pair. Take one f32 train step of 16
    pairs of N=1000 on the card and on the CPU, same weights and batch,
-   "auto" and "off": the loss and each parameter's gradient against the
-   same step in f64 on the CPU, within the CPU tests' bound on that
+   "auto", "off" (at CUT_LAYERS = 2 layers) and the dense path: the loss
+   and each parameter's gradient against the same step in f64 on the
+   CPU, within the CPU tests' bound on that
    parameter's own scale or twice the CPU's own f32 error there, and the
    new parameters against Adam's update from the card's gradient
    (compare_train_step; scripts/check_train_faults.py shows that planted
    backward faults fail it).
-6. Run the training command line once (synthetic data, one epoch of two
-   steps).
-7. Print a JSON line with every path's time per request or step, a JSON
+6. Run the training command line twice (synthetic data, one epoch of two
+   steps): without --fused (dense attention, the reference's default) and
+   with it; each snapshot's config must record the mode.
+7. Print the seconds of each phase as it ends, a JSON line with every
+   path's time per request or step, a JSON
    line with every kernel's launches, time, plain time, bound and error,
    and, as the last line, {"ok": true, "device": {...}}.
 
@@ -140,6 +159,13 @@ from gmf_tpu_torch.ops.fused_topk import KERNELS as KNN_KERNELS
 
 B, N, N_VALID0, D, S, K1 = 8, 5000, 4000, 128, 500, 41
 B_MAIN = 64  # pairs per request on the main path (the bench default)
+# the depth of three CPU checks of earlier paths (the f32 slices with the
+# int8 cache and "off", the "off" train step), cut from 12 layers to keep
+# the run's time as the dense and raw paths' checks joined it; the bf16
+# int8 request, the dense slice and the "auto" and dense train steps stay
+# at full depth. At 2 layers every kernel of those paths still runs
+# (build+attend then cached; streaming forward and backward)
+CUT_LAYERS = 2
 IMAGE_HW = (120, 160)
 SEED = 0
 SEED_SIGMA = 1.2  # feature sigma of the seed-solver check (learned, ~1)
@@ -209,7 +235,21 @@ PATHS = {
                     per_forward={"compat_flash_attention_build": 1,
                                  "compat_flash_attention_cached": 11,
                                  **_COMMON}),
+    # the reference's dense path: the [B, N, N] compat and dense attention
+    # (no attention kernel), dense NMS; the kNN and counts kernels
+    "dense_b8": dict(compat_cache="auto", seed_solver="auto", pairs=B,
+                     fused_attention=False,
+                     per_forward={KNN_KERNELS[torch.bfloat16]: 1,
+                                  "seed_hypothesis_counts": 1}),
 }
+# the raw-descriptor path (raw_path): requests of RAW_PAIRS pairs drawn
+# from RAW_FRAGMENTS fragments of RAW_POINTS keypoints with RAW_DESC-d unit
+# descriptors, matched on the card, through a DeviceFragmentCache, with the
+# int8 cache and bf16 modules: the serving main path's launches a forward
+RAW_PAIRS, RAW_REQUESTS, RAW_FRAGMENTS, RAW_POINTS, RAW_DESC = 16, 2, 8, \
+    N, 32
+RAW_SCENE = 6000  # the scene points the fragments are drawn from
+RAW_PER_FORWARD = PATHS["int8_b64"]["per_forward"]
 # training (the reference's 3DMatch configuration at full width, f32):
 # pairs per step, correspondences per pair, the image size
 B_TRAIN, N_TRAIN = 16, 1000
@@ -230,6 +270,10 @@ TRAIN_PATHS = {
                                 **_TRAIN_COMMON}),
     "train_int8": dict(compat_cache="int8", steps=2, cache=torch.int8,
                        per_step=_CACHED_STEP),
+    # the reference's default training: dense attention, no attention
+    # kernel, the f32 kNN and the counts kernels
+    "train_dense": dict(compat_cache="auto", fused_attention=False, steps=5,
+                        cache=None, per_step=_TRAIN_COMMON),
 }
 # the path whose run gives each kernel's launch count in the result
 KERNEL_PATH = {
@@ -1824,18 +1868,20 @@ def variants_phase(dev, rates):
 
 
 def make_trainer(dev, compat_cache, batch_size=B_TRAIN, steps=1,
-                 num_corr=N_TRAIN):
+                 num_corr=N_TRAIN, fused_attention=True, num_layers=12):
     """The reference's 3DMatch training configuration at full width (12
-    layers, 128 channels, k=40, ratio 0.1, sigma_d 0.10, 120x160 images),
-    f32, random weights from SEED, behind the port's Trainer on synthetic
-    batches of ``batch_size`` pairs of ``num_corr`` correspondences."""
+    layers unless ``num_layers`` cuts the depth, 128 channels, k=40,
+    ratio 0.1, sigma_d 0.10, 120x160 images), f32, random weights from
+    SEED, behind the port's Trainer on synthetic batches of
+    ``batch_size`` pairs of ``num_corr`` correspondences."""
     from gmf_tpu_torch.data.synthetic import SyntheticCorrespondenceLoader
     from gmf_tpu_torch.models import PointDSC
     from gmf_tpu_torch.train.trainer import TrainConfig, Trainer
 
-    model = PointDSC(num_layers=12, num_channels=128, k=40, ratio=0.1,
-                     sigma_d=0.10, compat_cache=compat_cache,
-                     dtype=torch.float32, device=dev, seed=SEED)
+    model = PointDSC(num_layers=num_layers, num_channels=128, k=40,
+                     ratio=0.1, sigma_d=0.10, compat_cache=compat_cache,
+                     fused_attention=fused_attention, dtype=torch.float32,
+                     device=dev, seed=SEED)
     loader = SyntheticCorrespondenceLoader(
         batch_size=batch_size, num_corr=num_corr, steps_per_epoch=steps,
         image_hw=IMAGE_HW, seed=SEED)
@@ -1851,7 +1897,9 @@ def train_path(name, dev):
     from gmf_tpu_torch.ops import _build
 
     spec = TRAIN_PATHS[name]
-    trainer = make_trainer(dev, spec["compat_cache"], steps=spec["steps"])
+    fused = spec.get("fused_attention", True)
+    trainer = make_trainer(dev, spec["compat_cache"], steps=spec["steps"],
+                           fused_attention=fused)
     caches = []
     hook = trainer.model.encoder.register_forward_pre_hook(
         lambda mod, args, kwargs: caches.append(
@@ -1883,7 +1931,7 @@ def train_path(name, dev):
             fail(f"path {name}: a step was skipped or its loss is not "
                  f"finite: {m}")
     timed = times[2:] if len(times) > 2 else times[1:]
-    out = dict(compat_cache=spec["compat_cache"],
+    out = dict(compat_cache=spec["compat_cache"], fused_attention=fused,
                cache_type=str(spec["cache"]), steps=len(batches),
                pairs_per_step=B_TRAIN, num_corr=N_TRAIN, launches=launches,
                launches_per_step=spec["per_step"],
@@ -2007,63 +2055,86 @@ def compare_train_step(model, batch, cpu_runs):
         cpu_step_seconds={k: r[2] for k, r in cpu_runs.items()})
 
 
-def train_cpu_check(dev, compat_cache, pairs=B_TRAIN):
+def train_cpu_check(dev, compat_cache, pairs=B_TRAIN, fused_attention=True,
+                    num_layers=12):
     """One f32 train step with the same weights and batch on the card
     (kernels) and on the CPU (plain versions) at the training main shape,
-    full width and depth, held to compare_train_step's bounds."""
-    gpu = make_trainer(dev, compat_cache, batch_size=pairs)
+    full width and (unless ``num_layers`` cuts it) depth, held to
+    compare_train_step's bounds. With ``fused_attention=False`` the dense
+    path on both (the card's kernels there: kNN and counts)."""
+    gpu = make_trainer(dev, compat_cache, batch_size=pairs,
+                       fused_attention=fused_attention,
+                       num_layers=num_layers)
     batch = next(iter(gpu.train_loader))
     cpu_runs = cpu_reference_steps(gpu.model, batch, compat_cache)
-    out = dict(compat_cache=compat_cache, pairs=pairs, num_corr=N_TRAIN,
+    mode = (f"compat_cache={compat_cache}" if fused_attention
+            else "dense attention") + f", {num_layers} layers"
+    out = dict(compat_cache=compat_cache, fused_attention=fused_attention,
+               pairs=pairs, num_corr=N_TRAIN, num_layers=num_layers,
                **compare_train_step(gpu.model, batch, cpu_runs))
-    print(f"f32 train step, compat_cache={compat_cache}, kernels (card) vs "
-          f"plain (CPU, f64): {json.dumps(out)}", flush=True)
+    print(f"f32 train step, {mode}, kernels (card) vs plain (CPU, f64): "
+          f"{json.dumps(out)}", flush=True)
     if not out["ok"]:
-        fail(f"f32 train step (compat_cache={compat_cache}) through the "
-             "kernels disagrees with the plain versions")
+        fail(f"f32 train step ({mode}) through the kernels disagrees with "
+             "the plain versions")
     del gpu, cpu_runs
     torch.cuda.empty_cache()
     return out
 
 
 def cli_phase():
-    """The training command line once on the card: synthetic data, one
-    epoch of two steps, full width; it must exit 0 and leave its
-    snapshots."""
+    """The training command line on the card, synthetic data, one epoch of
+    two steps, full width: without --fused (dense attention, the
+    reference's default) and with it (the attention kernels). Each must
+    exit 0 and leave its snapshots, whose config records the mode."""
     import os
     import tempfile
 
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        r = subprocess.run(
-            [sys.executable, "-m", "gmf_tpu_torch.train.train_pointdsc",
-             "--dataset", "synthetic", "--max-epoch", "1",
-             "--steps-per-epoch", "2", "--save-dir", tmp],
-            capture_output=True, text=True, timeout=600)
-        seconds = time.perf_counter() - t0
-        if r.returncode != 0:
-            fail(f"train_pointdsc exited {r.returncode}:\n{r.stdout}\n"
-                 f"{r.stderr[-4000:]}")
-        if not os.path.exists(os.path.join(tmp, "model_best", "state.pt")):
-            fail("train_pointdsc left no model_best snapshot")
-    last = r.stdout.strip().splitlines()[-1]
-    print(f"train_pointdsc on the card in {seconds:.1f} s: {last}",
-          flush=True)
-    return dict(seconds=seconds, last_line=last)
+    runs = {}
+    for fused in (False, True):
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "gmf_tpu_torch.train.train_pointdsc",
+                 "--dataset", "synthetic", "--max-epoch", "1",
+                 "--steps-per-epoch", "2", "--save-dir", tmp]
+                + (["--fused"] if fused else []),
+                capture_output=True, text=True, timeout=600)
+            seconds = time.perf_counter() - t0
+            flag = " --fused" if fused else ""
+            if r.returncode != 0:
+                fail(f"train_pointdsc{flag} exited {r.returncode}:\n"
+                     f"{r.stdout}\n{r.stderr[-4000:]}")
+            snap = os.path.join(tmp, "model_best")
+            if not os.path.exists(os.path.join(snap, "state.pt")):
+                fail(f"train_pointdsc{flag} left no model_best snapshot")
+            with open(os.path.join(snap, "config.json")) as f:
+                recorded = json.load(f)["model"]["fused_attention"]
+            if recorded is not fused:
+                fail(f"train_pointdsc{flag} recorded fused_attention="
+                     f"{recorded}")
+        last = r.stdout.strip().splitlines()[-1]
+        print(f"train_pointdsc{flag} on the card in {seconds:.1f} s: {last}",
+              flush=True)
+        runs["fused" if fused else "dense"] = dict(seconds=seconds,
+                                                   last_line=last)
+    return runs
 
 
 def make_registrar(dev, dtype=torch.bfloat16, compat_cache="int8",
-                   seed_solver="auto", num_corr=N):
-    """A model at full width and depth (12 layers; random weights from
-    SEED, the same in every mode) behind a registrar with the one bucket
-    ``num_corr``."""
+                   seed_solver="auto", num_corr=N, fused_attention=True,
+                   num_layers=12):
+    """A model at full width and depth (12 layers unless ``num_layers``
+    cuts it; random weights from SEED, the same in every mode) behind a
+    registrar with the one bucket ``num_corr``."""
     from gmf_tpu_torch.eval.registration import PointDSCRegistrar
     from gmf_tpu_torch.models import PointDSC
 
-    model = PointDSC(num_layers=12, num_channels=128, k=40,
+    model = PointDSC(num_layers=num_layers, num_channels=128, k=40,
                      ratio=0.1, compat_cache=compat_cache,
-                     seed_solver=seed_solver, dtype=dtype, device=dev,
-                     seed=SEED)
+                     seed_solver=seed_solver,
+                     fused_attention=fused_attention, dtype=dtype,
+                     device=dev, seed=SEED)
     return PointDSCRegistrar(model, buckets=(num_corr,))
 
 
@@ -2104,8 +2175,10 @@ def serve_path(name, dev, requests, timed=True):
     from gmf_tpu_torch.ops import _build
 
     spec = PATHS[name]
+    fused = spec.get("fused_attention", True)
     reg = make_registrar(dev, compat_cache=spec["compat_cache"],
-                         seed_solver=spec["seed_solver"])
+                         seed_solver=spec["seed_solver"],
+                         fused_attention=fused)
     winners = []
     hook = reg.model.register_forward_hook(
         lambda mod, args, out: winners.append(dict(
@@ -2141,7 +2214,7 @@ def serve_path(name, dev, requests, timed=True):
     if ok < 0.9 * len(rot):
         fail(f"path {name}: registration recall {ok}/{len(rot)}")
     out = dict(compat_cache=spec["compat_cache"],
-               seed_solver=spec["seed_solver"],
+               seed_solver=spec["seed_solver"], fused_attention=fused,
                pairs_per_request=spec["pairs"], requests=len(requests),
                launches=launches, recall=f"{ok}/{len(rot)}",
                median_rot_err_deg=float(np.median(rot)),
@@ -2162,14 +2235,172 @@ def serve_path(name, dev, requests, timed=True):
     return out, results, winners
 
 
-def f32_slice_check(dev, request, compat_cache):
+def make_fragments():
+    """RAW_FRAGMENTS fragments of one synthetic scene of RAW_SCENE points:
+    each RAW_POINTS of them, in the fragment's own frame (world = pose x)
+    with 5 mm noise, with the scene point's RAW_DESC-d unit descriptor
+    plus noise, normalised, and an image each."""
+    from gmf_tpu_torch.geometry.se3 import random_rotation_matrix
+
+    rng = np.random.RandomState(SEED)
+    world = rng.rand(RAW_SCENE, 3) * 3.0
+    desc = rng.randn(RAW_SCENE, RAW_DESC)
+    frags = []
+    for _ in range(RAW_FRAGMENTS):
+        idx = rng.choice(RAW_SCENE, RAW_POINTS, replace=False)
+        pose = np.eye(4)
+        pose[:3, :3] = random_rotation_matrix(3, 1.0, rng)
+        pose[:3, 3] = rng.rand(3)
+        pts = (world[idx] - pose[:3, 3]) @ pose[:3, :3]
+        d = desc[idx] + 0.1 * rng.randn(RAW_POINTS, RAW_DESC)
+        frags.append(dict(
+            keypts=(pts + 0.005 * rng.randn(RAW_POINTS, 3)).astype(
+                np.float32),
+            desc=(d / np.linalg.norm(d, axis=1, keepdims=True)).astype(
+                np.float32),
+            image=rng.rand(*IMAGE_HW, 3).astype(np.float32), pose=pose))
+    return frags
+
+
+def raw_samples(frags, pairs, keys=True):
+    """Raw-descriptor samples of fragment pairs (i, j), fresh dicts (a
+    fetch rewrites them), with fragment keys for the cache."""
+    out = []
+    for i, j in pairs:
+        a, b = frags[i], frags[j]
+        s = dict(src_keypts=a["keypts"].copy(), tgt_keypts=b["keypts"].copy(),
+                 src_desc=a["desc"], tgt_desc=b["desc"], p_image=a["image"],
+                 q_image=b["image"], gt_trans=(np.linalg.inv(b["pose"])
+                                               @ a["pose"]).astype(
+                                                   np.float32))
+        if keys:
+            s.update(src_key=i, tgt_key=j)
+        out.append(s)
+    return out
+
+
+def raw_path(dev):
+    """The raw-descriptor path: RAW_REQUESTS requests of RAW_PAIRS pairs
+    drawn from the fragments, through dispatch_batch/fetch_batch of a
+    registrar with a DeviceFragmentCache (int8 cache, bf16 modules), the
+    launch counts reset just before and read just after. Fails on a wrong
+    launch count, no cache hit on the second request, a transform other
+    than register_batch's on the same pairs without the cache, matched
+    rows other than build_correspondences' on the host (the fragments'
+    real rows: every row, 5000 points in a bucket of 5000), or a
+    registration recall under 0.9."""
+    from gmf_tpu_torch.data.correspondence import build_correspondences
+    from gmf_tpu_torch.eval.registration import DeviceFragmentCache
+    from gmf_tpu_torch.ops import _build
+
+    frags = make_fragments()
+    rng = np.random.RandomState(SEED + 1)
+    every = [(i, j) for i in range(RAW_FRAGMENTS)
+             for j in range(RAW_FRAGMENTS) if i != j]
+    picked = rng.choice(len(every), RAW_PAIRS * RAW_REQUESTS, replace=False)
+    pairs = [[every[p] for p in picked[r * RAW_PAIRS:(r + 1) * RAW_PAIRS]]
+             for r in range(RAW_REQUESTS)]
+    reg = make_registrar(dev, torch.bfloat16, compat_cache="int8")
+    reg.frag_cache = cache = DeviceFragmentCache()
+    requests = [raw_samples(frags, p) for p in pairs]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    results, per_request = [], []
+    for req in requests:
+        t0 = time.perf_counter()
+        handle = reg.dispatch_batch(req)
+        t1 = time.perf_counter()
+        results.append(reg.fetch_batch(handle))
+        t2 = time.perf_counter()
+        per_request.append(dict(dispatch_ms=1e3 * (t1 - t0),
+                                fetch_ms=1e3 * (t2 - t1),
+                                cache_hits=cache.hits,
+                                cache_misses=cache.misses))
+    launches = {k: _build.launches[k] for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    for k in KERNELS:
+        want = RAW_PER_FORWARD.get(k, 0) * len(requests)
+        if launches[k] != want:
+            fail(f"path raw_b16: {k} launched {launches[k]} times, expected "
+                 f"{want}")
+    if per_request[-1]["cache_hits"] <= per_request[0]["cache_hits"]:
+        fail(f"path raw_b16: no fragment cache hit on the second request "
+             f"({per_request})")
+    # the same pairs through register_batch without the cache
+    reg.frag_cache = None
+    trans_diff, label_diff = 0.0, 0
+    for p, res in zip(pairs, results):
+        ref = reg.register_batch(raw_samples(frags, p, keys=False))
+        for (t, lab), (t_ref, lab_ref) in zip(res, ref):
+            trans_diff = max(trans_diff, float(np.abs(t - t_ref).max()))
+            label_diff += int((lab != lab_ref).sum())
+    # the matched rows against the host builder, and the registration
+    rows_differ, kept, rot, trn, ok = 0, [], [], [], 0
+    for p, req, res in zip(pairs, requests, results):
+        for (i, j), s, (trans, labels) in zip(p, req, res):
+            host = build_correspondences(
+                frags[i]["keypts"], frags[j]["keypts"], frags[i]["desc"],
+                frags[j]["desc"], s["gt_trans"], 0.10, use_mutual=True,
+                in_dim=6)
+            rows_differ += sum(
+                host[k].shape != s[k].shape
+                or not np.array_equal(host[k], s[k])
+                for k in ("src_keypts", "tgt_keypts", "labels"))
+            kept.append(len(s["labels"]))
+            if labels.shape != (len(s["labels"]),):
+                fail("path raw_b16: labels of the wrong length")
+            if trans.shape != (4, 4) or not np.isfinite(trans).all():
+                fail("path raw_b16: non-finite or misshapen transform")
+            re_ = rot_err_deg(trans, s["gt_trans"])
+            te = float(np.linalg.norm(trans[:3, 3] - s["gt_trans"][:3, 3]))
+            rot.append(re_)
+            trn.append(te)
+            ok += re_ < 15.0 and te < 0.30
+    out = dict(compat_cache="int8", dtype="bf16",
+               pairs_per_request=RAW_PAIRS, requests=len(requests),
+               fragments=RAW_FRAGMENTS, keypoints=RAW_POINTS,
+               desc_dim=RAW_DESC, launches=launches,
+               per_request=per_request,
+               ms_per_request=float(np.mean(
+                   [r["dispatch_ms"] + r["fetch_ms"] for r in per_request])),
+               cache_entries=len(cache), cache_bytes=cache.nbytes,
+               vs_register_batch_max_trans_diff=trans_diff,
+               vs_register_batch_label_diffs=label_diff,
+               vs_host_builder_fields_differ=rows_differ,
+               matched_rows_min=min(kept), matched_rows_max=max(kept),
+               recall=f"{ok}/{len(rot)}",
+               median_rot_err_deg=float(np.median(rot)),
+               median_trans_err_m=float(np.median(trn)),
+               peak_memory_bytes=peak)
+    print("path raw_b16: " + json.dumps(
+        {k: v for k, v in out.items() if k != "launches"}), flush=True)
+    if trans_diff != 0.0 or label_diff:
+        fail("path raw_b16: the cached requests differ from register_batch "
+             "on the same pairs")
+    if rows_differ:
+        fail("path raw_b16: matched rows differ from build_correspondences "
+             "on the host")
+    if ok < 0.9 * len(rot):
+        fail(f"path raw_b16: registration recall {ok}/{len(rot)}")
+    del reg, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def f32_slice_check(dev, request, compat_cache, fused_attention=True,
+                    num_layers=12):
     """Phase 5: f32 modules, the card through the kernels against the CPU
     through the plain versions. Bounds of the CPU parity tests
     (tests/test_torch_model.py, tests/test_fused_model.py): final_trans
-    atol 1e-3, labels >= 0.99."""
+    atol 1e-3, labels >= 0.99. ``fused_attention=False``: the dense path
+    on both (dense attention and NMS; kNN and counts kernels on the
+    card)."""
     from gmf_tpu_torch.eval.registration import PointDSCRegistrar
 
-    reg32 = make_registrar(dev, torch.float32, compat_cache=compat_cache)
+    reg32 = make_registrar(dev, torch.float32, compat_cache=compat_cache,
+                           fused_attention=fused_attention,
+                           num_layers=num_layers)
     cpu_model = copy.deepcopy(reg32.model).to("cpu")
     t0 = time.perf_counter()
     got = reg32.register_batch(request)
@@ -2177,13 +2408,16 @@ def f32_slice_check(dev, request, compat_cache):
     seconds = time.perf_counter() - t0
     trans_err = [float(np.abs(g[0] - r[0]).max()) for g, r in zip(got, ref)]
     agree = [float((g[1] == r[1]).mean()) for g, r in zip(got, ref)]
-    print(f"f32 slice, compat_cache={compat_cache}, kernels (card) vs "
-          f"plain (CPU), {seconds:.1f} s: max |dT| per "
-          f"pair {trans_err}, label agreement {agree}", flush=True)
+    mode = (f"compat_cache={compat_cache}" if fused_attention
+            else "dense attention") + f", {num_layers} layers"
+    print(f"f32 slice, {mode}, kernels (card) vs plain (CPU), "
+          f"{seconds:.1f} s: max |dT| per pair {trans_err}, label "
+          f"agreement {agree}", flush=True)
     if max(trans_err) > 1e-3 or min(agree) < 0.99:
-        fail(f"f32 slice (compat_cache={compat_cache}) through the kernels "
-             "disagrees with the plain versions")
-    return dict(compat_cache=compat_cache, max_trans_err=max(trans_err),
+        fail(f"f32 slice ({mode}) through the kernels disagrees with the "
+             "plain versions")
+    return dict(compat_cache=compat_cache, fused_attention=fused_attention,
+                num_layers=num_layers, max_trans_err=max(trans_err),
                 min_label_agreement=min(agree),
                 seconds=seconds)
 
@@ -2497,13 +2731,22 @@ def main():
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
 
+    # the seconds each phase took, in the order they ran
+    phase_s, mark = {}, [time.perf_counter()]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        phase_s[name] = now - mark[0]
+        mark[0] = now
+        print(f"phase {name} in {phase_s[name]:.1f} s", flush=True)
+
     # 2. build
     t0 = time.perf_counter()
     _build.build(verbose=True)
     _build.load()
     build_s = time.perf_counter() - t0
     print(f"kernels built in {build_s:.1f} s", flush=True)
-
+    phase_done("build")
     # 3. kernels vs plain
     rows = kernel_phase(dev, rates)
     torch.cuda.empty_cache()
@@ -2518,15 +2761,18 @@ def main():
         rows[name].update({f"b{B_MAIN}_{k}": v for k, v in row.items()
                            if k != "tolerance"})
     torch.cuda.empty_cache()
+    phase_done("kernels")
     core = core_phase(dev)
     core32 = core_phase(dev, torch.float32)
     print("kernel checks passed", flush=True)
+    phase_done("core")
 
     rows_bwd, train_extra = backward_phase(dev, rates)
     rows.update(rows_bwd)
     for name, extra in train_extra.items():
         rows[name].update(extra)
     torch.cuda.empty_cache()
+    phase_done("backward")
 
     # 3b. the attention variants and their microbenchmark
     t0 = time.perf_counter()
@@ -2547,6 +2793,7 @@ def main():
         rows[VARIANT_KERNELS[variant]]["f32_core_checks"] = {
             variant: core32[variant]}
     torch.cuda.empty_cache()
+    phase_done("variants")
 
     # 4. the served paths at full width; the main path first
     paths, results, winners = {"bench_flash_variants": variants}, {}, {}
@@ -2588,24 +2835,38 @@ def main():
         fail("seed_solver='fused' and 'xla' chose different seeds on more "
              "than a quarter of the pairs")
     del results, winners
+    phase_done("serve")
+    paths["raw_b16"] = raw_path(dev)
+    phase_done("raw_b16")
 
     # 4b. training at the 3DMatch configuration; the main path first
     for name in TRAIN_PATHS:
         paths[name] = train_path(name, dev)
+    phase_done("train")
 
     # 5. f32 slice and f32 train step: kernels on the card vs plain
     # versions on the CPU
     torch.set_num_threads(8)
-    slices = [f32_slice_check(dev, requests8[0], "int8"),
-              f32_slice_check(dev, requests8[0], "off")]
+    slices = [f32_slice_check(dev, requests8[0], "int8",
+                              num_layers=CUT_LAYERS),
+              f32_slice_check(dev, requests8[0], "off",
+                              num_layers=CUT_LAYERS),
+              f32_slice_check(dev, requests8[0], "auto",
+                              fused_attention=False)]
+    phase_done("f32_slices")
     bf16_runs = bf16_request(dev, requests8[0])
     slices.append(bf16_slice_check(requests8[0], *bf16_runs))
     seed_stages = bf16_seed_stage_check(bf16_runs[0])
     del bf16_runs
-    train_checks = [train_cpu_check(dev, "auto"), train_cpu_check(dev, "off")]
+    phase_done("bf16_request")
+    train_checks = [train_cpu_check(dev, "auto"),
+                    train_cpu_check(dev, "off", num_layers=CUT_LAYERS),
+                    train_cpu_check(dev, "auto", fused_attention=False)]
+    phase_done("train_checks")
 
     # 6. the training command line
     cli = cli_phase()
+    phase_done("cli")
 
     kernels = []
     for name in KERNELS:
@@ -2645,7 +2906,7 @@ def main():
              "peak_memory_bytes": main_path["peak_memory_bytes"],
              "paths": paths, "f32_slices": slices,
              "bf16_seed_stages": seed_stages, "card": card,
-             "sm_clock_max_hz": rates.clock_hz,
+             "sm_clock_max_hz": rates.clock_hz, "phase_seconds": phase_s,
              "seed_solver_fused_vs_xla": {
                  "pairs": total, "same_seed": same,
                  "max_rotation_gap": rot_gap, "max_translation_gap": trn_gap}}

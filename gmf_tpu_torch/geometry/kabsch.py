@@ -102,8 +102,14 @@ def kabsch_svd(A, B, weights=None):
     return integrate_trans(R, t)
 
 
-def rigid_transform_3d(A, B, weights=None, method: str = "quat"):
-    """Weighted Procrustes. ``method``: "quat" (hot path) or "svd"."""
+def rigid_transform_3d(A, B, weights=None, weight_threshold: float = 0.0,
+                       method: str = "quat"):
+    """Weighted Procrustes, weights below ``weight_threshold`` clipped to
+    zero first (gmf_tpu/geometry/kabsch.py:167-182). ``method``: "quat"
+    (hot path) or "svd"."""
+    if weights is not None and weight_threshold > 0.0:
+        weights = torch.where(weights < weight_threshold,
+                              torch.zeros_like(weights), weights)
     if method == "quat":
         return kabsch_quat(A, B, weights)
     if method == "svd":

@@ -1,3 +1,4 @@
-"""PointDSC+GMF in PyTorch (test-mode forward)."""
+"""PointDSC+GMF in PyTorch: test mode and the train branch, every mode of
+the reference but its ring path."""
 
 from gmf_tpu_torch.models.pointdsc import NonLocalBlock, NonLocalNet, PointDSC

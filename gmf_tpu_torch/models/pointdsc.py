@@ -1,24 +1,34 @@
 """PointDSC + GMF in PyTorch with CUDA kernels.
 
-Counterpart of ``gmf_tpu/models/pointdsc.py`` on its fused path
-(``fused_attention=True, knn_topk="fused", hypo_scoring="fused"``, every
-``compat_cache`` and ``seed_solver`` mode). ``testing=True`` (eval):
+Counterpart of ``gmf_tpu/models/pointdsc.py`` in every mode but the ring
+path: ``fused_attention`` on or off, every ``compat_cache``,
+``seed_solver``, ``knn_topk``, ``hypo_scoring`` and ``kabsch_method``.
+``testing=True`` (eval):
 
 1. ResNet-34/8 image tokens of both frames, Fusion-1.
-2. num_layers x [PointCN -> NonLocalBlock]: compat-modulated attention
-   (ops/fused_attention.py), message MLP, and Fusion-2 with LCPE added to
-   the message. The spatial-consistency matrix depends on the keypoints
-   only, so it can be computed once and shared by the layers:
+2. num_layers x [PointCN -> NonLocalBlock]: compat-modulated attention,
+   message MLP, and Fusion-2 with LCPE added to the message. With
+   ``fused_attention`` (the default here) the attention is the kernel of
+   ops/fused_attention.py. The spatial-consistency matrix depends on the
+   keypoints only, so it can be computed once and shared by the layers:
    ``compat_cache="int8"`` lets layer 0 build the int8 cache while it
    attends and layers 1.. stream it; ``"f32"`` and ``"bf16"`` build the
    cache before the layers; ``"off"`` rebuilds compat in every layer;
    ``"auto"`` chooses by the cache's size (``_auto_compat_cache_dtype``).
-3. Confidence MLP; NMS seeds (ops/fused_nms.py).
-4. Seed kNN (ops/fused_topk.py), seed spectral matching (the plain chain
-   with the batch-global early exit, or the fused fixed-count kernel of
-   ops/fused_seed_solver.py under ``seed_solver="fused"``),
-   Horn-quaternion Kabsch per seed.
-5. Hypothesis scoring (ops/fused_scoring.py); best seed by first argmax.
+   Without it (the reference's default) the model builds the dense
+   [B, N, N] compat once and every layer attends densely
+   (``dense_compat_attention``: plain matmuls and softmax, as the
+   reference's XLA einsums, an f32 model's products summed in f64;
+   autograd gives the backward).
+3. Confidence MLP; NMS seeds (ops/fused_nms.py on the fused path, the
+   dense ``geometry/nms.py`` on the dense ``src_dist`` otherwise).
+4. Seed kNN (``knn_topk``: ops/fused_topk.py, or a top-k over the dense
+   seed distances), seed spectral matching (the plain chain with the
+   batch-global early exit, or the fused fixed-count kernel of
+   ops/fused_seed_solver.py under ``seed_solver="fused"``), weighted
+   Kabsch per seed (``kabsch_method``).
+5. Hypothesis scoring (``hypo_scoring``: ops/fused_scoring.py, or the
+   dense [B, S, N] residuals); best seed by first argmax.
 6. Post-refinement with the batch-global stopping rule: every pair is
    refitted while ANY pair's inlier count still changes.
 
@@ -27,18 +37,18 @@ encoder, the feature-similarity matrix M for the spectral-matching loss,
 seeds by a stable argsort of the confidence, the seed solver on the plain
 chain with a fixed iteration count, no post-refinement, and
 ``final_labels`` = confidence. Gradients flow through the attention
-kernels' backward (ops/fused_attention.py) and through the gathers of
-features and keypoints; kNN indices and inlier counts come from their
-kernels on detached inputs, and the compat cache is built without
-gradient, as in the reference. Batch norms follow ``self.training``, the
-counterpart of the JAX ``train`` flag.
+(the kernels' backward, or autograd through the dense attention) and
+through the gathers of features and keypoints; kNN indices and inlier
+counts come from detached inputs, and compat (cache or dense) is built
+without gradient, as in the reference. Batch norms follow
+``self.training``, the counterpart of the JAX ``train`` flag.
 
 Module names are the reference's torch names, the ones
 ``gmf_tpu/utils/convert_torch.py::convert_pointdsc`` reads, so
 ``utils/bridge.py`` maps flax variables onto ``state_dict`` keys one to
 one. Modules run in ``dtype`` (bf16 on the card is fine); geometry from
-the normalised features on is f32. The dense unfused attention is not
-ported yet.
+the normalised features on is f32. The reference's ring path
+(``ring_mesh``, gmf_tpu/parallel/) is not ported: ROADMAP queue 1 item 6.
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ import torch
 from torch import nn
 
 from gmf_tpu_torch.geometry.kabsch import rigid_transform_3d
+from gmf_tpu_torch.geometry.nms import pick_seeds_nms, topk_total_order
 from gmf_tpu_torch.geometry.se3 import transform
 from gmf_tpu_torch.geometry.spectral import (leading_eigenvector,
                                              leading_eigenvector_fixed)
@@ -61,7 +72,7 @@ from gmf_tpu_torch.ops.fused_attention import (
 from gmf_tpu_torch.ops.fused_nms import pick_seeds_nms_fused
 from gmf_tpu_torch.ops.fused_scoring import seed_hypothesis_counts
 from gmf_tpu_torch.ops.fused_seed_solver import fused_seed_weights
-from gmf_tpu_torch.ops.fused_topk import seed_knn_topk
+from gmf_tpu_torch.ops.fused_topk import MAX_K, seed_knn_topk
 from gmf_tpu_torch.utils.device import resolve_device
 
 
@@ -76,6 +87,37 @@ class TokenBatchNorm(BatchNorm1d):
 def _fusion(C: int, pe: bool) -> FusionLayer:
     return FusionLayer(dim=C, latent_dim=C, cross_heads=1,
                        cross_dim_head=C // 2, pe=pe)
+
+
+def _product_f64(a, b):
+    """a @ b of f32 operands summed in f64 and rounded once to f32. The
+    dense attention's sums run over N = 1000-5000 keys; the card's f32
+    GEMMs sum them with more rounding error than the CPU's, and with them
+    the card's dense f32 train step left the leaf bounds that hold it to
+    the step in f64 (chip_smoke.py ``train_cpu_check``;
+    scripts/check_dense_products.py measures both)."""
+    return torch.matmul(a.double(), b.double()).float()
+
+
+def dense_compat_attention(q, k, v, compat, mask=None):
+    """The reference's unfused attention (gmf_tpu/models/pointdsc.py:
+    142-157), one head: logits q k^T / sqrt(C) times the dense compat
+    [B, N, N], masked keys at -1e9, softmax, then weight @ v.
+
+    The reference's dtype promotions: the f32 compat promotes bf16 logits,
+    so the softmax runs in f32 and the message [B, N, C] is f32 (the
+    caller casts it back, as flax's Dense does). With f32 q, k, v (f32
+    modules, training) both products are ``_product_f64``; with bf16 ones
+    they are the library's, whose f32 sums lie far inside the bf16
+    rounding the message then takes. Autograd gives the backward, its
+    products in f64 where the forward's are."""
+    product = _product_f64 if q.dtype == torch.float32 else torch.matmul
+    logits = product(q, k.transpose(-1, -2)) / q.shape[-1] ** 0.5
+    logits = compat * logits
+    if mask is not None:
+        logits = logits.masked_fill(mask[:, None, :] <= 0, -1e9)
+    weight = torch.softmax(logits, dim=-1)
+    return product(weight, v.to(weight.dtype))
 
 
 class NonLocalBlock(nn.Module):
@@ -95,15 +137,22 @@ class NonLocalBlock(nn.Module):
         self.fusion_layer_2 = _fusion(C, pe=True)
 
     def forward(self, feat, image_feat, corr_mask, src_keypts, tgt_keypts,
-                compat_cache=None, build_cache: bool = False):
-        """feat [B, N, C], image_feat [B, T, C] -> [B, N, C]; with
-        ``build_cache`` the attention also emits the int8 compat cache
-        and the result is ``(out, cache)``. With ``compat_cache`` the
-        attention streams that cache instead of rebuilding compat."""
+                compat_cache=None, build_cache: bool = False,
+                fused: bool = True, attention=None):
+        """feat [B, N, C], image_feat [B, T, C] -> [B, N, C].
+
+        ``fused``: the attention kernel; with ``build_cache`` it also
+        emits the int8 compat cache and the result is ``(out, cache)``;
+        with ``compat_cache`` it streams that cache instead of rebuilding
+        compat. Otherwise ``dense_compat_attention`` on ``attention``, the
+        dense [B, N, N] compat."""
         q, k, v = (self.projection_q(feat), self.projection_k(feat),
                    self.projection_v(feat))
         built = None
-        if build_cache:
+        if not fused:
+            message = dense_compat_attention(q, k, v, attention,
+                                             corr_mask).to(feat.dtype)
+        elif build_cache:
             message, built = compat_flash_attention_build(
                 q, k, v, src_keypts, tgt_keypts, mask=corr_mask,
                 sigma_d=self.sigma_d)
@@ -111,8 +160,8 @@ class NonLocalBlock(nn.Module):
             message = compat_flash_attention(
                 q, k, v, src_keypts, tgt_keypts, mask=corr_mask,
                 sigma_d=self.sigma_d, compat=compat_cache)
-        fused = self.fusion_layer_2(image_feat, queries_encoder=feat)
-        out = self.fc_message(message) + fused
+        fused_image = self.fusion_layer_2(image_feat, queries_encoder=feat)
+        out = self.fc_message(message) + fused_image
         return (out, built) if build_cache else out
 
 
@@ -134,13 +183,16 @@ class NonLocalNet(nn.Module):
             self.blocks[f"NonLocal_layer_{i}"] = NonLocalBlock(C, sigma_d)
 
     def forward(self, corr_feat, p_image, q_image, corr_mask, src_keypts,
-                tgt_keypts, compat_cache=None, build_cache: bool = False):
+                tgt_keypts, compat_cache=None, build_cache: bool = False,
+                fused: bool = True, attention=None):
         """corr_feat [B, N, 6], images [B, H, W, 3] -> [B, N, C].
 
-        ``compat_cache``: a [B, N, ld] cache that every layer streams.
-        ``build_cache``: layer 0 builds the int8 cache while it attends
-        and layers 1.. stream it. The cache lives only inside this call,
-        so its memory is free again for the seed stage."""
+        ``fused`` (the attention kernels): ``compat_cache`` is a
+        [B, N, ld] cache that every layer streams; with ``build_cache``
+        layer 0 builds the int8 cache while it attends and layers 1..
+        stream it. The cache lives only inside this call, so its memory
+        is free again for the seed stage. Not ``fused``: every layer
+        attends densely with ``attention``, the [B, N, N] compat."""
         image_feat = self.fusion_layer_1(
             self.image_encoder.tokens(p_image),
             queries_encoder=self.image_encoder.tokens(q_image))
@@ -154,12 +206,20 @@ class NonLocalNet(nn.Module):
                                     tgt_keypts, build_cache=True)
             else:
                 feat = block(feat, image_feat, corr_mask, src_keypts,
-                             tgt_keypts, compat_cache=cache)
+                             tgt_keypts, compat_cache=cache, fused=fused,
+                             attention=attention)
         return feat
 
 
 COMPAT_CACHE_MODES = ("auto", "off", "f32", "bf16", "int8")
 SEED_SOLVER_MODES = ("auto", "xla", "fused")
+KNN_TOPK_MODES = ("auto", "fused", "exact", "values", "approx")
+HYPO_SCORING_MODES = ("auto", "fused", "dense")
+KABSCH_METHODS = ("quat", "svd")
+# what the modes the port lacks stand for in ROADMAP.md
+_RING_NOT_PORTED = ("is the reference's ring attention over a mesh "
+                    "(gmf_tpu/parallel/), ROADMAP queue 1 item 6, not "
+                    "ported yet")
 _CACHE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
                  "int8": torch.int8}
 
@@ -192,13 +252,41 @@ def _auto_compat_cache_dtype(B: int, N: int):
 class PointDSC(nn.Module):
     """PointDSC+GMF (defaults from the reference's config_3DMatch.py).
 
+    ``fused_attention``: True (the default here) runs the attention
+    kernels; False the reference's dense path: the [B, N, N] compat built
+    once, dense attention in every layer (``dense_compat_attention``) and
+    dense NMS on the [B, N, N] distances. The reference's default is False
+    and its callers choose explicitly (its bench's train mode, the eval
+    CLIs, ``--fused`` of its trainer); the port's default stays True so
+    that the serving path that every earlier caller of the port relies on
+    keeps the kernels, and the port's callers choose as the reference's
+    do (``train/train_pointdsc.py`` trains dense without ``--fused``).
     ``compat_cache``: "auto" | "off" | "f32" | "bf16" | "int8" (module
-    docstring). "auto" resolves by ``_auto_compat_cache_dtype`` for CUDA
+    docstring), meaningful only with ``fused_attention``, as in the
+    reference. "auto" resolves by ``_auto_compat_cache_dtype`` for CUDA
     tensors and to "off" for CPU tensors, which keeps small CPU runs on
     the exact path; a named type is taken on either device.
     ``seed_solver``: "auto" | "xla" | "fused"; "auto" and "xla" run the
     plain chain with the early-exit iteration ("xla" is the reference's
     name for it), "fused" the fixed-count kernel.
+    ``knn_topk``: the seed kNN. "fused": the kernel of ops/fused_topk.py
+    (its plain version for CPU tensors). "exact": ``2 - 2 <seed, key>``
+    in the features' dtype (full-precision f32 for f32 features), masked
+    keys at +inf, then a top-k in ``lax.top_k``'s order (ties to the
+    smaller index). "values" and "approx": the reference's
+    ``lax.approx_max_k``, which XLA optimises only on the TPU and which is
+    an exact top-k on every other backend; here both are that, exact
+    top-k values with the order of ties left free (``torch.topk``).
+    "auto": "fused" when k + 1 fits the kernel's width (``MAX_K``), the
+    reference's resolution on its accelerator; else "exact".
+    ``hypo_scoring``: "fused" (ops/fused_scoring.py), "dense" (the [B, S,
+    N] residuals, the inlier indicator in the modules' dtype before its
+    mean), "auto" = "fused", as on the reference's accelerator.
+    ``kabsch_method``: "quat" | "svd", for the seed Kabsch and the
+    post-refinement. Unknown modes raise ValueError. ``ring_mesh`` and
+    ``compat_cache_shards`` are the reference's mesh settings; the port
+    has no mesh path, so any value but the default raises
+    NotImplementedError.
 
     ``device`` defaults to the card and raises without one unless
     ``device="cpu"``. Weights are drawn from a ``torch.Generator`` seeded
@@ -211,16 +299,34 @@ class PointDSC(nn.Module):
                  ratio: float = 0.1, inlier_threshold: float = 0.10,
                  sigma_d: float = 0.10, k: int = 40, nms_radius: float = 0.10,
                  compat_cache: str = "auto", seed_solver: str = "auto",
+                 fused_attention: bool = True, knn_topk: str = "auto",
+                 hypo_scoring: str = "auto", kabsch_method: str = "quat",
+                 ring_mesh=None, compat_cache_shards: int = 1,
                  dtype: torch.dtype = torch.float32, device=None,
                  seed: int = 0):
         super().__init__()
-        if compat_cache not in COMPAT_CACHE_MODES:
-            raise ValueError(f"unknown compat_cache mode {compat_cache!r}")
-        if seed_solver not in SEED_SOLVER_MODES:
-            raise ValueError(f"unknown seed_solver mode {seed_solver!r}")
+        for name, value, modes in (
+                ("compat_cache", compat_cache, COMPAT_CACHE_MODES),
+                ("seed_solver", seed_solver, SEED_SOLVER_MODES),
+                ("knn_topk", knn_topk, KNN_TOPK_MODES),
+                ("hypo_scoring", hypo_scoring, HYPO_SCORING_MODES),
+                ("kabsch_method", kabsch_method, KABSCH_METHODS)):
+            if value not in modes:
+                raise ValueError(f"unknown {name} mode {value!r}; one of "
+                                 f"{modes}")
+        if ring_mesh is not None:
+            raise NotImplementedError(f"ring_mesh {_RING_NOT_PORTED}")
+        if compat_cache_shards != 1:
+            raise NotImplementedError(
+                f"compat_cache_shards={compat_cache_shards}: the cache gate "
+                f"of a mesh-sharded batch {_RING_NOT_PORTED}")
         device = resolve_device(device)
         self.compat_cache = compat_cache
         self.seed_solver = seed_solver
+        self.fused_attention = bool(fused_attention)
+        self.knn_topk = knn_topk
+        self.hypo_scoring = hypo_scoring
+        self.kabsch_method = kabsch_method
         self.num_iterations = num_iterations
         self.ratio = ratio
         self.inlier_threshold = inlier_threshold
@@ -238,7 +344,9 @@ class PointDSC(nn.Module):
             num_iterations=num_iterations, ratio=ratio,
             inlier_threshold=inlier_threshold, sigma_d=sigma_d, k=k,
             nms_radius=nms_radius, compat_cache=compat_cache,
-            seed_solver=seed_solver)
+            seed_solver=seed_solver, fused_attention=self.fused_attention,
+            knn_topk=knn_topk, hypo_scoring=hypo_scoring,
+            kabsch_method=kabsch_method)
         self._init_weights(seed)
         self.to(device=device, dtype=dtype)
         self.eval()
@@ -295,8 +403,11 @@ class PointDSC(nn.Module):
         src = src_keypts.float()
         tgt = tgt_keypts.float()
         mask = None if corr_mask is None else corr_mask.float()
+        src_dist = compat = None
+        if not self.fused_attention:
+            src_dist, compat = self._dense_compat(src, tgt)
         feats = self._encode(corr_pos, src, tgt, p_image, q_image, mask,
-                             testing)
+                             testing, compat)
         normed, sigma, confidence = self._seed_features(feats)
 
         M = None
@@ -306,7 +417,8 @@ class PointDSC(nn.Module):
             M = torch.clamp(1.0 - (1.0 - M) / sigma ** 2, 0.0, 1.0)
             M = M * (1.0 - torch.eye(N, dtype=M.dtype, device=M.device))
 
-        seeds = self._pick_seeds(src, confidence, mask, testing)
+        seeds = self._pick_seeds(src, confidence, mask, testing, src_dist)
+        del src_dist, compat  # [B, N, N] each: free them for the seed stage
         seed_trans, seed_fitness, final_trans, final_labels = (
             self._seed_trans_from_knn(normed, sigma, src, tgt, mask,
                                       self._seed_knn(seeds, normed, mask),
@@ -324,14 +436,39 @@ class PointDSC(nn.Module):
             "confidence": confidence,
         }
 
-    def _encode(self, corr_pos, src, tgt, p_image, q_image, mask, testing):
-        """The encoder's output [B, N, C] in the modules' dtype, with this
-        request's compat cache (src, tgt f32; mask f32 or None)."""
-        with torch.no_grad():  # compat is data, as in the reference
-            cache, build_cache = self._build_compat_cache(src, tgt, testing)
+    def _encode(self, corr_pos, src, tgt, p_image, q_image, mask, testing,
+                compat=None):
+        """The encoder's output [B, N, C] in the modules' dtype (src, tgt
+        f32; mask f32 or None): with this request's compat cache under
+        ``fused_attention``, else with the dense compat ``compat`` (built
+        here when None)."""
+        cache, build_cache = None, False
+        if self.fused_attention:
+            with torch.no_grad():  # compat is data, as in the reference
+                cache, build_cache = self._build_compat_cache(src, tgt,
+                                                              testing)
+        elif compat is None:
+            compat = self._dense_compat(src, tgt)[1]
         return self.encoder(corr_pos.to(self.dtype), p_image.to(self.dtype),
                             q_image.to(self.dtype), mask, src, tgt,
-                            compat_cache=cache, build_cache=build_cache)
+                            compat_cache=cache, build_cache=build_cache,
+                            fused=self.fused_attention, attention=compat)
+
+    def _dense_compat(self, src, tgt):
+        """The dense path's (src_dist, compat), [B, N, N] f32 each, without
+        gradient (gmf_tpu/models/pointdsc.py:407-421): compat = max(0,
+        1 - (|s_i - s_j| - |t_i - t_j|)^2 / sigma_d^2), sigma_d rounded to
+        the modules' dtype and squared in it, as the reference (:386)."""
+        sigma_spat = torch.tensor(self.sigma_d, dtype=self.seed_dtype)
+        with torch.no_grad():
+            src_dist = torch.linalg.vector_norm(src[:, :, None] - src[:, None],
+                                                dim=-1)
+            tgt_dist = torch.linalg.vector_norm(tgt[:, :, None] - tgt[:, None],
+                                                dim=-1)
+            compat = torch.clamp(
+                1.0 - (src_dist - tgt_dist) ** 2 / float(sigma_spat ** 2),
+                min=0.0)
+        return src_dist, compat
 
     def _build_compat_cache(self, src, tgt, testing: bool = True):
         """Resolve ``compat_cache`` for this request: ``(cache,
@@ -367,10 +504,16 @@ class PointDSC(nn.Module):
         confidence = self.classification(feats)[..., 0].float()
         return normed, sigma, confidence
 
-    def _pick_seeds(self, src, confidence, mask, testing: bool = True):
+    def _pick_seeds(self, src, confidence, mask, testing: bool = True,
+                    src_dist=None):
         """Seed indices [B, max(N * ratio, 1)]: NMS on the confidence in
-        test mode, a stable argsort of it in the train branch."""
+        test mode (the dense form on ``src_dist`` [B, N, N] where the
+        dense path gives it, else the kernel), a stable argsort of it in
+        the train branch."""
         num_seeds = max(int(src.shape[1] * self.ratio), 1)
+        if testing and src_dist is not None:
+            return pick_seeds_nms(src_dist, confidence.detach(),
+                                  self.nms_radius, num_seeds, mask=mask)
         if testing:
             return pick_seeds_nms_fused(src, confidence, self.nms_radius,
                                         num_seeds, mask=mask)
@@ -381,14 +524,34 @@ class PointDSC(nn.Module):
         # stable, as jnp.argsort: ties keep their index order
         return torch.argsort(-ranked, dim=-1, stable=True)[:, :num_seeds]
 
+    def _knn_mode(self, k: int) -> str:
+        """``knn_topk`` with "auto" resolved (class docstring)."""
+        if self.knn_topk != "auto":
+            return self.knn_topk
+        return "fused" if k + 1 <= MAX_K else "exact"
+
     def _seed_knn(self, seeds, feats, mask):
-        """Seed-row kNN [B, S, k] int64 (fused kernel on detached features;
-        column 0, the seed itself, dropped)."""
+        """Seed-row kNN [B, S, k] int64 on detached features, by
+        ``knn_topk``; column 0, the seed itself, dropped."""
         B, N, C = feats.shape
         k = min(self.k, N - 1)
         plain = feats.detach()
         seed_feats = torch.gather(plain, 1, seeds[..., None].expand(-1, -1, C))
-        knn_idx, _ = seed_knn_topk(seed_feats, plain, k + 1, mask=mask)
+        mode = self._knn_mode(k)
+        if mode == "fused":
+            knn_idx, _ = seed_knn_topk(seed_feats, plain, k + 1, mask=mask)
+            return knn_idx[..., 1:].long()
+        # the reference's einsum: products exact in f32, rounded to the
+        # features' dtype (:591-594)
+        score = torch.matmul(seed_feats.float(),
+                             plain.float().transpose(-1, -2)).to(plain.dtype)
+        dist = 2.0 - 2.0 * score
+        if mask is not None:
+            dist = dist.masked_fill(mask[:, None, :] <= 0, math.inf)
+        if mode == "exact":
+            knn_idx = topk_total_order(-dist.float(), k + 1)
+        else:  # "values", "approx": exact top-k values, ties in any order
+            knn_idx = torch.topk(-dist.float(), k + 1, dim=-1).indices
         return knn_idx[..., 1:].long()
 
     def _seed_trans_from_knn(self, feats, sigma, src, tgt, mask, knn_idx,
@@ -396,14 +559,20 @@ class PointDSC(nn.Module):
         """Seed-local spectral matching and weighted Kabsch
         (``_seed_transforms``), scoring (``_seed_fitness``), the best
         seed's transform and its labels."""
-        B = feats.shape[0]
+        rows = torch.arange(feats.shape[0], device=feats.device)
         seed_trans = self._seed_transforms(feats, sigma, src, tgt, knn_idx,
                                            testing)
-        _, fitness = self._seed_fitness(seed_trans, src, tgt, mask)
-        best = fitness.argmax(-1)
-        final_trans = seed_trans[torch.arange(B, device=feats.device), best]
-        final_L2 = torch.linalg.vector_norm(transform(src, final_trans) - tgt,
-                                            dim=-1)
+        if self.hypo_scoring == "dense":
+            fitness, L2 = self._dense_fitness(seed_trans, src, tgt, mask)
+            best = fitness.argmax(-1)
+            final_trans = seed_trans[rows, best]
+            final_L2 = L2[rows, best]  # the best seed's row (:773-775)
+        else:  # "fused" and "auto"
+            _, fitness = self._seed_fitness(seed_trans, src, tgt, mask)
+            best = fitness.argmax(-1)
+            final_trans = seed_trans[rows, best]
+            final_L2 = torch.linalg.vector_norm(
+                transform(src, final_trans) - tgt, dim=-1)
         labels = (final_L2 < self.inlier_threshold).float()
         if mask is not None:
             labels = labels * mask
@@ -450,7 +619,8 @@ class PointDSC(nn.Module):
             weight = weight / (weight.sum(-1, keepdim=True) + 1e-6)
         return rigid_transform_3d(
             src_knn.reshape(B * S, k, 3), tgt_knn.reshape(B * S, k, 3),
-            weight.reshape(B * S, k)).reshape(B, S, 4, 4)
+            weight.reshape(B * S, k),
+            method=self.kabsch_method).reshape(B, S, 4, 4)
 
     def _seed_fitness(self, seed_trans, src, tgt, mask):
         """(inlier counts [B, S] int32, fitness [B, S] in seed_dtype)."""
@@ -465,6 +635,23 @@ class PointDSC(nn.Module):
         else:
             fitness = counts.float() / (mask.sum(-1)[:, None] + 1e-6)
         return counts, fitness.to(self.seed_dtype)
+
+    def _dense_fitness(self, seed_trans, src, tgt, mask):
+        """``hypo_scoring="dense"`` (gmf_tpu/models/pointdsc.py:753-767):
+        the [B, S, N] residuals of every seed transform and the fitness
+        [B, S], the inlier indicator in the modules' dtype before its
+        mean, as the reference (:760). Without a mask the fitness is the
+        f32 mean rounded to that dtype (jnp.mean of bf16 sums in f32);
+        with one, the masked sum over the mask's, f32. Returns (fitness,
+        residuals)."""
+        pred = torch.matmul(src[:, None], seed_trans[:, :, :3, :3].transpose(
+            -1, -2)) + seed_trans[:, :, None, :3, 3]
+        L2 = torch.linalg.vector_norm(pred - tgt[:, None], dim=-1)
+        inlier = (L2 < self.inlier_threshold).to(self.seed_dtype)
+        if mask is None:
+            return inlier.float().mean(-1).to(self.seed_dtype), L2
+        inlier = inlier * mask[:, None, :]
+        return inlier.sum(-1) / (mask.sum(-1)[:, None] + 1e-6), L2
 
     def _post_refinement(self, trans, src, tgt, mask):
         """Up to 20 weighted refits with weights inlier/(1+(d/tau)^2); the
@@ -484,6 +671,7 @@ class PointDSC(nn.Module):
             if not bool(((num - prev).abs() >= 1).any()):
                 break
             w = inlier * (1.0 / (1.0 + (L2 / tau) ** 2))
-            trans = rigid_transform_3d(src, tgt, w)
+            trans = rigid_transform_3d(src, tgt, w,
+                                       method=self.kabsch_method)
             prev = num
         return trans

@@ -9,12 +9,13 @@ and run the epoch loop with recall-stamped checkpoints.
     python -m gmf_tpu_torch.train.train_pointdsc --dataset synthetic \\
         --tiny --cpu --max-epoch 1 --steps-per-epoch 2 --save-dir /tmp/s
 
-It runs on the card unless ``--cpu`` is given. The model always takes the
-port's kernel path (the dense unfused attention is not ported), so
-``--fused`` is accepted for command compatibility and changes nothing;
-so is ``--prefetch``: batches are built inline. The 3DMatch and KITTI
-loaders come with the port's evaluation stack; until then those datasets
-stop with an error.
+It runs on the card unless ``--cpu`` is given. As the reference's
+(gmf_tpu/train/train_pointdsc.py:170-177), the model trains with the
+dense attention (``fused_attention=False``) unless ``--fused`` asks for
+the attention kernels; the checkpoints record which. ``--prefetch`` is
+accepted for command compatibility and changes nothing: batches are
+built inline. The 3DMatch and KITTI loaders come with the port's
+evaluation stack; until then those datasets stop with an error.
 """
 
 from __future__ import annotations
@@ -53,8 +54,8 @@ def parse_args(argv=None):
                          "built inline")
     ap.add_argument("--tiny", action="store_true", help="tiny smoke config")
     ap.add_argument("--fused", action="store_true",
-                    help="accepted for command compatibility; the port "
-                         "always trains through its attention kernels")
+                    help="train through the attention kernels (fused "
+                         "attention) instead of the dense attention")
     return ap.parse_args(argv)
 
 
@@ -103,14 +104,15 @@ def main(argv=None):
     if args.tiny:
         model = PointDSC(num_layers=2, num_channels=32, k=10,
                          inlier_threshold=m.inlier_threshold,
-                         sigma_d=m.sigma_d, device=device)
+                         sigma_d=m.sigma_d, fused_attention=args.fused,
+                         device=device)
     else:
         model = PointDSC(
             in_dim=m.in_dim, num_layers=m.num_layers,
             num_channels=m.num_channels, num_iterations=m.num_iterations,
             ratio=m.ratio, inlier_threshold=m.inlier_threshold,
             sigma_d=m.sigma_d, k=m.k, nms_radius=m.nms_radius,
-            device=device)
+            fused_attention=args.fused, device=device)
 
     tcfg = TrainConfig(
         lr=cfg.lr, weight_decay=cfg.weight_decay,

@@ -1,16 +1,18 @@
 """Trace registrar requests or training steps of gmf_tpu_torch on the card.
 
     python scripts/profile_torch_request.py [--pairs 64] [--num-corr 5000]
-        [--compat-cache int8] [--seed-solver auto] [--out DIR]
+        [--compat-cache int8] [--seed-solver auto] [--no-fused] [--out DIR]
     python scripts/profile_torch_request.py --train [--pairs 16]
-        [--num-corr 1000] [--compat-cache auto] [--out DIR]
+        [--num-corr 1000] [--compat-cache auto] [--no-fused] [--out DIR]
 
 Serves chip_smoke.py's full-width registrar in the given mode (its first
 request of ``--pairs`` pairs of ``--num-corr`` correspondences; the
 defaults are the serving main path), or with ``--train`` takes train
 steps of chip_smoke.py's full-width f32 trainer on one synthetic batch
 (the defaults are the training main path: 16 pairs of 1000, the f32
-cache). Two warm-up requests or steps, then REPS without the profiler,
+cache). ``--no-fused`` takes the dense attention (``fused_attention=
+False``, the reference's default) in place of the attention kernels.
+Two warm-up requests or steps, then REPS without the profiler,
 then REPS each under its own torch.profiler session.
 Prints the device time per kernel name (top 25, last traced request), and
 one JSON line with the unprofiled and profiled wall times, the device-busy
@@ -55,6 +57,8 @@ def main():
                     help="int8; --train auto")
     ap.add_argument("--seed-solver", default="auto",
                     choices=("auto", "xla", "fused"))
+    ap.add_argument("--no-fused", action="store_true",
+                    help="the dense attention (fused_attention=False)")
     ap.add_argument("--out", help="directory for trace.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -71,7 +75,8 @@ def main():
         args.compat_cache = args.compat_cache or "auto"
         trainer = chip_smoke.make_trainer(dev, args.compat_cache,
                                           batch_size=args.pairs,
-                                          num_corr=args.num_corr)
+                                          num_corr=args.num_corr,
+                                          fused_attention=not args.no_fused)
         batch = next(iter(trainer.train_loader))
         model = trainer.model
 
@@ -83,7 +88,8 @@ def main():
         args.compat_cache = args.compat_cache or "int8"
         reg = chip_smoke.make_registrar(dev, compat_cache=args.compat_cache,
                                         seed_solver=args.seed_solver,
-                                        num_corr=args.num_corr)
+                                        num_corr=args.num_corr,
+                                        fused_attention=not args.no_fused)
         req = chip_smoke.make_requests(args.pairs, args.num_corr)[0]
         model = reg.model
 
@@ -94,8 +100,8 @@ def main():
         cache, build = model._build_compat_cache(
             *(torch.zeros(args.pairs, args.num_corr, 3, device=dev),) * 2,
             testing=not args.train)
-    resolved = ("int8" if build else "off" if cache is None
-                else str(cache.dtype))
+    resolved = ("dense" if args.no_fused else "int8" if build
+                else "off" if cache is None else str(cache.dtype))
     del cache
 
     def timed():

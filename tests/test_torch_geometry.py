@@ -70,6 +70,25 @@ def test_rigid_transform_3d(rng, method):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
 
 
+@pytest.mark.parametrize("method", ["quat", "svd"])
+def test_rigid_transform_3d_weight_threshold(rng, method):
+    """Weights below the threshold (here about half of them) count as 0,
+    as in gmf_tpu's; the result then differs from the unclipped one."""
+    A, Bp, w = _alignment_problem(rng)
+    Bp[:, 5:20] += 0.3 * rng.randn(8, 15, 3).astype(np.float32)
+    got = kabsch.rigid_transform_3d(_t(A), _t(Bp), _t(w),
+                                    weight_threshold=0.5, method=method)
+    ref = jkabsch.rigid_transform_3d(A, Bp, w, weight_threshold=0.5,
+                                     method=method)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
+    clipped = kabsch.rigid_transform_3d(
+        _t(A), _t(Bp), _t(np.where(w < 0.5, 0.0, w)), method=method)
+    np.testing.assert_array_equal(got.numpy(), clipped.numpy())
+    unclipped = kabsch.rigid_transform_3d(_t(A), _t(Bp), _t(w),
+                                          method=method)
+    assert np.abs(got.numpy() - unclipped.numpy()).max() > 1e-3
+
+
 def test_leading_eigvec_4x4(rng):
     A, Bp, w = _alignment_problem(rng)
     H, _, _ = jkabsch._weighted_cross_covariance(A, Bp, w)

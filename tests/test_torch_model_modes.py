@@ -1,0 +1,255 @@
+"""The port's PointDSC in the reference's other modes vs gmf_tpu's.
+
+The dense attention (``fused_attention=False``, the reference's default),
+every ``knn_topk``, both ``hypo_scoring`` modes and both
+``kabsch_method``s, in test mode and in the train branch, with the same
+modes on both sides and the weights of one gmf_tpu init (bridged by
+``utils/bridge.py``). gmf_tpu runs its dense path as is and its Pallas
+kernels ("fused" kNN and counts) in interpret mode; the port runs its
+kernels' plain versions on the CPU. Bounds are those of
+tests/test_fused_model.py: final_trans atol 1e-3, labels agreement >=
+0.99; the bf16 case those of tests/test_torch_model_bf16.py; the train
+branch those of tests/torch_train_parity.py.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torch_train_parity as parity
+from gmf_tpu.models import PointDSC as JaxPointDSC
+from gmf_tpu_torch.eval.registration import PointDSCRegistrar
+from gmf_tpu_torch.models import PointDSC
+from gmf_tpu_torch.utils.bridge import flax_to_state_dict
+from test_torch_model import KW, _problem
+
+torch.set_num_threads(1)
+
+DENSE = dict(fused_attention=False)
+# the test-mode cases: the modes, the same on both sides
+CASES = {
+    "dense_exact_dense": dict(DENSE, knn_topk="exact", hypo_scoring="dense"),
+    "dense_fused_fused": dict(DENSE, knn_topk="fused", hypo_scoring="fused"),
+    "dense_values": dict(DENSE, knn_topk="values", hypo_scoring="dense"),
+    "dense_approx": dict(DENSE, knn_topk="approx", hypo_scoring="fused"),
+    "dense_svd": dict(DENSE, knn_topk="exact", hypo_scoring="dense",
+                      kabsch_method="svd"),
+    "fused_svd": dict(fused_attention=True, compat_cache="off",
+                      knn_topk="fused", hypo_scoring="fused",
+                      kabsch_method="svd"),
+}
+# the bf16 case: the card's dense serving modes ("auto" resolves to the
+# kNN and counts kernels there; gmf_tpu names them)
+BF16 = dict(DENSE, knn_topk="fused", hypo_scoring="fused")
+THRESHOLD = 0.10  # PointDSC's inlier_threshold
+NEAR = 1e-4       # bf16 labels may differ within this of it
+
+
+@pytest.fixture(scope="module")
+def init():
+    """gmf_tpu's init of the tiny model (the parameters depend on the
+    widths only, so one init serves every mode and N), as numpy: (the
+    initial variables, the same with perturbed batch-norm statistics)."""
+    corr, src, tgt, p_img, q_img, _ = _problem()
+    v = jax.jit(JaxPointDSC(**KW).init)(jax.random.PRNGKey(0), *map(
+        jnp.asarray, (corr, src, tgt, p_img, q_img)))
+    v = jax.tree_util.tree_map(np.asarray, v)
+    rng = np.random.RandomState(3)
+    perturbed = dict(v, batch_stats=jax.tree_util.tree_map_with_path(
+        lambda p, a: (0.5 + rng.rand(*a.shape) if p[-1].key == "var"
+                      else 0.1 * rng.randn(*a.shape)).astype(np.float32),
+        v["batch_stats"]))
+    return v, perturbed
+
+
+def _port(variables, dtype=torch.float32, **modes):
+    m = PointDSC(device="cpu", dtype=dtype, **modes, **KW)
+    m.load_state_dict(flax_to_state_dict(variables, KW["num_layers"]),
+                      strict=True)
+    return m
+
+
+def _np32(x):
+    return (np.asarray(jnp.asarray(x, jnp.float32))
+            if isinstance(x, jax.Array) else x.float().numpy())
+
+
+def _check_test_mode(init, modes):
+    v = init[1]
+    corr, src, tgt, p_img, q_img, mask = _problem()
+    args = (corr, src, tgt, p_img, q_img)
+    ref = JaxPointDSC(**modes, **KW).apply(
+        v, *map(jnp.asarray, args), testing=True,
+        corr_mask=jnp.asarray(mask))
+    got = _port(v, **modes)(*map(torch.tensor, args), testing=True,
+                            corr_mask=torch.tensor(mask))
+    np.testing.assert_allclose(got["confidence"].numpy(),
+                               _np32(ref["confidence"]), atol=1e-4)
+    np.testing.assert_allclose(got["final_trans"].numpy(),
+                               np.asarray(ref["final_trans"]), atol=1e-3)
+    valid = mask > 0
+    agree = (got["final_labels"].numpy()[valid]
+             == _np32(ref["final_labels"])[valid]).mean()
+    assert agree >= 0.99, agree
+    assert (got["final_labels"].numpy()[~valid] == 0).all()
+    assert got["seed_fitness"].dtype == torch.float32
+    if modes["hypo_scoring"] == "dense":
+        # both sides count the same direct residuals; the counts kernel
+        # forms them as a bilinear form in the reference, where a point
+        # within ~1e-5 of the threshold may count on one side only
+        # (tests/test_torch_model_bf16.py)
+        np.testing.assert_allclose(got["seed_fitness"].numpy(),
+                                   _np32(ref["seed_fitness"]), atol=1e-6)
+
+
+def _residuals(trans, src, tgt):
+    """|R s + t - t'| per point in f64, [B, N]."""
+    trans = np.asarray(trans, np.float64)
+    pred = np.einsum("bij,bnj->bni", trans[:, :3, :3], src)
+    return np.linalg.norm(pred + trans[:, None, :3, 3] - tgt, axis=-1)
+
+
+def _check_bf16(init):
+    """bf16 modules, dense: as tests/test_torch_model_bf16.py holds the
+    fused path. End to end, the port's bf16 encoder no farther from the
+    f32 encoder than 1.5x the reference's, the transforms within 1e-5 and
+    the labels equal away from the threshold; then from the reference's
+    own encoder output (a forward hook) the seed stage exactly: the
+    confidence, the seed fitness (bf16) and the winning transforms."""
+    v = init[1]
+    corr, src, tgt, p_img, q_img, mask = _problem()
+    args = (corr, src, tgt, p_img, q_img)
+    ref, inter = JaxPointDSC(dtype=jnp.bfloat16, **BF16, **KW).apply(
+        v, *map(jnp.asarray, args), testing=True,
+        corr_mask=jnp.asarray(mask), capture_intermediates=True,
+        mutable=["intermediates"])
+    ref_enc = inter["intermediates"]["encoder"]["__call__"][0]
+    assert ref_enc.dtype == jnp.bfloat16
+    bf16 = _port(v, torch.bfloat16, **BF16)
+    f32 = _port(v, **BF16)
+    valid = mask > 0
+
+    def run(model, features=None):
+        seen = {}
+
+        def hook(mod, inp, out):
+            seen["enc"] = out.float().numpy()
+            return features
+
+        h = model.encoder.register_forward_hook(hook)
+        try:
+            out = model(*map(torch.tensor, args), testing=True,
+                        corr_mask=torch.tensor(mask))
+        finally:
+            h.remove()
+        return out, seen["enc"]
+
+    got, port_enc = run(bf16)
+    _, f32_enc = run(f32)
+    ref_dev = np.abs(_np32(ref_enc) - f32_enc)[valid].max()
+    port_dev = np.abs(port_enc - f32_enc)[valid].max()
+    assert port_dev <= 1.5 * ref_dev, (port_dev, ref_dev)
+    src64, tgt64 = src.astype(np.float64), tgt.astype(np.float64)
+    near = np.abs(_residuals(ref["final_trans"], src64, tgt64)
+                  - THRESHOLD) < NEAR
+    labels_ref = _np32(ref["final_labels"])
+    np.testing.assert_allclose(got["final_trans"].numpy(),
+                               np.asarray(ref["final_trans"]), atol=1e-5)
+    assert (got["final_labels"].numpy()[~near] == labels_ref[~near]).all()
+
+    got, _ = run(bf16, torch.tensor(_np32(ref_enc)).to(torch.bfloat16))
+    np.testing.assert_array_equal(got["confidence"].numpy(),
+                                  _np32(ref["confidence"]))
+    assert got["seed_fitness"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(_np32(got["seed_fitness"]),
+                                  _np32(ref["seed_fitness"]))
+    np.testing.assert_allclose(got["seed_trans"].numpy(),
+                               np.asarray(ref["seed_trans"]), atol=1e-5)
+    np.testing.assert_allclose(got["final_trans"].numpy(),
+                               np.asarray(ref["final_trans"]), atol=1e-5)
+
+
+def _check_train(init):
+    """The dense train branch, the card's training modes (kNN and counts
+    kernels): two steps and a skipped one against gmf_tpu's
+    make_train_step, every check of tests/torch_train_parity.py."""
+    steps = parity.run_steps("off", variables=init[0],
+                             modes=dict(DENSE, knn_topk="fused",
+                                        hypo_scoring="fused"))
+    for check in (parity.check_metrics, parity.check_gradients,
+                  parity.check_nan_batch_skipped,
+                  parity.check_params_and_stats):
+        check(steps)
+
+
+@pytest.mark.parametrize("case", [*CASES, "bf16_dense", "train_dense"])
+def test_mode_matches_jax(init, case):
+    if case == "bf16_dense":
+        _check_bf16(init)
+    elif case == "train_dense":
+        _check_train(init)
+    else:
+        _check_test_mode(init, CASES[case])
+
+
+def test_dense_modes_resolve_as_the_reference(init):
+    """"auto" is the kernels' mode (the reference's resolution on its
+    accelerator) for kNN while k + 1 fits the kernel, and for scoring;
+    past the kernel's width the kNN is exact. The dense model with
+    "auto" equals the one with the kernels named."""
+    v = init[1]
+    corr, src, tgt, p_img, q_img, mask = _problem()
+    args = [torch.tensor(a) for a in (corr, src, tgt, p_img, q_img)]
+    auto = _port(v, **DENSE)
+    assert auto._knn_mode(10) == "fused" and auto._knn_mode(128) == "exact"
+    named = _port(v, **BF16)
+    a = auto(*args, testing=True, corr_mask=torch.tensor(mask))
+    b = named(*args, testing=True, corr_mask=torch.tensor(mask))
+    for key in ("final_trans", "final_labels", "seed_fitness"):
+        assert torch.equal(a[key], b[key]), key
+    assert auto.config["fused_attention"] is False
+    assert PointDSC(device="cpu", **KW).config["fused_attention"] is True
+
+
+@pytest.mark.parametrize("name,kw,error", [
+    ("knn_topk", dict(knn_topk="pallas"), ValueError),
+    ("hypo_scoring", dict(hypo_scoring="sparse"), ValueError),
+    ("kabsch_method", dict(kabsch_method="umeyama"), ValueError),
+    ("ring_mesh", dict(ring_mesh=object()), NotImplementedError),
+    ("compat_cache_shards", dict(compat_cache_shards=4),
+     NotImplementedError),
+    ("mesh", None, NotImplementedError),
+])
+def test_unknown_modes_fail_by_name(name, kw, error):
+    """Every mode the port does not know or lacks raises, naming it."""
+    with pytest.raises(error, match=name):
+        if kw is None:
+            PointDSCRegistrar(PointDSC(device="cpu", **KW), mesh=object())
+        else:
+            PointDSC(device="cpu", **kw, **KW)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_train_cli_records_attention_mode(tmp_path, fused):
+    """train_pointdsc trains dense without --fused, as the reference's,
+    and its snapshots record the modes it trained in."""
+    cmd = [sys.executable, "-m", "gmf_tpu_torch.train.train_pointdsc",
+           "--dataset", "synthetic", "--tiny", "--cpu", "--max-epoch", "1",
+           "--steps-per-epoch", "1", "--batch-size", "2",
+           "--save-dir", str(tmp_path)] + (["--fused"] if fused else [])
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                       cwd=root)
+    assert r.returncode == 0, r.stderr[-3000:]
+    with open(tmp_path / "model_best" / "config.json") as f:
+        model = json.load(f)["model"]
+    assert model["fused_attention"] is fused
+    assert (model["knn_topk"], model["hypo_scoring"],
+            model["kabsch_method"]) == ("auto", "auto", "quat")

@@ -83,11 +83,14 @@ def _initial_variables():
     return jax.tree_util.tree_map(np.asarray, v)
 
 
-def _jax_steps(mode, variables):
+# the model modes of the comparison unless run_steps is given others
+FUSED = dict(fused_attention=True, knn_topk="fused", hypo_scoring="fused")
+
+
+def _jax_steps(mode, variables, modes=FUSED):
     """gmf_tpu's jitted train step over BATCHES: per step (metrics,
     params, batch_stats, gradients or None)."""
-    model = JaxPointDSC(fused_attention=True, knn_topk="fused",
-                        hypo_scoring="fused", compat_cache=mode, **KW)
+    model = JaxPointDSC(compat_cache=mode, **modes, **KW)
     cfg = JaxTrainConfig()
     opt = make_optimizer(cfg, steps_per_epoch=1)
     step = jax.jit(make_train_step(model, opt, cfg))
@@ -127,7 +130,7 @@ def _jax_int8_cache(src, tgt, sigma_d, dtype):
     return cache
 
 
-def _port_steps(mode, variables):
+def _port_steps(mode, variables, modes=FUSED):
     """The port's Trainer over BATCHES: per step (metrics, state_dict,
     gradients by parameter name). In int8 mode the port's model gets
     gmf_tpu's int8 codes: the two builders round a small share of them
@@ -135,7 +138,7 @@ def _port_steps(mode, variables):
     amplify that beyond the bound, so the comparison holds the training
     path to one cache, as tests/test_torch_attention_bwd.py does."""
     torch.set_num_threads(THREADS)
-    model = PointDSC(device="cpu", compat_cache=mode, **KW)
+    model = PointDSC(device="cpu", compat_cache=mode, **modes, **KW)
     model.load_state_dict(flax_to_state_dict(variables, KW["num_layers"]),
                           strict=True)
     trainer = Trainer(model, TrainConfig(), [], [], steps_per_epoch=1)
@@ -152,12 +155,15 @@ def _port_steps(mode, variables):
     return out, trainer
 
 
-def run_steps(mode):
-    """Both packages' steps in ``mode``: (mode, initial variables, JAX
-    steps, port steps, port trainer)."""
-    variables = _initial_variables()
-    port, trainer = _port_steps(mode, variables)
-    return mode, variables, _jax_steps(mode, variables), port, trainer
+def run_steps(mode, variables=None, modes=FUSED):
+    """Both packages' steps in ``mode`` (the model's other modes, the
+    same on both sides, from ``modes``), from ``variables`` (gmf_tpu's
+    init, unperturbed; drawn here when None): (mode, initial variables,
+    JAX steps, port steps, port trainer)."""
+    if variables is None:
+        variables = _initial_variables()
+    port, trainer = _port_steps(mode, variables, modes)
+    return mode, variables, _jax_steps(mode, variables, modes), port, trainer
 
 
 def _as_state(variables_or_grads, stats):
