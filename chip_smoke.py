@@ -129,7 +129,35 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
 6. Run the training command line twice (synthetic data, one epoch of two
    steps): without --fused (dense attention, the reference's default) and
    with it; each snapshot's config must record the mode.
-7. Print the seconds of each phase as it ends, a JSON line with every
+7. The evaluation stack at full width (12 layers, 128 channels, k=40,
+   random weights from SEED saved as a port checkpoint), on fixtures the
+   script writes into a temporary directory (PNG frames by its own
+   writer: the card's machine has no imaging package), the launch counts
+   reset before each run and read after it:
+   - test_3dmatch on one 3DMatch scene (6 fragments of 5000 keypoints,
+     32-d descriptors, 480 x 640 frames, a gt.log of 8 pairs) at --batch
+     4 --inflight 2 --workers 2 through main(argv) (the f32 cache: per
+     forward 1 standalone cache, 12 cached attention, 1 each of NMS, kNN
+     and counts), then with --device-match as `python -m` in a
+     subprocess (exit code, statistics, recall);
+   - test_kitti on 8 pairs of 12000 correspondences (12500 points a
+     cloud, KITTI's 376 x 1241 camera frames) in one batch of 8 with
+     RANSAC and ICP (the int8 cache);
+   - test_3dlomatch --num-node all on one pair of 19000-keypoint
+     fragments whose mutual matches pass 16384: NMS called once on the
+     20480 bucket (its merge pass), that call held to its plain version
+     in every bit and timed beside its bound (nms_check);
+   - train_pointdsc --dataset 3DMatch --max-epoch 1 --steps-per-epoch 2
+     --prefetch 2 (dense, f32: 1 kNN and 1 counts launch a forward, 4
+     forwards), every metric finite;
+   - RegistrationService (int8 cache, bf16 modules, max_batch 16): 4
+     client threads submit 32 pairs of 5000 correspondences; every
+     flush run again through register_batch on the same pairs gives the
+     same transforms and labels in every bit; the main path's launches
+     a flush.
+   Each run: all_stats.npy of [pairs, 12] finite columns, registration
+   recall >= 0.9 (the service's too), the launch counts asserted.
+8. Print the seconds of each phase as it ends, a JSON line with every
    path's time per request or step, a JSON
    line with every kernel's launches, time, plain time, bound and error,
    and, as the last line, {"ok": true, "device": {...}}.
@@ -2712,6 +2740,498 @@ def bf16_seed_stage_check(runs):
     return dict(pairs=pairs, seconds=seconds, **stages)
 
 
+# -- the evaluation stack (phase 7) ------------------------------------------
+#
+# Fixtures written here, into a temporary directory, with full-size shapes:
+# a 3DMatch scene of EVAL_FRAGMENTS fragments of EVAL_POINTS keypoints with
+# EVAL_DESC-d descriptors and EVAL_FRAME_HW PNG frames (resized to 120 x 160
+# on the way in), a gt.log of EVAL_PAIRS pairs; KITTI_PAIRS KITTI pairs of
+# KITTI_POINTS points (the CLI keeps 12000 of each) with KITTI's camera
+# frames; one 3DLoMatch pair of LOMATCH_POINTS keypoints, whose mutual
+# matches pass NMS_RUN (16384), so that the registrar opens a bucket of
+# LOMATCH_BUCKET and NMS runs its merge pass.
+EVAL_SCENE_POINTS, EVAL_FRAGMENTS, EVAL_POINTS, EVAL_DESC = 6000, 6, N, 32
+EVAL_PAIRS, EVAL_BATCH, EVAL_FRAME_HW = 8, 4, (480, 640)
+KITTI_PAIRS, KITTI_POINTS = 8, 12500  # the CLI keeps 12000 of each
+KITTI_FRAME_HW = (376, 1241)
+LOMATCH_POINTS, LOMATCH_SCENE, LOMATCH_BUCKET = 19000, 19400, 20480
+NMS_RUN = 16384  # nms_local_max.cu: past this many points a pair, a merge
+SERVICE_PAIRS, SERVICE_CLIENTS, SERVICE_MAX_BATCH = 32, 4, 16
+# launches per forward of the eval paths (kernels not named: none): "auto"
+# at 4 x 5000 and 1 x 5000 takes the f32 cache, at 8 x 12000 and 1 x 20480
+# the int8 cache; the service runs int8
+_F32_CACHE = {"build_compat_cache": 1, "compat_flash_attention_cached": 12,
+              **_COMMON}
+_INT8_CACHE = PATHS["int8_b64"]["per_forward"]
+
+
+def write_png(path, rgb):
+    """An 8-bit RGB PNG, filter type 0 (the card's machine has no imaging
+    package; the port's reader decodes it)."""
+    import struct
+    import zlib
+
+    h, w, _ = rgb.shape
+    raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def _unit_rows(x):
+    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+
+def _fragment(rng, world, desc, n, noise=0.1):
+    """n scene points in a random frame (world = pose x), 5 mm jitter, the
+    scene points' descriptors with noise; returns (pts, desc, pose)."""
+    from gmf_tpu_torch.geometry.se3 import random_rotation_matrix
+
+    idx = rng.choice(len(world), n, replace=False)
+    pose = np.eye(4)
+    pose[:3, :3] = random_rotation_matrix(3, 1.0, rng)
+    pose[:3, 3] = rng.rand(3)
+    pts = (world[idx] - pose[:3, 3]) @ pose[:3, :3]
+    pts += 0.005 * rng.randn(n, 3)
+    return (pts.astype(np.float32),
+            _unit_rows(desc[idx] + noise * rng.randn(n, desc.shape[1])),
+            pose)
+
+
+def write_eval_fixtures(root):
+    """The 3DMatch scene (SCENE_LIST[0]; overlap files naming the first
+    scene of the train and val splits over its fragments), the KITTI
+    pairs and the 3DLoMatch pair; returns their paths."""
+    import os
+    import pickle
+
+    from gmf_tpu_torch.data import threedmatch
+
+    rng = np.random.RandomState(SEED + 7)
+    scene = threedmatch.SCENE_LIST[0]
+    seq = os.path.join(root, scene, "seq-01")
+    os.makedirs(seq)
+    world = rng.rand(EVAL_SCENE_POINTS, 3) * 3.0
+    desc = rng.randn(EVAL_SCENE_POINTS, EVAL_DESC)
+    poses = []
+    for f in range(EVAL_FRAGMENTS):
+        pts, feat, pose = _fragment(rng, world, desc, EVAL_POINTS)
+        base = os.path.join(seq, f"cloud_bin_{f}")
+        np.savez(base + "_fcgf.npz", xyz=pts, feature=feat)
+        write_png(base + "_0.png", rng.randint(0, 256, EVAL_FRAME_HW + (3,),
+                                               dtype=np.uint8))
+        poses.append(pose)
+    pairs = [(i, j) for i in range(EVAL_FRAGMENTS)
+             for j in range(i + 1, EVAL_FRAGMENTS)][:EVAL_PAIRS]
+    with open(os.path.join(root, scene, "gt.log"), "w") as f:
+        for i, j in pairs:  # target -> source, as 3DMatch stores it
+            f.write(f"{i} {j} {EVAL_FRAGMENTS}\n")
+            T_ts = np.linalg.inv(np.linalg.inv(poses[j]) @ poses[i])
+            f.write("\n".join(" ".join(f"{v:.10f}" for v in row)
+                              for row in T_ts) + "\n")
+    overlap = os.path.join(root, "overlap")
+    os.makedirs(overlap)
+    splits = os.path.join(os.path.dirname(threedmatch.__file__), "splits")
+    for split in ("train", "val"):
+        with open(os.path.join(splits, f"{split}_3dmatch.txt")) as f:
+            name = f.read().split()[0]
+        with open(os.path.join(overlap, f"{name}-0.txt"), "w") as f:
+            for i, j in pairs:
+                f.write(f"{scene}/seq-01/cloud_bin_{i}.ply "
+                        f"{scene}/seq-01/cloud_bin_{j}.ply 0.5\n")
+
+    # KITTI: 40 x 40 x 4 m clouds, 70% of the target the source moved
+    kdir = os.path.join(root, "kitti", "fcgf_test")
+    os.makedirs(kdir)
+    for p in range(KITTI_PAIRS):
+        xyz0 = rng.rand(KITTI_POINTS, 3) * np.array([40.0, 40.0, 4.0])
+        T = np.eye(4)
+        T[:3, :3] = random_rotation_matrix_z(rng, 0.3)
+        T[:3, 3] = rng.randn(3) * np.array([2.0, 2.0, 0.1])
+        xyz1 = xyz0 @ T[:3, :3].T + T[:3, 3] + 0.02 * rng.randn(
+            KITTI_POINTS, 3)
+        out = rng.rand(KITTI_POINTS) < 0.3
+        xyz1[out] = rng.rand(out.sum(), 3) * np.array([40.0, 40.0, 4.0])
+        feat = rng.randn(KITTI_POINTS, EVAL_DESC)
+        np.savez(os.path.join(kdir, f"pair_{p:06d}.npz"),
+                 xyz0=xyz0.astype(np.float32), xyz1=xyz1.astype(np.float32),
+                 features0=_unit_rows(feat + 0.1 * rng.randn(*feat.shape)),
+                 features1=_unit_rows(feat + 0.1 * rng.randn(*feat.shape)),
+                 p_image=rng.randint(0, 256, KITTI_FRAME_HW + (3,),
+                                     dtype=np.uint8),
+                 q_image=rng.randint(0, 256, KITTI_FRAME_HW + (3,),
+                                     dtype=np.uint8),
+                 gt_trans=T.astype(np.float32))
+
+    # 3DLoMatch: one pair of two fragments of one scene
+    lo = os.path.join(root, "lomatch")
+    os.makedirs(lo)
+    lworld = rng.rand(LOMATCH_SCENE, 3) * 3.0
+    ldesc = rng.randn(LOMATCH_SCENE, EVAL_DESC)
+    lposes = []
+    for f in range(2):
+        pts, feat, pose = _fragment(rng, lworld, ldesc, LOMATCH_POINTS,
+                                    noise=0.05)
+        np.savez(os.path.join(lo, f"frag_{f}_fcgf.npz"), xyz=pts,
+                 feature=feat)
+        write_png(os.path.join(lo, f"frag_{f}_0.png"),
+                  rng.randint(0, 256, EVAL_FRAME_HW + (3,), dtype=np.uint8))
+        lposes.append(pose)
+    gt = np.linalg.inv(lposes[1]) @ lposes[0]
+    pair_file = os.path.join(root, "3DLoMatch.pkl")
+    with open(pair_file, "wb") as f:
+        pickle.dump({"rot": gt[None, :3, :3], "trans": gt[None, :3, 3:4],
+                     "src": np.array(["lomatch/frag_0.pth"]),
+                     "tgt": np.array(["lomatch/frag_1.pth"])}, f)
+    return dict(root=root, scene=scene, overlap=overlap,
+                kitti=os.path.join(root, "kitti"), pair_file=pair_file)
+
+
+def random_rotation_matrix_z(rng, max_angle):
+    """A rotation about z by up to ``max_angle`` radians (a car's yaw)."""
+    a = (rng.rand() * 2 - 1) * max_angle
+    c, s = math.cos(a), math.sin(a)
+    return np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+
+
+def write_eval_checkpoint(dev, path):
+    """The full-width model (random weights from SEED) as a port
+    checkpoint, its settings recorded, as the trainer writes one."""
+    from gmf_tpu_torch.models import PointDSC
+    from gmf_tpu_torch.utils.checkpoint import save_checkpoint
+
+    model = PointDSC(num_layers=12, num_channels=128, k=40, ratio=0.1,
+                     device=dev, seed=SEED)
+    save_checkpoint(path, model.state_dict(), config={"model": model.config})
+    del model
+    return path
+
+
+def check_stats(name, stats, pairs, floor=0.9):
+    """all_stats of ``pairs`` rows of 12 finite columns, recall >= floor."""
+    if stats.shape != (pairs, 12):
+        fail(f"{name}: all_stats of shape {stats.shape}, expected "
+             f"({pairs}, 12)")
+    if not np.isfinite(stats[:, :9]).all():
+        fail(f"{name}: non-finite statistics")
+    recall = float(stats[:, 0].mean())
+    if recall < floor:
+        fail(f"{name}: registration recall {recall} under {floor}")
+    return recall
+
+
+def check_launches(name, launches, per_forward, forwards):
+    for k in KERNELS:
+        want = per_forward.get(k, 0) * forwards
+        if launches[k] != want:
+            fail(f"{name}: {k} launched {launches[k]} times, expected "
+                 f"{want} ({forwards} forwards)")
+
+
+def run_cli(name, module, argv, pairs, per_forward, forwards, extra=None):
+    """``module.main(argv)`` on the card with the launch counts reset just
+    before and read just after; its all_stats, recall, launches, seconds
+    and peak memory."""
+    import os
+
+    from gmf_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    agg = module.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: _build.launches[k] for k in KERNELS}
+    stats = np.load(os.path.join(argv[argv.index("--out") + 1],
+                                 "all_stats.npy"))
+    if not np.array_equal(stats, agg["all_stats"]):
+        fail(f"{name}: all_stats.npy is not the aggregate")
+    check_launches(name, launches, per_forward, forwards)
+    out = dict(argv=argv[argv.index("--out") + 2:], pairs=pairs,
+               recall=check_stats(name, stats, pairs), seconds=seconds,
+               pairs_per_s=pairs / seconds, launches=launches,
+               forwards=forwards,
+               mean_model_time_s=float(stats[:, 9].mean()),
+               mean_data_time_s=float(stats[:, 10].mean()),
+               median_re_deg=float(np.median(stats[:, 1])),
+               median_te_cm=float(np.median(stats[:, 2])),
+               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               **(extra or {}))
+    print(f"eval {name}: " + json.dumps(
+        {k: v for k, v in out.items() if k != "launches"}), flush=True)
+    return out
+
+
+def eval_3dmatch_phase(fix, ckpt, tmp):
+    """test_3dmatch at --batch 4 --inflight 2 --workers 2 through main()
+    (launches: one forward a full group, the groups by bucket as the
+    host's matching gives them), then with --device-match as ``python -m``
+    in a subprocess (its exit code, statistics and recall)."""
+    import os
+
+    from gmf_tpu_torch.data.collate import BUCKETS, next_bucket
+    from gmf_tpu_torch.data.threedmatch import ThreeDMatchTest
+    from gmf_tpu_torch.eval import test_3dmatch
+
+    ds = ThreeDMatchTest(root=fix["root"], select_scene=fix["scene"])
+    sizes = [ds[i]["corr_pos"].shape[0] for i in range(len(ds))]
+    buckets = [next_bucket(n, BUCKETS) for n in sizes]
+    forwards = sum(-(-buckets.count(b) // EVAL_BATCH) for b in set(buckets))
+    if set(buckets) != {N}:
+        fail(f"3dmatch fixture: buckets {buckets}, expected all {N}")
+    base = ["--root", fix["root"], "--checkpoint", ckpt, "--scenes",
+            fix["scene"]]
+    out = dict(batched=run_cli(
+        "3dmatch_b4", test_3dmatch,
+        base + ["--out", os.path.join(tmp, "e3dm"), "--batch",
+                str(EVAL_BATCH), "--inflight", "2", "--workers", "2"],
+        EVAL_PAIRS, _F32_CACHE, forwards,
+        extra=dict(correspondences=sizes)))
+    t0 = time.perf_counter()
+    dm_out = os.path.join(tmp, "e3dm_dm")
+    r = subprocess.run([sys.executable, "-m", "gmf_tpu_torch.eval.test_3dmatch",
+                        *base, "--out", dm_out, "--device-match"],
+                       capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"test_3dmatch --device-match exited {r.returncode}:\n"
+             f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    stats = np.load(os.path.join(dm_out, "all_stats.npy"))
+    out["device_match"] = dict(
+        argv=["--device-match"], subprocess=True, seconds=seconds,
+        pairs=EVAL_PAIRS, recall=check_stats("3dmatch_device_match", stats,
+                                             EVAL_PAIRS),
+        report=[ln for ln in r.stderr.splitlines() if "pairs" in ln][-1:])
+    print("eval 3dmatch_device_match (python -m): " + json.dumps(
+        out["device_match"]), flush=True)
+    return out
+
+
+def eval_kitti_phase(fix, ckpt, tmp):
+    """test_kitti on KITTI_PAIRS pairs at 12000 correspondences, one
+    batch, RANSAC on the predicted inliers and ICP."""
+    import os
+
+    from gmf_tpu_torch.eval import test_kitti
+
+    return run_cli(
+        "kitti_b8", test_kitti,
+        ["--root", fix["kitti"], "--checkpoint", ckpt, "--out",
+         os.path.join(tmp, "ekitti"), "--batch", str(KITTI_PAIRS),
+         "--solver", "RANSAC", "--use-icp"],
+        KITTI_PAIRS, _INT8_CACHE, 1)
+
+
+def eval_lomatch_phase(fix, ckpt, tmp, rates):
+    """test_3dlomatch --num-node all on the pair past NMS_RUN
+    correspondences: the bucket LOMATCH_BUCKET (what NMS was called on),
+    NMS's call there held to its plain version in every bit and timed
+    (nms_check), which includes its merge pass."""
+    import os
+
+    from gmf_tpu_torch.eval import test_3dlomatch
+    from gmf_tpu_torch.ops import fused_nms
+
+    seen = []
+    kernel = fused_nms.nms_local_max
+
+    def recording(src_keypts, scores, radius):
+        seen.append((src_keypts.clone(), scores.clone(), radius))
+        return kernel(src_keypts, scores, radius)
+
+    fused_nms.nms_local_max = recording
+    try:
+        out = run_cli(
+            "3dlomatch_all", test_3dlomatch,
+            ["--root", fix["root"], "--pair-file", fix["pair_file"],
+             "--checkpoint", ckpt, "--out", os.path.join(tmp, "elo"),
+             "--num-node", "all"], 1, _INT8_CACHE, 1)
+    finally:
+        fused_nms.nms_local_max = kernel
+    shapes = [tuple(s.shape) for s, _, _ in seen]
+    if shapes != [(1, LOMATCH_BUCKET, 3)] or LOMATCH_BUCKET <= NMS_RUN:
+        fail(f"3dlomatch: NMS ran on {shapes}, expected one call on the "
+             f"{LOMATCH_BUCKET} bucket, past {NMS_RUN} (the merge pass)")
+    src, scores, radius = seen[0]
+    if radius != 0.10:
+        fail(f"3dlomatch: NMS radius {radius}")
+    out["bucket"] = LOMATCH_BUCKET
+    out["nms_merge_passes"] = math.ceil(math.log2(LOMATCH_BUCKET / NMS_RUN))
+    out["nms"] = nms_check("3dlomatch nms", src, scores, [slice(0, 1)],
+                           rates)
+    print("eval 3dlomatch nms: " + json.dumps(out["nms"]), flush=True)
+    return out
+
+
+def train_3dmatch_phase(fix, tmp):
+    """train_pointdsc --dataset 3DMatch --max-epoch 1 --steps-per-epoch 2
+    --prefetch 2 on the fixtures through main(): the dense training (no
+    attention kernel; the f32 kNN and the counts once a forward: one eval
+    step before, two train steps, one eval step after), every metric
+    finite, a snapshot written."""
+    import os
+
+    from gmf_tpu_torch.ops import _build
+    from gmf_tpu_torch.train import train_pointdsc
+
+    save = os.path.join(tmp, "train3dm")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    history = train_pointdsc.main(
+        ["--dataset", "3DMatch", "--root", fix["root"], "--overlap-path",
+         fix["overlap"], "--max-epoch", "1", "--steps-per-epoch", "2",
+         "--prefetch", "2", "--save-dir", save])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: _build.launches[k] for k in KERNELS}
+    check_launches("train_3dmatch", launches, _TRAIN_COMMON, 4)
+    for kind, _, metrics in history:
+        if not all(math.isfinite(v) for v in metrics.values()):
+            fail(f"train_3dmatch: non-finite {kind} metrics {metrics}")
+    if not os.path.exists(os.path.join(save, "model_best", "state.pt")):
+        fail("train_3dmatch: no model_best snapshot")
+    out = dict(seconds=seconds, forwards=4, launches=launches,
+               train=history[1][2], final_eval=history[-1][2],
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    print("train_3dmatch: " + json.dumps(
+        {k: v for k, v in out.items() if k != "launches"}), flush=True)
+    return out
+
+
+def service_phase(dev):
+    """RegistrationService (int8 cache, bf16 modules, max_batch 16) behind
+    the full-width registrar: warm-up, then SERVICE_CLIENTS threads each
+    submit their share of SERVICE_PAIRS pairs of 5000 correspondences at
+    once and wait for them (latency: submit to result).
+    Each flush the service dispatched is run again through register_batch
+    on the same pairs: every transform and label equal (raw_b16's
+    card-vs-card bound). Launches: the main path's a flush."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gmf_tpu_torch.eval.serving import RegistrationService
+    from gmf_tpu_torch.ops import _build
+
+    reg = make_registrar(dev, compat_cache="int8")
+    pairs = make_requests(SERVICE_PAIRS)[0]
+    flushes = []
+    dispatch = reg.dispatch_batch
+
+    def recording(samples):
+        flushes.append([dict(s) for s in samples])
+        return dispatch(samples)
+
+    with RegistrationService(reg, max_batch=SERVICE_MAX_BATCH,
+                             max_wait_ms=10.0, inflight=2) as svc:
+        t0 = time.perf_counter()
+        svc.warmup([N])
+        torch.cuda.synchronize()
+        warmup_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        reg.dispatch_batch = recording  # the flushes from here on
+
+        def client(c):
+            """Submit this client's pairs, then wait for them; a
+            request's latency ends when the service sets its result."""
+            sent = []
+            for i in range(c, SERVICE_PAIRS, SERVICE_CLIENTS):
+                t, done_at = time.perf_counter(), []
+                fut = svc.submit(dict(pairs[i]))
+                fut.add_done_callback(
+                    lambda f, d=done_at: d.append(time.perf_counter()))
+                sent.append((i, t, done_at, fut))
+            return [(i, (f.result(timeout=300), d)[1][0] - t, f.result())
+                    for i, t, d, f in sent]
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(SERVICE_CLIENTS) as ex:
+            done = [r for lat in ex.map(client, range(SERVICE_CLIENTS))
+                    for r in lat]
+        wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    reg.dispatch_batch = dispatch
+    launches = {k: _build.launches[k] for k in KERNELS}
+    check_launches("service", launches, _INT8_CACHE, len(flushes))
+    results = {i: res for i, _, res in done}
+    by_id = {id(p["corr_pos"]): i for i, p in enumerate(pairs)}
+    trans_diff, label_diffs, checked = 0.0, 0, set()
+    for group in flushes:
+        ref = reg.register_batch([dict(s) for s in group])
+        for s, (t_ref, lab_ref) in zip(group, ref):
+            i = by_id[id(s["corr_pos"])]
+            if i in checked:
+                continue  # a pad row: a copy of a pair of the flush
+            checked.add(i)
+            t, lab = results[i]
+            trans_diff = max(trans_diff, float(np.abs(t - t_ref).max()))
+            label_diffs += int((lab != lab_ref).sum())
+    ok, rot = 0, []
+    for i, (t, _) in results.items():
+        re_ = rot_err_deg(t, pairs[i]["gt_trans"])
+        te = float(np.linalg.norm(t[:3, 3] - pairs[i]["gt_trans"][:3, 3]))
+        rot.append(re_)
+        ok += re_ < 15.0 and te < 0.30
+    lat_ms = np.array([1e3 * s for _, s, _ in done])
+    out = dict(pairs=SERVICE_PAIRS, clients=SERVICE_CLIENTS,
+               max_batch=SERVICE_MAX_BATCH, flushes=len(flushes),
+               flush_sizes=[len(g) for g in flushes], warmup_s=warmup_s,
+               wall_s=wall, pairs_per_s=SERVICE_PAIRS / wall,
+               latency_ms_p50=float(np.percentile(lat_ms, 50)),
+               latency_ms_p95=float(np.percentile(lat_ms, 95)),
+               latency_ms_max=float(lat_ms.max()), launches=launches,
+               vs_register_batch_max_trans_diff=trans_diff,
+               vs_register_batch_label_diffs=label_diffs,
+               recall=f"{ok}/{len(rot)}",
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    print("service: " + json.dumps(
+        {k: v for k, v in out.items() if k != "launches"}), flush=True)
+    if len(checked) != SERVICE_PAIRS:
+        fail(f"service: {len(checked)} of {SERVICE_PAIRS} pairs dispatched")
+    if trans_diff != 0.0 or label_diffs:
+        fail("service: results differ from register_batch on the same "
+             "pairs")
+    if ok < 0.9 * len(rot):
+        fail(f"service: registration recall {ok}/{len(rot)}")
+    del reg
+    torch.cuda.empty_cache()
+    return out
+
+
+def eval_phase(dev, rates, phase_done):
+    """Phase 7: the evaluation stack at full width on fixtures written
+    into a temporary directory (removed after)."""
+    import os
+    import tempfile
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        fix = write_eval_fixtures(os.path.join(tmp, "data"))
+        ckpt = write_eval_checkpoint(dev, os.path.join(tmp, "ckpt"))
+        phase_done("eval_fixtures")
+        out["3dmatch"] = eval_3dmatch_phase(fix, ckpt, tmp)
+        phase_done("eval_3dmatch")
+        out["kitti"] = eval_kitti_phase(fix, ckpt, tmp)
+        phase_done("eval_kitti")
+        out["3dlomatch"] = eval_lomatch_phase(fix, ckpt, tmp, rates)
+        phase_done("eval_3dlomatch")
+        out["train_3dmatch"] = train_3dmatch_phase(fix, tmp)
+        phase_done("train_3dmatch")
+    torch.cuda.empty_cache()
+    out["service"] = service_phase(dev)
+    phase_done("service")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the result JSON here")
@@ -2867,6 +3387,13 @@ def main():
     # 6. the training command line
     cli = cli_phase()
     phase_done("cli")
+
+    # 7. the evaluation stack: the CLIs, the service, 3DMatch training
+    paths["eval"] = eval_phase(dev, rates, phase_done)
+    rows["nms_local_max"].update({
+        f"lomatch_n{LOMATCH_BUCKET}_{k}": v
+        for k, v in paths["eval"]["3dlomatch"]["nms"].items()
+        if k not in ("tolerance", "shape")})
 
     kernels = []
     for name in KERNELS:

@@ -1,21 +1,23 @@
 """PointDSC+GMF training command line.
 
 Counterpart of ``gmf_tpu/train/train_pointdsc.py`` (reference:
-GMF_PointDSC/train_3DMatch.py): build the loaders from the config, write
-the resolved config and the training sources into the snapshot directory,
-and run the epoch loop with recall-stamped checkpoints.
+GMF_PointDSC/train_3DMatch.py, train_KITTI.py): build the loaders from the
+config, write the resolved config and the training sources into the
+snapshot directory, and run the epoch loop with recall-stamped
+checkpoints.
 
-    python -m gmf_tpu_torch.train.train_pointdsc --dataset synthetic
+    python -m gmf_tpu_torch.train.train_pointdsc --dataset 3DMatch \\
+        --root /data/3DImageMatch --overlap-path /data/overlap
+    python -m gmf_tpu_torch.train.train_pointdsc --dataset Kitti \\
+        --root /data/kitti
     python -m gmf_tpu_torch.train.train_pointdsc --dataset synthetic \\
         --tiny --cpu --max-epoch 1 --steps-per-epoch 2 --save-dir /tmp/s
 
 It runs on the card unless ``--cpu`` is given. As the reference's
 (gmf_tpu/train/train_pointdsc.py:170-177), the model trains with the
 dense attention (``fused_attention=False``) unless ``--fused`` asks for
-the attention kernels; the checkpoints record which. ``--prefetch`` is
-accepted for command compatibility and changes nothing: batches are
-built inline. The 3DMatch and KITTI loaders come with the port's
-evaluation stack; until then those datasets stop with an error.
+the attention kernels; the checkpoints record which. ``--prefetch N``
+builds batches N ahead on a thread (``data/prefetch.py``).
 """
 
 from __future__ import annotations
@@ -24,12 +26,48 @@ import argparse
 import os
 import time
 
+
+class BatchedLoader:
+    """An indexable dataset as a shuffled, min-clip-collated batch
+    iterator (the reference's DataLoader and collate_fn,
+    datasets/dataloader.py:55-62), with gmf_tpu's draws: a permutation
+    from ``RandomState(seed + epoch)`` and the collate's subsampling from
+    the same state."""
+
+    def __init__(self, dataset, batch_size: int, steps_per_epoch: int,
+                 seed: int = 0):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.steps_per_epoch = steps_per_epoch
+        self.seed = seed
+        self._epoch = 0
+
+    def __iter__(self):
+        import numpy as np
+
+        from gmf_tpu_torch.data.collate import min_clip_collate
+
+        rng = np.random.RandomState(self.seed + self._epoch)
+        self._epoch += 1
+        order = rng.permutation(len(self.dataset))
+        for step in range(self.steps_per_epoch):
+            idx = [order[(step * self.batch_size + b) % len(order)]
+                   for b in range(self.batch_size)]
+            samples = [{k: v for k, v in self.dataset[i].items()
+                        if k != "scene"} for i in idx]
+            yield min_clip_collate(samples, rng)
+
+    def __len__(self):
+        return self.steps_per_epoch
+
+
 SOURCES = [
     "gmf_tpu_torch.models.pointdsc", "gmf_tpu_torch.nn.fusion",
     "gmf_tpu_torch.nn.resnet", "gmf_tpu_torch.nn.norm",
     "gmf_tpu_torch.ops.fused_attention", "gmf_tpu_torch.train.trainer",
     "gmf_tpu_torch.train.losses", "gmf_tpu_torch.train.train_pointdsc",
-    "gmf_tpu_torch.configs.presets",
+    "gmf_tpu_torch.configs.presets", "gmf_tpu_torch.data.threedmatch",
+    "gmf_tpu_torch.data.kitti",
 ]
 
 
@@ -50,8 +88,8 @@ def parse_args(argv=None):
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU through the plain versions")
     ap.add_argument("--prefetch", type=int, default=0,
-                    help="accepted for command compatibility; batches are "
-                         "built inline")
+                    help="prefetch batches N-deep on a thread (host batch "
+                         "construction overlaps the card's steps)")
     ap.add_argument("--tiny", action="store_true", help="tiny smoke config")
     ap.add_argument("--fused", action="store_true",
                     help="train through the attention kernels (fused "
@@ -59,21 +97,62 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def make_loaders(args, cfg):
+    """(train loader, val loader) of ``args.dataset``."""
+    if args.dataset == "synthetic":
+        from gmf_tpu_torch.data.synthetic import SyntheticCorrespondenceLoader
+
+        spe = args.steps_per_epoch or 4
+        bs = args.batch_size or 4
+        num_corr = 256 if args.tiny else args.num_node
+        hw = (24, 32) if args.tiny else (120, 160)
+        return (SyntheticCorrespondenceLoader(
+                    batch_size=bs, num_corr=num_corr, steps_per_epoch=spe,
+                    image_hw=hw),
+                SyntheticCorrespondenceLoader(
+                    batch_size=bs, num_corr=num_corr,
+                    steps_per_epoch=max(spe // 4, 1), image_hw=hw, seed=1))
+    bs = cfg.data.batch_size
+    if args.dataset == "3DMatch":
+        from gmf_tpu_torch.data.threedmatch import ThreeDMatchTrainVal
+
+        common = dict(root=args.root, overlap_path=args.overlap_path,
+                      descriptor=args.descriptor, num_node=args.num_node,
+                      use_mutual=cfg.data.use_mutual)
+        train_ds = ThreeDMatchTrainVal(split="train", **common)
+        val_ds = ThreeDMatchTrainVal(split="val", augment_axis=0,
+                                     augment_rotation=0.0,
+                                     augment_translation=0.0, **common)
+        val_steps = min(cfg.val_max_iter, max(len(val_ds) // bs, 1))
+    else:  # Kitti
+        from gmf_tpu_torch.data.kitti import KITTIDataset
+
+        common = dict(root=args.root, descriptor=args.descriptor,
+                      num_node=args.num_node,
+                      inlier_threshold=cfg.model.inlier_threshold)
+        train_ds = KITTIDataset(split="train", **common)
+        val_ds = KITTIDataset(split="val", **common)
+        val_steps = max(len(val_ds) // bs, 1)
+    for split, ds in (("train", train_ds), ("val", val_ds)):
+        if not len(ds):
+            raise SystemExit(
+                f"--dataset {args.dataset}: no {split} pairs under --root "
+                f"{args.root!r} (--overlap-path {args.overlap_path!r})")
+    spe = args.steps_per_epoch or min(cfg.training_max_iter,
+                                      len(train_ds) // bs)
+    return (BatchedLoader(train_ds, bs, spe),
+            BatchedLoader(val_ds, bs, val_steps))
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if args.dataset != "synthetic":
-        raise SystemExit(
-            f"--dataset {args.dataset}: the port's {args.dataset} loader "
-            "comes with its evaluation stack and is not ported yet; use "
-            "--dataset synthetic")
 
-    from gmf_tpu_torch.configs import pointdsc_3dmatch
-    from gmf_tpu_torch.data.synthetic import SyntheticCorrespondenceLoader
+    from gmf_tpu_torch.configs import pointdsc_3dmatch, pointdsc_kitti
     from gmf_tpu_torch.models import PointDSC
     from gmf_tpu_torch.train.trainer import TrainConfig, Trainer
     from gmf_tpu_torch.utils.checkpoint import snapshot_sources
 
-    cfg = pointdsc_3dmatch()
+    cfg = pointdsc_kitti() if args.dataset == "Kitti" else pointdsc_3dmatch()
     if args.max_epoch is not None:
         cfg.max_epoch = args.max_epoch
     if args.batch_size is not None:
@@ -81,6 +160,7 @@ def main(argv=None):
     if args.lr is not None:
         cfg.lr = args.lr
 
+    train_loader, val_loader = make_loaders(args, cfg)
     save_dir = args.save_dir or os.path.join(
         "outputs", "snapshot",
         f"PointDSC_{args.dataset}_{time.strftime('%m%d%H%M')}")
@@ -88,16 +168,6 @@ def main(argv=None):
     cfg.to_json(os.path.join(save_dir, "config.json"))
     snapshot_sources(save_dir, SOURCES)
     print(f"snapshot dir: {save_dir}", flush=True)
-
-    spe = args.steps_per_epoch or 4
-    bs = args.batch_size or 4
-    num_corr = 256 if args.tiny else args.num_node
-    hw = (24, 32) if args.tiny else (120, 160)
-    train_loader = SyntheticCorrespondenceLoader(
-        batch_size=bs, num_corr=num_corr, steps_per_epoch=spe, image_hw=hw)
-    val_loader = SyntheticCorrespondenceLoader(
-        batch_size=bs, num_corr=num_corr, steps_per_epoch=max(spe // 4, 1),
-        image_hw=hw, seed=1)
 
     device = "cpu" if args.cpu else None
     m = cfg.model
@@ -124,7 +194,8 @@ def main(argv=None):
         transformation_loss_start_epoch=cfg.transformation_loss_start_epoch,
         re_thresh=cfg.re_thre, te_thresh=cfg.te_thre, save_dir=save_dir)
     trainer = Trainer(model, tcfg, train_loader, val_loader,
-                      steps_per_epoch=len(train_loader))
+                      steps_per_epoch=len(train_loader),
+                      prefetch=args.prefetch)
     if args.pretrain:
         trainer.load(args.pretrain)
         print(f"loaded pretrain from {args.pretrain}", flush=True)

@@ -34,6 +34,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from gmf_tpu_torch.data.prefetch import prefetch_iter
 from gmf_tpu_torch.train.losses import (classification_loss,
                                         spectral_matching_loss,
                                         transformation_loss)
@@ -158,11 +159,13 @@ class Trainer:
 
     ``train_loader`` and ``val_loader`` yield dicts of NumPy arrays (see
     ``data/synthetic.py``); ``steps_per_epoch`` defaults to the train
-    loader's, which the learning-rate schedule counts in.
+    loader's, which the learning-rate schedule counts in. ``prefetch > 0``
+    builds that many batches ahead on a thread (``data/prefetch.py``), so
+    that the host's batch construction overlaps the card's steps.
     """
 
     def __init__(self, model, cfg: TrainConfig, train_loader, val_loader,
-                 steps_per_epoch: Optional[int] = None):
+                 steps_per_epoch: Optional[int] = None, prefetch: int = 0):
         self.model = model
         self.cfg = cfg
         self.train_loader = train_loader
@@ -170,6 +173,7 @@ class Trainer:
         self.steps_per_epoch = (
             steps_per_epoch if steps_per_epoch is not None
             else getattr(train_loader, "steps_per_epoch", 100))
+        self.prefetch = prefetch
         self.optimizer = make_optimizer(model, cfg)
         self.applied_steps = 0
         self.history = []
@@ -197,12 +201,16 @@ class Trainer:
         return {k: sum(r[k] for r in rows) / max(len(rows), 1)
                 for k in (rows[0] if rows else {})}
 
+    def _batches(self, loader):
+        return prefetch_iter(loader, self.prefetch)
+
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         return self._mean(self.train_step(b, epoch)
-                          for b in self.train_loader)
+                          for b in self._batches(self.train_loader))
 
     def evaluate(self) -> Dict[str, float]:
-        return self._mean(self.eval_step(b) for b in self.val_loader)
+        return self._mean(self.eval_step(b)
+                          for b in self._batches(self.val_loader))
 
     def train(self, snapshot: bool = True):
         best_recall = -1.0
