@@ -157,7 +157,29 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
      a flush.
    Each run: all_stats.npy of [pairs, 12] finite columns, registration
    recall >= 0.9 (the service's too), the launch counts asserted.
-8. Print the seconds of each phase as it ends, a JSON line with every
+8. DGR+GMF registration (dgr_phase) at full width (FCGF 1 -> 32, conv1
+   7^3, 5^3 for KITTI; the 6-D GMF inlier net, image_dim 128, 120 x 160
+   frames), random weights from SEED, on make_dgr_pair's surface scaled
+   up; no TPU kernel lies on this path, so it adds no kernel row:
+   - FPFH of a ~1,500-voxel pair on the card and the CPU (rows apart by
+     a bin flip and 1-NN matches apart each under 2%), then register() on
+     both devices, the same weights: nn01 equal, weights within 1e-4,
+     the same safeguard decision, T within 1e-4 rad and m (1e-3 with
+     ICP); fcgf, fpfh and fpfh with ICP (the CPU fed the card's FPFH);
+   - register() with ICP at ~20,000 voxels at 3DMatch's voxel 0.05 and
+     KITTI's 0.3: host-clock means of synchronised calls, one line a
+     stage (voxelize, host pyramids 3-D and 6-D, FCGF, 1-NN, unique,
+     inlier net, solve, the safeguard timed alone, ICP), peak memory,
+     each 6-D map's K', M and non-sentinel share; every kernel map from
+     the native builder;
+   - test_dgr through main(argv) on a 3DMatch tree (PLY fragments, PNG
+     frames, gt.log) and a KITTI sequence (velodyne .bin, poses,
+     calibration) the script writes: full width with --descriptor fpfh
+     --use-icp on the card (finite rows), and --tiny --descriptor fpfh
+     --use-icp on the card and with --cpu (success and safeguard flags
+     equal, rre within 0.05 deg, rte within 1e-3 m); the tiny FCGF's
+     features on both devices within 1e-4.
+9. Print the seconds of each phase as it ends, a JSON line with every
    path's time per request or step, a JSON
    line with every kernel's launches, time, plain time, bound and error,
    and, as the last line, {"ok": true, "device": {...}}.
@@ -3232,6 +3254,549 @@ def eval_phase(dev, rates, phase_done):
     return out
 
 
+# -- DGR+GMF registration (phase 8) ------------------------------------------
+#
+# DeepGlobalRegistration.register at full width: FCGF (ResUNetBN2C 1 -> 32,
+# CHANNELS 32/64/128/256, TR 64/64/64/128, conv1 7^3; 5^3 in the KITTI
+# preset) and the 6-D GMF inlier net (conv1 3^6, image_dim 128, 120 x 160
+# frames), random weights from SEED. Fragments are make_dgr_pair's surface
+# (a bumpy heightfield, gmf_tpu_torch/data/dgr_loader.py) scaled to SIDE
+# metres a side and sampled with POINTS points, 70% of them in each cloud:
+# ~20,000 voxels at 3DMatch's voxel 0.05 (5.8 m) and at KITTI's 0.3
+# (38 m), ~1,500 for the card-against-CPU check. No TPU kernel lies on this
+# path (the gmf_tpu package computes its sparse convolutions and FPFH in
+# plain jnp), so the phase adds no row to the kernels line.
+DGR_FULL = {"dgr_3dmatch": dict(voxel=0.05, side=5.8, points=90000),
+            "dgr_kitti": dict(voxel=0.3, side=38.0, points=90000)}
+DGR_SMALL = dict(voxel=0.05, side=1.6, points=6400)
+DGR_TIMED = 2  # timed register() calls a scale, after one warm-up
+# card against CPU: inlier weights within 1e-4 (f32 through 17 sparse
+# convolutions, two fusion layers and the image encoder, summed in other
+# orders); T within 1e-4 rad and 1e-4 m (the refinement's stop decisions
+# may fall an iteration apart, tests/test_torch_dgr.py)
+DGR_W_TOL, DGR_T_TOL = 1e-4, 1e-4
+# ICP from the FPFH solve: its matches at the 0.1 m threshold are a hard
+# decision, so the solves' ~1e-7 difference comes out of its 20
+# iterations larger, and by how much depends on the pair. Measured on the
+# H100 for SEED + 20 ... SEED + 24 (the check's pair first): 1.01e-4,
+# 3.2e-7, 1.8e-5, 2.3e-7 and 4.1e-7 rad; 4.8e-5, 1.5e-7, 1.3e-5, 1.5e-7
+# and 4.2e-7 m. Held to 5e-4 rad and m
+DGR_ICP_T_TOL = 5e-4
+# FPFH on the card and the CPU, first its parts (dgr_fpfh_flips): the
+# normals within 1e-5; a neighbour kept on one device only lies within
+# 1e-5 m of the radius (or of the 100th neighbour's distance); a pair's
+# SPFH bin that differs lies within 1e-4 of a bin's edge, at atan2's cut
+# or on the source-swap tie (within 1e-5), as
+# tests/test_torch_dgr.py::_bin_flips_explained holds gmf_tpu against the
+# port, and at most 0.5% of the pairs flip. Then the whole: a flip moves
+# the point's own SPFH and every neighbour's FPFH row, so unit rows are
+# held to the CPU tests' bound against gmf_tpu (0.05), and at most 2% of
+# cloud 0's 1-NN matches in cloud 1 may move. Measured on the H100 for
+# SEED + 20 ... SEED + 24: the normals within 8.3e-7, 2 neighbours apart
+# (both explained), 0-18 flips of 112k-127k pairs a cloud (all
+# explained), rows within 0.004-0.013, 0-9 of 1,471-1,506 matches apart
+# (the limit ~30)
+DGR_FPFH_NORMAL_TOL, DGR_FPFH_NBR_TOL = 1e-5, 1e-5
+DGR_FPFH_EDGE, DGR_FPFH_SWAP_TIE, DGR_FPFH_FLIPS = 1e-4, 1e-5, 0.005
+DGR_FPFH_TOL, DGR_FPFH_NN = 0.05, 0.02
+# the tiny CLI on the card and on the CPU, with FPFH and ICP: the success
+# and safeguard flags equal, rre within 0.05 deg and rte within 1e-3 m.
+# With FCGF its 8-d random-weight descriptors tie in the 1-NN, which the
+# two devices break apart (measured: 3 of 2,866 matches, rre 3.6 deg
+# apart on garbage transforms), so there the tiny FCGF's features are
+# held instead, within 1e-4
+DGR_CLI_RRE_TOL, DGR_CLI_RTE_TOL = 0.05, 1e-3
+DGR_TINY_FEAT_TOL = 1e-4
+DGR_STAGES = ("voxelize", "pyramid_3d", "fcgf", "fpfh", "nn", "unique",
+              "pyramid_6d", "inlier_net", "solve", "safeguard", "icp")
+
+
+def dgr_pair(seed, side, points):
+    """(xyz0, xyz1, p_image, q_image, T_gt): two 70% subsets of one
+    surface, the second moved by T_gt with 2 mm noise per metre of side."""
+    from gmf_tpu_torch.data.dgr_loader import heightfield
+    from gmf_tpu_torch.geometry.se3 import random_rotation_matrix
+
+    rng = np.random.RandomState(seed)
+    base = heightfield(rng, points) * np.float32(side)
+    n = int(0.7 * points)
+    xyz0 = base[rng.choice(points, n, replace=False)]
+    xyz1 = base[rng.choice(points, n, replace=False)]
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = random_rotation_matrix(3, 0.3, rng)
+    T[:3, 3] = rng.rand(3) * 0.3 * side
+    xyz1 = (xyz1 @ T[:3, :3].T + T[:3, 3]
+            + 0.002 * side * rng.randn(n, 3)).astype(np.float32)
+    images = rng.rand(2, 1, *IMAGE_HW, 3).astype(np.float32)
+    return xyz0, xyz1, images[0], images[1], T
+
+
+def dgr_nets(kitti=False):
+    """Full-width FCGF and inlier nets' state dicts (CPU), from SEED."""
+    from gmf_tpu_torch.sparse.resunet import FCGFNet, GMFInlierNet
+
+    torch.manual_seed(SEED + (1 if kitti else 0))
+    fcgf = FCGFNet(conv1_kernel_size=5 if kitti else 7)
+    return fcgf.state_dict(), GMFInlierNet().state_dict()
+
+
+def dgr_engine(where, nets, kitti=False, **cfg):
+    from gmf_tpu_torch.models.dgr import DGRConfig, DeepGlobalRegistration
+    from gmf_tpu_torch.sparse.resunet import FCGFNet
+
+    voxel = DGR_FULL["dgr_kitti" if kitti else "dgr_3dmatch"]["voxel"]
+    return DeepGlobalRegistration(
+        *nets, DGRConfig(voxel_size=voxel, **cfg),
+        fcgf_model=FCGFNet(conv1_kernel_size=5 if kitti else 7),
+        device=where)
+
+
+def rot_angle(Ra, Rb):
+    """The angle (rad) between two rotations, from ||Ra - Rb||_F =
+    2 sqrt(2) sin(angle / 2) (arccos of the trace loses small angles)."""
+    d = np.linalg.norm(np.asarray(Ra, np.float64) - np.asarray(Rb, np.float64))
+    return float(2.0 * np.arcsin(min(1.0, d / math.sqrt(8.0))))
+
+
+def dgr_fpfh_flips(dev, xyz, rn, rf):
+    """FPFH's parts of one cloud on the card against the CPU (bounds at
+    DGR_FPFH_NORMAL_TOL): the normals; the neighbourhoods as sets, every
+    neighbour one device alone keeps explained by the radius or the
+    100th neighbour's distance; each pair's SPFH bins, both devices on the
+    CPU's neighbourhoods with their own normals, every flip explained.
+    Returns the counts."""
+    from gmf_tpu_torch.ops import fpfh
+
+    P = {w: torch.tensor(xyz, device=w) for w in (dev, "cpu")}
+    n = {w: fpfh.estimate_normals(P[w], rn, 30) for w in P}
+    knn = {w: [t.cpu() for t in fpfh._radius_knn(P[w], rf, 100)] for w in P}
+    idx, valid, dist = knn["cpu"]
+    N, k = idx.shape
+    x64 = xyz.astype(np.float64)
+    kept = {w: torch.where(knn[w][1], knn[w][0], -1).sort(1).values
+            for w in P}
+    nbr_apart = nbr_unexplained = 0
+    for r in (kept["cpu"] != kept[dev]).any(1).nonzero()[:, 0].tolist():
+        sets = [set(kept[w][r].tolist()) - {-1} for w in P]
+        kth = (float(dist[r, -1]) if max(map(len, sets)) == k
+               else math.inf)
+        for q in sets[0] ^ sets[1]:
+            d = float(np.linalg.norm(x64[q] - x64[r]))
+            nbr_apart += 1
+            nbr_unexplained += min(abs(d - rf), abs(d - kth)) >= \
+                DGR_FPFH_NBR_TOL
+    vals, bins = {}, {}
+    for w in P:
+        i = idx.to(P[w].device)
+        f = fpfh._pair_features(P[w][:, None].expand(N, k, 3),
+                                n[w][:, None].expand(N, k, 3), P[w][i],
+                                n[w][i])
+        vals[w] = [v.cpu().numpy() for v in f[:3]]
+        bins[w] = [fpfh.pair_bins(v, *r).cpu().numpy()
+                   for v, r in zip(f, fpfh.BIN_RANGES)]
+    ij, v = idx.numpy(), valid.numpy()
+    nc = n["cpu"].numpy().astype(np.float64)
+    dh = x64[ij] - x64[:, None]
+    dh /= np.linalg.norm(dh, axis=-1, keepdims=True)
+    swap_tie = np.abs(np.abs((nc[:, None] * dh).sum(-1))
+                      - np.abs((nc[ij] * dh).sum(-1)))
+    flips = unexplained = 0
+    for a, ba, bb, (lo, hi) in zip(vals["cpu"], bins["cpu"], bins[dev],
+                                   fpfh.BIN_RANGES):
+        diff = (ba != bb) & v
+        pos = (a - lo) / (hi - lo) * 11
+        on_edge = np.abs(pos - np.round(pos)) < DGR_FPFH_EDGE * 11 / (hi - lo)
+        branch_cut = (hi == math.pi) & (np.abs(np.abs(a) - math.pi)
+                                        < DGR_FPFH_EDGE)
+        explained = on_edge | branch_cut | (swap_tie < DGR_FPFH_SWAP_TIE)
+        flips += int(diff.sum())
+        unexplained += int((diff & ~explained).sum())
+    return dict(points=N, pairs=int(v.sum()),
+                normal_max_abs_err=float((n["cpu"] - n[dev].cpu()).abs()
+                                         .max()),
+                neighbours_apart=nbr_apart,
+                neighbours_unexplained=int(nbr_unexplained),
+                bin_flips=flips, bin_flips_unexplained=unexplained)
+
+
+def dgr_fpfh_card_vs_cpu(dev, pair):
+    """FPFH of both clouds on the card and on the CPU: first its parts
+    (dgr_fpfh_flips, each flip explained); then the features, unit rows
+    within DGR_FPFH_TOL and at most DGR_FPFH_NN of cloud 0's 1-NN matches
+    apart. Returns the card's features (CPU tensors) and the row."""
+    from gmf_tpu_torch.geometry.knn import nearest_neighbor
+    from gmf_tpu_torch.ops.fpfh import compute_fpfh
+    from gmf_tpu_torch.sparse.voxelize import sparse_quantize
+
+    vs = DGR_SMALL["voxel"]
+    clouds = [x[sparse_quantize(x, vs)[1]] for x in pair[:2]]
+    parts = [dgr_fpfh_flips(dev, x, 2 * vs, 5 * vs) for x in clouds]
+    feats = [[compute_fpfh(torch.tensor(x, device=where),
+                           normal_radius=2 * vs, feature_radius=5 * vs).cpu()
+              for x in clouds] for where in (dev, "cpu")]
+    diff = torch.cat([(a - b).abs().amax(1) for a, b in zip(*feats)])
+    nn = [nearest_neighbor(*f)[0] for f in feats]
+    row = dict(parts=parts, rows=len(diff),
+               rows_over_1e4=int((diff > 1e-4).sum()),
+               max_abs_err=float(diff.max()),
+               p99_abs_err=float(diff.quantile(0.99)),
+               matches=len(nn[0]), nn01_differ=int((nn[0] != nn[1]).sum()))
+    print("dgr fpfh card vs cpu: " + json.dumps(row), flush=True)
+    for c, p in enumerate(parts):
+        if p["normal_max_abs_err"] > DGR_FPFH_NORMAL_TOL:
+            fail(f"dgr fpfh cloud {c}: normals apart by "
+                 f"{p['normal_max_abs_err']} > {DGR_FPFH_NORMAL_TOL}")
+        if p["neighbours_unexplained"] or p["bin_flips_unexplained"]:
+            fail(f"dgr fpfh cloud {c}: {p['neighbours_unexplained']} "
+                 f"neighbours and {p['bin_flips_unexplained']} SPFH bins "
+                 "apart between the card and the CPU, not at an edge")
+        if p["bin_flips"] > DGR_FPFH_FLIPS * p["pairs"]:
+            fail(f"dgr fpfh cloud {c}: {p['bin_flips']} of {p['pairs']} "
+                 "pairs' bins apart")
+    if row["max_abs_err"] > DGR_FPFH_TOL:
+        fail(f"dgr fpfh: unit rows apart by {row['max_abs_err']} > "
+             f"{DGR_FPFH_TOL} between the card and the CPU")
+    if row["nn01_differ"] > DGR_FPFH_NN * row["matches"]:
+        fail(f"dgr fpfh: {row['nn01_differ']} of {row['matches']} 1-NN "
+             "matches apart")
+    return feats[0], row
+
+
+def dgr_card_vs_cpu(dev, nets, seed=SEED + 20):
+    """register() on the card and on the CPU (the same weights, the same
+    ~1,500-voxel pair): nn01 equal, weights within DGR_W_TOL,
+    used_safeguard equal, T within DGR_T_TOL (DGR_ICP_T_TOL with ICP);
+    for fcgf, fpfh and fpfh with ICP. The fpfh CPU runs take the card's FPFH
+    (dgr_fpfh_card_vs_cpu holds the features themselves)."""
+    pair = dgr_pair(seed, DGR_SMALL["side"], DGR_SMALL["points"])
+    card_fpfh, out = dgr_fpfh_card_vs_cpu(dev, pair)
+    out = {"fpfh_features": out}
+    for name, cfg in (("fcgf", {}), ("fpfh", dict(descriptor="fpfh")),
+                      ("fpfh_icp", dict(descriptor="fpfh", use_icp=True))):
+        res = {}
+        for where in (dev, "cpu"):
+            eng = dgr_engine(where, nets, **cfg)
+            if cfg.get("descriptor") == "fpfh" and where == "cpu":
+                given = iter(card_fpfh)
+                eng.fpfh_features = lambda pts: next(given)
+            t0 = time.perf_counter()
+            res[str(where)] = eng.register(*pair[:4])
+            res[str(where) + "_s"] = time.perf_counter() - t0
+        card, cpu = res[str(dev)], res["cpu"]
+        nn_diff = int((card["corres"][1] != cpu["corres"][1]).sum())
+        row = dict(correspondences=len(card["weights"]), nn01_differ=nn_diff,
+                   weights_max_abs_err=(float(np.abs(
+                       card["weights"] - cpu["weights"]).max())
+                       if nn_diff == 0 else None),
+                   used_safeguard=[card["used_safeguard"],
+                                   cpu["used_safeguard"]],
+                   rotation_err_rad=rot_angle(card["trans"][:3, :3],
+                                              cpu["trans"][:3, :3]),
+                   translation_err_m=float(np.abs(
+                       card["trans"][:3, 3] - cpu["trans"][:3, 3]).max()),
+                   card_s=res[str(dev) + "_s"], cpu_s=res["cpu_s"])
+        print(f"dgr card vs cpu {name}: " + json.dumps(row), flush=True)
+        if nn_diff:
+            fail(f"dgr card vs cpu {name}: nn01 differs on {nn_diff} "
+                 "correspondences")
+        if row["weights_max_abs_err"] > DGR_W_TOL:
+            fail(f"dgr card vs cpu {name}: weights differ by "
+                 f"{row['weights_max_abs_err']} > {DGR_W_TOL}")
+        if card["used_safeguard"] != cpu["used_safeguard"]:
+            fail(f"dgr card vs cpu {name}: used_safeguard differs")
+        t_tol = DGR_ICP_T_TOL if cfg.get("use_icp") else DGR_T_TOL
+        if max(row["rotation_err_rad"], row["translation_err_m"]) > t_tol:
+            fail(f"dgr card vs cpu {name}: T differs beyond {t_tol}")
+        out[name] = row
+    return out
+
+
+def dgr_map_stats(pyr):
+    """K', M and the share of entries that are not the sentinel, for each
+    6-D kernel map of the pyramid."""
+    caps = [lv.cap for lv in pyr.levels]
+    maps = {"conv1": (pyr.conv1_map, caps[0])}
+    for l, lv in enumerate(pyr.levels):
+        maps[f"self_{l}"] = (lv.self_map, caps[l])
+        if lv.down_map is not None:
+            maps[f"down_{l}"] = (lv.down_map, caps[l])
+            maps[f"up_{l}"] = (lv.up_map, caps[l + 1])
+    return {name: dict(k=int(m.shape[0]), m=int(m.shape[1]),
+                       occupancy=float((m != sentinel).mean()))
+            for name, (m, sentinel) in maps.items()}
+
+
+def dgr_inlier_work(maps, inlier_ms):
+    """The full-width inlier net's work on these 6-D maps: its dense
+    products (2 K' M Cin Cout a convolution, every map entry), the rows
+    its gathers write (4 K' M Cin bytes), the products on non-sentinel
+    entries only (what a compacted convolution needs), the rate the net
+    ran the dense products at, and their time at the CUDA cores' f32 rate
+    (F32_FLOPS; the port's GEMMs are f32 with TF32 off)."""
+    C, TR = (32, 64, 128, 256), (64, 64, 64, 128)
+    convs = [("conv1", 1, C[0])] + [("self_0", C[0], C[0])] * 2
+    for l in (1, 2, 3):
+        convs += [(f"down_{l - 1}", C[l - 1], C[l])]
+        convs += [(f"self_{l}", C[l], C[l])] * 2
+    tr_in = {3: C[3], 2: TR[3] + C[2], 1: TR[2] + C[1]}
+    for l in (3, 2, 1):  # conv{l+1}_tr reads level l, writes level l - 1
+        convs += [(f"up_{l - 1}", tr_in[l], TR[l])]
+        convs += [(f"self_{l - 1}", TR[l], TR[l])] * 2
+    dense = sum(2 * maps[m]["k"] * maps[m]["m"] * ci * co
+                for m, ci, co in convs)
+    needed = sum(2 * maps[m]["occupancy"] * maps[m]["k"] * maps[m]["m"]
+                 * ci * co for m, ci, co in convs)
+    gathered = sum(4 * maps[m]["k"] * maps[m]["m"] * ci
+                   for m, ci, co in convs)
+    return dict(dense_tflop=dense / 1e12, gathered_gb=gathered / 1e9,
+                non_sentinel_tflop=needed / 1e12,
+                achieved_tflops=dense / (inlier_ms * 1e-3) / 1e12,
+                dense_f32_bound_ms=1e3 * dense / F32_FLOPS,
+                non_sentinel_f32_bound_ms=1e3 * needed / F32_FLOPS)
+
+
+def dgr_full_size(dev, name, nets):
+    """DGR_TIMED synchronised register() calls (ICP on) after a warm-up at
+    ~20,000 voxels, split by stage; the safeguard timed on its own on the
+    same correspondences; native maps asserted."""
+    from gmf_tpu_torch.sparse import kernel_map
+
+    spec = DGR_FULL[name]
+    kitti = name == "dgr_kitti"
+    xyz0, xyz1, p, q, _ = dgr_pair(SEED + 30, spec["side"], spec["points"])
+    eng = dgr_engine(dev, nets, kitti=kitti, use_icp=True)
+    (c0, sel0), (c1, sel1) = (eng.preprocess(x) for x in (xyz0, xyz1))
+    voxels = [len(c0), len(c1)]
+    eng.register(xyz0, xyz1, p, q)  # warm-up
+    kernel_map.BUILDS.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the stage split syncs at each stage's ends; the pipeline syncs at
+    # most of them anyway (host maps, the 1-NN's and the solve's fetches)
+    eng.stage_seconds = {}
+    times = []
+    for _ in range(DGR_TIMED):
+        t0 = time.perf_counter()
+        res = eng.register(xyz0, xyz1, p, q)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    builds = dict(kernel_map.BUILDS)
+    if builds.get("numpy") or not builds.get("native"):
+        fail(f"{name}: kernel maps not all from the native builder: {builds}")
+    stages = {k: eng.stage_seconds.get(k, 0.0) / DGR_TIMED
+              for k in DGR_STAGES}
+    eng.stage_seconds = {}
+    idx0, nn01 = res["corres"]
+    eng.safeguard_registration(xyz0[sel0], xyz1[sel1][nn01])
+    stages["safeguard"] = eng.stage_seconds["safeguard"]
+    maps = dgr_map_stats(eng.last_inlier_pyramid)
+    T, w = res["trans"], res["weights"]
+    if T.shape != (4, 4) or not np.isfinite(T).all():
+        fail(f"{name}: T of shape {T.shape} or not finite")
+    if w.shape != (len(idx0),) or not np.isfinite(w).all():
+        fail(f"{name}: weights of shape {w.shape} or not finite")
+    print(f"{name}: voxels {voxels}, correspondences {len(w)}, unique 6-D "
+          f"{eng.last_inlier_pyramid.levels[0].num_valid}, register "
+          f"{1e3 * np.mean(times):.1f} ms (mean of {DGR_TIMED}: "
+          f"{[round(1e3 * t, 1) for t in times]}), peak memory "
+          f"{peak / 2 ** 30:.2f} GiB, used_safeguard "
+          f"{res['used_safeguard']}", flush=True)
+    for k in DGR_STAGES:
+        print(f"{name} stage {k}: {1e3 * stages[k]:.1f} ms", flush=True)
+    for k, m in maps.items():
+        print(f"{name} 6-D map {k}: K'={m['k']} M={m['m']} occupancy "
+              f"{m['occupancy']:.4f}", flush=True)
+    work = dgr_inlier_work(maps, 1e3 * stages["inlier_net"])
+    print(f"{name} inlier net work: " + json.dumps(work), flush=True)
+    return dict(voxels=voxels, correspondences=len(w),
+                unique_6d=eng.last_inlier_pyramid.levels[0].num_valid,
+                ms_per_register=1e3 * float(np.mean(times)),
+                register_ms=[1e3 * t for t in times],
+                stage_ms={k: 1e3 * v for k, v in stages.items()},
+                peak_memory_bytes=peak, maps_6d=maps, inlier_work=work,
+                builds=builds,
+                used_safeguard=res["used_safeguard"])
+
+
+def write_dgr_fixtures(root, rng):
+    """A 3DMatch scene of two fragments (PLY, 480 x 640 PNG frames, a
+    gt.log of both directions) and a KITTI sequence 08 of three frames
+    (velodyne .bin of the world within 25 m, 376 x 1241 PNG frames,
+    poses 6 m apart, an identity calibration: one pair >= 10 m)."""
+    import os
+
+    from gmf_tpu_torch.data import threedmatch
+    from gmf_tpu_torch.data.dgr_loader import heightfield
+    from gmf_tpu_torch.data.ply import write_ply
+
+    scene = threedmatch.SCENE_LIST[0]
+    seq = os.path.join(root, "3dmatch", scene, "seq-01")
+    os.makedirs(seq)
+    xyz0, xyz1, _, _, T = dgr_pair(SEED + 40, 4.0, 40000)
+    for f, xyz in enumerate((xyz0, xyz1)):
+        write_ply(os.path.join(seq, f"cloud_bin_{f}.ply"), xyz)
+        write_png(os.path.join(seq, f"cloud_bin_{f}_0.png"),
+                  rng.randint(0, 256, EVAL_FRAME_HW + (3,), dtype=np.uint8))
+    with open(os.path.join(root, "3dmatch", scene, "gt.log"), "w") as f:
+        for (i, j), T_ij in (((0, 1), T), ((1, 0), np.linalg.inv(T))):
+            f.write(f"{i} {j} 2\n")  # gt.log holds target -> source
+            f.write("\n".join(" ".join(f"{v:.10f}" for v in row)
+                              for row in np.linalg.inv(T_ij)) + "\n")
+    kseq = os.path.join(root, "kitti", "sequences", "08")
+    for sub in ("velodyne", "image_2"):
+        os.makedirs(os.path.join(kseq, sub))
+    os.makedirs(os.path.join(root, "kitti", "poses"))
+    world = (heightfield(rng, 120000) * np.float32(60.0)
+             - np.float32([18.0, 30.0, 0.0]))
+    poses = []
+    for t in range(3):
+        pose = np.eye(4)
+        pose[:3, 3] = [6.0 * t, 0.0, 0.0]
+        poses.append(pose[:3, :4].ravel())
+        pts = world - np.float32(pose[:3, 3])
+        pts = pts[np.linalg.norm(pts[:, :2], axis=1) < 25.0]
+        np.concatenate([pts, np.ones((len(pts), 1), np.float32)], 1).astype(
+            np.float32).tofile(os.path.join(kseq, "velodyne", f"{t:06d}.bin"))
+        write_png(os.path.join(kseq, "image_2", f"{t:06d}.png"),
+                  rng.randint(0, 256, KITTI_FRAME_HW + (3,), dtype=np.uint8))
+    np.savetxt(os.path.join(root, "kitti", "poses", "08.txt"),
+               np.stack(poses))
+    with open(os.path.join(kseq, "calib.txt"), "w") as f:
+        f.write("Tr: " + " ".join(f"{v:.6f}" for v in np.eye(4)[:3].ravel())
+                + "\n")
+    return dict(threedmatch=os.path.join(root, "3dmatch"), scene=scene,
+                kitti=os.path.join(root, "kitti"))
+
+
+def dgr_cli(name, argv, pairs):
+    """``test_dgr.main(argv)``: its rows must be ``pairs`` x 5, finite."""
+    from gmf_tpu_torch.eval import test_dgr
+
+    t0 = time.perf_counter()
+    stats = test_dgr.main(argv)
+    seconds = time.perf_counter() - t0
+    if stats.shape != (pairs, 5) or not np.isfinite(stats).all():
+        fail(f"test_dgr {name}: stats of shape {stats.shape}, finite "
+             f"{np.isfinite(stats).all()}")
+    print(f"test_dgr {name} in {seconds:.1f} s: success "
+          f"{stats[:, 0].tolist()}, rre {stats[:, 1].round(3).tolist()}, "
+          f"rte {stats[:, 2].round(4).tolist()}, safeguard "
+          f"{stats[:, 4].tolist()}", flush=True)
+    return stats, seconds
+
+
+def dgr_cli_phase(dev, tmp, nets, nets_kitti):
+    """test_dgr through main(argv): full width with --descriptor fpfh
+    --use-icp on the card, 3DMatch and KITTI; --tiny with FPFH and ICP
+    on the card and with --cpu on 3DMatch (success and safeguard flags
+    equal, rre and rte within DGR_CLI_RRE_TOL and DGR_CLI_RTE_TOL); the
+    tiny FCGF's features on both devices (dgr_tiny_features)."""
+    import os
+
+    from gmf_tpu_torch.eval.test_dgr import tiny_nets
+    from gmf_tpu_torch.utils.checkpoint import save_checkpoint
+
+    fix = write_dgr_fixtures(os.path.join(tmp, "dgr_data"),
+                             np.random.RandomState(SEED + 50))
+    ckpt = {}
+    torch.manual_seed(SEED)
+    tiny = tuple(net.state_dict() for net in tiny_nets())
+    for tag, pair in (("full", nets), ("kitti", nets_kitti), ("tiny", tiny)):
+        for net, state in zip(("fcgf", "inlier"), pair):
+            ckpt[tag, net] = save_checkpoint(
+                os.path.join(tmp, f"ckpt_{tag}_{net}"), state)
+
+    def argv(tag, dataset, out, *extra):
+        root = fix["kitti" if dataset == "kitti" else "threedmatch"]
+        scenes = ["08"] if dataset == "kitti" else [fix["scene"]]
+        return ["--root", root, "--dataset", dataset, "--scenes", *scenes,
+                "--fcgf-checkpoint", ckpt[tag, "fcgf"],
+                "--inlier-checkpoint", ckpt[tag, "inlier"],
+                "--out", os.path.join(tmp, out), *extra]
+
+    out = {}
+    for dataset, tag, pairs in (("3dmatch", "full", 2), ("kitti", "kitti", 1)):
+        stats, s = dgr_cli(f"{dataset} fpfh --use-icp", argv(
+            tag, dataset, f"dgr_{dataset}", "--descriptor", "fpfh",
+            "--use-icp"), pairs)
+        out[dataset] = dict(seconds=s, stats=stats.tolist())
+    out["tiny_fcgf_features"] = dgr_tiny_features(
+        dev, fix, argv("tiny", "3dmatch", "dgr_tiny_features", "--tiny",
+                       "--voxel", "0.1"))
+    for name, extra in (("fpfh_icp", ("--descriptor", "fpfh", "--use-icp")),):
+        runs = {where: dgr_cli(f"3dmatch --tiny {name} ({where})", argv(
+            "tiny", "3dmatch", f"dgr_tiny_{name}_{where}", "--tiny",
+            "--voxel", "0.1", *extra,
+            *(["--cpu"] if where == "cpu" else [])), 2)
+            for where in ("card", "cpu")}
+        a, b = runs["card"][0], runs["cpu"][0]
+        row = dict(rre_diff=float(np.abs(a[:, 1] - b[:, 1]).max()),
+                   rte_diff=float(np.abs(a[:, 2] - b[:, 2]).max()),
+                   card_s=runs["card"][1], cpu_s=runs["cpu"][1])
+        out[f"tiny_{name}_card_vs_cpu"] = row
+        print(f"test_dgr --tiny {name} card vs cpu: " + json.dumps(row),
+              flush=True)
+        if not np.array_equal(a[:, [0, 3, 4]], b[:, [0, 3, 4]]):
+            fail(f"test_dgr --tiny {name}: success or safeguard flags "
+                 "differ between the card and the CPU")
+        if row["rre_diff"] > DGR_CLI_RRE_TOL or (
+                row["rte_diff"] > DGR_CLI_RTE_TOL):
+            fail(f"test_dgr --tiny {name}: card and CPU apart by "
+                 f"{row['rre_diff']} deg, {row['rte_diff']} m")
+    return out
+
+
+def dgr_tiny_features(dev, fix, argv):
+    """The tiny FCGF's unit features of the 3DMatch fixture's clouds on
+    the card and the CPU, each engine test_dgr's own for ``argv``: within
+    DGR_TINY_FEAT_TOL, and how many 1-NN matches the two devices break
+    apart (8-d random-weight descriptors have near ties; reported, not
+    bounded)."""
+    import os
+
+    from gmf_tpu_torch.data.ply import read_ply
+    from gmf_tpu_torch.eval.test_dgr import make_engine, parse_args
+    from gmf_tpu_torch.geometry.knn import nearest_neighbor
+
+    seq = os.path.join(fix["threedmatch"], fix["scene"], "seq-01")
+    clouds = [read_ply(os.path.join(seq, f"cloud_bin_{i}.ply"))["xyz"]
+              for i in range(2)]
+    feats = []
+    for where in (dev, "cpu"):
+        eng = make_engine(parse_args(argv), where)
+        feats.append([torch.tensor(eng.fcgf_features(eng.preprocess(x)[0]))
+                      for x in clouds])
+    err = max(float((a - b).abs().max()) for a, b in zip(*feats))
+    nn = [nearest_neighbor(*f)[0] for f in feats]
+    row = dict(max_abs_err=err, nn01_differ=int((nn[0] != nn[1]).sum()),
+               matches=len(nn[0]))
+    print("test_dgr --tiny fcgf features card vs cpu: " + json.dumps(row),
+          flush=True)
+    if err > DGR_TINY_FEAT_TOL:
+        fail(f"tiny FCGF features apart by {err} between the card and CPU")
+    return row
+
+
+def dgr_phase(dev, phase_done):
+    """Phase 8: DGR+GMF registration at full width: the card against the
+    CPU, the timed main path at 3DMatch and KITTI scale, the CLIs."""
+    import tempfile
+
+    torch.set_num_threads(8)
+    nets, nets_kitti = dgr_nets(), dgr_nets(kitti=True)
+    out = {"card_vs_cpu": dgr_card_vs_cpu(dev, nets)}
+    phase_done("dgr_card_vs_cpu")
+    out["dgr_3dmatch"] = dgr_full_size(dev, "dgr_3dmatch", nets)
+    out["dgr_kitti"] = dgr_full_size(dev, "dgr_kitti", nets_kitti)
+    phase_done("dgr_full_size")
+    with tempfile.TemporaryDirectory() as tmp:
+        out["cli"] = dgr_cli_phase(dev, tmp, nets, nets_kitti)
+    phase_done("dgr_cli")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the result JSON here")
@@ -3390,6 +3955,15 @@ def main():
 
     # 7. the evaluation stack: the CLIs, the service, 3DMatch training
     paths["eval"] = eval_phase(dev, rates, phase_done)
+
+    # 8. DGR+GMF registration at full width (no TPU kernel on its path)
+    dgr = dgr_phase(dev, phase_done)
+    for name in DGR_FULL:
+        dataset = name.split("_")[1]
+        paths[name] = {**dgr[name], "cli": dgr["cli"][dataset]}
+    paths["dgr_3dmatch"]["card_vs_cpu"] = dgr["card_vs_cpu"]
+    paths["dgr_3dmatch"]["tiny_cli_card_vs_cpu"] = {
+        k: v for k, v in dgr["cli"].items() if k.startswith("tiny_")}
     rows["nms_local_max"].update({
         f"lomatch_n{LOMATCH_BUCKET}_{k}": v
         for k, v in paths["eval"]["3dlomatch"]["nms"].items()

@@ -8,8 +8,10 @@ Sources:
   augmentation axis 3 / rotation 1.0 / translation 0.5;
 - GMF_PointDSC/config_Kitti.py: inlier threshold 1.2, sigma_d 1.2,
   success 5 deg / 60 cm, batch 2, downsample 0.30.
-
-The DGR presets come with the DGR slice.
+- GMF_DGR config_3DMatch.py / config_Kitti.py: voxel 0.05 / 0.3, SGD
+  lr 0.1 / 1e-2, clip_weight_thresh 0.05, FCGF conv1 kernel 7 / 5
+  (``DGRTrainConfig``, ``dgr_3dmatch``, ``dgr_kitti``; the DGR
+  evaluation command line reads its voxel sizes and thresholds here).
 """
 
 from __future__ import annotations
@@ -107,6 +109,49 @@ def pointdsc_kitti(**overrides) -> GMFConfig:
                         augment_translation=0.5),
         re_thre=5.0,
         te_thre=60.0,
+    )
+    for k, v in overrides.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+@dataclasses.dataclass
+class DGRTrainConfig:
+    """DGR trainer hyperparameters (GMF_DGR config_3DMatch.py defaults,
+    KITTI deltas in dgr_kitti)."""
+
+    voxel_size: float = 0.05
+    optimizer: str = "SGD"
+    lr: float = 0.1
+    momentum: float = 0.8
+    weight_decay: float = 1e-4
+    exp_gamma: float = 0.99
+    max_epoch: int = 100
+    batch_size: int = 4
+    iter_size: int = 1
+    inlier_feature_type: str = "ones"
+    clip_weight_thresh: float = 0.05
+    inlier_conv1_kernel_size: int = 3
+    feat_conv1_kernel_size: int = 7
+    procrustes_loss_weight: float = 1.0
+    trans_weight: float = 1.0
+    inlier_weight: float = 1.0
+    success_rte_thresh: float = 0.3
+    success_rre_thresh: float = 15.0
+    best_val_metric: str = "succ_rate"
+
+
+def dgr_3dmatch(**overrides) -> DGRTrainConfig:
+    cfg = DGRTrainConfig()
+    for k, v in overrides.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def dgr_kitti(**overrides) -> DGRTrainConfig:
+    cfg = DGRTrainConfig(
+        voxel_size=0.3, lr=1e-2, feat_conv1_kernel_size=5,
+        success_rte_thresh=2.0, success_rre_thresh=5.0,
     )
     for k, v in overrides.items():
         setattr(cfg, k, v)

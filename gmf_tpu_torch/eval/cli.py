@@ -21,11 +21,16 @@ _NOT_PORTED = ("waits for the port of gmf_tpu/parallel/ (ROADMAP queue 1 "
                "item 6) and is not ported yet")
 
 
-def add_model_args(ap: argparse.ArgumentParser) -> None:
-    """Device, model-mode and dispatch flags of the eval CLIs."""
+def add_device_arg(ap: argparse.ArgumentParser) -> None:
+    """``--cpu``, the device flag every eval CLI shares."""
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU through the kernels' plain "
                          "versions (default: the card)")
+
+
+def add_model_args(ap: argparse.ArgumentParser) -> None:
+    """Device, model-mode and dispatch flags of the PointDSC eval CLIs."""
+    add_device_arg(ap)
     ap.add_argument("--fused", action=argparse.BooleanOptionalAction,
                     default=None,
                     help="the attention and NMS kernels (default: on for "
@@ -53,8 +58,8 @@ def add_model_args(ap: argparse.ArgumentParser) -> None:
                     help="prefetch pairs with N threads")
 
 
-def refuse(flag: str) -> None:
-    raise SystemExit(f"{flag} {_NOT_PORTED}")
+def refuse(flag: str, why: str = _NOT_PORTED) -> None:
+    raise SystemExit(f"{flag} {why}")
 
 
 def load_eval_model(args, checkpoint: str, inlier_threshold: float = 0.10,

@@ -1,7 +1,11 @@
 """GMF fusion layers: PerceiverIO-style cross-attention + LCPE.
 
-Counterpart of ``gmf_tpu/nn/fusion.py`` in the configuration PointDSC
-uses (``depth=0``, ``out_to_context_dim=True``). Module names follow the
+Counterpart of ``gmf_tpu/nn/fusion.py`` at ``depth=0``, the depth of
+every reference configuration. ``out_to_context_dim`` picks the output
+width of the attention: the context's (True, PointDSC's variant and the
+default) or the queries' (False, DGR's perceiver_io.py:71-95, whose
+Fusion-2 attends 256-wide queries into 128-wide image tokens). Module
+names follow the
 reference's torch modules (``cross_attend_blocks.{0,1}.{norm,
 norm_context,fn}``, ``cpe.proj_q``), which are the names
 ``gmf_tpu/utils/convert_torch.py::convert_fusion_layer`` reads.
@@ -28,17 +32,18 @@ from torch import nn
 
 
 class Attention(nn.Module):
-    """Cross-attention; ``to_out`` maps to the context width (the PointDSC
-    variant, ``out_to_context_dim=True`` in gmf_tpu)."""
+    """Cross-attention; ``to_out`` maps to the context width when
+    ``out_to_context_dim`` (PointDSC), else to the query width (DGR)."""
 
     def __init__(self, query_dim: int, context_dim: int, heads: int = 1,
-                 dim_head: int = 64):
+                 dim_head: int = 64, out_to_context_dim: bool = True):
         super().__init__()
         inner = heads * dim_head
         self.heads, self.dim_head = heads, dim_head
         self.to_q = nn.Linear(query_dim, inner, bias=False)
         self.to_kv = nn.Linear(context_dim, 2 * inner, bias=False)
-        self.to_out = nn.Linear(inner, context_dim)
+        self.to_out = nn.Linear(
+            inner, context_dim if out_to_context_dim else query_dim)
 
     def forward(self, x, context):
         h, d = self.heads, self.dim_head
@@ -106,16 +111,19 @@ class ConvPosEnc(nn.Module):
 
 class FusionLayer(nn.Module):
     """Cross-attention fusion block: queries [B, Nq, latent_dim] attend
-    into the context [B, Nk, dim]; ``pe=True`` adds LCPE (Fusion-2)."""
+    into the context [B, Nk, dim]; ``pe=True`` adds LCPE (Fusion-2);
+    ``out_to_context_dim`` as ``Attention``'s."""
 
     def __init__(self, dim: int, latent_dim: int = 512, cross_heads: int = 1,
-                 cross_dim_head: int = 64, pe: bool = False):
+                 cross_dim_head: int = 64, pe: bool = False,
+                 out_to_context_dim: bool = True):
         super().__init__()
         self.cpe = ConvPosEnc(latent_dim, dim) if pe else None
         self.cross_attend_blocks = nn.ModuleList([
             PreNorm(latent_dim,
                     Attention(latent_dim, dim, heads=cross_heads,
-                              dim_head=cross_dim_head),
+                              dim_head=cross_dim_head,
+                              out_to_context_dim=out_to_context_dim),
                     context_dim=dim),
             PreNorm(latent_dim, FeedForward(latent_dim)),
         ])

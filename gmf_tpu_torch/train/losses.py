@@ -4,7 +4,9 @@ Counterpart of the PointDSC part of ``gmf_tpu/train/losses.py``
 (reference: GMF_PointDSC/libs/loss.py): the transformation loss with the
 registration metrics, the balanced classification loss with precision,
 recall and F1, and the balanced spectral-matching loss. Batched, mask
-aware, on the device. The DGR losses come with the DGR slice.
+aware, on the device. Of the DGR losses, ``high_dim_smooth_l1_loss``
+(the SE(3) refinement's objective); the training ones come with DGR
+training (ROADMAP queue 1 item 5.9).
 """
 
 from __future__ import annotations
@@ -112,3 +114,20 @@ def spectral_matching_loss(M, gt_labels, mask=None):
     neg = (M ** 2 * neg_M).sum((-2, -1))
     nneg = F.relu(neg_M.sum((-2, -1)) - 1.0) + 1.0
     return (0.5 * pos / npos + 0.5 * neg / nneg).mean()
+
+
+def high_dim_smooth_l1_loss(pred, target, weights=None,
+                            quantization_size: float = 1.0,
+                            eps: float = 1.1920929e-07, mask=None):
+    """Smooth-L1 on the FULL squared point distance (GMF_DGR
+    core/loss.py:42-61): with sq = ||(X - Y) / q||^2, 0.5 * sq when sq < 1,
+    else 0.5 * sqrt(sq) - 0.25; a weighted mean over sum(w)."""
+    sq = (((pred - target) / quantization_size) ** 2).sum(-1)
+    half = 0.5 * (sq < 1.0).to(pred.dtype)
+    per = (0.5 - half) * (torch.sqrt(sq + eps) - 0.5) + half * sq
+    if weights is not None:
+        w = weights if mask is None else weights * mask
+        return (per * w).sum() / (weights.sum() + 1e-12)
+    if mask is not None:
+        return (per * mask).sum() / (mask.sum() + 1e-6)
+    return per.mean()

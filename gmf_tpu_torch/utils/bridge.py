@@ -1,4 +1,4 @@
-"""Flax PointDSC variables -> the port's ``state_dict``.
+"""Flax PointDSC and sparse-ResUNet variables -> the port's ``state_dict``.
 
 The exact inverse of ``gmf_tpu/utils/convert_torch.py::convert_pointdsc``:
 the port's module names are the reference's torch names that converter
@@ -13,6 +13,16 @@ reads, so weights cross one to one:
 
 Input arrays are NumPy (``jax.device_get`` of the flax variables); the
 result loads with ``PointDSC.load_state_dict(..., strict=True)``.
+
+``sparse_resunet_to_state_dict`` does the same for gmf_tpu's
+``SparseResUNet2`` (the FCGF and 6-D inlier nets), whose port keeps ME's
+names (``gmf_tpu/utils/convert_minkowski.py``):
+
+- SparseConv kernel [K, Cin, Cout] -> ``<conv>.kernel``, rows in the
+  same offset order
+- MaskedBatchNorm                  -> ``<norm>.bn.*``
+- 1x1 Dense kernel [in, out]       -> ``<conv>.kernel`` [in, out], bias
+- img_encoder / image_fusion / perceiver_io as PointDSC's encoder parts
 """
 
 from __future__ import annotations
@@ -130,4 +140,37 @@ def flax_to_state_dict(variables, num_layers: int) -> Dict[str, Any]:
     _dense(sd, "classification.0", p["classification_0"])
     _dense(sd, "classification.2", p["classification_1"])
     _dense(sd, "classification.4", p["classification_2"])
+    return sd
+
+
+def _sparse_bn(sd, name, p, s):
+    _bn(sd, f"{name}.bn", p, s)
+
+
+def sparse_resunet_to_state_dict(variables) -> Dict[str, Any]:
+    """``{"params", "batch_stats"}`` of gmf_tpu's ``SparseResUNet2`` (either
+    net) -> state_dict of gmf_tpu_torch's ``SparseResUNet2``."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, Any] = {}
+
+    def block(name):
+        for i in (1, 2):
+            sd[f"{name}.conv{i}.kernel"] = _t(p[name][f"conv{i}"]["kernel"])
+            _sparse_bn(sd, f"{name}.norm{i}", p[name][f"norm{i}"],
+                       s[name][f"norm{i}"])
+
+    for lvl in ("1", "2", "3", "4", "4_tr", "3_tr", "2_tr"):
+        sd[f"conv{lvl}.kernel"] = _t(p[f"conv{lvl}"]["kernel"])
+        _sparse_bn(sd, f"norm{lvl}", p[f"norm{lvl}"], s[f"norm{lvl}"])
+        block(f"block{lvl}")
+    sd["conv1_tr.kernel"] = _t(p["conv1_tr"]["kernel"])
+    sd["final.kernel"] = _t(p["final"]["kernel"])
+    sd["final.bias"] = _t(p["final"]["bias"])
+    if "img_encoder" in p:
+        sd.update(image_encoder_to_state_dict(
+            p["img_encoder"], s["img_encoder"], "img_encoder."))
+        sd.update(fusion_layer_to_state_dict(p["image_fusion"],
+                                             "image_fusion."))
+        sd.update(fusion_layer_to_state_dict(p["perceiver_io"],
+                                             "perceiver_io."))
     return sd

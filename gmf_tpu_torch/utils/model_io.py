@@ -1,4 +1,5 @@
-"""Loading a PointDSC model from either checkpoint format.
+"""Loading a PointDSC model from either checkpoint format, and the DGR
+engine's two nets from the port's checkpoints (``load_dgr``).
 
 Counterpart of ``gmf_tpu/utils/model_io.py``, with the reference's
 contract that evaluation reads the model's settings from the checkpoint:
@@ -23,7 +24,7 @@ from __future__ import annotations
 
 import inspect
 import os
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -86,3 +87,11 @@ def load_pointdsc(path: str, inlier_threshold: float = 0.10,
     sd = _reference_state_dict(model, _state_dict_file(path))
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def load_dgr(fcgf_path: str, inlier_path: str
+             ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """The state dicts of the FCGF and inlier nets (``sparse/resunet.py``)
+    from two port checkpoint directories (``utils/checkpoint.py``), on the
+    CPU, for ``DeepGlobalRegistration`` (which loads them strictly)."""
+    return load_checkpoint(fcgf_path)[0], load_checkpoint(inlier_path)[0]

@@ -986,3 +986,77 @@ def test_small_slice_kernels_vs_plain_on_cpu(cuda, mode, seed_solver):
     for (tg, lg), (tr, lr) in zip(got, ref):
         np.testing.assert_allclose(tg, tr, atol=1e-3)
         assert (lg == lr).mean() >= 0.99
+
+
+# -- DGR+GMF (models/dgr.py): no kernel of its own; the card against the
+# CPU on the same inputs. Sparse convolutions sum K x Cin products in
+# other orders on the two devices: 1e-5 of the output's scale for one
+# convolution, 1e-4 for a whole net.
+
+def _dgr_coords(dim, n, extent, seed=0):
+    r = np.random.RandomState(seed)
+    return np.unique(r.randint(0, extent, (n, dim)).astype(np.int32), axis=0)
+
+
+@pytest.mark.parametrize("dim", [3, 6])
+def test_dgr_sparse_conv_card_vs_cpu(cuda, dim):
+    from gmf_tpu_torch.sparse.conv import append_sentinel, sparse_conv
+    from gmf_tpu_torch.sparse.kernel_map import build_pyramid
+
+    c = _dgr_coords(dim, 3000, 30 if dim == 3 else 6)
+    pyr = build_pyramid(c, 4, conv1_kernel_size=7 if dim == 3 else 3,
+                        granule=1024)
+    r = np.random.RandomState(1)
+    x = torch.tensor(r.randn(pyr.levels[0].cap, 32).astype(np.float32))
+    nbr = torch.tensor(pyr.levels[0].self_map)
+    w = torch.tensor(r.randn(nbr.shape[0], 32, 48).astype(np.float32))
+    ref = sparse_conv(append_sentinel(x), w, nbr)
+    got = sparse_conv(append_sentinel(x.to(cuda)), w.to(cuda), nbr.to(cuda))
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(),
+                               atol=1e-5 * ref.abs().max().item())
+
+
+def test_dgr_inlier_net_card_vs_cpu(cuda):
+    """The full-width 6-D GMF inlier net on 2,000 correspondences."""
+    from gmf_tpu_torch.sparse.kernel_map import build_pyramid
+    from gmf_tpu_torch.sparse.resunet import GMFInlierNet, pyramid_to_arrays
+
+    torch.manual_seed(0)
+    net = GMFInlierNet().eval()
+    pyr = build_pyramid(_dgr_coords(6, 2000, 8), 4, conv1_kernel_size=3,
+                        granule=2048)
+    r = np.random.RandomState(2)
+    imgs = [torch.tensor(r.rand(1, 120, 160, 3).astype(np.float32))
+            for _ in range(2)]
+    feats = torch.ones(pyr.levels[0].cap, 1)
+    with torch.no_grad():
+        ref = net(feats, pyramid_to_arrays(pyr, "cpu"), *imgs)
+        net.to(cuda)
+        got = net(feats.to(cuda), pyramid_to_arrays(pyr, cuda),
+                  *[i.to(cuda) for i in imgs])
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(),
+                               atol=1e-4 * ref.abs().max().item())
+
+
+def test_dgr_se3_refine_card_vs_cpu(cuda):
+    """The refinement's stop decided on the card: T within 1e-4 of the
+    CPU's (a stop decision may fall an iteration apart, see
+    tests/test_torch_dgr.py), the iteration counts within 8."""
+    from gmf_tpu_torch.models.dgr import se3_refine
+
+    r = np.random.RandomState(3)
+    src = torch.tensor((r.rand(5000, 3) * 2).astype(np.float32))
+    ang = 0.3
+    R = torch.tensor([[np.cos(ang), -np.sin(ang), 0],
+                      [np.sin(ang), np.cos(ang), 0], [0, 0, 1]],
+                     dtype=torch.float32)
+    tgt = src @ R.T + torch.tensor([0.2, -0.1, 0.3])
+    tgt = tgt + 0.002 * torch.tensor(r.randn(5000, 3).astype(np.float32))
+    w = torch.tensor(r.rand(5000).astype(np.float32))
+    T0 = torch.eye(4)
+    kw = dict(break_threshold_ratio=1e-4, quantization_size=0.1)
+    T, _, it = se3_refine(src, tgt, w, T0, **kw)
+    Tc, _, itc = se3_refine(src.to(cuda), tgt.to(cuda), w.to(cuda),
+                            T0.to(cuda), **kw)
+    assert abs(int(it) - int(itc)) <= 8 and int(itc) < 1000
+    np.testing.assert_allclose(Tc.cpu().numpy(), T.numpy(), atol=1e-4)

@@ -45,7 +45,8 @@ def test_importing_the_port_loads_no_jax():
 def test_no_jax_import_statements():
     files = sorted((ROOT / "gmf_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "scripts/profile_torch_request.py",
-        ROOT / "scripts/check_train_faults.py"]
+        ROOT / "scripts/check_train_faults.py",
+        ROOT / "scripts/check_dgr_card_vs_cpu.py"]
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             if isinstance(node, ast.Import):
