@@ -160,18 +160,29 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
 8. DGR+GMF registration (dgr_phase) at full width (FCGF 1 -> 32, conv1
    7^3, 5^3 for KITTI; the 6-D GMF inlier net, image_dim 128, 120 x 160
    frames), random weights from SEED, on make_dgr_pair's surface scaled
-   up; no TPU kernel lies on this path, so it adds no kernel row:
+   up; no TPU kernel lies on this path, so it adds no kernel row. The
+   card's default path builds its kernel maps on the card
+   (sparse/device_maps.py) and runs the 6-D inlier net on compacted
+   schedules (sparse/compact.py), as gmf_tpu does off the CPU:
    - FPFH of a ~1,500-voxel pair on the card and the CPU (rows apart by
      a bin flip and 1-NN matches apart each under 2%), then register() on
-     both devices, the same weights: nn01 equal, weights within 1e-4,
-     the same safeguard decision, T within 1e-4 rad and m (1e-3 with
-     ICP); fcgf, fpfh and fpfh with ICP (the CPU fed the card's FPFH);
+     both devices, the same weights, the CPU on device maps and compacted
+     convolutions too: nn01 equal, weights within 1e-4, the same
+     safeguard decision, T within 1e-4 rad and m (5e-4 with ICP); fcgf,
+     fpfh and fpfh with ICP (the CPU fed the card's FPFH); at that pair
+     every array of the card's device pyramids (3-D and 6-D, compacted
+     and not) equal to the CPU's device pyramids and, uncompacted, to
+     the native host builder's;
    - register() with ICP at ~20,000 voxels at 3DMatch's voxel 0.05 and
-     KITTI's 0.3: host-clock means of synchronised calls, one line a
-     stage (voxelize, host pyramids 3-D and 6-D, FCGF, 1-NN, unique,
-     inlier net, solve, the safeguard timed alone, ICP), peak memory,
-     each 6-D map's K', M and non-sentinel share; every kernel map from
-     the native builder;
+     KITTI's 0.3 on the default path, and at 3DMatch once more with host
+     maps and dense convolutions (device_kernel_maps=False), the two in
+     turns: host-clock means of synchronised calls, one line a stage
+     (voxelize, the 3-D and 6-D pyramids, FCGF, 1-NN, unique, inlier
+     net, solve, the safeguard timed alone, ICP), peak memory, each 6-D
+     map's K', M and non-sentinel share and the compacted schedules'
+     rows; no map of the default path from a host builder, every map of
+     the host path from the native one; the full-size 6-D device maps
+     equal to the native builder's in every bit;
    - test_dgr through main(argv) on a 3DMatch tree (PLY fragments, PNG
      frames, gt.log) and a KITTI sequence (velodyne .bin, poses,
      calibration) the script writes: full width with --descriptor fpfh
@@ -191,6 +202,7 @@ of synchronised requests (registrar) and steps (trainer).
 from __future__ import annotations
 
 import argparse
+import collections
 import copy
 import json
 import math
@@ -3264,16 +3276,19 @@ def eval_phase(dev, rates, phase_done):
 # metres a side and sampled with POINTS points, 70% of them in each cloud:
 # ~20,000 voxels at 3DMatch's voxel 0.05 (5.8 m) and at KITTI's 0.3
 # (38 m), ~1,500 for the card-against-CPU check. No TPU kernel lies on this
-# path (the gmf_tpu package computes its sparse convolutions and FPFH in
-# plain jnp), so the phase adds no row to the kernels line.
+# path (the gmf_tpu package computes its sparse convolutions, kernel maps,
+# compacted schedules and FPFH in plain jnp), so the phase adds no row to
+# the kernels line.
 DGR_FULL = {"dgr_3dmatch": dict(voxel=0.05, side=5.8, points=90000),
             "dgr_kitti": dict(voxel=0.3, side=38.0, points=90000)}
 DGR_SMALL = dict(voxel=0.05, side=1.6, points=6400)
 DGR_TIMED = 2  # timed register() calls a scale, after one warm-up
-# card against CPU: inlier weights within 1e-4 (f32 through 17 sparse
-# convolutions, two fusion layers and the image encoder, summed in other
-# orders); T within 1e-4 rad and 1e-4 m (the refinement's stop decisions
-# may fall an iteration apart, tests/test_torch_dgr.py)
+# card against CPU, both on device maps and compacted convolutions:
+# inlier weights within 1e-4 (f32 through 17 sparse convolutions, two
+# fusion layers and the image encoder, summed in other orders, the card's
+# index_add_ in atomic order); T within 1e-4 rad and 1e-4 m (the
+# refinement's stop decisions may fall an iteration apart,
+# tests/test_torch_dgr.py)
 DGR_W_TOL, DGR_T_TOL = 1e-4, 1e-4
 # ICP from the FPFH solve: its matches at the 0.1 m threshold are a hard
 # decision, so the solves' ~1e-7 difference comes out of its 20
@@ -3462,12 +3477,82 @@ def dgr_fpfh_card_vs_cpu(dev, pair):
     return feats[0], row
 
 
+def dgr_pyramid_arrays_equal(where, got, want):
+    """Every key of two pyramid dicts equal in every bit (schedules leaf
+    by leaf); fails naming the first that is not."""
+    def leaves(x, path):
+        if isinstance(x, dict):
+            for k in sorted(x):
+                yield from leaves(x[k], f"{path}/{k}")
+        elif isinstance(x, (tuple, list)):
+            for i, v in enumerate(x):
+                yield from leaves(v, f"{path}[{i}]")
+        else:
+            yield path, x
+
+    a, b = dict(leaves(got, "")), dict(leaves(want, ""))
+    if a.keys() != b.keys():
+        fail(f"{where}: keys differ: {sorted(a.keys() ^ b.keys())}")
+    for k, x in a.items():
+        y = b[k]
+        if isinstance(x, torch.Tensor):
+            same = (x.dtype == y.dtype and x.shape == y.shape
+                    and torch.equal(x.cpu(), y.cpu()))
+        else:
+            same = x == y
+        if not same:
+            fail(f"{where}: {k} differs")
+    return len(a)
+
+
+def dgr_pyramid_checks(dev, eng, pair, nn01):
+    """At the check's pair: the card's device pyramids, 3-D (cloud 0 at
+    the FCGF's conv1) and 6-D (the unique correspondences), compacted and
+    not, equal in every array to the CPU's device pyramids and,
+    uncompacted, to the native host builder's."""
+    from gmf_tpu_torch.sparse.device_maps import build_pyramid_arrays_device
+    from gmf_tpu_torch.sparse.kernel_map import build_pyramid
+    from gmf_tpu_torch.sparse.resunet import pyramid_to_arrays
+    from gmf_tpu_torch.sparse.voxelize import sparse_quantize
+
+    cfg = eng.config
+    c0, c1 = (eng.preprocess(x)[0] for x in pair[:2])
+    uniq = sparse_quantize(np.concatenate([c0, c1[nn01]], 1).astype(
+        np.float64), 1.0, return_index=False)
+    row = {}
+    for dim, coords, conv1, granule in (
+            (3, c0, eng.fcgf.conv1_kernel_size, cfg.voxel_cap_granule),
+            (6, uniq, 3, cfg.corr_cap_granule)):
+        kw = dict(conv1_kernel_size=conv1, granule=granule)
+        for compact in (False, True):
+            got = build_pyramid_arrays_device(
+                coords, 4, compact_conv=compact,
+                compact_dense_frac=cfg.compact_dense_frac, device=dev, **kw)
+            tag = f"dgr card vs cpu {dim}-D pyramid, compact {compact}"
+            row[f"{dim}d{'_compact' if compact else ''}_arrays"] = \
+                dgr_pyramid_arrays_equal(
+                    tag + ", CPU's device builder", got,
+                    build_pyramid_arrays_device(
+                        coords, 4, compact_conv=compact,
+                        compact_dense_frac=cfg.compact_dense_frac,
+                        device="cpu", **kw))
+            if not compact:
+                dgr_pyramid_arrays_equal(
+                    tag + ", native builder", got,
+                    pyramid_to_arrays(build_pyramid(coords, 4, **kw), dev))
+    row["voxels"] = [len(c0), len(uniq)]
+    print("dgr card vs cpu pyramids equal: " + json.dumps(row), flush=True)
+    return row
+
+
 def dgr_card_vs_cpu(dev, nets, seed=SEED + 20):
-    """register() on the card and on the CPU (the same weights, the same
-    ~1,500-voxel pair): nn01 equal, weights within DGR_W_TOL,
-    used_safeguard equal, T within DGR_T_TOL (DGR_ICP_T_TOL with ICP);
-    for fcgf, fpfh and fpfh with ICP. The fpfh CPU runs take the card's FPFH
-    (dgr_fpfh_card_vs_cpu holds the features themselves)."""
+    """register() on the card's default path (device maps, compacted
+    inlier convolutions) and on the CPU with the same config (the same
+    weights, the same ~1,500-voxel pair): nn01 equal, weights within
+    DGR_W_TOL, used_safeguard equal, T within DGR_T_TOL (DGR_ICP_T_TOL
+    with ICP); for fcgf, fpfh and fpfh with ICP. The fpfh CPU runs take
+    the card's FPFH (dgr_fpfh_card_vs_cpu holds the features themselves).
+    Then the pyramids at that pair (dgr_pyramid_checks)."""
     pair = dgr_pair(seed, DGR_SMALL["side"], DGR_SMALL["points"])
     card_fpfh, out = dgr_fpfh_card_vs_cpu(dev, pair)
     out = {"fpfh_features": out}
@@ -3475,7 +3560,13 @@ def dgr_card_vs_cpu(dev, nets, seed=SEED + 20):
                       ("fpfh_icp", dict(descriptor="fpfh", use_icp=True))):
         res = {}
         for where in (dev, "cpu"):
-            eng = dgr_engine(where, nets, **cfg)
+            # the card's default (auto: on), the CPU's by name
+            eng = dgr_engine(where, nets, **cfg, **(
+                {} if where == dev else dict(device_kernel_maps=True)))
+            if not (eng.config.use_device_maps(eng.device)
+                    and eng.config.use_compact_conv(eng.device)):
+                fail(f"dgr card vs cpu {name} ({where}): not on device "
+                     "maps and compacted convolutions")
             if cfg.get("descriptor") == "fpfh" and where == "cpu":
                 given = iter(card_fpfh)
                 eng.fpfh_features = lambda pts: next(given)
@@ -3508,30 +3599,21 @@ def dgr_card_vs_cpu(dev, nets, seed=SEED + 20):
         if max(row["rotation_err_rad"], row["translation_err_m"]) > t_tol:
             fail(f"dgr card vs cpu {name}: T differs beyond {t_tol}")
         out[name] = row
+        if name == "fcgf":
+            out["pyramids"] = dgr_pyramid_checks(dev, eng, pair,
+                                                 card["corres"][1])
     return out
 
 
-def dgr_map_stats(pyr):
-    """K', M and the share of entries that are not the sentinel, for each
-    6-D kernel map of the pyramid."""
-    caps = [lv.cap for lv in pyr.levels]
-    maps = {"conv1": (pyr.conv1_map, caps[0])}
-    for l, lv in enumerate(pyr.levels):
-        maps[f"self_{l}"] = (lv.self_map, caps[l])
-        if lv.down_map is not None:
-            maps[f"down_{l}"] = (lv.down_map, caps[l])
-            maps[f"up_{l}"] = (lv.up_map, caps[l + 1])
-    return {name: dict(k=int(m.shape[0]), m=int(m.shape[1]),
-                       occupancy=float((m != sentinel).mean()))
-            for name, (m, sentinel) in maps.items()}
-
-
 def dgr_inlier_work(maps, inlier_ms):
-    """The full-width inlier net's work on these 6-D maps: its dense
-    products (2 K' M Cin Cout a convolution, every map entry), the rows
-    its gathers write (4 K' M Cin bytes), the products on non-sentinel
-    entries only (what a compacted convolution needs), the rate the net
-    ran the dense products at, and their time at the CUDA cores' f32 rate
+    """The full-width inlier net's work on these 6-D maps (``maps``:
+    ``DeepGlobalRegistration.last_inlier_maps["maps"]``): its dense-map
+    products (2 K' M Cin Cout a convolution, every map entry) and gathered
+    rows (4 K' M Cin bytes), the products on non-sentinel entries only,
+    and, on compacted schedules, the products and gathered rows of the
+    schedules' dense-tier entries and tile slots (padding included,
+    ``compact.schedule_row_stats``); the rate the net ran the products of
+    its own path at, and their times at the CUDA cores' f32 rate
     (F32_FLOPS; the port's GEMMs are f32 with TF32 off)."""
     C, TR = (32, 64, 128, 256), (64, 64, 64, 128)
     convs = [("conv1", 1, C[0])] + [("self_0", C[0], C[0])] * 2
@@ -3542,81 +3624,150 @@ def dgr_inlier_work(maps, inlier_ms):
     for l in (3, 2, 1):  # conv{l+1}_tr reads level l, writes level l - 1
         convs += [(f"up_{l - 1}", tr_in[l], TR[l])]
         convs += [(f"self_{l - 1}", TR[l], TR[l])] * 2
-    dense = sum(2 * maps[m]["k"] * maps[m]["m"] * ci * co
-                for m, ci, co in convs)
-    needed = sum(2 * maps[m]["occupancy"] * maps[m]["k"] * maps[m]["m"]
-                 * ci * co for m, ci, co in convs)
-    gathered = sum(4 * maps[m]["k"] * maps[m]["m"] * ci
-                   for m, ci, co in convs)
-    return dict(dense_tflop=dense / 1e12, gathered_gb=gathered / 1e9,
-                non_sentinel_tflop=needed / 1e12,
-                achieved_tflops=dense / (inlier_ms * 1e-3) / 1e12,
-                dense_f32_bound_ms=1e3 * dense / F32_FLOPS,
-                non_sentinel_f32_bound_ms=1e3 * needed / F32_FLOPS)
+
+    def total(entries, per):
+        return sum(per(ci, co) * entries(maps[m]) for m, ci, co in convs)
+
+    dense = total(lambda m: m["k"] * m["m"], lambda ci, co: 2 * ci * co)
+    needed = total(lambda m: m["occupancy"] * m["k"] * m["m"],
+                   lambda ci, co: 2 * ci * co)
+    out = dict(dense_tflop=dense / 1e12,
+               gathered_gb=total(lambda m: m["k"] * m["m"],
+                                 lambda ci, co: 4 * ci) / 1e9,
+               non_sentinel_tflop=needed / 1e12,
+               dense_f32_bound_ms=1e3 * dense / F32_FLOPS,
+               non_sentinel_f32_bound_ms=1e3 * needed / F32_FLOPS)
+    run = dense
+    if all("dense_rows" in m for m in maps.values()):
+        def rows(m):
+            return m["dense_rows"] + m["compact_rows"]
+
+        run = total(rows, lambda ci, co: 2 * ci * co)
+        out.update(compact_tflop=run / 1e12,
+                   compact_gathered_gb=total(rows, lambda ci, co: 4 * ci)
+                   / 1e9,
+                   compact_rows={name: [m["dense_rows"], m["compact_rows"]]
+                                 for name, m in maps.items()},
+                   compact_f32_bound_ms=1e3 * run / F32_FLOPS)
+    out["achieved_tflops"] = run / (inlier_ms * 1e-3) / 1e12
+    return out
 
 
-def dgr_full_size(dev, name, nets):
+def dgr_full_size(dev, name, nets, host_too=False):
     """DGR_TIMED synchronised register() calls (ICP on) after a warm-up at
-    ~20,000 voxels, split by stage; the safeguard timed on its own on the
-    same correspondences; native maps asserted."""
+    ~20,000 voxels on the default path (device maps, compacted inlier
+    convolutions), and with ``host_too`` on host maps and dense
+    convolutions as well, the two engines in turns; each split by stage,
+    the safeguard timed on its own on the same correspondences. No map of
+    the default path from a host builder, every map of the host path
+    from the native one; the full-size 6-D device maps (uncompacted)
+    equal to the native builder's in every array."""
     from gmf_tpu_torch.sparse import kernel_map
+    from gmf_tpu_torch.sparse.device_maps import build_pyramid_arrays_device
+    from gmf_tpu_torch.sparse.resunet import pyramid_to_arrays
+    from gmf_tpu_torch.sparse.voxelize import sparse_quantize
 
     spec = DGR_FULL[name]
     kitti = name == "dgr_kitti"
     xyz0, xyz1, p, q, _ = dgr_pair(SEED + 30, spec["side"], spec["points"])
-    eng = dgr_engine(dev, nets, kitti=kitti, use_icp=True)
+    engines = {"device": dgr_engine(dev, nets, kitti=kitti, use_icp=True)}
+    if host_too:
+        engines["host"] = dgr_engine(dev, nets, kitti=kitti, use_icp=True,
+                                     device_kernel_maps=False)
+    eng = engines["device"]
+    if not (eng.config.use_device_maps(dev)
+            and eng.config.use_compact_conv(dev)):
+        fail(f"{name}: the card's default is not device maps and "
+             "compacted convolutions")
     (c0, sel0), (c1, sel1) = (eng.preprocess(x) for x in (xyz0, xyz1))
     voxels = [len(c0), len(c1)]
-    eng.register(xyz0, xyz1, p, q)  # warm-up
-    kernel_map.BUILDS.clear()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    # the stage split syncs at each stage's ends; the pipeline syncs at
-    # most of them anyway (host maps, the 1-NN's and the solve's fetches)
-    eng.stage_seconds = {}
-    times = []
+    for e in engines.values():
+        e.register(xyz0, xyz1, p, q)  # warm-up
+        # the stage split syncs at each stage's ends; the pipeline syncs
+        # at most of them anyway (the counts', 1-NN's and solve's fetches)
+        e.stage_seconds = {}
+    times = {k: [] for k in engines}
+    peak = dict.fromkeys(engines, 0)
+    builds = {k: collections.Counter() for k in engines}
     for _ in range(DGR_TIMED):
-        t0 = time.perf_counter()
-        res = eng.register(xyz0, xyz1, p, q)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    peak = torch.cuda.max_memory_allocated()
-    builds = dict(kernel_map.BUILDS)
-    if builds.get("numpy") or not builds.get("native"):
-        fail(f"{name}: kernel maps not all from the native builder: {builds}")
-    stages = {k: eng.stage_seconds.get(k, 0.0) / DGR_TIMED
-              for k in DGR_STAGES}
-    eng.stage_seconds = {}
+        for k, e in engines.items():
+            before = collections.Counter(kernel_map.BUILDS)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = e.register(xyz0, xyz1, p, q)
+            torch.cuda.synchronize()
+            times[k].append(time.perf_counter() - t0)
+            peak[k] = max(peak[k], torch.cuda.max_memory_allocated())
+            builds[k] += collections.Counter(kernel_map.BUILDS) - before
+            if k == "device":
+                out_res = res
+    if builds["device"]:
+        fail(f"{name}: default-path maps from a host builder: "
+             f"{dict(builds['device'])}")
+    if host_too and (builds["host"].get("numpy")
+                     or not builds["host"].get("native")):
+        fail(f"{name}: host-path maps not all from the native builder: "
+             f"{dict(builds['host'])}")
+    res = out_res
     idx0, nn01 = res["corres"]
-    eng.safeguard_registration(xyz0[sel0], xyz1[sel1][nn01])
-    stages["safeguard"] = eng.stage_seconds["safeguard"]
-    maps = dgr_map_stats(eng.last_inlier_pyramid)
     T, w = res["trans"], res["weights"]
     if T.shape != (4, 4) or not np.isfinite(T).all():
         fail(f"{name}: T of shape {T.shape} or not finite")
     if w.shape != (len(idx0),) or not np.isfinite(w).all():
         fail(f"{name}: weights of shape {w.shape} or not finite")
-    print(f"{name}: voxels {voxels}, correspondences {len(w)}, unique 6-D "
-          f"{eng.last_inlier_pyramid.levels[0].num_valid}, register "
-          f"{1e3 * np.mean(times):.1f} ms (mean of {DGR_TIMED}: "
-          f"{[round(1e3 * t, 1) for t in times]}), peak memory "
-          f"{peak / 2 ** 30:.2f} GiB, used_safeguard "
-          f"{res['used_safeguard']}", flush=True)
-    for k in DGR_STAGES:
-        print(f"{name} stage {k}: {1e3 * stages[k]:.1f} ms", flush=True)
-    for k, m in maps.items():
-        print(f"{name} 6-D map {k}: K'={m['k']} M={m['m']} occupancy "
-              f"{m['occupancy']:.4f}", flush=True)
-    work = dgr_inlier_work(maps, 1e3 * stages["inlier_net"])
-    print(f"{name} inlier net work: " + json.dumps(work), flush=True)
-    return dict(voxels=voxels, correspondences=len(w),
-                unique_6d=eng.last_inlier_pyramid.levels[0].num_valid,
-                ms_per_register=1e3 * float(np.mean(times)),
-                register_ms=[1e3 * t for t in times],
-                stage_ms={k: 1e3 * v for k, v in stages.items()},
-                peak_memory_bytes=peak, maps_6d=maps, inlier_work=work,
-                builds=builds,
-                used_safeguard=res["used_safeguard"])
+    out = {}
+    for k, e in engines.items():
+        stages = {s: e.stage_seconds.get(s, 0.0) / DGR_TIMED
+                  for s in DGR_STAGES}
+        e.stage_seconds = {}
+        e.safeguard_registration(xyz0[sel0], xyz1[sel1][nn01])
+        stages["safeguard"] = e.stage_seconds["safeguard"]
+        maps = e.last_inlier_maps
+        tag = name if k == "device" else f"{name} host maps"
+        print(f"{tag}: voxels {voxels}, correspondences {len(w)}, unique "
+              f"6-D {maps['voxels'][0]}, register "
+              f"{1e3 * np.mean(times[k]):.1f} ms (mean of {DGR_TIMED}: "
+              f"{[round(1e3 * t, 1) for t in times[k]]}), peak memory "
+              f"{peak[k] / 2 ** 30:.2f} GiB, used_safeguard "
+              f"{res['used_safeguard']}", flush=True)
+        for st in DGR_STAGES:
+            print(f"{tag} stage {st}: {1e3 * stages[st]:.1f} ms", flush=True)
+        for m, v in maps["maps"].items():
+            print(f"{tag} 6-D map {m}: K'={v['k']} M={v['m']} occupancy "
+                  f"{v['occupancy']:.4f}" + (
+                      f" rows {v['dense_rows']} dense, {v['compact_rows']} "
+                      "in tiles" if "dense_rows" in v else ""), flush=True)
+        work = dgr_inlier_work(maps["maps"], 1e3 * stages["inlier_net"])
+        print(f"{tag} inlier net work: " + json.dumps(work), flush=True)
+        out[k] = dict(voxels=voxels, correspondences=len(w),
+                      unique_6d=maps["voxels"][0],
+                      ms_per_register=1e3 * float(np.mean(times[k])),
+                      register_ms=[1e3 * t for t in times[k]],
+                      stage_ms={s: 1e3 * v for s, v in stages.items()},
+                      peak_memory_bytes=peak[k], maps_6d=maps["maps"],
+                      inlier_work=work, builds=dict(builds[k]),
+                      used_safeguard=res["used_safeguard"])
+    # the full-size 6-D maps: the card's device builder against native
+    uniq = sparse_quantize(np.concatenate([c0, c1[nn01]], 1).astype(
+        np.float64), 1.0, return_index=False)
+    kw = dict(conv1_kernel_size=3, granule=eng.config.corr_cap_granule)
+    t0 = time.perf_counter()
+    arrays = build_pyramid_arrays_device(uniq, 4, device=dev, **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    native = kernel_map.build_pyramid(uniq, 4, **kw)
+    t2 = time.perf_counter()
+    n = dgr_pyramid_arrays_equal(f"{name} full-size 6-D maps", arrays,
+                                 pyramid_to_arrays(native, dev))
+    print(f"{name} full-size 6-D maps equal to the native builder's: {n} "
+          f"arrays, {len(uniq)} voxels (device build {1e3 * (t1 - t0):.1f} "
+          f"ms uncompacted, native {1e3 * (t2 - t1):.1f} ms)", flush=True)
+    result = out["device"]
+    result["maps_equal_native"] = dict(arrays=n, voxels=len(uniq))
+    if host_too:
+        result["host_maps"] = out["host"]
+    return result
 
 
 def write_dgr_fixtures(root, rng):
@@ -3787,7 +3938,8 @@ def dgr_phase(dev, phase_done):
     nets, nets_kitti = dgr_nets(), dgr_nets(kitti=True)
     out = {"card_vs_cpu": dgr_card_vs_cpu(dev, nets)}
     phase_done("dgr_card_vs_cpu")
-    out["dgr_3dmatch"] = dgr_full_size(dev, "dgr_3dmatch", nets)
+    out["dgr_3dmatch"] = dgr_full_size(dev, "dgr_3dmatch", nets,
+                                       host_too=True)
     out["dgr_kitti"] = dgr_full_size(dev, "dgr_kitti", nets_kitti)
     phase_done("dgr_full_size")
     with tempfile.TemporaryDirectory() as tmp:

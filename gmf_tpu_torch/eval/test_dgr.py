@@ -12,8 +12,10 @@ scene index, used_safeguard] saved as ``dgr_stats.npy``. Checkpoints are
 the port's (``utils/model_io.py::load_dgr``). Runs on the card unless
 ``--cpu``. ``--shard-index/--shard-count`` take a strided slice of the
 pair list (default the whole list) and ``--merge-shards`` joins the
-shards' files. ``--srcdense-rowmode-min`` tunes the on-device maps,
-which are not ported yet: it stops the command by name.
+shards' files. ``--srcdense-rowmode-min`` picks one of gmf_tpu's TPU
+probe tiers for its on-device maps, whose maps are all the same; the
+port's device builder has one exact probe, so the flag is accepted,
+checked and logged, and changes nothing.
 """
 
 from __future__ import annotations
@@ -71,8 +73,10 @@ def parse_args(argv=None):
                          "and print the global summary")
     ap.add_argument("--srcdense-rowmode-min", type=int, default=None,
                     metavar="MULT",
-                    help="a setting of the on-device kernel maps (not "
-                         "ported yet: refused)")
+                    help="gmf_tpu's switch between two TPU probe tiers of "
+                         "its device maps (MULT >= 1); the port's device "
+                         "builder has one exact probe, so it changes "
+                         "nothing")
     from gmf_tpu_torch.eval.cli import add_device_arg
 
     add_device_arg(ap)
@@ -254,11 +258,13 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     log = logging.getLogger("evaldgr")
     if args.srcdense_rowmode_min is not None:
-        from gmf_tpu_torch.eval.cli import refuse
-
-        refuse("--srcdense-rowmode-min",
-               "tunes the on-device kernel maps (sparse/device_maps.py, "
-               "ROADMAP queue 1 item 5.6), which are not ported yet")
+        if args.srcdense_rowmode_min < 1:
+            raise SystemExit(f"--srcdense-rowmode-min must be an integer >= "
+                             f"1, got {args.srcdense_rowmode_min}")
+        log.info(f"--srcdense-rowmode-min {args.srcdense_rowmode_min}: "
+                 "no effect; it picks one of gmf_tpu's TPU probe tiers, "
+                 "whose maps are the same, and the port's device builder "
+                 "has one exact probe (sorted keys)")
     if args.merge_shards:
         return merge_shards(args.out, log)
 

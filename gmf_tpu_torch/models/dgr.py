@@ -12,11 +12,12 @@ Counterpart of ``gmf_tpu/models/dgr.py``:
   net with GMF images -> sigmoid weights clipped -> weighted Procrustes
   and SE(3) refinement -> the wsum safeguard (RANSAC) -> optional ICP.
 
-Everything runs on the engine's device (the card unless ``device="cpu"``)
-with host kernel maps (``sparse/kernel_map.py``, native builder) and
-dense-map convolutions. The on-device maps and the compacted inlier
-convolution (ROADMAP queue 1 items 5.6 and 5.5) and bf16 nets are not
-ported yet: asking for them raises.
+Everything runs on the engine's device (the card unless ``device="cpu"``).
+As in gmf_tpu, where the device is not the CPU the kernel maps are built
+on it (``sparse/device_maps.py``) and the 6-D inlier net runs compacted
+convolutions (``sparse/compact.py``); on the CPU the maps come from the
+host (``sparse/kernel_map.py``, native builder) and the convolutions run
+on dense maps. bf16 nets are not ported yet: asking for them raises.
 """
 
 from __future__ import annotations
@@ -35,7 +36,9 @@ from gmf_tpu_torch.geometry.knn import nearest_neighbor
 from gmf_tpu_torch.geometry.ransac import (ransac_from_indices,
                                            ransac_sample_indices)
 from gmf_tpu_torch.geometry.se3 import integrate_trans
-from gmf_tpu_torch.sparse.kernel_map import _pad_cap, build_pyramid
+from gmf_tpu_torch.sparse.device_maps import build_pyramid_arrays_device
+from gmf_tpu_torch.sparse.kernel_map import (_pad_cap, build_pyramid,
+                                             pyramid_map_stats)
 from gmf_tpu_torch.sparse.resunet import (FCGFNet, GMFInlierNet,
                                           pyramid_to_arrays)
 from gmf_tpu_torch.sparse.voxelize import sparse_quantize
@@ -177,25 +180,30 @@ class DGRConfig:
     descriptor: str = "fcgf"   # 'fpfh': GMF_DGR_fpfh's variant (:173-198)
     # the nets' compute type; only f32 is ported (bf16 nets: ROADMAP)
     net_dtype: str = "float32"
-    # None or False: host kernel maps. True (sparse/device_maps.py,
-    # ROADMAP queue 1 item 5.6) is not ported yet and raises.
+    # kernel maps built on the device (sparse/device_maps.py) or on the
+    # host; None = auto, on wherever the engine's device is not the CPU
+    # (gmf_tpu's rule: any backend but the CPU)
     device_kernel_maps: Optional[bool] = None
-    # None or False: the dense-map inlier convolution. True
-    # (sparse/compact.py, ROADMAP queue 1 item 5.5) raises.
+    # the 6-D inlier net on compacted schedules (sparse/compact.py), which
+    # need device maps: without them the host maps' dense convolutions
+    # run, as in gmf_tpu. None = follow use_device_maps()
     compact_inlier_conv: Optional[bool] = None
+    # offsets with at least this share of a map's rows hit stay in the
+    # dense tier (compact.plan_tiles); gmf_tpu's value, tuned on its TPU
+    compact_dense_frac: float = 0.25
+
+    def use_device_maps(self, device) -> bool:
+        if self.device_kernel_maps is not None:
+            return self.device_kernel_maps
+        return torch.device(device).type != "cpu"
+
+    def use_compact_conv(self, device) -> bool:
+        if self.compact_inlier_conv is not None:
+            return self.compact_inlier_conv
+        return self.use_device_maps(device)
 
     def check(self) -> None:
         """Raise on a setting the port does not have yet."""
-        if self.device_kernel_maps:
-            raise NotImplementedError(
-                "device_kernel_maps=True: the on-device kernel maps "
-                "(sparse/device_maps.py, ROADMAP queue 1 item 5.6) are not "
-                "ported yet; the port builds host maps")
-        if self.compact_inlier_conv:
-            raise NotImplementedError(
-                "compact_inlier_conv=True: the compacted convolution "
-                "(sparse/compact.py, ROADMAP queue 1 item 5.5) is not "
-                "ported yet; the port runs the dense-map convolution")
         if self.net_dtype == "bfloat16":
             raise NotImplementedError(
                 "net_dtype='bfloat16': bf16 DGR nets (ROADMAP queue 1 "
@@ -213,12 +221,16 @@ class DeepGlobalRegistration:
     Holds the FCGF descriptor net and the 6-D GMF inlier net (state dicts
     of ``sparse/resunet.py``'s nets, e.g. from ``utils/bridge.py`` or
     ``utils/model_io.py::load_dgr``; ``None`` keeps the model's own
-    weights) and runs host voxelization and kernel maps with the nets and
+    weights) and runs voxelization on the host, the kernel maps on the
+    device or the host (``DGRConfig.use_device_maps``), and the nets and
     the solve on the device.
 
     ``stage_seconds``: when set to a dict, each stage adds its seconds
     there, the device synchronised at its ends (chip_smoke.py's split;
-    off by default, as it costs a sync a stage).
+    off by default, as it costs a sync a stage). While it is set,
+    ``last_inlier_maps`` keeps the last 6-D pyramid's voxels a level and
+    each map's K', M and share of entries that are not the sentinel
+    (``kernel_map.pyramid_map_stats``).
     """
 
     def __init__(self, fcgf_state=None, inlier_state=None,
@@ -244,7 +256,7 @@ class DeepGlobalRegistration:
                 net.load_state_dict(state, strict=True)
             net.to(self.device).eval()
         self.stage_seconds: Optional[Dict[str, float]] = None
-        self.last_inlier_pyramid = None  # kept while stage_seconds is set
+        self.last_inlier_maps: Optional[Dict] = None
 
     @contextlib.contextmanager
     def _stage(self, name: str):
@@ -300,15 +312,30 @@ class DeepGlobalRegistration:
 
     def _pyramid_arrays(self, coords: np.ndarray, net, granule: int,
                         stage: str):
-        """The host kernel-map pyramid for ``net``'s conv1, as tensors on
-        the device."""
+        """The kernel-map pyramid for ``net``'s conv1 as tensors on the
+        device, built there or on the host (the same maps; the compacted
+        schedules where the config takes them, 6-D only)."""
+        cfg = self.config
+        stats = ({} if self.stage_seconds is not None and net is self.inlier
+                 else None)
         with self._stage(stage):
-            pyr = build_pyramid(coords, num_levels=4,
-                                conv1_kernel_size=net.conv1_kernel_size,
-                                granule=granule)
-            if self.stage_seconds is not None and net is self.inlier:
-                self.last_inlier_pyramid = pyr
-            return pyramid_to_arrays(pyr, self.device)
+            if cfg.use_device_maps(self.device):
+                arrays = build_pyramid_arrays_device(
+                    coords, num_levels=4,
+                    conv1_kernel_size=net.conv1_kernel_size, granule=granule,
+                    compact_conv=cfg.use_compact_conv(self.device),
+                    compact_dense_frac=cfg.compact_dense_frac,
+                    device=self.device, stats=stats)
+            else:
+                pyr = build_pyramid(coords, num_levels=4,
+                                    conv1_kernel_size=net.conv1_kernel_size,
+                                    granule=granule)
+                if stats is not None:
+                    stats.update(pyramid_map_stats(pyr))
+                arrays = pyramid_to_arrays(pyr, self.device)
+        if stats is not None:
+            self.last_inlier_maps = stats
+        return arrays
 
     def _fcgf_features_device(self, coords: np.ndarray):
         """FCGF features and the level-0 mask, both ON the device."""

@@ -10,10 +10,11 @@ For each offset k the kernel map gives the input rows [M]:
    out[j] = sum_k  W_k^T x[nbr[k, j]]
 computed 32 offsets at a time: one gather of the chunk's rows as
 [M, 32 * Cin], then one product with the chunk's [32 * Cin, Cout]
-weights added into an f32 accumulator. The gmf_tpu package computes this
-in plain ``jnp`` (no Pallas kernel), and so does the port in plain
-PyTorch; the compacted convolution (``sparse_conv_compact``) waits for
-``sparse/compact.py`` (ROADMAP queue 1 item 5.5).
+weights added into an f32 accumulator. ``sparse_conv_compact`` runs the
+same sum over a compacted schedule (``sparse/compact.py``), the 6-D
+inlier net's convolution wherever the maps are built on the device. The
+gmf_tpu package computes both in plain ``jnp`` (no Pallas kernel), and so
+does the port in plain PyTorch.
 
 Parameter names are MinkowskiEngine's (``kernel`` [K, Cin, Cout],
 ``<norm>.bn.{weight,bias,running_mean,running_var}``), the names
@@ -59,6 +60,45 @@ def sparse_conv(x, weights, nbr, chunk: int = 32):
     return acc.to(x.dtype)
 
 
+def sparse_conv_compact(x, weights, schedule, out_rows: int,
+                        row_budget: int = 1 << 16):
+    """Two-tier compacted sparse convolution (``sparse/compact.py``).
+
+    Args:
+      x: [cap_in + 1, Cin] features WITH the sentinel row appended.
+      weights: [K_total, Cin, Cout] the whole kernel (kept ids pick rows).
+      schedule: {"dense": (nbr [Kd, M], kept [Kd]) or None, "groups":
+        ((in_idx [Nt, T], out_idx [Nt, T], kept [Nt]), ...)}.
+      out_rows: M, the output capacity; a padded tile slot writes to the
+        trash row ``out_rows``, which is dropped.
+      row_budget: gathered rows a step (tiles * T).
+
+    Returns [M, Cout] in x's dtype, accumulated in f32: the dense tier by
+    ``sparse_conv``, each step of tiles as a gather of [c, T, Cin], a
+    batched product with its [c, Cin, Cout] weights and an ``index_add_``
+    of the [c * T, Cout] products (on the card an atomic add, whose order
+    varies from run to run in the last bits). Plain autograd
+    differentiates it.
+    """
+    cout = weights.shape[2]
+    acc = torch.zeros(out_rows + 1, cout, dtype=torch.float32,
+                      device=x.device)
+    if schedule["dense"] is not None:
+        nbr, kept = schedule["dense"]
+        acc[:out_rows] += sparse_conv(x, weights.index_select(0, kept.long()),
+                                      nbr).float()
+    for in_idx, out_idx, kept in schedule["groups"]:
+        nt, tile = in_idx.shape
+        step = max(1, row_budget // max(tile, 1))
+        for t0 in range(0, nt, step):
+            ii, oo = in_idx[t0:t0 + step].long(), out_idx[t0:t0 + step]
+            w = weights.index_select(0, kept[t0:t0 + step].long()).float()
+            g = x.index_select(0, ii.reshape(-1)).view(*ii.shape, -1)
+            z = torch.bmm(g.float(), w)                  # [c, T, Cout]
+            acc.index_add_(0, oo.reshape(-1).long(), z.view(-1, cout))
+    return acc[:out_rows].to(x.dtype)
+
+
 class SparseConv(nn.Module):
     """Holds the FULL [num_offsets, Cin, Cout] kernel.
 
@@ -79,7 +119,13 @@ class SparseConv(nn.Module):
         bound = 1.0 / math.sqrt(num_offsets * in_channels)
         nn.init.uniform_(self.kernel, -bound, bound)
 
-    def forward(self, x_with_sentinel, nbr, kept=None):
+    def forward(self, x_with_sentinel, nbr, kept=None, out_rows=None):
+        """nbr: a dense [K', M] map (with ``kept`` kernel rows), or a
+        compacted schedule dict, when ``out_rows`` gives M."""
+        if isinstance(nbr, dict):
+            return sparse_conv_compact(
+                x_with_sentinel, self.kernel.to(x_with_sentinel.dtype), nbr,
+                out_rows)
         w = self.kernel if kept is None else self.kernel.index_select(
             0, kept)
         return sparse_conv(x_with_sentinel, w.to(x_with_sentinel.dtype), nbr)

@@ -284,6 +284,24 @@ class SparsePyramid:
         return len(self.levels)
 
 
+def pyramid_map_stats(pyr: SparsePyramid):
+    """{"voxels": [n a level], "maps": {name: {k, m, occupancy}}}: K' and
+    M of each map of the pyramid ("conv1", "self_l", "down_l", "up_l")
+    and its share of entries that are not the sentinel (the input
+    level's capacity)."""
+    caps = [lv.cap for lv in pyr.levels]
+    maps = {"conv1": (pyr.conv1_map, caps[0])}
+    for l, lv in enumerate(pyr.levels):
+        maps[f"self_{l}"] = (lv.self_map, caps[l])
+        if lv.down_map is not None:
+            maps[f"down_{l}"] = (lv.down_map, caps[l])
+            maps[f"up_{l}"] = (lv.up_map, caps[l + 1])
+    return dict(voxels=[lv.num_valid for lv in pyr.levels],
+                maps={name: dict(k=int(m.shape[0]), m=int(m.shape[1]),
+                                 occupancy=float((m != sentinel).mean()))
+                      for name, (m, sentinel) in maps.items()})
+
+
 def _pad_cap(n: int, granule: int = 512) -> int:
     """Round a capacity up to a bucket (gmf_tpu compiles once a bucket;
     the port keeps its shapes)."""

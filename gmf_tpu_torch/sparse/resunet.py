@@ -10,9 +10,11 @@ Counterpart of ``gmf_tpu/sparse/resunet.py``:
   ImageEncoder on both frames, Fusion-1 across the image tokens, and a
   PerceiverIO Fusion-2 with LCPE that REPLACES the bottleneck features.
 
-Every convolution is ``sparse/conv.py``'s gather-GEMM over host-built
-kernel maps; batch norms multiply padded rows to zero, so padded rows
-stay zero throughout (LCPE's depthwise convolution reads them). The
+Every convolution is ``sparse/conv.py``'s gather-GEMM over the pyramid's
+kernel maps (host- or device-built), or over its compacted schedules
+where it has them (``*_cmp`` keys); batch norms multiply padded rows to
+zero, so padded rows stay zero throughout (LCPE's depthwise convolution
+reads them). The
 block order is the reference's, including the pre-ReLU skip
 concatenations (gmf_tpu/sparse/resunet.py:156-226).
 """
@@ -65,10 +67,11 @@ class SparseBasicBlock(nn.Module):
         self.norm2 = MaskedBatchNorm(channels)
 
     def forward(self, x, mask, self_map, kept):
+        rows = x.shape[0]  # a self map's output capacity is its input's
         out = F.relu(self.norm1(
-            self.conv1(append_sentinel(x), self_map, kept), mask))
-        out = self.norm2(self.conv2(append_sentinel(out), self_map, kept),
-                         mask)
+            self.conv1(append_sentinel(x), self_map, kept, rows), mask))
+        out = self.norm2(self.conv2(append_sentinel(out), self_map, kept,
+                                    rows), mask)
         return F.relu(out + x)
 
 
@@ -123,8 +126,9 @@ class SparseResUNet2(nn.Module):
 
     def forward(self, feats, pyramid: Dict[str, object], p_image=None,
                 q_image=None):
-        """feats: [cap0, in_channels]; pyramid: ``pyramid_to_arrays``'s
-        dict; p_image/q_image: [1, H, W, 3] frames (GMF variant)."""
+        """feats: [cap0, in_channels]; pyramid: ``pyramid_to_arrays``'s or
+        ``build_pyramid_arrays_device``'s dict; p_image/q_image: [1, H, W,
+        3] frames (GMF variant)."""
         volume = pyramid.get("conv1_volume")
         if volume is not None and volume != self.conv1_volume:
             raise ValueError(
@@ -133,13 +137,22 @@ class SparseResUNet2(nn.Module):
                 "pyramid with the net's conv1_kernel_size")
         m = [pyramid[f"mask_{l}"] for l in range(4)]
 
-        def self_map(l):
-            return pyramid[f"self_map_{l}"], pyramid[f"self_kept_{l}"]
+        def kmap(prefix):
+            """(map, kept) of "conv1", "self_l", "down_l" or "up_l"; a
+            compacted schedule (``*_cmp``) comes first, with kept None."""
+            cmp_key = "conv1_cmp" if prefix == "conv1" else prefix.replace(
+                "_", "_cmp_")
+            if cmp_key in pyramid:
+                return pyramid[cmp_key], None
+            if prefix == "conv1":
+                return pyramid["conv1_map"], pyramid["conv1_kept"]
+            return (pyramid[prefix.replace("_", "_map_")],
+                    pyramid[prefix.replace("_", "_kept_")])
 
-        def level(x, conv, norm, block, nbr, kept, l):
-            x = conv(append_sentinel(x), nbr, kept)
+        def level(x, conv, norm, block, prefix, l):
+            x = conv(append_sentinel(x), *kmap(prefix), m[l].shape[0])
             x = norm(x, m[l])
-            return block(x, m[l], *self_map(l))
+            return block(x, m[l], *kmap(f"self_{l}"))
 
         image_feat = None
         if self.with_gmf_fusion:
@@ -151,13 +164,13 @@ class SparseResUNet2(nn.Module):
 
         # encoder
         out_s1 = level(feats, self.conv1, self.norm1, self.block1,
-                       pyramid["conv1_map"], pyramid["conv1_kept"], 0)
+                       "conv1", 0)
         out_s2 = level(F.relu(out_s1), self.conv2, self.norm2, self.block2,
-                       pyramid["down_map_0"], pyramid["down_kept_0"], 1)
+                       "down_0", 1)
         out_s4 = level(F.relu(out_s2), self.conv3, self.norm3, self.block3,
-                       pyramid["down_map_1"], pyramid["down_kept_1"], 2)
+                       "down_1", 2)
         out_s8 = level(F.relu(out_s4), self.conv4, self.norm4, self.block4,
-                       pyramid["down_map_2"], pyramid["down_kept_2"], 3)
+                       "down_2", 3)
         out = F.relu(out_s8)
 
         # GMF Fusion-2: PerceiverIO's output REPLACES the bottleneck
@@ -167,13 +180,13 @@ class SparseResUNet2(nn.Module):
 
         # decoder, concatenating each pre-ReLU encoder output
         out = F.relu(level(out, self.conv4_tr, self.norm4_tr, self.block4_tr,
-                           pyramid["up_map_2"], pyramid["up_kept_2"], 2))
+                           "up_2", 2))
         out = torch.cat([out, out_s4], dim=-1)
         out = F.relu(level(out, self.conv3_tr, self.norm3_tr, self.block3_tr,
-                           pyramid["up_map_1"], pyramid["up_kept_1"], 1))
+                           "up_1", 1))
         out = torch.cat([out, out_s2], dim=-1)
         out = F.relu(level(out, self.conv2_tr, self.norm2_tr, self.block2_tr,
-                           pyramid["up_map_0"], pyramid["up_kept_0"], 0))
+                           "up_0", 0))
         out = torch.cat([out, out_s1], dim=-1)
         out = self.final(F.relu(self.conv1_tr(out)))
 

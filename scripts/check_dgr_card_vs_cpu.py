@@ -7,8 +7,12 @@ limit, then runs chip_smoke.py's phase-8 check ``dgr_card_vs_cpu`` (the
 same full-width random weights) on the pairs of seeds SEED + 20 onwards,
 the first of them the pair that chip_smoke.py checks: FPFH's parts and
 features (``dgr_fpfh_card_vs_cpu``), then ``register`` for fcgf, fpfh
-and fpfh with ICP. A check that fails is reported and the run goes on,
-so that the readings behind chip_smoke.py's bounds show in full.
+and fpfh with ICP on the default path (kernel maps built on the device,
+the compacted inlier convolution) on the card and the same config on the
+CPU, and each pair's pyramids (``dgr_pyramid_checks``: the card's device
+pyramids equal to the CPU's and to the native builder's). A check that
+fails is reported and the run goes on, so that the readings behind
+chip_smoke.py's bounds show in full.
 
 The last line is a JSON object with every row and every failed check.
 """

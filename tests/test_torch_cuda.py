@@ -1060,3 +1060,78 @@ def test_dgr_se3_refine_card_vs_cpu(cuda):
                             T0.to(cuda), **kw)
     assert abs(int(it) - int(itc)) <= 8 and int(itc) < 1000
     np.testing.assert_allclose(Tc.cpu().numpy(), T.numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize("dim,compact", [(3, False), (6, False), (6, True)])
+def test_dgr_device_pyramid_card_vs_cpu(cuda, dim, compact):
+    """The device builder on the card against the same builder on the CPU,
+    every array in every bit (compacted schedules leaf by leaf), with
+    negative coordinates; uncompacted also against the native host
+    builder."""
+    from gmf_tpu_torch.sparse.device_maps import build_pyramid_arrays_device
+    from gmf_tpu_torch.sparse.kernel_map import build_pyramid
+    from gmf_tpu_torch.sparse.resunet import pyramid_to_arrays
+
+    c = _dgr_coords(dim, 3000, 30 if dim == 3 else 6) - 3
+    kw = dict(conv1_kernel_size=7 if dim == 3 else 3, granule=1024,
+              compact_conv=compact, compact_dense_frac=0.25)
+    got = build_pyramid_arrays_device(c, 4, device=cuda, **kw)
+    want = [build_pyramid_arrays_device(c, 4, device="cpu", **kw)]
+    if not compact:
+        want.append(pyramid_to_arrays(build_pyramid(
+            c, 4, conv1_kernel_size=kw["conv1_kernel_size"], granule=1024),
+            "cpu"))
+
+    def leaves(x, path=""):
+        if isinstance(x, dict):
+            for k in sorted(x):
+                yield from leaves(x[k], f"{path}/{k}")
+        elif isinstance(x, (tuple, list)):
+            for i, v in enumerate(x):
+                yield from leaves(v, f"{path}[{i}]")
+        else:
+            yield path, x
+
+    g = dict(leaves(got))
+    assert compact == any("_cmp_" in k for k in g)
+    for w in want:
+        w = dict(leaves(w))
+        assert g.keys() == w.keys()
+        for k, a in g.items():
+            if isinstance(a, torch.Tensor):
+                assert a.is_cuda and a.dtype == w[k].dtype, k
+                assert torch.equal(a.cpu(), w[k]), k
+            else:
+                assert a == w[k], k
+
+
+def test_dgr_compact_conv_card(cuda):
+    """The compacted convolution against the dense-map one on the card,
+    over each 6-D map of a pyramid built there (down, up and self):
+    1e-5 of the output's scale (index_add_'s atomic order and the other
+    summation order)."""
+    from gmf_tpu_torch.sparse.conv import (append_sentinel, sparse_conv,
+                                           sparse_conv_compact)
+    from gmf_tpu_torch.sparse.device_maps import build_pyramid_arrays_device
+
+    c = _dgr_coords(6, 3000, 6)
+    kw = dict(conv1_kernel_size=3, granule=1024, compact_dense_frac=0.25)
+    dense = build_pyramid_arrays_device(c, 4, device=cuda, **kw)
+    cmp = build_pyramid_arrays_device(c, 4, device=cuda, compact_conv=True,
+                                      **kw)
+    r = np.random.RandomState(4)
+    w = torch.tensor(r.randn(729, 16, 24).astype(np.float32), device=cuda)
+    for name, l_in, l_out in (("self_0", 0, 0), ("down_0", 0, 1),
+                              ("up_0", 1, 0), ("self_2", 2, 2)):
+        cap_in = dense[f"mask_{l_in}"].shape[0]
+        rows = dense[f"mask_{l_out}"].shape[0]
+        x = torch.tensor(r.randn(cap_in, 16).astype(np.float32),
+                         device=cuda) * dense[f"mask_{l_in}"][:, None]
+        kept = dense[name.replace("_", "_kept_")].long()
+        ref = sparse_conv(append_sentinel(x), w[kept],
+                          dense[name.replace("_", "_map_")])
+        got = sparse_conv_compact(append_sentinel(x), w,
+                                  cmp[name.replace("_", "_cmp_")], rows)
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   atol=1e-5 * ref.abs().max().item(),
+                                   err_msg=name)

@@ -291,12 +291,14 @@ def test_frag_cache_bit_identical_with_hits(weights, pair):
 
 
 def test_engine_refuses_what_is_not_ported():
-    for kw, name in ((dict(device_kernel_maps=True), "device_kernel_maps"),
-                     (dict(compact_inlier_conv=True), "compact_inlier_conv"),
-                     (dict(net_dtype="bfloat16"), "bfloat16")):
-        with pytest.raises(NotImplementedError, match=name):
-            dgr.DeepGlobalRegistration(config=dgr.DGRConfig(**kw),
-                                       device="cpu")
+    """bf16 nets are not ported; the device maps and the compacted
+    convolution are (tests/test_torch_device_maps.py), and take no
+    refusal."""
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        dgr.DeepGlobalRegistration(
+            config=dgr.DGRConfig(net_dtype="bfloat16"), device="cpu")
+    for kw in (dict(device_kernel_maps=True), dict(compact_inlier_conv=True)):
+        dgr.DeepGlobalRegistration(config=dgr.DGRConfig(**kw), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             dgr.DeepGlobalRegistration()
@@ -559,8 +561,9 @@ def test_cli_matches_gmf_tpu(dgr_tree, monkeypatch, tmp_path, dataset,
 
 def test_cli_fcgf_shards_overlap_and_refusals(dgr_tree, tmp_path, caplog):
     """The port's own --tiny FCGF run: threaded == serial, two strided
-    shards merge into the serial rows, the stale-shard checks, and the
-    on-device maps' flag refused by name."""
+    shards merge into the serial rows, the stale-shard checks, and
+    --srcdense-rowmode-min: logged as changing nothing (the rows equal
+    the serial run's), a value under 1 refused by name."""
     from gmf_tpu_torch.eval import test_dgr
 
     root, ckpt = dgr_tree
@@ -587,5 +590,11 @@ def test_cli_fcgf_shards_overlap_and_refusals(dgr_tree, tmp_path, caplog):
     np.save(out / "dgr_stats_shard0of3.npy", serial[:1])
     with pytest.raises(SystemExit, match="mixed shard counts"):
         test_dgr.main(args(out, "--merge-shards"))
-    with pytest.raises(SystemExit, match="device_maps"):
-        test_dgr.main(args(out, "--srcdense-rowmode-min", "2"))
+    caplog.clear()
+    with caplog.at_level(logging.INFO):
+        rows = test_dgr.main(args(tmp_path / "rm", "--srcdense-rowmode-min",
+                                  "2"))
+    np.testing.assert_array_equal(rows, serial)
+    assert "--srcdense-rowmode-min 2: no effect" in caplog.text
+    with pytest.raises(SystemExit, match="srcdense-rowmode-min must be"):
+        test_dgr.main(args(out, "--srcdense-rowmode-min", "0"))

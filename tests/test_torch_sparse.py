@@ -80,8 +80,8 @@ def test_quantize_equals_gmf_tpu(dim, voxel):
         np.testing.assert_array_equal(g, w)
 
 
-@pytest.mark.parametrize("dim,conv1,extent", [(3, 7, 10), (3, 3, 10),
-                                               (6, 3, 5)])
+@pytest.mark.parametrize("dim,conv1,extent", [(3, 7, 10), (3, 5, 10),
+                                               (3, 3, 10), (6, 3, 5)])
 def test_pyramid_bits_native_numpy_gmf_tpu(dim, conv1, extent):
     """Every array of the pyramid, 3-D and pruned 6-D, in every bit."""
     c = _coords(dim, dim, 150, extent)
