@@ -190,10 +190,32 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
      --use-icp on the card and with --cpu (success and safeguard flags
      equal, rre within 0.05 deg, rte within 1e-3 m); the tiny FCGF's
      features on both devices within 1e-4.
-9. Print the seconds of each phase as it ends, a JSON line with every
-   path's time per request or step, a JSON
-   line with every kernel's launches, time, plain time, bound and error,
-   and, as the last line, {"ok": true, "device": {...}}.
+9. DGR+GMF training (dgr_train_phase), phase 8's nets, no kernel row:
+   - one SGD train_step of 2 pairs on the card and on the CPU at ~1,500
+     voxels (the CPU on the card's 1-NN matches and labels, its own
+     descriptors held to the card's): labels equal, each pair's loss
+     within 1e-5 relative and every gradient leaf, the running
+     statistics, the momentum buffers and the updated parameters within
+     the stated limits; the image encoder's backward on each device held
+     to f64 on the CPU; the loss's hard decisions (weights at the clip,
+     ws at 10, the arccos clip) counted;
+   - WeightedProcrustesTrainer at 3DMatch scale (~20,000 voxels a cloud,
+     4 pairs a step, dgr_3dmatch's SGD): a warm-up step of 2 pairs and 2
+     timed steps,
+     ms a step, the per-pair split (descriptors, 6-D pyramid, forward
+     and backward; the update a step), peak memory, no step skipped, the
+     loss finite, the parameters moved;
+   - ContrastiveDescriptorTrainer on the full-width FCGF at that scale,
+     ms a pair and peak memory;
+   - register() with bf16 nets at 3DMatch scale, timed; at ~1,500 voxels
+     the card's bf16 inlier logits no farther from its f32 logits than
+     1.5x the CPU's;
+   - train_dgr --tiny on the card, 1 epoch of 2 steps; its checkpoint
+     loads through load_dgr into an engine that registers a pair.
+10. Print the seconds of each phase as it ends, a JSON line with every
+    path's time per request or step, a JSON
+    line with every kernel's launches, time, plain time, bound and error,
+    and, as the last line, {"ok": true, "device": {...}}.
 
 Times are CUDA-event means after warm-up (kernels) and host-clock means
 of synchronised requests (registrar) and steps (trainer).
@@ -3949,6 +3971,542 @@ def dgr_phase(dev, phase_done):
     return out
 
 
+# -- DGR+GMF training (phase 9) ----------------------------------------------
+#
+# WeightedProcrustesTrainer at full width (phase 8's nets from SEED, the
+# FCGF frozen, the inlier net trained with SGD as dgr_3dmatch() sets it)
+# on training pairs made from dgr_pair's clouds (ground-truth matches
+# within 2 voxels, as make_dgr_pair's), the contrastive FCGF trainer, the
+# bf16 nets and the train_dgr command line. The trainer builds its maps
+# on the card as dense pruned maps (no compaction, as gmf_tpu's trainer),
+# and sparse_conv's backward gathers again what its forward gathered. No
+# TPU kernel lies on this path either.
+DGR_TRAIN_PAIRS = 4    # pairs a step at 3DMatch scale (dgr_3dmatch's batch)
+DGR_TRAIN_TIMED = 2    # timed steps, after one warm-up step
+DGR_DESC_TIMED = 2     # timed descriptor pairs, after one warm-up pair
+DGR_TRAIN_STAGES = ("descriptors", "pyramid_6d", "forward_backward",
+                    "update")
+# card against CPU, one SGD train_step of 2 pairs at DGR_SMALL: each
+# pair's loss within DGR_LOSS_RTOL relative (measured 9.5e-8); each
+# gradient leaf and each leaf of SGD's momentum buffer (the step's
+# decayed gradient) within DGR_GRAD_TOL of its own largest entry
+# (measured at most 1.9e-5), the updated parameters within it of the
+# update's largest entry plus two f32 spacings of the parameter's; the
+# running statistics within DGR_STATE_TOL (measured 2.2e-6). The image
+# encoder is held apart: its stem's and first block's gradient is what
+# is left after each train-mode batch norm takes out the channel's mean
+# and its activation's share, and on the second pair the two devices
+# lie 5.3e-3 apart there. Each device's encoder backward is held to the
+# same backward in f64 on the CPU from the same inputs and upstream
+# gradient (encoder_f64_check), which shows whose error it is: the
+# CPU's f32 lies 5.3e-3 from f64, the card's 8.2e-6. So the card's
+# error must stay within DGR_ENCODER_F64 x the CPU's plus 1e-5, and card
+# against CPU within DGR_ENCODER_TOL. H100 80GB HBM3, 700 W
+DGR_GRAD_TOL, DGR_STATE_TOL = 1e-4, 1e-4
+DGR_ENCODER_TOL, DGR_ENCODER_F64 = 2e-2, 2.0
+DGR_LOSS_RTOL = 1e-5
+# the card's bf16 inlier logits no farther from its f32 logits than
+# DGR_BF16_FACTOR x the CPU's bf16 distance
+DGR_BF16_FACTOR = 1.5
+
+
+def dgr_train_pair(seed, side, points, voxel):
+    """A training pair (make_dgr_pair's keys) from dgr_pair's clouds:
+    voxelized, the ground-truth matches within 2 voxels."""
+    from gmf_tpu_torch.data.dgr_loader import get_matching_indices
+    from gmf_tpu_torch.sparse.voxelize import sparse_quantize
+
+    xyz0, xyz1, p, q, T = dgr_pair(seed, side, points)
+    (c0, s0), (c1, s1) = (sparse_quantize(x, voxel) for x in (xyz0, xyz1))
+    pts0, pts1 = xyz0[s0], xyz1[s1]
+    return dict(pcd0=pts0, pcd1=pts1, coords0=c0, coords1=c1, T_gt=T,
+                correspondences=get_matching_indices(pts0, pts1, T,
+                                                     2 * voxel),
+                p_image=p[0], q_image=q[0])
+
+
+def dgr_modules(nets):
+    """The full-width FCGF (conv1 7^3) and inlier nets with ``nets``'
+    weights, on the CPU: copied for each trainer and engine of phase 9
+    (a copy costs a fraction of the inlier net's 238M-entry init)."""
+    from gmf_tpu_torch.sparse.resunet import FCGFNet, GMFInlierNet
+
+    mods = (FCGFNet(conv1_kernel_size=7), GMFInlierNet())
+    for net, state in zip(mods, nets):
+        net.load_state_dict(state, strict=True)
+    return mods
+
+
+def dgr_trainer(where, mods, **cfg):
+    from gmf_tpu_torch.configs.presets import dgr_3dmatch
+    from gmf_tpu_torch.train.dgr_trainer import WeightedProcrustesTrainer
+
+    return WeightedProcrustesTrainer(*map(copy.deepcopy, mods),
+                                     dgr_3dmatch(**cfg), device=where)
+
+
+def train_hard_decisions(p, logits, metrics, clip):
+    """The loss's decisions that a last-bit difference can part: weights
+    within 1e-6 of the clip, ws within 1e-3 of 10, the arccos argument
+    within 1e-6 of its 1 - 1e-7 clip."""
+    w = torch.sigmoid(logits[p["inv"], 0]) * p["mask"]
+    cos = math.cos(math.radians(metrics["rot_err_deg"]))
+    return dict(weights_near_clip=int(((w - clip).abs() < 1e-6).sum()),
+                ws=metrics["ws"], ws_near_10=abs(metrics["ws"] - 10) < 1e-3,
+                arccos_near_clip=abs(cos) > 1 - 1e-7 - 1e-6)
+
+
+def record_pairs(trainer):
+    """Each pair ``trainer`` trains on from now, read from its own calls
+    (which are unchanged): its gradients (on the CPU), metrics and hard
+    decisions (train_hard_decisions), a dict a pair in the list returned."""
+    rows, seen = [], {}
+    prep, pair_grads = trainer._prep_pair, trainer.train_pair
+
+    def record(pair):
+        seen["p"] = prep(pair)
+        return seen["p"]
+
+    def counted(pair):
+        grads, metrics = pair_grads(pair)
+        rows.append(dict(grads=[g.cpu() for g in grads], metrics=metrics,
+                         decisions=train_hard_decisions(
+                             seen["p"], seen["logits"], metrics,
+                             trainer.cfg.clip_weight_thresh)))
+        return grads, metrics
+
+    trainer._prep_pair, trainer.train_pair = record, counted
+    trainer.inlier.register_forward_hook(
+        lambda mod, args, out: seen.__setitem__("logits", out.detach()))
+    return rows
+
+
+def leaf_errors(got, want):
+    """{name: max |got - want| / max |want|} over matching tensors."""
+    out = {}
+    for k, w in want.items():
+        w = w.detach().double().cpu()
+        g = got[k].detach().double().cpu()
+        out[k] = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+    return out
+
+
+def worst(errs):
+    k = max(errs, key=errs.get)
+    return [k, errs[k]]
+
+
+def capture_encoder(trainer):
+    """Each call of ``trainer``'s image encoder from now: its input and
+    the gradient that reaches its output, a (input, gradient) pair a call
+    in the list returned."""
+    calls = []
+
+    def hook(mod, args, out):
+        row = [args[0].detach().cpu(), None]
+        calls.append(row)
+        if out.requires_grad:
+            out.register_hook(lambda g: row.__setitem__(1, g.detach().cpu()))
+
+    trainer.inlier.img_encoder.backbone.register_forward_hook(hook)
+    return calls
+
+
+def encoder_f64_check(dev, params, calls, in_net):
+    """The image encoder's backward over ``calls`` (one pair's two frames
+    and upstream gradients, from the CPU's step) from ``params``, in f32
+    on the CPU and on the card and in f64 on the CPU: each f32 leaf's
+    distance from f64 over the leaf's f64 scale. ``in_net``: the CPU's
+    in-net encoder gradients, which the f32 CPU recompute must repeat."""
+    from gmf_tpu_torch.nn.resnet import ImageEncoder
+
+    grads = {}
+    for where, dtype in (("cpu", torch.float64), ("cpu", torch.float32),
+                         (str(dev), torch.float32)):
+        enc = ImageEncoder(base_width=64)
+        enc.load_state_dict(params, strict=False)  # train mode: no stats
+        enc = enc.to(where, dtype).train()
+        for x, g in calls:
+            enc.backbone(x.to(where, dtype)).backward(g.to(where, dtype))
+        grads[where, dtype] = {f"img_encoder.{n}": w.grad.cpu()
+                               for n, w in enc.named_parameters()}
+    ref = grads["cpu", torch.float64]
+    cpu = leaf_errors(grads["cpu", torch.float32], ref)
+    card = leaf_errors(grads[str(dev), torch.float32], ref)
+    return dict(cpu=cpu, card=card,
+                recompute_vs_in_net=worst(leaf_errors(
+                    grads["cpu", torch.float32], in_net)))
+
+
+def dgr_train_card_vs_cpu(dev, mods):
+    """One SGD train_step of 2 pairs at DGR_SMALL on the card and on the
+    CPU (the same weights; the CPU takes the card's 1-NN matches and
+    labels, after its own descriptors are held to the card's): each
+    pair's labels equal, its loss within DGR_LOSS_RTOL and its gradient
+    leaves within DGR_GRAD_TOL (the image encoder's within
+    DGR_ENCODER_TOL and, on the worse pair, each device's encoder
+    backward held to f64: encoder_f64_check); after the step the running
+    statistics, SGD's momentum buffers and the parameters as the limits
+    above say. Beside them each pair's hard decisions."""
+    spec = DGR_SMALL
+    pairs = [dgr_train_pair(SEED + 60 + i, spec["side"], spec["points"],
+                            spec["voxel"]) for i in range(2)]
+    card, cpu = dgr_trainer(dev, mods), dgr_trainer("cpu", mods)
+    names = [n for n, _ in card.inlier.named_parameters()]
+
+    def is_encoder(name):
+        return name.startswith("img_encoder.")
+
+    def stats(t):
+        return {k: v for k, v in t.inlier.state_dict().items()
+                if "running" in k}
+
+    gen_card, gen_cpu = card.generate_inlier_input, cpu.generate_inlier_input
+    matching = []
+
+    def take_card(pair):
+        pred, ok, F0, F1 = gen_card(pair)
+        cpred, cok, cF0, cF1 = gen_cpu(pair)
+        feat_err = max(float((a.cpu() - b).abs().max())
+                       for a, b in ((F0, cF0), (F1, cF1)))
+        matching.append(dict(feature_max_abs_err=feat_err,
+                             nn01_differ=int((pred != cpred).any(1).sum()),
+                             labels_differ=int((ok != cok).sum())))
+        return pred, ok, cF0, cF1
+
+    cpu.generate_inlier_input = take_card
+    rows = {"card": record_pairs(card), "cpu": record_pairs(cpu)}
+    calls = capture_encoder(cpu)
+    before = {n: w.detach().cpu().clone()
+              for n, w in cpu.inlier.named_parameters()}
+    seconds = {}
+    for where, t in (("card", card), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        step = t.train_step(pairs)
+        seconds[where] = time.perf_counter() - t0
+        if step["skipped"]:
+            fail(f"dgr train card vs cpu: the {where}'s step was skipped")
+
+    def split(errs):
+        """(worst outside the image encoder, worst inside it)."""
+        return [worst({k: v for k, v in errs.items() if not is_encoder(k)}),
+                worst({k: v for k, v in errs.items() if is_encoder(k)})]
+
+    per_pair = []
+    for a, b in zip(rows["card"], rows["cpu"]):
+        err = leaf_errors(dict(zip(names, a["grads"])),
+                          dict(zip(names, b["grads"])))
+        per_pair.append(dict(
+            loss=[a["metrics"]["loss"], b["metrics"]["loss"]],
+            loss_rel_err=abs(a["metrics"]["loss"] - b["metrics"]["loss"])
+            / abs(b["metrics"]["loss"]),
+            worst_grad=split(err), decisions=a["decisions"]))
+    # the worse pair's encoder backward against f64
+    i = max(range(len(pairs)), key=lambda j: per_pair[j]["worst_grad"][1][1])
+    enc_params = {n[len("img_encoder."):]: w for n, w in before.items()
+                  if is_encoder(n)}
+    f64 = encoder_f64_check(
+        dev, enc_params, calls[2 * i:2 * i + 2],
+        {n: g for n, g in zip(names, rows["cpu"][i]["grads"])
+         if is_encoder(n)})
+    f64_ratio = {k: (v - 1e-5) / max(f64["cpu"][k], 1e-30)
+                 for k, v in f64["card"].items()}
+
+    def buffers(t):
+        return {n: t.optimizer.state[w]["momentum_buffer"]
+                for n, w in t.inlier.named_parameters()}
+
+    buf_err = leaf_errors(buffers(card), buffers(cpu))
+    param_err = {}
+    for n, w in card.inlier.named_parameters():
+        w_cpu = dict(cpu.inlier.named_parameters())[n].detach()
+        step = float((w_cpu - before[n]).abs().max())
+        ulps = 2 * float(np.spacing(np.float32(w_cpu.abs().max())))
+        param_err[n] = ((float((w.detach().cpu() - w_cpu).abs().max())
+                         - ulps) / max(step, 1e-30))
+    row = dict(pairs=[dict(voxels=[len(p["coords0"]), len(p["coords1"])],
+                           matches=len(p["correspondences"]))
+                      for p in pairs],
+               matching=matching, per_pair=per_pair,
+               encoder_f64=dict(
+                   pair=i, worst_cpu=worst(f64["cpu"]),
+                   worst_card=worst(f64["card"]),
+                   worst_card_over_cpu=worst(f64_ratio),
+                   recompute_vs_in_net=f64["recompute_vs_in_net"]),
+               worst_stats=worst(leaf_errors(stats(card), stats(cpu))),
+               worst_momentum=split(buf_err), worst_params=split(param_err),
+               step_s=seconds,
+               limits=dict(grad=DGR_GRAD_TOL, state=DGR_STATE_TOL,
+                           loss_rel=DGR_LOSS_RTOL, encoder=DGR_ENCODER_TOL,
+                           encoder_f64=DGR_ENCODER_F64))
+    print("dgr train card vs cpu: " + json.dumps(row), flush=True)
+    if any(m["labels_differ"] for m in matching):
+        fail("dgr train card vs cpu: labels differ on the same matches")
+    checks = [(f"pair {j}'s gradient", r["worst_grad"])
+              for j, r in enumerate(per_pair)]
+    checks += [("momentum buffer", row["worst_momentum"]),
+               ("updated parameter", row["worst_params"])]
+    for what, (rest, enc) in checks:
+        if rest[1] > DGR_GRAD_TOL or enc[1] > DGR_ENCODER_TOL:
+            fail(f"dgr train card vs cpu: {what} {rest} (limit "
+                 f"{DGR_GRAD_TOL}), image encoder {enc} (limit "
+                 f"{DGR_ENCODER_TOL})")
+    for j, r in enumerate(per_pair):
+        if r["loss_rel_err"] > DGR_LOSS_RTOL:
+            fail(f"dgr train card vs cpu: pair {j}'s loss apart by "
+                 f"{r['loss_rel_err']} > {DGR_LOSS_RTOL}")
+    if row["encoder_f64"]["worst_card_over_cpu"][1] > DGR_ENCODER_F64:
+        fail("dgr train card vs cpu: the card's encoder backward "
+             f"{row['encoder_f64']} farther from f64 than "
+             f"{DGR_ENCODER_F64} x the CPU's")
+    if row["worst_stats"][1] > DGR_STATE_TOL:
+        fail(f"dgr train card vs cpu: statistics {row['worst_stats']}")
+    return row
+
+
+def dgr_train_3dmatch(dev, mods):
+    """DGR_TRAIN_TIMED synchronised train_steps of DGR_TRAIN_PAIRS pairs
+    at dgr_3dmatch's scale (~20,000 voxels a cloud) after one warm-up
+    step of 2 of them: ms a step, the per-pair stage split, peak memory,
+    skipped steps, the loss finite and the parameters moved."""
+    spec = DGR_FULL["dgr_3dmatch"]
+    t0 = time.perf_counter()
+    pairs = [dgr_train_pair(SEED + 70 + i, spec["side"], spec["points"],
+                            spec["voxel"]) for i in range(DGR_TRAIN_PAIRS)]
+    make_s = time.perf_counter() - t0
+    tr = dgr_trainer(dev, mods)
+    w0 = {n: w.detach().clone() for n, w in tr.inlier.named_parameters()}
+    warm = tr.train_step(pairs[:2])  # warm-up: the pair loop and the sum
+    tr.stage_seconds = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics = [], [warm]
+    for _ in range(DGR_TRAIN_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics.append(tr.train_step(pairs))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    n = DGR_TRAIN_TIMED * DGR_TRAIN_PAIRS
+    split = {s: 1e3 * tr.stage_seconds.get(s, 0.0) / (
+        DGR_TRAIN_TIMED if s == "update" else n) for s in DGR_TRAIN_STAGES}
+    moved = max(float((w.detach() - w0[k]).abs().max())
+                for k, w in tr.inlier.named_parameters())
+    skipped = sum(m["skipped"] for m in metrics)
+    # the first pair's dense 6-D maps: the forward's products and the
+    # gathered rows plain autograd would keep for the backward (4 K' M Cin
+    # bytes a convolution); the backward runs twice the forward's products
+    from gmf_tpu_torch.sparse.device_maps import build_pyramid_arrays_device
+
+    maps = {}
+    build_pyramid_arrays_device(tr._prep_pair_raw(pairs[0])["uniq"], 4,
+                                conv1_kernel_size=3,
+                                granule=tr.corr_cap_granule, device=dev,
+                                stats=maps)
+    work = dgr_inlier_work(maps["maps"], split["forward_backward"] / 3)
+    work = dict(dense_forward_tflop=work["dense_tflop"],
+                plain_autograd_gathers_gb=work["gathered_gb"],
+                fwd_bwd_tflops=work["achieved_tflops"],
+                fwd_bwd_f32_bound_ms=3 * work["dense_f32_bound_ms"],
+                maps={k: [v["k"], v["m"]] for k, v in maps["maps"].items()})
+    out = dict(pairs_per_step=DGR_TRAIN_PAIRS,
+               voxels=[[len(p["coords0"]), len(p["coords1"])] for p in pairs],
+               matches=[len(p["correspondences"]) for p in pairs],
+               ms_per_step=1e3 * float(np.mean(times)),
+               step_ms=[1e3 * t for t in times],
+               pair_stage_ms=split, peak_memory_bytes=peak,
+               skipped_steps=skipped, losses=[m.get("loss") for m in metrics],
+               params_moved=moved, pair_making_s=make_s,
+               applied_steps=tr.applied_steps, inlier_work=work)
+    print(f"dgr_train_3dmatch: {DGR_TRAIN_PAIRS} pairs a step, voxels "
+          f"{out['voxels']}, {out['ms_per_step']:.1f} ms a step (mean of "
+          f"{DGR_TRAIN_TIMED}: {[round(1e3 * t, 1) for t in times]}), peak "
+          f"memory {peak / 2 ** 30:.2f} GiB, skipped {skipped}, losses "
+          f"{out['losses']}, largest parameter change {moved:.3g}",
+          flush=True)
+    for s in DGR_TRAIN_STAGES:
+        print(f"dgr_train_3dmatch stage {s}: {split[s]:.1f} ms a "
+              f"{'step' if s == 'update' else 'pair'}", flush=True)
+    print("dgr_train_3dmatch inlier net work: " + json.dumps(work),
+          flush=True)
+    if skipped or not all(np.isfinite(m.get("loss", np.nan))
+                          for m in metrics):
+        fail(f"dgr_train_3dmatch: skipped {skipped} or loss not finite")
+    if not moved > 0:
+        fail("dgr_train_3dmatch: the parameters did not move")
+    return out, pairs
+
+
+def dgr_descriptor_3dmatch(dev, mods, pairs):
+    """ContrastiveDescriptorTrainer on the full-width FCGF at the same
+    scale: one warm-up pair, then DGR_DESC_TIMED timed pairs: ms a pair,
+    peak memory, finite losses."""
+    from gmf_tpu_torch.train.descriptor import ContrastiveDescriptorTrainer
+
+    tr = ContrastiveDescriptorTrainer(
+        copy.deepcopy(mods[0]), voxel_size=DGR_FULL["dgr_3dmatch"]["voxel"],
+        granule=2048, device=dev)
+    rng = np.random.RandomState(SEED)
+    losses = [tr.train_pair(pairs[0], rng)["loss"]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for pair in pairs[1:1 + DGR_DESC_TIMED]:
+        t0 = time.perf_counter()
+        losses.append(tr.train_pair(pair, rng)["loss"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    out = dict(ms_per_pair=1e3 * float(np.mean(times)),
+               pair_ms=[1e3 * t for t in times], peak_memory_bytes=peak,
+               losses=losses)
+    print(f"dgr descriptor training: {out['ms_per_pair']:.1f} ms a pair "
+          f"(mean of {len(times)}), peak memory {peak / 2 ** 30:.2f} GiB, "
+          f"losses {losses}", flush=True)
+    if not np.isfinite(losses).all():
+        fail("dgr descriptor training: loss not finite")
+    return out
+
+
+def dgr_bf16(dev, nets, mods):
+    """bf16 nets (f32 parameters): register at dgr_3dmatch's scale with
+    DGRConfig(net_dtype="bfloat16")'s nets, one warm-up and DGR_TIMED
+    timed calls; then at DGR_SMALL the inlier logits on the same 6-D
+    input, the card's bf16 no farther from the card's f32 than
+    DGR_BF16_FACTOR x the CPU's bf16 from the CPU's f32."""
+    from gmf_tpu_torch.models.dgr import DGRConfig, DeepGlobalRegistration
+
+    voxel = DGR_FULL["dgr_3dmatch"]["voxel"]
+    xyz0, xyz1, p, q, _ = dgr_pair(SEED + 30, DGR_FULL["dgr_3dmatch"]["side"],
+                                   DGR_FULL["dgr_3dmatch"]["points"])
+    eng = DeepGlobalRegistration(*nets, DGRConfig(
+        voxel_size=voxel, net_dtype="bfloat16", use_icp=True), device=dev)
+    if eng.inlier.dtype != torch.bfloat16 or eng.fcgf.dtype != torch.bfloat16:
+        fail("dgr bf16: net_dtype='bfloat16' built other nets")
+    eng.register(xyz0, xyz1, p, q)
+    times = []
+    for _ in range(DGR_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.register(xyz0, xyz1, p, q)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if not np.isfinite(res["trans"]).all():
+        fail("dgr bf16 register: T not finite")
+    del eng
+    small = dgr_pair(SEED + 20, DGR_SMALL["side"], DGR_SMALL["points"])
+    logits, corr6d = {}, None
+    for where in (dev, "cpu"):
+        eng = DeepGlobalRegistration(
+            config=DGRConfig(voxel_size=voxel),
+            fcgf_model=copy.deepcopy(mods[0]),
+            inlier_model=copy.deepcopy(mods[1]), device=where)
+        if corr6d is None:  # the card's f32 matches
+            res = eng.register(*small[:4])
+            c0, c1 = (eng.preprocess(x)[0] for x in small[:2])
+            corr6d = np.concatenate([c0, c1[res["corres"][1]]], 1)
+        for dtype in (torch.float32, torch.bfloat16):
+            eng.inlier.set_dtype(dtype)
+            with torch.no_grad():
+                lg, inv = eng._inlier_logits_device(corr6d, small[2],
+                                                    small[3])
+            logits[str(where), dtype] = lg[inv].float().cpu()
+    d_card = float((logits[str(dev), torch.bfloat16]
+                    - logits[str(dev), torch.float32]).abs().max())
+    d_cpu = float((logits["cpu", torch.bfloat16]
+                   - logits["cpu", torch.float32]).abs().max())
+    out = dict(ms_per_register=1e3 * float(np.mean(times)),
+               register_ms=[1e3 * t for t in times],
+               logits_bf16_vs_f32_card=d_card, logits_bf16_vs_f32_cpu=d_cpu,
+               f32_card_vs_cpu=float((logits[str(dev), torch.float32]
+                                      - logits["cpu", torch.float32])
+                                     .abs().max()),
+               limit_factor=DGR_BF16_FACTOR)
+    print("dgr bf16 nets: " + json.dumps(out), flush=True)
+    if not d_card <= DGR_BF16_FACTOR * d_cpu:
+        fail(f"dgr bf16: the card's bf16 logits {d_card} from its f32, "
+             f"over {DGR_BF16_FACTOR} x the CPU's {d_cpu}")
+    return out
+
+
+def dgr_train_cli(dev, tmp):
+    """train_dgr --dataset synthetic --tiny on the card, 1 epoch of 2
+    steps; its epoch checkpoint loads through load_dgr into an engine on
+    the card that registers one pair."""
+    import os
+
+    from gmf_tpu_torch.data.dgr_loader import make_dgr_pair
+    from gmf_tpu_torch.eval.test_dgr import tiny_nets
+    from gmf_tpu_torch.models.dgr import DGRConfig, DeepGlobalRegistration
+    from gmf_tpu_torch.train import train_dgr
+    from gmf_tpu_torch.utils.checkpoint import save_checkpoint
+    from gmf_tpu_torch.utils.model_io import load_dgr
+
+    torch.manual_seed(SEED)
+    fcgf_ckpt = save_checkpoint(os.path.join(tmp, "train_fcgf"),
+                                tiny_nets()[0].state_dict())
+    save = os.path.join(tmp, "train_dgr")
+    t0 = time.perf_counter()
+    train_dgr.main(["--dataset", "synthetic", "--tiny", "--max-epoch", "1",
+                    "--steps-per-epoch", "2", "--save-dir", save,
+                    "--fcgf-checkpoint", fcgf_ckpt])
+    seconds = time.perf_counter() - t0
+    fcgf, inlier = tiny_nets()
+    eng = DeepGlobalRegistration(
+        *load_dgr(fcgf_ckpt, os.path.join(save, "checkpoint_epoch_1")),
+        DGRConfig(voxel_size=0.05, voxel_cap_granule=256,
+                  corr_cap_granule=256),
+        fcgf_model=fcgf, inlier_model=inlier, device=dev)
+    pair = make_dgr_pair(np.random.RandomState(SEED), n_points=300,
+                         image_hw=(16, 16))
+    res = eng.register(pair["pcd0"], pair["pcd1"], pair["p_image"][None],
+                       pair["q_image"][None])
+    if not np.isfinite(res["trans"]).all():
+        fail("train_dgr checkpoint: register's T not finite")
+    print(f"train_dgr --tiny on the card in {seconds:.1f} s; its checkpoint "
+          f"registers a pair (safeguard {res['used_safeguard']})",
+          flush=True)
+    return dict(seconds=seconds, used_safeguard=res["used_safeguard"])
+
+
+def dgr_train_phase(dev, phase_done):
+    """Phase 9: DGR+GMF training on the card: card against CPU at
+    DGR_SMALL, the timed step at 3DMatch scale, the descriptor trainer,
+    the bf16 nets, the training CLI and its checkpoint."""
+    import tempfile
+
+    torch.set_num_threads(8)
+    t0 = time.perf_counter()
+    part_s = {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        res = fn(*args)
+        part_s[name] = time.perf_counter() - t
+        print(f"phase dgr_train part {name} in {part_s[name]:.1f} s",
+              flush=True)
+        return res
+
+    nets = dgr_nets()
+    mods = dgr_modules(nets)
+    out = {"card_vs_cpu": part("card_vs_cpu", dgr_train_card_vs_cpu, dev,
+                               mods)}
+    out["dgr_train_3dmatch"], pairs = part("3dmatch", dgr_train_3dmatch, dev,
+                                           mods)
+    out["descriptor"] = part("descriptor", dgr_descriptor_3dmatch, dev, mods,
+                             pairs)
+    del pairs
+    out["bf16"] = part("bf16", dgr_bf16, dev, nets, mods)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["cli"] = part("cli", dgr_train_cli, dev, tmp)
+    out["seconds"] = time.perf_counter() - t0
+    out["part_seconds"] = part_s
+    phase_done("dgr_train")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the result JSON here")
@@ -4116,6 +4674,14 @@ def main():
     paths["dgr_3dmatch"]["card_vs_cpu"] = dgr["card_vs_cpu"]
     paths["dgr_3dmatch"]["tiny_cli_card_vs_cpu"] = {
         k: v for k, v in dgr["cli"].items() if k.startswith("tiny_")}
+
+    # 9. DGR+GMF training, bf16 nets (no TPU kernel on this path either)
+    train = dgr_train_phase(dev, phase_done)
+    paths["dgr_train_3dmatch"] = {
+        **train["dgr_train_3dmatch"], "card_vs_cpu": train["card_vs_cpu"],
+        "descriptor": train["descriptor"], "cli": train["cli"],
+        "phase_seconds": train["seconds"]}
+    paths["dgr_3dmatch"]["bf16"] = train["bf16"]
     rows["nms_local_max"].update({
         f"lomatch_n{LOMATCH_BUCKET}_{k}": v
         for k, v in paths["eval"]["3dlomatch"]["nms"].items()

@@ -17,14 +17,14 @@ As in gmf_tpu, where the device is not the CPU the kernel maps are built
 on it (``sparse/device_maps.py``) and the 6-D inlier net runs compacted
 convolutions (``sparse/compact.py``); on the CPU the maps come from the
 host (``sparse/kernel_map.py``, native builder) and the convolutions run
-on dense maps. bf16 nets are not ported yet: asking for them raises.
+on dense maps. ``net_dtype="bfloat16"`` builds the default nets as
+gmf_tpu's bf16 nets compute with checkpointed f32 weights
+(``sparse/resunet.py``'s ``dtype``); geometry and the solve stay f32.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -43,7 +43,7 @@ from gmf_tpu_torch.sparse.resunet import (FCGFNet, GMFInlierNet,
                                           pyramid_to_arrays)
 from gmf_tpu_torch.sparse.voxelize import sparse_quantize
 from gmf_tpu_torch.train.losses import high_dim_smooth_l1_loss
-from gmf_tpu_torch.utils.device import resolve_device
+from gmf_tpu_torch.utils.device import resolve_device, timed_stage
 from gmf_tpu_torch.utils.lru import ByteLRU
 
 
@@ -178,7 +178,10 @@ class DGRConfig:
     corr_cap_granule: int = 2048
     nn_chunk: int = 2048
     descriptor: str = "fcgf"   # 'fpfh': GMF_DGR_fpfh's variant (:173-198)
-    # the nets' compute type; only f32 is ported (bf16 nets: ROADMAP)
+    # the default nets' compute type, "float32" or "bfloat16": bf16 nets
+    # keep f32 parameters and run the image encoder, both fusion layers,
+    # conv1_tr and final in bf16, the sparse trunk in f32, as gmf_tpu's
+    # bf16 nets do with a checkpoint's f32 weights
     net_dtype: str = "float32"
     # kernel maps built on the device (sparse/device_maps.py) or on the
     # host; None = auto, on wherever the engine's device is not the CPU
@@ -203,12 +206,8 @@ class DGRConfig:
         return self.use_device_maps(device)
 
     def check(self) -> None:
-        """Raise on a setting the port does not have yet."""
-        if self.net_dtype == "bfloat16":
-            raise NotImplementedError(
-                "net_dtype='bfloat16': bf16 DGR nets (ROADMAP queue 1 "
-                "item 5) are not ported yet; the nets run in float32")
-        if self.net_dtype != "float32":
+        """Raise on a setting that does not exist."""
+        if self.net_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown net_dtype {self.net_dtype!r}")
         if self.descriptor not in ("fcgf", "fpfh"):
             raise ValueError(f"unknown descriptor {self.descriptor!r}")
@@ -247,9 +246,12 @@ class DeepGlobalRegistration:
         # bit-identical each time. 0 disables.
         self._frag_cache = ByteLRU(frag_cache_bytes) if frag_cache_bytes \
             else None
-        self.fcgf = fcgf_model or FCGFNet(conv1_kernel_size=7)
+        # as gmf_tpu, net_dtype sets the default nets' type; nets given
+        # keep their own
+        nd = getattr(torch, self.config.net_dtype)
+        self.fcgf = fcgf_model or FCGFNet(conv1_kernel_size=7, dtype=nd)
         self.inlier = inlier_model or GMFInlierNet(
-            in_channels=self.inlier_feature_dim())
+            in_channels=self.inlier_feature_dim(), dtype=nd)
         for net, state in ((self.fcgf, fcgf_state),
                            (self.inlier, inlier_state)):
             if state is not None:
@@ -258,19 +260,8 @@ class DeepGlobalRegistration:
         self.stage_seconds: Optional[Dict[str, float]] = None
         self.last_inlier_maps: Optional[Dict] = None
 
-    @contextlib.contextmanager
     def _stage(self, name: str):
-        if self.stage_seconds is None:
-            yield
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        yield
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.stage_seconds[name] = (self.stage_seconds.get(name, 0.0)
-                                    + time.perf_counter() - t0)
+        return timed_stage(self.stage_seconds, name, self.device)
 
     def _tensor(self, x, dtype=torch.float32):
         if isinstance(x, torch.Tensor):

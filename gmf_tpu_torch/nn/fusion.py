@@ -19,7 +19,9 @@ norm_context,fn}``, ``cpe.proj_q``), which are the names
 - LCPE: depthwise Conv1d k=3 with 'SAME' padding along the token axis,
   residual, on both streams, only when ``pe=True`` (Fusion-2).
 
-Tensors are [B, N, C] throughout, as in the JAX package.
+Tensors are [B, N, C] throughout, as in the JAX package. The linear,
+norm and convolution layers take a ``compute_dtype`` (``nn/compute.py``:
+flax's ``dtype``, the DGR nets' bf16).
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from gmf_tpu_torch.nn.compute import Conv1d, LayerNorm, Linear
 
 
 class Attention(nn.Module):
@@ -40,9 +44,9 @@ class Attention(nn.Module):
         super().__init__()
         inner = heads * dim_head
         self.heads, self.dim_head = heads, dim_head
-        self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_kv = nn.Linear(context_dim, 2 * inner, bias=False)
-        self.to_out = nn.Linear(
+        self.to_q = Linear(query_dim, inner, bias=False)
+        self.to_kv = Linear(context_dim, 2 * inner, bias=False)
+        self.to_out = Linear(
             inner, context_dim if out_to_context_dim else query_dim)
 
     def forward(self, x, context):
@@ -67,8 +71,8 @@ class GEGLU(nn.Module):
 class FeedForward(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
-        self.net = nn.Sequential(nn.Linear(dim, dim * 8), GEGLU(),
-                                 nn.Linear(dim * 4, dim))
+        self.net = nn.Sequential(Linear(dim, dim * 8), GEGLU(),
+                                 Linear(dim * 4, dim))
 
     def forward(self, x):
         return self.net(x)
@@ -79,8 +83,8 @@ class PreNorm(nn.Module):
                  context_dim: Optional[int] = None):
         super().__init__()
         self.fn = fn
-        self.norm = nn.LayerNorm(dim, eps=1e-5)
-        self.norm_context = (nn.LayerNorm(context_dim, eps=1e-5)
+        self.norm = LayerNorm(dim, eps=1e-5)
+        self.norm_context = (LayerNorm(context_dim, eps=1e-5)
                              if context_dim is not None else None)
 
     def forward(self, x, context=None):
@@ -96,9 +100,9 @@ class ConvPosEnc(nn.Module):
 
     def __init__(self, dim_q: int, dim_content: int):
         super().__init__()
-        self.proj_q = nn.Conv1d(dim_q, dim_q, 3, padding=1, groups=dim_q)
-        self.proj_content = nn.Conv1d(dim_content, dim_content, 3, padding=1,
-                                      groups=dim_content)
+        self.proj_q = Conv1d(dim_q, dim_q, 3, padding=1, groups=dim_q)
+        self.proj_content = Conv1d(dim_content, dim_content, 3, padding=1,
+                                   groups=dim_content)
 
     @staticmethod
     def _residual(conv, x):

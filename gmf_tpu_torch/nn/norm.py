@@ -6,10 +6,14 @@ do, but they also keep the BIASED variance in their running statistics,
 ``running = 0.9 * running + 0.1 * batch``, where PyTorch's batch norm
 keeps the unbiased one, n / (n - 1) larger. These classes keep PyTorch's
 modules, names and ``state_dict`` keys and change only that update; eval
-mode, which reads the running statistics, is PyTorch's own.
+mode, which reads the running statistics, is PyTorch's own. With a
+``compute_dtype`` (``nn/compute.py``) they normalise in f32 and return
+that type, as a flax ``BatchNorm(dtype=...)`` does.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -19,7 +23,15 @@ MOMENTUM = 0.9  # flax's: the weight of the old running statistics
 
 
 class _FlaxRunningStats:
+    compute_dtype: Optional[torch.dtype] = None
+
     def forward(self, x):
+        cd = self.compute_dtype
+        if cd is None:
+            return self._forward(x)
+        return self._forward(x.float()).to(cd)
+
+    def _forward(self, x):
         if not self.training:
             return super().forward(x)
         dims = [0] + list(range(2, x.dim()))

@@ -6,13 +6,15 @@ the names ``gmf_tpu/utils/convert_torch.py::convert_resnet_trunk`` reads.
 The public input is NHWC like the JAX package; the trunk runs NCHW and
 ``ImageEncoder.tokens`` flattens H-then-W, so a 120x160 image gives the
 same 15x20 = 300 tokens in the same order. Batch norms keep flax's
-running statistics (``nn/norm.py``).
+running statistics (``nn/norm.py``); convolutions and batch norms take a
+``compute_dtype`` (``nn/compute.py``).
 """
 
 from __future__ import annotations
 
 from torch import nn
 
+from gmf_tpu_torch.nn.compute import Conv2d
 from gmf_tpu_torch.nn.norm import BatchNorm2d
 
 
@@ -22,14 +24,14 @@ class BasicBlock(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride=stride, padding=1,
-                               bias=False)
+        self.conv1 = Conv2d(inplanes, planes, 3, stride=stride, padding=1,
+                            bias=False)
         self.bn1 = BatchNorm2d(planes, eps=1e-5)
         self.relu = nn.ReLU()
-        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, padding=1, bias=False)
         self.bn2 = BatchNorm2d(planes, eps=1e-5)
         self.downsample = nn.Sequential(
-            nn.Conv2d(inplanes, planes, 1, stride=stride, bias=False),
+            Conv2d(inplanes, planes, 1, stride=stride, bias=False),
             BatchNorm2d(planes, eps=1e-5),
         ) if downsample else None
 
@@ -47,7 +49,7 @@ class ResNet(nn.Module):
     def __init__(self, base_width: int = 64):
         super().__init__()
         w = base_width
-        self.conv1 = nn.Conv2d(3, w, 7, stride=2, padding=3, bias=False)
+        self.conv1 = Conv2d(3, w, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm2d(w, eps=1e-5)
         self.relu = nn.ReLU()
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)

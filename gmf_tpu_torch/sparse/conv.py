@@ -10,9 +10,10 @@ For each offset k the kernel map gives the input rows [M]:
    out[j] = sum_k  W_k^T x[nbr[k, j]]
 computed 32 offsets at a time: one gather of the chunk's rows as
 [M, 32 * Cin], then one product with the chunk's [32 * Cin, Cout]
-weights added into an f32 accumulator. ``sparse_conv_compact`` runs the
-same sum over a compacted schedule (``sparse/compact.py``), the 6-D
-inlier net's convolution wherever the maps are built on the device. The
+weights added into an f32 accumulator; its backward gathers each chunk
+again rather than keeping it (``_SparseConv``). ``sparse_conv_compact``
+runs the same sum over a compacted schedule (``sparse/compact.py``), the
+6-D inlier net's convolution wherever the maps are built on the device. The
 gmf_tpu package computes both in plain ``jnp`` (no Pallas kernel), and so
 does the port in plain PyTorch.
 
@@ -25,14 +26,73 @@ offset order (``hypercube_offsets``: last coordinate fastest).
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
+
+from gmf_tpu_torch.nn.norm import MOMENTUM
 
 
 def append_sentinel(x):
     """Append the zero sentinel row: [cap, C] -> [cap + 1, C]."""
     return torch.cat([x, x.new_zeros(1, x.shape[-1])], dim=0)
+
+
+def _chunk_rows(x, idx, M: int, cin: int):
+    """The gathered rows of one chunk of offsets as [M, c * Cin] f32."""
+    c = idx.shape[0]
+    return x.index_select(0, idx.t().reshape(-1)).view(M, c * cin).float()
+
+
+class _SparseConv(torch.autograd.Function):
+    """``sparse_conv`` with a backward that gathers each chunk again.
+
+    Plain autograd would keep every chunk's gathered [M, 32 * Cin] rows
+    for the weight gradient, 2 / Cout of the forward's products in bytes:
+    more than the card holds for the 6-D inlier net on dense maps at
+    3DMatch scale. This saves only ``x``, ``weights`` and ``nbr``; per
+    chunk the backward forms dW = g^T dOut from the gathered rows g and
+    adds dOut W^T into the rows ``nbr`` names (``index_add_``, atomic on
+    the card).
+    """
+
+    @staticmethod
+    def forward(ctx, x, weights, nbr, chunk):
+        K, M = nbr.shape
+        cin, cout = weights.shape[1], weights.shape[2]
+        acc = torch.zeros(M, cout, dtype=torch.float32, device=x.device)
+        for k0 in range(0, K, chunk):
+            idx = nbr[k0:k0 + chunk]
+            acc.addmm_(_chunk_rows(x, idx, M, cin),
+                       weights[k0:k0 + idx.shape[0]].reshape(-1, cout).float())
+        ctx.save_for_backward(x, weights, nbr)
+        ctx.chunk = chunk
+        return acc.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, weights, nbr = ctx.saved_tensors
+        K, M = nbr.shape
+        cin, cout = weights.shape[1], weights.shape[2]
+        want_x, want_w = ctx.needs_input_grad[:2]
+        dout = dout.float()
+        dx = (torch.zeros(x.shape[0], cin, dtype=torch.float32,
+                          device=x.device) if want_x else None)
+        dw = (torch.empty(K, cin, cout, dtype=torch.float32,
+                          device=x.device) if want_w else None)
+        for k0 in range(0, K, ctx.chunk):
+            idx = nbr[k0:k0 + ctx.chunk]
+            c = idx.shape[0]
+            if want_w:
+                dw[k0:k0 + c] = (_chunk_rows(x, idx, M, cin).t() @ dout
+                                 ).view(c, cin, cout)
+            if want_x:
+                w = weights[k0:k0 + c].reshape(c * cin, cout).float()
+                dx.index_add_(0, idx.t().reshape(-1),
+                              (dout @ w.t()).view(M * c, cin))
+        return (None if dx is None else dx.to(x.dtype),
+                None if dw is None else dw.to(weights.dtype), None, None)
 
 
 def sparse_conv(x, weights, nbr, chunk: int = 32):
@@ -46,18 +106,11 @@ def sparse_conv(x, weights, nbr, chunk: int = 32):
     Returns:
       [M, Cout] in x's dtype, accumulated in f32 (padded output rows are
       zeros as long as their nbr entries are sentinels, which
-      ``build_pyramid`` guarantees).
+      ``build_pyramid`` guarantees). Differentiable in ``x`` and
+      ``weights`` through ``_SparseConv``, whose backward gathers again
+      what the forward gathered.
     """
-    K, M = nbr.shape
-    cin, cout = weights.shape[1], weights.shape[2]
-    acc = torch.zeros(M, cout, dtype=torch.float32, device=x.device)
-    for k0 in range(0, K, chunk):
-        idx = nbr[k0:k0 + chunk]
-        c = idx.shape[0]
-        g = x.index_select(0, idx.t().reshape(-1)).view(M, c * cin)
-        acc.addmm_(g.float(), weights[k0:k0 + c].reshape(c * cin,
-                                                         cout).float())
-    return acc.to(x.dtype)
+    return _SparseConv.apply(x, weights, nbr, chunk)
 
 
 def sparse_conv_compact(x, weights, schedule, out_rows: int,
@@ -133,7 +186,10 @@ class SparseConv(nn.Module):
 
 class PointwiseConv(nn.Module):
     """A 1x1 sparse convolution, ME's ``[Cin, Cout]`` kernel (gmf_tpu's
-    ``nn.Dense``)."""
+    ``nn.Dense``); with a ``compute_dtype`` it computes in that type, as
+    a flax ``Dense(dtype=...)`` (``nn/compute.py``)."""
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, in_channels: int, out_channels: int,
                  bias: bool = False):
@@ -144,18 +200,25 @@ class PointwiseConv(nn.Module):
         nn.init.uniform_(self.kernel, -bound, bound)
 
     def forward(self, x):
-        out = x @ self.kernel
-        return out if self.bias is None else out + self.bias
+        cd = self.compute_dtype
+        kernel, bias = self.kernel, self.bias
+        if cd is not None:
+            x, kernel = x.to(cd), kernel.to(cd)
+            bias = None if bias is None else bias.to(cd)
+        out = x @ kernel
+        return out if bias is None else out + bias
 
 
 class MaskedBatchNorm(nn.Module):
-    """Batch norm from the running statistics, padded rows multiplied to
-    zero (gmf_tpu/sparse/conv.py:206-207). The statistics live in a
-    ``bn`` child, as ME's ``MinkowskiBatchNorm`` keeps them.
+    """Batch norm over the valid rows, padded rows multiplied to zero
+    (gmf_tpu/sparse/conv.py:176-209). The parameters and statistics live
+    in a ``bn`` child, as ME's ``MinkowskiBatchNorm`` keeps them.
 
-    Only eval mode is ported: the masked batch statistics of training
-    come with DGR training (ROADMAP queue 1 item 5.9), and a module in
-    train mode raises.
+    In train mode it normalises with the masked batch mean and biased
+    variance over n = sum(mask) + 1e-6 rows, which the gradient flows
+    through, and updates the running statistics as flax does:
+    ``0.9 * running + 0.1 * batch``, the biased variance included. In
+    eval mode it reads the running statistics.
     """
 
     def __init__(self, channels: int, eps: float = 1e-5):
@@ -164,14 +227,21 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x, mask):
         """x: [cap, C]; mask: [cap] validity."""
-        if self.training:
-            raise NotImplementedError(
-                "MaskedBatchNorm in train mode (DGR training, ROADMAP queue "
-                "1 item 5.9) is not ported yet; call .eval()")
         bn = self.bn
-        y = ((x - bn.running_mean) * torch.rsqrt(bn.running_var + bn.eps)
-             * bn.weight + bn.bias)
-        return y * mask[:, None].to(x.dtype)
+        m = mask[:, None].to(x.dtype)
+        if self.training:
+            n = m.sum() + 1e-6
+            mean = (x * m).sum(0) / n
+            var = (((x - mean) ** 2) * m).sum(0) / n
+            with torch.no_grad():
+                for running, batch in ((bn.running_mean, mean),
+                                       (bn.running_var, var)):
+                    running.copy_(MOMENTUM * running
+                                  + (1 - MOMENTUM) * batch.to(running.dtype))
+        else:
+            mean, var = bn.running_mean, bn.running_var
+        y = (x - mean) * torch.rsqrt(var + bn.eps) * bn.weight + bn.bias
+        return y * m
 
 
 class MaskedInstanceNorm(nn.Module):

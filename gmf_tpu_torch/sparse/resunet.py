@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gmf_tpu_torch.nn.compute import set_compute_dtype
 from gmf_tpu_torch.nn.fusion import FusionLayer
 from gmf_tpu_torch.nn.resnet import ImageEncoder
 from gmf_tpu_torch.sparse.conv import (MaskedBatchNorm, PointwiseConv,
@@ -77,15 +78,24 @@ class SparseBasicBlock(nn.Module):
 
 class SparseResUNet2(nn.Module):
     """4-level sparse ResUNet (``ResUNetBN2C`` geometry); with
-    ``with_gmf_fusion`` the DGR inlier net's image path joins it. Works in
-    eval mode (``MaskedBatchNorm``)."""
+    ``with_gmf_fusion`` the DGR inlier net's image path joins it.
+    ``.train()`` and ``.eval()`` reach every batch norm (the masked ones
+    and the image encoder's).
+
+    ``dtype``: the compute type of gmf_tpu's ``dtype`` with f32 parameters
+    (a checkpoint's): in bf16 the image encoder, both fusion layers,
+    ``conv1_tr`` and ``final`` compute in bf16, while the sparse trunk,
+    whose flax modules take their parameters' type, stays f32; the
+    output is f32 (the mask promotes it). Parameters stay f32 either way.
+    """
 
     def __init__(self, in_channels: int = 1, out_channels: int = 32,
                  channels: Sequence[int] = (32, 64, 128, 256),
                  tr_channels: Sequence[int] = (64, 64, 64, 128),
                  dim: int = 3, conv1_kernel_size: int = 3,
                  normalize_feature: bool = False,
-                 with_gmf_fusion: bool = False, image_dim: int = 128):
+                 with_gmf_fusion: bool = False, image_dim: int = 128,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         # hypercube kernels; gmf_tpu's "hypercross" region serves only the
         # model registry's *X variants (ROADMAP queue 1 item 6)
@@ -123,6 +133,19 @@ class SparseResUNet2(nn.Module):
             self.perceiver_io = FusionLayer(
                 dim=image_dim, latent_dim=C[3], cross_heads=1,
                 cross_dim_head=C[3] // 2, pe=True, out_to_context_dim=False)
+        self.set_dtype(dtype)
+
+    def set_dtype(self, dtype: torch.dtype) -> "SparseResUNet2":
+        """Set the compute type (the class docstring's ``dtype``)."""
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"unsupported net dtype {dtype}")
+        self.dtype = dtype
+        cd = None if dtype == torch.float32 else dtype
+        for part in (self.conv1_tr, self.final) + ((
+                self.img_encoder, self.image_fusion, self.perceiver_io)
+                if self.with_gmf_fusion else ()):
+            set_compute_dtype(part, cd)
+        return self
 
     def forward(self, feats, pyramid: Dict[str, object], p_image=None,
                 q_image=None):
@@ -197,18 +220,19 @@ class SparseResUNet2(nn.Module):
 
 
 def FCGFNet(out_channels: int = 32, conv1_kernel_size: int = 7,
-            normalize_feature: bool = True):
+            normalize_feature: bool = True, dtype=torch.float32):
     """FCGF descriptor backbone (misc/fcgf.py ResUNetBN2C, 1->32, conv1 7,
     voxel 0.05)."""
     return SparseResUNet2(in_channels=1, out_channels=out_channels, dim=3,
                           conv1_kernel_size=conv1_kernel_size,
-                          normalize_feature=normalize_feature)
+                          normalize_feature=normalize_feature, dtype=dtype)
 
 
 def GMFInlierNet(dim: int = 6, conv1_kernel_size: int = 3,
-                 in_channels: int = 1):
+                 in_channels: int = 1, dtype=torch.float32):
     """GMF-fused 6-D inlier classifier (resunet_new.py ResUNetBN2C, C->1);
     ``in_channels`` follows the engine's inlier_feature_type."""
     return SparseResUNet2(in_channels=in_channels, out_channels=1, dim=dim,
                           conv1_kernel_size=conv1_kernel_size,
-                          normalize_feature=False, with_gmf_fusion=True)
+                          normalize_feature=False, with_gmf_fusion=True,
+                          dtype=dtype)

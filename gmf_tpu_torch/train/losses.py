@@ -4,9 +4,9 @@ Counterpart of the PointDSC part of ``gmf_tpu/train/losses.py``
 (reference: GMF_PointDSC/libs/loss.py): the transformation loss with the
 registration metrics, the balanced classification loss with precision,
 recall and F1, and the balanced spectral-matching loss. Batched, mask
-aware, on the device. Of the DGR losses, ``high_dim_smooth_l1_loss``
-(the SE(3) refinement's objective); the training ones come with DGR
-training (ROADMAP queue 1 item 5.9).
+aware, on the device. The DGR losses (GMF_DGR core/loss.py): the inlier
+net's BCE, plain and balanced, and ``high_dim_smooth_l1_loss`` (the SE(3)
+refinement's objective).
 """
 
 from __future__ import annotations
@@ -114,6 +114,35 @@ def spectral_matching_loss(M, gt_labels, mask=None):
     neg = (M ** 2 * neg_M).sum((-2, -1))
     nneg = F.relu(neg_M.sum((-2, -1)) - 1.0) + 1.0
     return (0.5 * pos / npos + 0.5 * neg / nneg).mean()
+
+
+def _bce_with_logits(logits, labels):
+    """BCE with logits as gmf_tpu's ``_bce_with_logits``:
+    -(y log sigmoid(x) + (1 - y) log(1 - sigmoid(x))) by softplus."""
+    return -(labels * -F.softplus(-logits)
+             + (1.0 - labels) * -F.softplus(logits))
+
+
+def unbalanced_bce_loss(logits, labels, mask=None):
+    """Mean BCE with logits, over the mask's rows when one is given
+    (core/loss.py:13-20)."""
+    per = _bce_with_logits(logits, labels.to(logits.dtype))
+    if mask is not None:
+        return (per * mask).sum() / (mask.sum() + 1e-6)
+    return per.mean()
+
+
+def balanced_bce_loss(logits, labels, mask=None):
+    """0.5 * mean(BCE | positives) + 0.5 * mean(BCE | negatives), each
+    count floored at 1 (core/loss.py:23-39)."""
+    labels = labels.to(logits.dtype)
+    m = torch.ones_like(labels) if mask is None else mask.to(logits.dtype)
+    per = _bce_with_logits(logits, labels)
+    pos_m = labels * m
+    neg_m = (1.0 - labels) * m
+    pos = (per * pos_m).sum() / torch.clamp(pos_m.sum(), min=1.0)
+    neg = (per * neg_m).sum() / torch.clamp(neg_m.sum(), min=1.0)
+    return 0.5 * pos + 0.5 * neg
 
 
 def high_dim_smooth_l1_loss(pred, target, weights=None,

@@ -107,8 +107,9 @@ def _forward_losses(model, batch, cfg: TrainConfig, w_t):
     return loss, metrics
 
 
-def _floats(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
-    """Metric tensors as Python floats, with one device-to-host copy."""
+def floats(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """Metric tensors (scalars) as Python floats, with one device-to-host
+    copy."""
     values = torch.stack([v.detach().float() for v in metrics.values()])
     return dict(zip(metrics, values.tolist()))
 
@@ -139,7 +140,7 @@ def train_step(model, optimizer, cfg: TrainConfig, batch, epoch: int,
         for group in optimizer.param_groups:
             group["lr"] = lr
         optimizer.step()
-    out = _floats(metrics)
+    out = floats(metrics)
     out["skipped_step"] = 0.0 if applied else 1.0
     return out
 
@@ -151,7 +152,7 @@ def eval_step(model, cfg: TrainConfig, batch) -> Dict[str, float]:
     model.eval()
     _, metrics = _forward_losses(model, batch, cfg, 0.0)
     del metrics["loss"]
-    return _floats(metrics)
+    return floats(metrics)
 
 
 class Trainer:

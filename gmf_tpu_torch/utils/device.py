@@ -9,6 +9,10 @@ only ~3 decimal digits.
 
 from __future__ import annotations
 
+import contextlib
+import time
+from typing import Dict, Optional
+
 import torch
 
 
@@ -27,3 +31,19 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+@contextlib.contextmanager
+def timed_stage(seconds: Optional[Dict[str, float]], name: str, device):
+    """Add the seconds of the ``with`` body to ``seconds[name]``, the card
+    synchronised at both ends; nothing at all when ``seconds`` is None."""
+    if seconds is None:
+        yield
+        return
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    yield
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0

@@ -1135,3 +1135,67 @@ def test_dgr_compact_conv_card(cuda):
         np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
                                    atol=1e-5 * ref.abs().max().item(),
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("dim", [3, 6])
+def test_dgr_sparse_conv_backward_card_vs_cpu(cuda, dim):
+    """sparse_conv's backward (the chunks gathered again; dx by an
+    atomic index_add_ on the card) against the CPU's, within 1e-5 of
+    each gradient's largest entry."""
+    from gmf_tpu_torch.sparse.conv import append_sentinel, sparse_conv
+    from gmf_tpu_torch.sparse.kernel_map import build_pyramid
+
+    c = _dgr_coords(dim, 3000, 30 if dim == 3 else 6)
+    pyr = build_pyramid(c, 4, conv1_kernel_size=3, granule=1024)
+    r = np.random.RandomState(3)
+    x = torch.tensor(r.randn(pyr.levels[0].cap, 32).astype(np.float32))
+    nbr = torch.tensor(pyr.levels[0].self_map)
+    w = torch.tensor(r.randn(nbr.shape[0], 32, 48).astype(np.float32))
+    dy = torch.tensor(r.randn(pyr.levels[0].cap, 48).astype(np.float32))
+    grads = []
+    for dev in ("cpu", cuda):
+        xx, ww = (t.to(dev).detach().requires_grad_() for t in (x, w))
+        (sparse_conv(append_sentinel(xx), ww, nbr.to(dev))
+         * dy.to(dev)).sum().backward()
+        grads.append((xx.grad.cpu(), ww.grad.cpu()))
+    for got, ref in zip(grads[1], grads[0]):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(),
+                                   atol=1e-5 * ref.abs().max().item())
+
+
+def test_dgr_trainer_pair_card_vs_cpu(cuda):
+    """One WeightedProcrustesTrainer pair at gmf_tpu's test widths on the
+    card (device maps) and the CPU (host maps), the CPU on the card's
+    1-NN matches: the loss within 1e-5 relative, each gradient leaf
+    within 1e-3 of its largest entry, the running statistics (train-mode
+    MaskedBatchNorm) within 1e-4 of theirs."""
+    from gmf_tpu_torch.data.dgr_loader import make_dgr_pair
+    from gmf_tpu_torch.eval.test_dgr import tiny_nets
+    from gmf_tpu_torch.train.dgr_trainer import WeightedProcrustesTrainer
+
+    torch.manual_seed(0)
+    states = [n.state_dict() for n in tiny_nets()]
+    pair = make_dgr_pair(np.random.RandomState(11), n_points=600,
+                         voxel_size=0.08, image_hw=(16, 16), surface=True)
+    trainers = []
+    for dev in (cuda, "cpu"):
+        nets = tiny_nets()
+        for net, state in zip(nets, states):
+            net.load_state_dict(state)
+        trainers.append(WeightedProcrustesTrainer(
+            *nets, voxel_cap_granule=256, corr_cap_granule=256,
+            device=dev))
+    card, cpu = trainers
+    assert card.device_maps and not cpu.device_maps
+    matched, own = card.generate_inlier_input(pair), cpu.generate_inlier_input
+    cpu.generate_inlier_input = lambda p: (matched[0], matched[1],
+                                           *own(p)[2:])
+    (g_card, m_card), (g_cpu, m_cpu) = (t.train_pair(pair) for t in trainers)
+    assert abs(m_card["loss"] - m_cpu["loss"]) <= 1e-5 * abs(m_cpu["loss"])
+    for a, b in zip(g_card, g_cpu):
+        assert (a.cpu() - b).abs().max() <= 1e-3 * max(b.abs().max(), 1e-30)
+    sd_card, sd_cpu = card.inlier.state_dict(), cpu.inlier.state_dict()
+    for k, v in sd_cpu.items():
+        if "running" in k:
+            assert (sd_card[k].cpu() - v).abs().max() <= 1e-4 * max(
+                v.abs().max(), 1e-30), k

@@ -291,12 +291,16 @@ def test_frag_cache_bit_identical_with_hits(weights, pair):
 
 
 def test_engine_refuses_what_is_not_ported():
-    """bf16 nets are not ported; the device maps and the compacted
-    convolution are (tests/test_torch_device_maps.py), and take no
-    refusal."""
-    with pytest.raises(NotImplementedError, match="bfloat16"):
+    """Every engine setting is ported now: bf16 nets
+    (tests/test_torch_dgr_bf16.py), the device maps and the compacted
+    convolution (tests/test_torch_device_maps.py) take no refusal; an
+    unknown net type raises ValueError."""
+    eng = dgr.DeepGlobalRegistration(
+        config=dgr.DGRConfig(net_dtype="bfloat16"), device="cpu")
+    assert eng.fcgf.dtype == eng.inlier.dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="net_dtype"):
         dgr.DeepGlobalRegistration(
-            config=dgr.DGRConfig(net_dtype="bfloat16"), device="cpu")
+            config=dgr.DGRConfig(net_dtype="float16"), device="cpu")
     for kw in (dict(device_kernel_maps=True), dict(compact_inlier_conv=True)):
         dgr.DeepGlobalRegistration(config=dgr.DGRConfig(**kw), device="cpu")
     if not torch.cuda.is_available():

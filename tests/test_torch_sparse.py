@@ -172,8 +172,15 @@ def test_masked_norms():
         got = bn(torch.from_numpy(x), torch.from_numpy(mask))
     _close(got.numpy(), ref, 1e-6)
     assert not got[29:].any()  # padded rows multiplied to zero
-    with pytest.raises(NotImplementedError, match="5.9"):
-        bn.train()(torch.from_numpy(x), torch.from_numpy(mask))
+    # train mode: the masked batch statistics and flax's running update
+    ref_tr, new = jbn.apply(v, jnp.asarray(x), jnp.asarray(mask), train=True,
+                            mutable=["batch_stats"])
+    with torch.no_grad():
+        got_tr = bn.train()(torch.from_numpy(x), torch.from_numpy(mask))
+    _close(got_tr.numpy(), ref_tr, 1e-5)
+    assert not got_tr[29:].any()
+    _close(bn.bn.running_mean.numpy(), new["batch_stats"]["mean"], 1e-6)
+    _close(bn.bn.running_var.numpy(), new["batch_stats"]["var"], 1e-6)
     ref_in = jconv.MaskedInstanceNorm().apply({}, jnp.asarray(x),
                                               jnp.asarray(mask))
     got_in = MaskedInstanceNorm()(torch.from_numpy(x), torch.from_numpy(mask))
