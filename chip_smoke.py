@@ -212,7 +212,25 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
      1.5x the CPU's;
    - train_dgr --tiny on the card, 1 epoch of 2 steps; its checkpoint
      loads through load_dgr into an engine that registers a pair.
-10. Print the seconds of each phase as it ends, a JSON line with every
+10. The model zoo, the converters and the classical baselines
+    (zoo_baselines_phase), no kernel row:
+    - the registry's ResUNetBN2CX (hypercross, conv1 7), SimpleNetBN2C,
+      PyramidNet, PyramidNet6INBN and PyramidNet8 at full width (1 -> 32,
+      unit rows) on phase 8's dgr_3dmatch cloud (~20,000 voxels), maps
+      built on the card: ms a pyramid and a forward (means of 5 after a
+      warm-up), peak memory; the
+      hypercross device pyramid equal to the native builder's in every
+      array; at DGR_SMALL each net on the card against the CPU (1e-4);
+    - an ME-layout FCGF state_dict through convert_sparse_resunet: the
+      card's features equal in every bit to the source net's;
+    - OANet at full width on 8 x 5000: ms a forward, one pair against
+      the CPU;
+    - SM, PMC, RANSAC and GC-RANSAC through make_baseline_register_fn on
+      a pair of 5000 correspondences (10% inliers): ms a pair, T within
+      tests/test_baselines.py's tolerances, the two native libraries'
+      paths; baseline_eval.main with each method on phase 7's 3DMatch
+      tree: none skipped, 12-column statistics, recall and seconds.
+11. Print the seconds of each phase as it ends, a JSON line with every
     path's time per request or step, a JSON
     line with every kernel's launches, time, plain time, bound and error,
     and, as the last line, {"ok": true, "device": {...}}.
@@ -4507,6 +4525,348 @@ def dgr_train_phase(dev, phase_done):
     return out
 
 
+# -- the model zoo and the classical baselines (phase 10) -------------------
+#
+# The registry's sparse zoo at full width on phase 8's dgr_3dmatch cloud
+# (~20,000 voxels at voxel 0.05, device maps on the card): the hypercross
+# ResUNetBN2CX (conv1 7, FCGF's 3DMatch setting), SimpleNetBN2C,
+# PyramidNet, PyramidNet6INBN and PyramidNet8 (conv1 3, the registry's
+# default), 1 -> 32 features, unit rows, random weights from SEED; OANet
+# at full width (6 layers, 128 channels, 10 clusters) on 8 x 5000
+# correspondences; an ME-layout FCGF state_dict through
+# convert_sparse_resunet; the four classical baselines at N = 5000 and
+# baseline_eval on phase 7's 3DMatch tree. No TPU kernel lies on any of
+# these (gmf_tpu computes them in plain jnp, NumPy or native host code),
+# so the phase adds no row to the kernels line.
+ZOO_NETS = {"ResUNetBN2CX": 7, "SimpleNetBN2C": 3, "PyramidNet": 3,
+            "PyramidNet6INBN": 3, "PyramidNet8": 3}  # name: conv1 kernel
+ZOO_TIMED = 5  # timed pyramids and forwards a net, after one warm-up
+# card against CPU at DGR_SMALL (~1,500 voxels), f32 unit rows summed in
+# other orders: within 1e-4 of the largest entry; OANet's features
+# likewise
+ZOO_CARD_TOL = 1e-4
+OANET_B, OANET_N = 8, N
+# the baselines' synthetic pairs: tests/test_baselines.py's make_pair at
+# N = 5000 with 10% inliers (a low-overlap 3DMatch pair's share; PMC's
+# clique search grows steeply with the clique: 7.6-7.8 s a pair at a
+# clique of 500 on one host thread beside the H100, whose machine has no
+# OpenMP), held to that test's tolerances (rotation, translation)
+BASELINE_N, BASELINE_INLIERS, BASELINE_ITERS = N, 0.1, 5000
+BASELINE_TOL = {"SM": (0.05, 0.05), "PMC": (0.02, 0.03),
+                "RANSAC": (0.02, 0.03), "GCRANSAC": (0.02, 0.03)}
+# baseline_eval on phase 7's tree with 500 keypoints sampled a fragment
+# (the reference's --num-node), ~240 mutual correspondences a pair
+BASELINE_EVAL_NODES = 500
+BASELINE_EVAL_FLOOR = 0.75  # recall of each method on those easy pairs
+
+
+def baseline_pair(rng, n, inlier_ratio):
+    """tests/test_baselines.py's make_pair: a known rotation (0.6 rad
+    about z) and translation, 4 mm noise, the outliers uniform in the
+    2 m cube."""
+    ang = 0.6
+    R = np.array([[np.cos(ang), -np.sin(ang), 0],
+                  [np.sin(ang), np.cos(ang), 0], [0, 0, 1]], np.float32)
+    t = np.array([0.3, 0.1, -0.2], np.float32)
+    src = rng.rand(n, 3).astype(np.float32) * 2
+    tgt = src @ R.T + t + 0.004 * rng.randn(n, 3).astype(np.float32)
+    n_out = int(n * (1 - inlier_ratio))
+    idx = rng.choice(n, n_out, replace=False)
+    tgt[idx] = rng.rand(n_out, 3) * 2
+    corr_pos = np.concatenate([src - src.mean(0), tgt - tgt.mean(0)], -1)
+    T_gt = np.eye(4, dtype=np.float32)
+    T_gt[:3, :3], T_gt[:3, 3] = R, t
+    return {"corr_pos": corr_pos.astype(np.float32), "src_keypts": src,
+            "tgt_keypts": tgt, "gt_trans": T_gt,
+            "labels": np.ones(n, np.float32)}, T_gt
+
+
+def zoo_net(name, conv1):
+    from gmf_tpu_torch.models.registry import load_model
+
+    torch.manual_seed(SEED + 40)
+    return load_model(name)(in_channels=1, out_channels=32,
+                            conv1_kernel_size=conv1,
+                            normalize_feature=True).eval()
+
+
+def zoo_levels(net):
+    return getattr(net, "levels", 4)
+
+
+def zoo_arrays(coords, net, conv1, where):
+    from gmf_tpu_torch.sparse.device_maps import build_pyramid_arrays_device
+
+    return build_pyramid_arrays_device(
+        coords, zoo_levels(net), conv1_kernel_size=conv1, granule=512,
+        device=where, region=getattr(net, "region", "hypercube"))
+
+
+def zoo_full_size(dev, card):
+    """Each zoo net at ~20,000 voxels on the card's device maps: ms a
+    pyramid and a forward, peak memory; the hypercross pyramid equal to
+    the native builder's in every array."""
+    from gmf_tpu_torch.sparse.kernel_map import build_pyramid
+    from gmf_tpu_torch.sparse.resunet import pyramid_to_arrays
+    from gmf_tpu_torch.sparse.voxelize import sparse_quantize
+
+    spec = DGR_FULL["dgr_3dmatch"]
+    xyz0 = dgr_pair(SEED + 30, spec["side"], spec["points"])[0]
+    coords = sparse_quantize(xyz0, spec["voxel"])[0]
+    out = {}
+    for name, conv1 in ZOO_NETS.items():
+        net = zoo_net(name, conv1).to(dev)
+        pyr_times = []
+        for _ in range(1 + ZOO_TIMED):  # the first is a warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            arrays = zoo_arrays(coords, net, conv1, dev)
+            torch.cuda.synchronize()
+            pyr_times.append(1e3 * (time.perf_counter() - t0))
+        pyr_ms = float(np.mean(pyr_times[1:]))
+        feats = arrays["mask_0"][:, None].clone()
+        row = dict(voxels=len(coords), levels=zoo_levels(net),
+                   pyramid_ms=pyr_ms, pyramid_times_ms=pyr_times[1:])
+        if name == "ResUNetBN2CX":
+            row["hypercross_arrays_equal_native"] = dgr_pyramid_arrays_equal(
+                "zoo hypercross pyramid, native builder", arrays,
+                pyramid_to_arrays(build_pyramid(
+                    coords, 4, conv1_kernel_size=conv1, granule=512,
+                    region="hypercross"), dev))
+        with torch.no_grad():
+            y = net(feats, arrays)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(ZOO_TIMED):
+                t0 = time.perf_counter()
+                y = net(feats, arrays)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+        n = len(coords)
+        norms = torch.linalg.norm(y[:n], dim=1)
+        if (y.shape != (feats.shape[0], 32) or not torch.isfinite(y).all()
+                or y[n:].any() or (norms > 1e-6).float().mean() < 0.9):
+            fail(f"zoo {name}: output of shape {tuple(y.shape)}, not "
+                 "finite, padded rows not zero or most rows not unit")
+        row.update(ms_per_forward=float(np.mean(times)), forward_ms=times,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   parameters=sum(p.numel() for p in net.parameters()))
+        print(f"zoo {name} ({card}): {n} voxels, {row['levels']} levels, "
+              f"pyramid {pyr_ms:.1f} ms, forward "
+              f"{row['ms_per_forward']:.2f} ms (mean of {ZOO_TIMED}: "
+              f"{[round(t, 2) for t in times]}), peak memory "
+              f"{row['peak_memory_bytes'] / 2 ** 30:.2f} GiB", flush=True)
+        out[name] = row
+        del net, arrays, feats, y
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo_card_vs_cpu(dev):
+    """Each zoo net at DGR_SMALL on the card against the CPU (the same
+    weights, each device's own device maps), within ZOO_CARD_TOL; and an
+    ME-layout FCGF state_dict (its kernels in ME's offset order) through
+    convert_sparse_resunet: the card's features equal in every bit to
+    those of the net it came from."""
+    from gmf_tpu_torch.sparse.resunet import FCGFNet
+    from gmf_tpu_torch.sparse.voxelize import sparse_quantize
+    from gmf_tpu_torch.utils.convert_minkowski import (
+        convert_sparse_resunet, me_offset_permutation)
+
+    xyz = dgr_pair(SEED + 20, DGR_SMALL["side"], DGR_SMALL["points"])[0]
+    coords = sparse_quantize(xyz, DGR_SMALL["voxel"])[0]
+    out = {}
+    for name, conv1 in ZOO_NETS.items():
+        net = zoo_net(name, conv1)
+        ys = {}
+        for where in ("cpu", dev):
+            arrays = zoo_arrays(coords, net.to(where), conv1, where)
+            with torch.no_grad():
+                ys[str(where)] = net(arrays["mask_0"][:, None].clone(),
+                                     arrays).cpu()
+        ref = ys["cpu"]
+        err = float((ys[str(dev)] - ref).abs().max() / ref.abs().max())
+        out[name] = dict(voxels=len(coords), max_rel_err=err,
+                         tolerance=ZOO_CARD_TOL)
+        if not err <= ZOO_CARD_TOL:
+            fail(f"zoo {name} card vs cpu: {err:.2e} > {ZOO_CARD_TOL}")
+    print("zoo card vs cpu: " + json.dumps(out), flush=True)
+
+    torch.manual_seed(SEED + 41)
+    net = FCGFNet().eval()
+    me = {}
+    for k, v in net.state_dict().items():
+        if k.endswith(".kernel") and v.dim() == 3:
+            k_size = 7 if k == "conv1.kernel" else 3
+            perm = torch.from_numpy(me_offset_permutation(k_size, 3))
+            w = torch.empty_like(v)
+            w[perm] = v  # ME's rows: ours[i] sits at ME row perm[i]
+            v = w
+        me[k] = v.numpy()
+    conv = FCGFNet().eval()
+    conv.load_state_dict(convert_sparse_resunet(me, dim=3,
+                                                conv1_kernel_size=7),
+                         strict=True)
+    arrays = zoo_arrays(coords, net.to(dev), 7, dev)
+    feats = arrays["mask_0"][:, None].clone()
+    with torch.no_grad():
+        a, b = net(feats, arrays), conv.to(dev)(feats, arrays)
+    if not torch.equal(a, b):
+        fail("convert_sparse_resunet: the converted FCGF's features on the "
+             f"card differ from the source net's by {(a - b).abs().max()}")
+    out["convert_sparse_resunet"] = dict(voxels=len(coords), equal=True,
+                                         keys=len(me))
+    print(f"zoo convert_sparse_resunet: {len(me)} keys, the card's "
+          "features equal in every bit", flush=True)
+    return out
+
+
+def oanet_check(dev, card):
+    """OANet at full width on OANET_B x OANET_N correspondences: ms a
+    forward (features and logits), peak memory; one pair on the card
+    against the CPU within ZOO_CARD_TOL."""
+    from gmf_tpu_torch.models.registry import load_model
+
+    torch.manual_seed(SEED + 42)
+    net = load_model("OANet")().eval()
+    rng = np.random.RandomState(SEED + 42)
+    x = torch.from_numpy(rng.randn(OANET_B, OANET_N, 6).astype(np.float32))
+    with torch.no_grad():
+        ref = net(x[:1])
+        net = net.to(dev)
+        xd = x.to(dev)
+        got = net(xd)  # warm-up
+        logits = net(xd, return_logits=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(ZOO_TIMED):
+            t0 = time.perf_counter()
+            got = net(xd)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+    err = float((got[:1].cpu() - ref).abs().max() / ref.abs().max())
+    if (got.shape != (OANET_B, OANET_N, 128)
+            or logits.shape != (OANET_B, OANET_N)
+            or not torch.isfinite(got).all() or not err <= ZOO_CARD_TOL):
+        fail(f"OANet: shapes {tuple(got.shape)} {tuple(logits.shape)}, "
+             f"card vs cpu {err:.2e} (limit {ZOO_CARD_TOL})")
+    row = dict(batch=OANET_B, correspondences=OANET_N,
+               ms_per_forward=float(np.mean(times)), forward_ms=times,
+               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               card_vs_cpu_max_rel_err=err, tolerance=ZOO_CARD_TOL)
+    print(f"zoo OANet ({card}): {OANET_B} x {OANET_N}, forward "
+          f"{row['ms_per_forward']:.2f} ms (mean of {ZOO_TIMED}), peak "
+          f"memory {row['peak_memory_bytes'] / 2 ** 30:.2f} GiB, card vs cpu "
+          f"{err:.2e}", flush=True)
+    return row
+
+
+def baselines_check(dev, card):
+    """Each baseline through make_baseline_register_fn on one synthetic
+    pair of BASELINE_N correspondences: a warm-up, then ms a pair (host
+    clock, the card synchronised), the recovered T within BASELINE_TOL;
+    the native libraries' paths."""
+    from gmf_tpu_torch.eval.baselines import (BASELINE_METHODS,
+                                              make_baseline_register_fn)
+    from gmf_tpu_torch.utils import gcransac, max_clique
+
+    pair, T_gt = baseline_pair(np.random.RandomState(SEED + 43), BASELINE_N,
+                               BASELINE_INLIERS)
+    out = {}
+    for method in BASELINE_METHODS:
+        fn = make_baseline_register_fn(method, inlier_threshold=0.10,
+                                       max_iteration=BASELINE_ITERS,
+                                       device=dev)
+        if method != "PMC":
+            fn(pair)  # warm-up (PMC's run is seconds of host search)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trans, labels = fn(pair)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        rot = float(np.abs(trans[:3, :3] - T_gt[:3, :3]).max())
+        trn = float(np.abs(trans[:3, 3] - T_gt[:3, 3]).max())
+        atol_r, atol_t = BASELINE_TOL[method]
+        out[method] = dict(ms_per_pair=ms, rotation_err=rot,
+                           translation_err=trn, inliers=int(labels.sum()),
+                           tolerance=[atol_r, atol_t])
+        print(f"baseline {method} ({card}): N={BASELINE_N}, "
+              f"{BASELINE_INLIERS:.0%} inliers, {ms:.1f} ms a pair, "
+              f"|dR| {rot:.2e} |dt| {trn:.2e}, {int(labels.sum())} "
+              "labelled inliers", flush=True)
+        if not (rot <= atol_r and trn <= atol_t):
+            fail(f"baseline {method}: T off by {rot:.3g} / {trn:.3g}")
+    out["libraries"] = {"pmc": str(max_clique.library_path()),
+                        "gcransac": str(gcransac.library_path())}
+    print("baseline native libraries: " + json.dumps(out["libraries"]),
+          flush=True)
+    return out
+
+
+def baseline_eval_check(tmp, card):
+    """baseline_eval.main with the four methods on phase 7's 3DMatch tree
+    (write_eval_fixtures), on the card: none skipped, each method's
+    [pairs, 12] statistics finite, recall and seconds per method."""
+    import logging
+    import os
+
+    from gmf_tpu_torch.eval import baseline_eval
+
+    fix = write_eval_fixtures(os.path.join(tmp, "data"))
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    logging.getLogger("baselines").addHandler(handler)
+    out = {}
+    try:
+        for method in ("SM", "PMC", "RANSAC", "GCRANSAC"):
+            t0 = time.perf_counter()
+            res = baseline_eval.main([
+                "--root", fix["root"], "--scenes", fix["scene"],
+                "--methods", method, "--num-node",
+                str(BASELINE_EVAL_NODES), "--out",
+                os.path.join(tmp, "baselines")])
+            seconds = time.perf_counter() - t0
+            if method not in res:
+                fail(f"baseline_eval: {method} did not run")
+            stats = np.load(os.path.join(tmp, "baselines",
+                                         f"{method}_stats.npy"))
+            out[method] = dict(seconds=seconds, pairs=len(stats),
+                               recall=check_stats(f"baseline_eval {method}",
+                                                  stats, EVAL_PAIRS,
+                                                  floor=BASELINE_EVAL_FLOOR))
+    finally:
+        logging.getLogger("baselines").removeHandler(handler)
+    skipped = [r.getMessage() for r in records
+               if "SKIPPED" in r.getMessage()]
+    if skipped:
+        fail(f"baseline_eval skipped a method: {skipped}")
+    print(f"baseline_eval ({card}), {EVAL_PAIRS} pairs, "
+          f"--num-node {BASELINE_EVAL_NODES}: " + json.dumps(out),
+          flush=True)
+    return out
+
+
+def zoo_baselines_phase(dev, phase_done, card=""):
+    """Phase 10: the model zoo, the converters and the classical
+    baselines on the card."""
+    import tempfile
+
+    torch.set_num_threads(8)
+    out = {"zoo": zoo_full_size(dev, card)}
+    out["zoo_card_vs_cpu"] = zoo_card_vs_cpu(dev)
+    out["oanet"] = oanet_check(dev, card)
+    phase_done("zoo")
+    out["baselines"] = baselines_check(dev, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["baseline_eval"] = baseline_eval_check(tmp, card)
+    phase_done("baselines")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the result JSON here")
@@ -4682,6 +5042,10 @@ def main():
         "descriptor": train["descriptor"], "cli": train["cli"],
         "phase_seconds": train["seconds"]}
     paths["dgr_3dmatch"]["bf16"] = train["bf16"]
+
+    # 10. the model zoo, the converters, the classical baselines (no TPU
+    # kernel on these paths either)
+    paths["zoo_baselines"] = zoo_baselines_phase(dev, phase_done, card)
     rows["nms_local_max"].update({
         f"lomatch_n{LOMATCH_BUCKET}_{k}": v
         for k, v in paths["eval"]["3dlomatch"]["nms"].items()

@@ -64,7 +64,7 @@ from gmf_tpu_torch.geometry.se3 import transform
 from gmf_tpu_torch.geometry.spectral import (leading_eigenvector,
                                              leading_eigenvector_fixed)
 from gmf_tpu_torch.nn.fusion import FusionLayer
-from gmf_tpu_torch.nn.norm import BatchNorm1d
+from gmf_tpu_torch.nn.norm import TokenBatchNorm
 from gmf_tpu_torch.nn.resnet import ImageEncoder
 from gmf_tpu_torch.ops.fused_attention import (
     build_compat_cache, cache_row_stride, compat_flash_attention,
@@ -74,14 +74,6 @@ from gmf_tpu_torch.ops.fused_scoring import seed_hypothesis_counts
 from gmf_tpu_torch.ops.fused_seed_solver import fused_seed_weights
 from gmf_tpu_torch.ops.fused_topk import MAX_K, seed_knn_topk
 from gmf_tpu_torch.utils.device import resolve_device
-
-
-class TokenBatchNorm(BatchNorm1d):
-    """BatchNorm1d over the channel axis of [..., C] tokens, with flax's
-    running statistics (``nn/norm.py``)."""
-
-    def forward(self, x):
-        return super().forward(x.reshape(-1, x.shape[-1])).reshape(x.shape)
 
 
 def _fusion(C: int, pe: bool) -> FusionLayer:

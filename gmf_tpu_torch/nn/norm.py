@@ -53,3 +53,11 @@ class BatchNorm1d(_FlaxRunningStats, nn.BatchNorm1d):
 
 class BatchNorm2d(_FlaxRunningStats, nn.BatchNorm2d):
     """``nn.BatchNorm2d`` with flax's running-statistics update."""
+
+
+class TokenBatchNorm(BatchNorm1d):
+    """BatchNorm1d over the channel axis of [..., C] tokens, with flax's
+    running statistics."""
+
+    def forward(self, x):
+        return super().forward(x.reshape(-1, x.shape[-1])).reshape(x.shape)

@@ -40,7 +40,7 @@ import torch
 from gmf_tpu_torch.sparse.compact import (build_compact_schedules,
                                           invert_map, schedule_row_stats)
 from gmf_tpu_torch.sparse.kernel_map import (_pad_cap, downsample_coords,
-                                             hypercube_offsets)
+                                             region_offsets)
 from gmf_tpu_torch.utils.device import resolve_device
 
 QUERY_BYTES = 1 << 29      # live [Kc, M] int64 query keys of one chunk
@@ -199,7 +199,8 @@ def build_pyramid_arrays_device(
         dim: Optional[int] = None, granule: int = 512,
         caps: Optional[Sequence[int]] = None, compact_conv: bool = False,
         compact_dense_frac: float = 0.5, device=None,
-        stats: Optional[Dict] = None) -> Dict[str, object]:
+        stats: Optional[Dict] = None,
+        region: str = "hypercube") -> Dict[str, object]:
     """The nets' pyramid dict with every kernel map built on ``device``
     (the card unless ``device="cpu"``): the arrays of
     ``pyramid_to_arrays(build_pyramid(...))``, bit for bit.
@@ -210,9 +211,11 @@ def build_pyramid_arrays_device(
     prune each map (gmf_tpu's ``_prune_and_pad_device``) and, with
     ``compact_conv``, size its compacted schedules (``compact.py``:
     ``*_cmp`` keys in place of the dense maps). Each up map is its down
-    map inverted; conv1 reuses the level-0 self map when its kernel is 3.
-    The dict also carries ``conv1_volume``. Hypercube maps only (the
-    hypercross region waits for ROADMAP queue 1 item 6).
+    map inverted (by offset index, so for either region); conv1 reuses
+    the level-0 self map when its kernel is 3 (the same offsets at stride
+    1 in either region). The dict also carries ``conv1_volume``.
+    ``region``: "hypercube" or "hypercross" (``kernel_map.
+    build_pyramid``'s); pruning keeps offset K // 2 of either.
 
     ``stats``: when a dict, it receives {"voxels": [n a level], "maps":
     {name: {k, m, occupancy}}}, K' and M of each (pruned) map and its
@@ -222,6 +225,7 @@ def build_pyramid_arrays_device(
     """
     dev = resolve_device(device)
     dim = dim if dim is not None else coords.shape[1]
+    offs_fn = region_offsets(region)
     prune = dim > 3
     level_coords = [coords.astype(np.int32)]
     for l in range(1, num_levels):
@@ -246,7 +250,7 @@ def build_pyramid_arrays_device(
             jobs.append((f"down_{l}", l, l + 1, 3))
     if conv1_kernel_size != 3:
         jobs.append(("conv1", 0, 0, conv1_kernel_size))
-    offs = {name: hypercube_offsets(k, dim, 2 ** l_in)
+    offs = {name: offs_fn(k, dim, 2 ** l_in)
             for name, l_in, _, k in jobs}
     nbr = {}
     for l in range(num_levels):
@@ -276,7 +280,7 @@ def build_pyramid_arrays_device(
 
     arrays: Dict[str, object] = {
         f"mask_{l}": valid_l[l].to(torch.float32) for l in range(num_levels)}
-    arrays["conv1_volume"] = conv1_kernel_size ** dim
+    arrays["conv1_volume"] = len(offs_fn(conv1_kernel_size, dim))
     map_stats: Dict[str, Dict] = {}
 
     def key(name, what):

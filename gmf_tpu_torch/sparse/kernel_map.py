@@ -37,57 +37,35 @@ from __future__ import annotations
 import collections
 import ctypes
 import dataclasses
-import hashlib
 import os
-import subprocess
-import tempfile
 import threading
 from pathlib import Path
 from typing import List, Optional, Sequence
 
 import numpy as np
 
+from gmf_tpu_torch.utils.native import build_library
+
 SOURCE = (Path(__file__).resolve().parents[2] / "cpp" / "kernelmap"
           / "kernel_map.cpp")
-BUILD_DIR = Path(__file__).resolve().parents[1] / "ops" / "build"
-CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared"]
 BUILDERS = ("native", "numpy")
 BUILDS: "collections.Counter[str]" = collections.Counter()
+REGIONS = ("hypercube", "hypercross")
 
 _LIB = None
 _LIB_LOCK = threading.Lock()
 
 
 def _native_lib():
-    """The compiled builder, built into ``BUILD_DIR`` on first use (named
-    by a hash of the source and flags; written to a temporary name and
-    renamed, so concurrent builders never load a half-written file)."""
+    """The compiled builder, built on first use (``utils/native.py``)."""
     global _LIB
     with _LIB_LOCK:
         if _LIB is not None:
             return _LIB
         from numpy.ctypeslib import ndpointer
 
-        text = SOURCE.read_bytes()
-        tag = hashlib.sha256(text + " ".join(CXX_FLAGS).encode()).hexdigest()
-        so = BUILD_DIR / f"libgmfkmap-{tag[:16]}.so"
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                r = subprocess.run(
-                    [os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", tmp,
-                     str(SOURCE)], capture_output=True, text=True)
-                if r.returncode != 0:
-                    raise RuntimeError(
-                        f"building the native kernel-map builder from "
-                        f"{SOURCE} failed (exit {r.returncode}):\n"
-                        f"{r.stderr}{r.stdout}")
-                os.replace(tmp, so)
-            finally:
-                if os.path.exists(tmp):
-                    os.remove(tmp)
+        so = build_library(SOURCE, "libgmfkmap",
+                           "the native kernel-map builder")
         lib = ctypes.cdll.LoadLibrary(str(so))
         lib.build_kernel_map.restype = ctypes.c_int
         lib.build_kernel_map.argtypes = [
@@ -114,6 +92,34 @@ def hypercube_offsets(kernel_size: int, dim: int,
     return np.stack([g.ravel() for g in grid], axis=-1).astype(np.int32)
 
 
+def hypercross_offsets(kernel_size: int, dim: int,
+                       stride_units: int = 1) -> np.ndarray:
+    """Cross (axis-aligned) offsets: [1 + 2 r D, D] int32, the centre
+    first, then for each axis the offsets -1, +1, ..., -r, +r times
+    ``stride_units`` (r = kernel_size // 2). Matches
+    ME.RegionType.HYPER_CROSS (the model registry's *X variants)."""
+    r = kernel_size // 2
+    rows = [np.zeros((1, dim), np.int64)]
+    for d in range(dim):
+        for s in range(1, r + 1):
+            for sign in (-1, 1):
+                v = np.zeros((1, dim), np.int64)
+                v[0, d] = sign * s * stride_units
+                rows.append(v)
+    return np.concatenate(rows, axis=0).astype(np.int32)
+
+
+def region_offsets(region: str):
+    """``hypercube_offsets`` or ``hypercross_offsets`` by name; any other
+    name raises."""
+    if region == "hypercube":
+        return hypercube_offsets
+    if region == "hypercross":
+        return hypercross_offsets
+    raise ValueError(f"unknown kernel region {region!r}; expected one of "
+                     f"{REGIONS}")
+
+
 def _lookup(keys_sorted: np.ndarray, order: np.ndarray,
             query_keys: np.ndarray, sentinel: int) -> np.ndarray:
     """Vectorized hash-free lookup: original index of each query key, or
@@ -127,7 +133,8 @@ def _lookup(keys_sorted: np.ndarray, order: np.ndarray,
 
 
 def _prune(nbr, kept, sentinel):
-    """Drop offsets without a match, always keeping the centre one."""
+    """Drop offsets without a match, always keeping offset K // 2 (the
+    hypercube's centre; gmf_tpu keeps the same index of a hypercross)."""
     K = len(kept)
     nonempty = (nbr != sentinel).any(axis=1)
     nonempty |= np.arange(K) == K // 2
@@ -335,16 +342,18 @@ def build_pyramid(coords: np.ndarray, num_levels: int,
                   conv1_kernel_size: int = 3, dim: Optional[int] = None,
                   granule: int = 512,
                   caps: Optional[Sequence[int]] = None,
-                  builder: str = "native") -> SparsePyramid:
+                  builder: str = "native",
+                  region: str = "hypercube") -> SparsePyramid:
     """Build padded coords + kernel maps for every ResUNet level.
 
     Level l has tensor stride 2^l. ``caps`` optionally pins per-level
     capacities (otherwise rounded up to ``granule``). ``builder`` names
-    the kernel-map builder (``build_kernel_map``). Every map is a
-    hypercube's: gmf_tpu's "hypercross" region serves only the model
-    registry's *X variants, which are not ported.
+    the kernel-map builder (``build_kernel_map``). ``region``: the
+    kernels' offsets, "hypercube" or "hypercross" (the *X variants);
+    pruning keeps offset K // 2 of either, as gmf_tpu does.
     """
     dim = dim if dim is not None else coords.shape[1]
+    offs = region_offsets(region)
 
     level_coords = [coords.astype(np.int32)]
     for l in range(1, num_levels):
@@ -363,7 +372,7 @@ def build_pyramid(coords: np.ndarray, num_levels: int,
         if cap > n:
             c_pad[n:] = np.int32(2 ** 20)
         t = 2 ** l
-        k3 = hypercube_offsets(3, dim, t)
+        k3 = offs(3, dim, t)
         self_map, self_kept = build_kernel_map(
             c, c, k3, prune_empty=prune, builder=builder)
         if prune:
@@ -381,7 +390,7 @@ def build_pyramid(coords: np.ndarray, num_levels: int,
     for l in range(num_levels - 1):
         fine, coarse = levels[l], levels[l + 1]
         t = 2 ** l
-        k3 = hypercube_offsets(3, dim, t)
+        k3 = offs(3, dim, t)
         cf = level_coords[l]
         cc = level_coords[l + 1]
         down, down_kept = build_kernel_map(
@@ -407,7 +416,7 @@ def build_pyramid(coords: np.ndarray, num_levels: int,
                     constant_values=coarse.cap)
         fine.up_map, fine.up_kept = up, up_kept
 
-    k1 = hypercube_offsets(conv1_kernel_size, dim, 1)
+    k1 = offs(conv1_kernel_size, dim, 1)
     conv1_map, conv1_kept = build_kernel_map(
         level_coords[0], level_coords[0], k1, prune_empty=prune,
         builder=builder)

@@ -33,6 +33,7 @@ from gmf_tpu_torch.nn.fusion import FusionLayer
 from gmf_tpu_torch.nn.resnet import ImageEncoder
 from gmf_tpu_torch.sparse.conv import (MaskedBatchNorm, PointwiseConv,
                                        SparseConv, append_sentinel)
+from gmf_tpu_torch.sparse.kernel_map import region_offsets
 
 
 def pyramid_to_arrays(pyr, device) -> Dict[str, object]:
@@ -54,6 +55,30 @@ def pyramid_to_arrays(pyr, device) -> Dict[str, object]:
                 arrays[f"{name}_{l}"] = torch.from_numpy(
                     getattr(lv, name)).to(device)
     return arrays
+
+
+def kernel_map_of(pyramid: Dict[str, object], prefix: str):
+    """(map, kept) of "conv1", "self_l", "down_l" or "up_l" in a pyramid
+    dict; a compacted schedule (``*_cmp``) comes first, with kept None."""
+    cmp_key = "conv1_cmp" if prefix == "conv1" else prefix.replace(
+        "_", "_cmp_")
+    if cmp_key in pyramid:
+        return pyramid[cmp_key], None
+    if prefix == "conv1":
+        return pyramid["conv1_map"], pyramid["conv1_kept"]
+    return (pyramid[prefix.replace("_", "_map_")],
+            pyramid[prefix.replace("_", "_kept_")])
+
+
+def check_conv1_volume(pyramid: Dict[str, object], volume: int) -> None:
+    """Raise unless the pyramid's conv1 map was built for a kernel of
+    ``volume`` offsets (its ``conv1_volume``, where it records one)."""
+    got = pyramid.get("conv1_volume")
+    if got is not None and got != volume:
+        raise ValueError(
+            f"the pyramid's conv1 map covers {got} offsets, the net's "
+            f"conv1 kernel {volume}: build the pyramid with the net's "
+            "conv1_kernel_size and region")
 
 
 class SparseBasicBlock(nn.Module):
@@ -95,11 +120,14 @@ class SparseResUNet2(nn.Module):
                  dim: int = 3, conv1_kernel_size: int = 3,
                  normalize_feature: bool = False,
                  with_gmf_fusion: bool = False, image_dim: int = 128,
+                 region: str = "hypercube",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        # hypercube kernels; gmf_tpu's "hypercross" region serves only the
-        # model registry's *X variants (ROADMAP queue 1 item 6)
-        kv, kv1 = 3 ** dim, conv1_kernel_size ** dim
+        # "hypercross" (the registry's *X variants): the centre and 2 r
+        # offsets an axis (gmf_tpu/sparse/resunet.py:97-110)
+        offs = region_offsets(region)
+        kv, kv1 = len(offs(3, dim)), len(offs(conv1_kernel_size, dim))
+        self.region = region
         self.conv1_kernel_size, self.conv1_volume = conv1_kernel_size, kv1
         self.normalize_feature = normalize_feature
         self.with_gmf_fusion = with_gmf_fusion
@@ -152,25 +180,11 @@ class SparseResUNet2(nn.Module):
         """feats: [cap0, in_channels]; pyramid: ``pyramid_to_arrays``'s or
         ``build_pyramid_arrays_device``'s dict; p_image/q_image: [1, H, W,
         3] frames (GMF variant)."""
-        volume = pyramid.get("conv1_volume")
-        if volume is not None and volume != self.conv1_volume:
-            raise ValueError(
-                f"the pyramid's conv1 map covers {volume} offsets, the "
-                f"net's conv1 kernel {self.conv1_volume}: build the "
-                "pyramid with the net's conv1_kernel_size")
+        check_conv1_volume(pyramid, self.conv1_volume)
         m = [pyramid[f"mask_{l}"] for l in range(4)]
 
         def kmap(prefix):
-            """(map, kept) of "conv1", "self_l", "down_l" or "up_l"; a
-            compacted schedule (``*_cmp``) comes first, with kept None."""
-            cmp_key = "conv1_cmp" if prefix == "conv1" else prefix.replace(
-                "_", "_cmp_")
-            if cmp_key in pyramid:
-                return pyramid[cmp_key], None
-            if prefix == "conv1":
-                return pyramid["conv1_map"], pyramid["conv1_kept"]
-            return (pyramid[prefix.replace("_", "_map_")],
-                    pyramid[prefix.replace("_", "_kept_")])
+            return kernel_map_of(pyramid, prefix)
 
         def level(x, conv, norm, block, prefix, l):
             x = conv(append_sentinel(x), *kmap(prefix), m[l].shape[0])

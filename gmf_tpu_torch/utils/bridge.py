@@ -23,6 +23,12 @@ names (``gmf_tpu/utils/convert_minkowski.py``):
 - MaskedBatchNorm                  -> ``<norm>.bn.*``
 - 1x1 Dense kernel [in, out]       -> ``<conv>.kernel`` [in, out], bias
 - img_encoder / image_fusion / perceiver_io as PointDSC's encoder parts
+
+``sparse_zoo_to_state_dict`` carries gmf_tpu's ``SimpleSparseUNet`` and
+``SparsePyramidNet`` across (kernels as they are, each batch norm
+``<name>.bn.*``, PyramidNet's flax ``<name>_bn`` as the port's
+``<name>``), and ``oanet_to_state_dict`` gmf_tpu's ``OANet`` onto the
+reference's torch names, the inverse of ``convert_oanet``.
 """
 
 from __future__ import annotations
@@ -173,4 +179,57 @@ def sparse_resunet_to_state_dict(variables) -> Dict[str, Any]:
                                              "image_fusion."))
         sd.update(fusion_layer_to_state_dict(p["perceiver_io"],
                                              "perceiver_io."))
+    return sd
+
+
+def sparse_zoo_to_state_dict(variables) -> Dict[str, Any]:
+    """``{"params", "batch_stats"}`` of gmf_tpu's ``SimpleSparseUNet`` or
+    ``SparsePyramidNet`` -> the port's state_dict (module docstring)."""
+    sd: Dict[str, Any] = {}
+
+    def walk(p, s, path):
+        if "scale" in p:
+            _sparse_bn(sd, path[:-3] if path.endswith("_bn") else path, p, s)
+            return
+        if "kernel" in p:
+            sd[f"{path}.kernel"] = _t(p["kernel"])
+            if "bias" in p:
+                sd[f"{path}.bias"] = _t(p["bias"])
+            return
+        for name, child in p.items():
+            walk(child, (s or {}).get(name), f"{path}.{name}" if path
+                 else name)
+
+    walk(variables["params"], variables.get("batch_stats", {}), "")
+    return sd
+
+
+def oanet_to_state_dict(variables, num_layers: int) -> Dict[str, Any]:
+    """``{"params", "batch_stats"}`` of gmf_tpu's ``OANet`` -> state_dict
+    of gmf_tpu_torch's ``OANet`` (the reference's torch names)."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, Any] = {}
+
+    def stack(prefix, src, blocks):
+        for i in range(blocks):
+            _dense(sd, f"{prefix}.{1 + 4 * i}", p[f"{src}_conv_{i}"])
+            _bn(sd, f"{prefix}.{3 + 4 * i}", p[f"{src}_bn_{i}"],
+                s[f"{src}_bn_{i}"])
+
+    _dense(sd, "l1_1.0", p["layer0"])
+    stack("l1_1", "l1_1", num_layers // 2)
+    for name in ("down1", "up1"):
+        _bn(sd, f"{name}.conv.1", p[name]["bn"], s[name]["bn"])
+        _dense(sd, f"{name}.conv.3", p[name]["proj"])
+    for i in range(num_layers // 2):
+        bp, bs, dst = p[f"oa_{i}"], s[f"oa_{i}"], f"l2.{i}"
+        _bn(sd, f"{dst}.conv1.1", bp["bn1"], bs["bn1"])
+        _dense(sd, f"{dst}.conv1.3", bp["conv1"])
+        _bn(sd, f"{dst}.conv2.0", bp["bn2"], bs["bn2"])
+        _dense(sd, f"{dst}.conv2.2", bp["conv2"])
+        _bn(sd, f"{dst}.conv3.2", bp["bn3"], bs["bn3"])
+        _dense(sd, f"{dst}.conv3.4", bp["conv3"])
+    _dense(sd, "l1_2.0", p["l1_2_in"])
+    stack("l1_2", "l1_2", num_layers // 2 - 1)
+    _dense(sd, "output", p["output"])
     return sd

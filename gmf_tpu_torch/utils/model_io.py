@@ -1,5 +1,5 @@
-"""Loading a PointDSC model from either checkpoint format, and the DGR
-engine's two nets from the port's checkpoints (``load_dgr``).
+"""Loading a PointDSC or OANet model from either checkpoint format, and
+the DGR engine's two nets from the port's checkpoints (``load_dgr``).
 
 Counterpart of ``gmf_tpu/utils/model_io.py``, with the reference's
 contract that evaluation reads the model's settings from the checkpoint:
@@ -13,7 +13,8 @@ contract that evaluation reads the model's settings from the checkpoint:
   (``encoder.layer0``, ``PointCN_layer_i.0``, ``projection_q/k/v``,
   ``fc_message.0/3/6``, ``classification.0/2/4``) are [out, in, 1] where
   the port's ``Linear`` holds [out, in], and the trailing axis is
-  dropped. Keys that the port's model does not have (the reference's
+  dropped. OANet's names (``models/oanet.py``) are its reference's too,
+  with the same k=1 weights. Keys that the port's model does not have (the reference's
   image backbone past ``layer2``, an optimizer's state) are ignored, as
   the JAX converter ignores them; a missing batch-norm
   ``num_batches_tracked`` counter is set to 0, which eval mode never
@@ -29,7 +30,9 @@ from typing import Dict, Tuple
 import torch
 
 from gmf_tpu_torch.models import PointDSC
+from gmf_tpu_torch.models.oanet import OANet
 from gmf_tpu_torch.utils.checkpoint import load_checkpoint
+from gmf_tpu_torch.utils.device import resolve_device
 
 
 def _state_dict_file(path: str) -> Dict[str, torch.Tensor]:
@@ -39,7 +42,7 @@ def _state_dict_file(path: str) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v) for k, v in obj.items()}
 
 
-def _reference_state_dict(model, sd: Dict[str, torch.Tensor]
+def reference_state_dict(model, sd: Dict[str, torch.Tensor]
                          ) -> Dict[str, torch.Tensor]:
     """A reference torch ``state_dict`` as ``model``'s (module
     docstring); raises KeyError on a key the model needs and ``sd``
@@ -72,8 +75,7 @@ def load_pointdsc(path: str, inlier_threshold: float = 0.10,
               inlier_threshold=inlier_threshold)
     if os.path.isdir(path):
         state, config = load_checkpoint(path)
-        arch = (config or {}).get("arch") or (
-            (config or {}).get("model") or {}).get("arch")
+        arch = _arch(config)
         if arch not in (None, "pointdsc", "PointDSC"):
             raise ValueError(f"checkpoint at {path} holds arch={arch!r}, "
                              "not a PointDSC state")
@@ -84,9 +86,47 @@ def load_pointdsc(path: str, inlier_threshold: float = 0.10,
         model.load_state_dict(state, strict=True)
         return model
     model = PointDSC(**{**kw, **model_kw})
-    sd = _reference_state_dict(model, _state_dict_file(path))
+    sd = reference_state_dict(model, _state_dict_file(path))
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def _arch(config) -> str:
+    config = config or {}
+    return config.get("arch") or (config.get("model") or {}).get("arch")
+
+
+def oanet_config(sd: Dict[str, torch.Tensor], num_layers: int = 6) -> Dict:
+    """OANet's settings from a reference ``state_dict``'s shapes: in_dim
+    and num_channels from ``l1_1.0``, num_clusters from ``down1.conv.3``
+    (``num_layers`` the shapes do not say)."""
+    c, d = sd["l1_1.0.weight"].shape[:2]
+    return dict(in_dim=int(d), num_layers=num_layers, num_channels=int(c),
+                num_clusters=int(sd["down1.conv.3.weight"].shape[0]))
+
+
+def load_oanet(path: str, num_layers: int = 6, device=None,
+               dtype: torch.dtype = torch.float32) -> OANet:
+    """An ``OANet`` with the weights at ``path``, on ``device`` (default
+    the card): a port checkpoint directory whose config says ``arch:
+    oanet`` (``utils/convert_torch.py`` writes one), or a reference torch
+    ``state_dict`` file, whose shapes give the settings (``num_layers``
+    they do not)."""
+    dev = resolve_device(device)
+    if os.path.isdir(path):
+        state, config = load_checkpoint(path)
+        if _arch(config) not in ("oanet", "OANet"):
+            raise ValueError(f"checkpoint at {path} holds "
+                             f"arch={_arch(config)!r}, not an OANet state")
+        valid = inspect.signature(OANet).parameters
+        kw = {k: v for k, v in config["model"].items() if k in valid}
+        model = OANet(**kw, dtype=dtype)
+    else:
+        sd = _state_dict_file(path)
+        model = OANet(**oanet_config(sd, num_layers), dtype=dtype)
+        state = reference_state_dict(model, sd)
+    model.load_state_dict(state, strict=True)
+    return model.to(dev)
 
 
 def load_dgr(fcgf_path: str, inlier_path: str

@@ -1199,3 +1199,80 @@ def test_dgr_trainer_pair_card_vs_cpu(cuda):
         if "running" in k:
             assert (sd_card[k].cpu() - v).abs().max() <= 1e-4 * max(
                 v.abs().max(), 1e-30), k
+
+
+# -- the model zoo and the classical baselines: no kernel of their own; the
+# card against the CPU and the native builders.
+
+@pytest.mark.parametrize("conv1", [3, 7])
+def test_zoo_hypercross_device_pyramid_card(cuda, conv1):
+    """The hypercross device pyramid on the card against the native host
+    builder's and the CPU's device builder, every array in every bit."""
+    from gmf_tpu_torch.sparse.device_maps import build_pyramid_arrays_device
+    from gmf_tpu_torch.sparse.kernel_map import build_pyramid
+    from gmf_tpu_torch.sparse.resunet import pyramid_to_arrays
+
+    c = _dgr_coords(3, 3000, 30) - 3
+    kw = dict(conv1_kernel_size=conv1, granule=1024, region="hypercross")
+    got = build_pyramid_arrays_device(c, 4, device=cuda, **kw)
+    assert got.pop("conv1_volume") == 1 + (conv1 // 2) * 6
+    for want in (build_pyramid_arrays_device(c, 4, device="cpu", **kw),
+                 pyramid_to_arrays(build_pyramid(c, 4, **kw), "cpu")):
+        want.pop("conv1_volume")
+        assert got.keys() == want.keys()
+        for k, a in got.items():
+            assert a.is_cuda and a.dtype == want[k].dtype, k
+            assert torch.equal(a.cpu(), want[k]), k
+
+
+def test_zoo_oanet_card_vs_cpu(cuda):
+    """Full-width OANet on 2 x 2000 correspondences, features and logits
+    within 1e-4 of the largest entry (f32 sums in other orders)."""
+    from gmf_tpu_torch.models.oanet import OANet
+
+    torch.manual_seed(0)
+    net = OANet().eval()
+    x = torch.tensor(np.random.RandomState(4).randn(2, 2000, 6).astype(
+        np.float32))
+    with torch.no_grad():
+        ref = [net(x), net(x, return_logits=True)]
+        net.to(cuda)
+        got = [net(x.to(cuda)), net(x.to(cuda), return_logits=True)]
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                   atol=1e-4 * b.abs().max().item())
+
+
+def test_zoo_sm_card_vs_cpu(cuda):
+    """Spectral matching at N=2000 (10% inliers) on the card against the
+    CPU: T within 1e-4, the labelled inliers equal."""
+    from gmf_tpu_torch.eval.baselines import sm_register
+
+    r = np.random.RandomState(5)
+    src = (r.rand(2000, 3) * 2).astype(np.float32)
+    tgt = (src + np.array([0.2, -0.1, 0.3], np.float32)
+           + 0.004 * r.randn(2000, 3).astype(np.float32))
+    out = r.rand(2000) < 0.9
+    tgt[out] = r.rand(out.sum(), 3) * 2
+    corr = np.concatenate([src - src.mean(0), tgt - tgt.mean(0)], 1)
+    T_cpu, lab_cpu = sm_register(corr, src, tgt, 0.10, device="cpu")
+    T, lab = sm_register(corr, src, tgt, 0.10, device=cuda)
+    np.testing.assert_allclose(T, T_cpu, atol=1e-4)
+    np.testing.assert_array_equal(lab, lab_cpu)
+
+
+def test_zoo_baselines_phase(cuda):
+    """chip_smoke.py's phase 10 (zoo_baselines_phase) as the script runs
+    it: every check inside it fails the test by raising SystemExit."""
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(root)
+    out = chip_smoke.zoo_baselines_phase(cuda, lambda name: None)
+    assert set(out["baselines"]) >= {"SM", "PMC", "RANSAC", "GCRANSAC"}
+    assert set(out["baseline_eval"]) == {"SM", "PMC", "RANSAC", "GCRANSAC"}

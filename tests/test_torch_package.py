@@ -102,6 +102,26 @@ def test_no_jax_checks_cover_the_tools():
                                               "gmf_tpu_torch.")}
 
 
+# the model zoo, the converters and the classical baselines: every module
+# (the two command lines and the checkpoint tool among them) is reached by
+# the package walk and the import-statement glob above
+ZOO_AND_BASELINES = (
+    "sparse/simpleunet.py", "sparse/pyramidnet.py", "models/blocks.py",
+    "models/oanet.py", "models/registry.py", "utils/convert_torch.py",
+    "utils/convert_minkowski.py", "tools/print_checkpoint.py",
+    "utils/max_clique.py", "utils/gcransac.py", "utils/native.py",
+    "eval/baselines.py", "eval/baseline_eval.py")
+
+
+@pytest.mark.parametrize("path", ZOO_AND_BASELINES)
+def test_no_jax_checks_cover_the_zoo_and_baselines(path):
+    assert (ROOT / "gmf_tpu_torch" / path) in set(
+        (ROOT / "gmf_tpu_torch").rglob("*.py"))
+    name = "gmf_tpu_torch." + path[:-3].replace("/", ".")
+    assert name in {m.name for m in pkgutil.walk_packages(
+        gmf_tpu_torch.__path__, "gmf_tpu_torch.")}
+
+
 def test_wrappers_take_plain_version_only_on_cpu():
     x = torch.zeros(1, 4, 32, device="meta")
     kp = torch.zeros(1, 4, 3, device="meta")
