@@ -230,7 +230,35 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
       tests/test_baselines.py's tolerances, the two native libraries'
       paths; baseline_eval.main with each method on phase 7's 3DMatch
       tree: none skipped, 12-column statistics, recall and seconds.
-11. Print the seconds of each phase as it ends, a JSON line with every
+11. The reconstruction apps and the tools (apps_phase), no kernel row
+    but the registrar's: a synthetic room (gmf_tpu_torch/data/
+    synthetic.py) rendered at Redwood's 640 x 480 with PrimeSense
+    intrinsics, 40 frames written as 16-bit PNG depth in millimetres and
+    read back by the port's PNG decoder in raw units:
+    - TSDF integration of 3 frames on a 64^3 grid on the card and the
+      CPU: weights equal and tsdf within 1e-5 but at voxels whose
+      projection lies within 1e-4 px of a .5 pixel edge (counted), the
+      extracted clouds apart only there;
+    - make_fragments at gmf_tpu's defaults (20 frames a fragment,
+      keyframes every 5, voxel 0.02, depth_trunc 4.0, grids capped at
+      256 a side): seconds by stage (odometry a frame pair, pose graph,
+      TSDF a frame, extraction), the grids, peak memory, every node pose
+      within 1 deg and 5 cm of the rendered trajectory; a full 256^3
+      TSDF of 20 frames timed, with its peak memory;
+    - multiway_cli on the written fragments with a ground-truth
+      trajectory: once with a full-width random-weight PointDSC
+      checkpoint (the registrar's kernels launched the counts of the f32
+      cache path), once on RANSAC; both ATEs. On the pair it registers,
+      rebuilt as it builds it: its node pose within 1e-6 of the card
+      registrar's transform there, and the checkpoint's model in f32
+      through the kernels against its copy on the CPU through the plain
+      versions (phase 5's f32 bounds: transform within 1e-3, labels
+      agreeing on 99%); a profiler trace (utils/profiling.trace) around
+      one registrar call must name the hand-written kernels;
+    - precompute_descriptors (FPFH and FCGF) on phase 8's 3DMatch tree,
+      build_kitti_pairs (FPFH and FCGF) on its KITTI sequence, and
+      numerics_study at its defaults on the card.
+12. Print the seconds of each phase as it ends, a JSON line with every
     path's time per request or step, a JSON
     line with every kernel's launches, time, plain time, bound and error,
     and, as the last line, {"ok": true, "device": {...}}.
@@ -2840,12 +2868,16 @@ _INT8_CACHE = PATHS["int8_b64"]["per_forward"]
 
 
 def write_png(path, rgb):
-    """An 8-bit RGB PNG, filter type 0 (the card's machine has no imaging
-    package; the port's reader decodes it)."""
+    """An 8-bit RGB PNG or, from a [H, W] uint16 array, a 16-bit gray one,
+    filter type 0 (the card's machine has no imaging package; the port's
+    reader decodes it)."""
     import struct
     import zlib
 
-    h, w, _ = rgb.shape
+    gray16 = rgb.ndim == 2
+    if gray16:
+        rgb = rgb.astype(">u2")  # PNG samples are big-endian
+    h, w = rgb.shape[:2]
     raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))
 
     def chunk(kind, body):
@@ -2854,7 +2886,9 @@ def write_png(path, rgb):
 
     with open(path, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h,
+                                             16 if gray16 else 8,
+                                             0 if gray16 else 2, 0, 0, 0))
                 + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
 
 
@@ -4867,6 +4901,471 @@ def zoo_baselines_phase(dev, phase_done, card=""):
     return out
 
 
+# -- the reconstruction apps and the tools (phase 11) ------------------------
+#
+# A synthetic room (gmf_tpu_torch/data/synthetic.py: walls, boxes and
+# spheres, the camera drifting 1.5 cm and turning 0.006 rad a frame)
+# rendered at Redwood's 640 x 480 with PrimeSense intrinsics, APPS_FRAMES
+# frames of 16-bit PNG depth in millimetres, which make_fragments' reader
+# decodes in raw units. make_fragments runs at gmf_tpu's defaults. No TPU
+# kernel lies on these paths (gmf_tpu computes them in NumPy and jnp):
+# the phase adds no kernel row, and the registrar multiway_cli serves is
+# the main path's (its launches asserted).
+APPS_HW, APPS_FRAMES, APPS_PER_FRAGMENT = (480, 640), 40, 20
+APPS_SCENE = "livingroom1"
+APPS_FULL_GRID = 256  # make_fragments' max_dim: the largest grid it takes
+# card against CPU: 3 frames on a 64^3 grid of 6 cm; tsdf within 1e-5 (a
+# 1-ulp z at 4 m over the 24 cm truncation is 1e-6, and the card divides
+# by the truncation as a product with its reciprocal) but where a voxel's
+# projection lies within 1e-4 px of a .5 pixel edge, which either device
+# may round to the neighbouring pixel
+APPS_TSDF_DIM, APPS_TSDF_VOXEL, APPS_TSDF_TOL = 64, 0.06, 1e-5
+APPS_TSDF_ORIGIN = np.array([-2.4, -1.5, -0.4], np.float32)
+APPS_EDGE_PX = 1e-4
+# node poses against the rendered trajectory: 19 ICP links of 2048
+# sampled points a fragment drift (within 0.38 deg and 3.3 cm on the
+# card, H100 80GB HBM3, 700 W; 0.37 deg and 3.7 cm in a rehearsal on the
+# CPU at 160 x 120)
+APPS_POSE_TOL_DEG, APPS_POSE_TOL_M = 1.0, 0.05
+# multiway_cli's --num-node: 5000 points a fragment, the main path's
+# bucket (its default 1000 leaves a point every ~17 cm of a room's
+# surfaces, and FPFH matches are then almost never true: 0.2% inliers on
+# the CPU rehearsal's pair, 2% at 5000)
+APPS_NODES = 5000
+# multiway_cli's node 1 against the card registrar's transform on the pair
+# it registers: the pose graph of one edge starts at its optimum (its
+# optimiser moves it ~2e-8 on the CPU)
+APPS_LINK_TOL = 1e-6
+# the hand-written kernels a registrar call must show in its trace
+TRACE_KERNELS = ("compat_flash_fwd", "compat_cache_tile_pairs",
+                 "nms_local_max_kernel", "seed_knn_topk_kernel",
+                 "seed_hypothesis_counts_kernel")
+
+
+def apps_intrinsics():
+    from gmf_tpu_torch.apps.make_fragments import PRIMESENSE
+
+    return PRIMESENSE
+
+
+def write_rgbd_sequence(root, dev):
+    """APPS_FRAMES frames rendered on ``dev`` as 16-bit PNG depth (mm)
+    under ``root``/depth; returns (depth dir, the depths in metres as
+    stored, camera-to-world poses)."""
+    import os
+
+    from gmf_tpu_torch.data.synthetic import render_room_depth, room_pose
+
+    ddir = os.path.join(root, "depth")
+    os.makedirs(ddir)
+    K = apps_intrinsics()
+    depths, poses = [], []
+    for i in range(APPS_FRAMES):
+        pose = room_pose(i)
+        mm = np.clip(np.round(render_room_depth(pose, K, APPS_HW, dev)
+                              * 1000),
+                     0, 65535).astype(np.uint16)
+        write_png(os.path.join(ddir, f"{i:05d}.png"), mm)
+        depths.append(mm.astype(np.float32) / np.float32(1000.0))
+        poses.append(pose)
+    return ddir, depths, poses
+
+
+def edge_voxels(centres, poses, K):
+    """[n] bool: the centre projects within APPS_EDGE_PX of a .5 pixel
+    edge in some frame (f64)."""
+    near = np.zeros(len(centres), bool)
+    for pose in poses:
+        w2c = np.linalg.inv(pose)
+        cam = centres.astype(np.float64) @ w2c[:3, :3].T + w2c[:3, 3]
+        z = np.maximum(cam[:, 2], 1e-6)
+        for q in (cam[:, 0] / z * K[0, 0] + K[0, 2],
+                  cam[:, 1] / z * K[1, 1] + K[1, 2]):
+            near |= np.abs(q - np.floor(q) - 0.5) < APPS_EDGE_PX
+    return near
+
+
+def apps_tsdf_card_vs_cpu(dev, depths, poses):
+    """TSDFVolume.integrate of 3 frames on the card and the CPU."""
+    from scipy.spatial import cKDTree
+
+    from gmf_tpu_torch.apps.tsdf import TSDFVolume
+
+    K, D = apps_intrinsics(), APPS_TSDF_DIM
+    vols = {}
+    for where in (dev, "cpu"):
+        vol = TSDFVolume(APPS_TSDF_ORIGIN, (D, D, D), APPS_TSDF_VOXEL,
+                         device=where)
+        for d, p in zip(depths[:3], poses[:3]):
+            vol.integrate(d, K, p)
+        vols[str(where)] = vol
+    card, cpu = vols[str(dev)], vols["cpu"]
+    ijk = np.stack(np.meshgrid(*[np.arange(D)] * 3, indexing="ij"), -1)
+    centres = ((ijk + 0.5) * APPS_TSDF_VOXEL + APPS_TSDF_ORIGIN).reshape(
+        -1, 3)
+    edge = edge_voxels(centres, poses[:3], K).reshape(D, D, D)
+    w, w_cpu = card.weight.cpu().numpy(), cpu.weight.numpy()
+    t, t_cpu = card.tsdf.cpu().numpy(), cpu.tsdf.numpy()
+    a, b = card.extract_point_cloud(), cpu.extract_point_cloud()
+    apart = np.concatenate([x[cKDTree(y).query(x)[0] > 1e-4]
+                            for x, y in ((a, b), (b, a))])
+    row = dict(grid=D, voxel=APPS_TSDF_VOXEL, observed=int((w_cpu > 0).sum()),
+               edge_voxels=int(edge.sum()),
+               weights_apart=int((w != w_cpu).sum()),
+               weights_apart_off_edge=int((w != w_cpu)[~edge].sum()),
+               tsdf_max_err_off_edge=float(np.abs(t - t_cpu)[~edge].max()),
+               points=len(a), points_apart=len(apart),
+               tolerance=APPS_TSDF_TOL)
+    print("apps tsdf card vs cpu: " + json.dumps(row), flush=True)
+    if row["observed"] < 1000 or len(a) < 1000:
+        fail("apps tsdf: the check's grid saw too little of the room")
+    if row["weights_apart_off_edge"] or (
+            row["tsdf_max_err_off_edge"] > APPS_TSDF_TOL):
+        fail("apps tsdf: the card and the CPU apart off the pixel edges")
+    if not edge_voxels(apart, poses[:3], K).all():
+        fail("apps tsdf: extracted clouds apart off the pixel edges")
+    return row
+
+
+def rot_deg(Ta, Tb):
+    d = np.linalg.inv(Ta) @ Tb
+    return float(np.degrees(np.arccos(np.clip(
+        (np.trace(d[:3, :3]) - 1) / 2, -1, 1)))), float(
+        np.linalg.norm(d[:3, 3]))
+
+
+def apps_make_fragments(dev, ddir, depths, poses, frag_dir):
+    """make_fragments at its defaults on the frames read back through the
+    command line's reader; a full 256^3 TSDF of the first fragment."""
+    import glob
+    import os
+
+    from gmf_tpu_torch.apps import make_fragments as mf
+    from gmf_tpu_torch.apps.tsdf import TSDFVolume
+
+    K = apps_intrinsics()
+    paths = sorted(glob.glob(os.path.join(ddir, "*.png")))
+    read = [mf._read_depth(p, 1000.0) for p in paths]
+    if len(read) != APPS_FRAMES or not all(
+            np.array_equal(a, b) for a, b in zip(read, depths)):
+        fail("apps: the 16-bit PNG depth did not read back in raw units")
+    seconds = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    frags = mf.make_fragments(read, K, frag_dir, device=dev,
+                              seconds=seconds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_frag = len(frags)
+    n = APPS_PER_FRAGMENT
+    grids = [mf.fragment_grid(read[f * n:(f + 1) * n], fr["pose"], K)[2]
+             for f, fr in enumerate(frags)]
+    # ICP runs a fragment: n - 1 odometry links and the keyframe pairs
+    icp_runs = n_frag * ((n - 1) + sum(len(range(s + 5, n, 5))
+                                       for s in range(0, n, 5)))
+    errs = [rot_deg(P, np.linalg.inv(poses[f * n]) @ poses[f * n + i])
+            for f, fr in enumerate(frags) for i, P in enumerate(fr["pose"])]
+    out = dict(frames=APPS_FRAMES, hw=list(APPS_HW), fragments=n_frag,
+               grids=[[int(x) for x in g] for g in grids],
+               points=[len(fr["xyz"]) for fr in frags], wall_s=wall,
+               odometry_ms_per_pair=1e3 * seconds["odometry"] / icp_runs,
+               icp_runs=icp_runs,
+               pose_graph_ms_per_fragment=1e3 * seconds["pose_graph"]
+               / n_frag,
+               tsdf_ms_per_frame=1e3 * seconds["tsdf"] / APPS_FRAMES,
+               extract_ms_per_fragment=1e3 * seconds["extract"] / n_frag,
+               peak_memory_bytes=peak,
+               max_pose_err_deg=max(e[0] for e in errs),
+               max_pose_err_m=max(e[1] for e in errs))
+    # a full 256^3 grid: the first fragment's frames at its poses
+    vol_origin = np.asarray(frags[0]["xyz"].min(0) - 0.2, np.float32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    vol = TSDFVolume(vol_origin, (APPS_FULL_GRID,) * 3, 0.02, device=dev)
+    times = []
+    for d, P in zip(read[:n], frags[0]["pose"]):
+        t0 = time.perf_counter()
+        vol.integrate(d, K, np.asarray(P))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    cloud = vol.extract_point_cloud()
+    out["tsdf_full_grid"] = dict(grid=APPS_FULL_GRID, ms_per_frame=1e3 * float(np.mean(times[1:])),
+                           first_frame_ms=1e3 * times[0],
+                           extract_ms=1e3 * (time.perf_counter() - t0),
+                           points=len(cloud),
+                           peak_memory_bytes=torch.cuda.max_memory_allocated())
+    del vol
+    print("apps make_fragments: " + json.dumps(out), flush=True)
+    if n_frag != APPS_FRAMES // APPS_PER_FRAGMENT or min(out["points"]) < 1000:
+        fail(f"apps make_fragments: {n_frag} fragments of {out['points']} "
+             "points")
+    if out["max_pose_err_deg"] > APPS_POSE_TOL_DEG or (
+            out["max_pose_err_m"] > APPS_POSE_TOL_M):
+        fail("apps make_fragments: node poses off the rendered trajectory")
+    return out, frags
+
+
+def trace_summary(prof, wall_s, top=6):
+    """A profiled span's wall and device-busy ms (the device's own
+    entries, as scripts/profile_torch_request.py sums them), its launch
+    and sync calls, and its largest kernels by device time."""
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in events if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)),
+                  reverse=True)
+    count = lambda *keys: sum(e.count for e in events if e.key in keys)
+    return dict(
+        wall_ms=1e3 * wall_s, busy_ms=sum(r[0] for r in rows) / 1e3,
+        launch_calls=count("cudaLaunchKernel", "cuLaunchKernel",
+                           "cudaLaunchKernelExC", "cuLaunchKernelEx"),
+        sync_calls=count("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                         "cudaMemcpyAsync", "cudaMemcpy"),
+        top=[(k[:60], n, round(us / 1e3, 4)) for us, n, k in rows[:top]])
+
+
+def apps_odometry_trace(dev, depths, tmp):
+    """One frame pair's odometry (normals, ICP, the host's overlap check)
+    under the profiler, after a warm-up pair: where its time goes."""
+    import os
+
+    from gmf_tpu_torch.apps import make_fragments as mf
+    from gmf_tpu_torch.utils import profiling
+
+    K = apps_intrinsics()
+    clouds = [mf.depth_to_cloud(d, K, seed=i) for i, d in
+              enumerate(depths[:3])]
+    mf.rgbd_odometry(clouds[0], clouds[1], device=dev)  # warm-up
+    with profiling.trace(os.path.join(tmp, "odometry_trace")) as prof:
+        t0 = time.perf_counter()
+        with profiling.annotation("odometry"):
+            mf.rgbd_odometry(clouds[1], clouds[2], device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = trace_summary(prof, wall)
+    print("apps odometry pair traced: " + json.dumps(out), flush=True)
+    return out
+
+
+def multiway_first_sample(root, dev):
+    """The first pair's sample as multiway_cli builds it from the written
+    tree (its voxel, ``RandomState(0)`` draws, FPFH on ``dev`` and
+    matching), and the seconds of its two stages."""
+    from gmf_tpu_torch.data.correspondence import build_correspondences
+    from gmf_tpu_torch.data.redwood import RedwoodDataset
+    from gmf_tpu_torch.ops.fpfh import compute_fpfh
+    from gmf_tpu_torch.sparse.voxelize import sparse_quantize
+
+    ds = RedwoodDataset(root, APPS_SCENE)
+    rng = np.random.RandomState(0)
+    prep = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in (0, 1):
+        xyz = ds[i]["xyz"]
+        _, sel = sparse_quantize(xyz, 0.05)
+        pts = xyz[sel].astype(np.float32)
+        if len(pts) > APPS_NODES:  # multiway_cli's --num-node
+            pts = pts[rng.choice(len(pts), APPS_NODES, replace=False)]
+        prep.append((pts, compute_fpfh(torch.as_tensor(pts, device=dev),
+                                       0.1, feature_radius=0.25
+                                       ).cpu().numpy()))
+    fpfh_s = time.perf_counter() - t0
+    sample = build_correspondences(prep[0][0], prep[1][0], prep[0][1],
+                                   prep[1][1], np.eye(4, dtype=np.float32),
+                                   0.1, use_mutual=False)
+    corr_s = time.perf_counter() - t0 - fpfh_s
+    for k in ("p_image", "q_image"):
+        sample[k] = np.full((120, 160, 3), 0.5, np.float32)
+    return sample, dict(voxelize_and_fpfh_ms_two_fragments=1e3 * fpfh_s,
+                        correspondences_ms=1e3 * corr_s)
+
+
+def apps_multiway(dev, root, frags, poses, tmp):
+    """multiway_cli through the registrar (launches asserted) and on
+    RANSAC, with a ground-truth trajectory. On the first pair's sample,
+    rebuilt as multiway_cli builds it: the card's registrar gives the
+    command line's node pose within APPS_LINK_TOL, and the checkpoint's
+    model in f32 through the kernels agrees with a copy on the CPU
+    through the plain versions (phase 5's f32 bounds); a profiler trace
+    of one registrar call."""
+    import os
+
+    from gmf_tpu_torch.apps import multiway_cli
+    from gmf_tpu_torch.apps.multiway import write_trajectory
+    from gmf_tpu_torch.eval.registration import PointDSCRegistrar
+    from gmf_tpu_torch.ops import _build
+    from gmf_tpu_torch.utils import profiling
+    from gmf_tpu_torch.utils.model_io import load_pointdsc
+
+    n = APPS_PER_FRAGMENT
+    gt = [np.linalg.inv(poses[0]) @ poses[f * n] for f in range(len(frags))]
+    write_trajectory(os.path.join(root, APPS_SCENE, "gt.log"),
+                     [((i, i, len(gt)), P) for i, P in enumerate(gt)])
+    ckpt = write_eval_checkpoint(dev, os.path.join(tmp, "pointdsc"))
+    forwards = len(frags) - 1  # consecutive pairs; no loop closure at 2
+    out, node1 = {}, {}
+    for name, extra in (("pointdsc", ["--checkpoint", ckpt]),
+                        ("ransac", [])):
+        argv = ["--root", root, "--scene", APPS_SCENE, "--num-node",
+                str(APPS_NODES), "--out",
+                os.path.join(tmp, f"traj_{name}.log"), *extra]
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = multiway_cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: _build.launches[k] for k in KERNELS}
+        check_launches(f"multiway_cli {name}", launches,
+                       _F32_CACHE if name == "pointdsc" else {}, forwards)
+        out[name] = dict(seconds=seconds, ate_m=res["ate"],
+                         launches={k: v for k, v in launches.items() if v})
+        node1[name] = res["poses"][1]
+        if res["ate"] is None or not math.isfinite(res["ate"]):
+            fail(f"multiway_cli {name}: no finite ATE ({res['ate']})")
+    sample, out["prep"] = multiway_first_sample(root, dev)
+    reg = multiway_cli.make_registrar(ckpt, dev)
+    T = reg(sample)[0]  # and the trace's warm-up
+    link = float(np.abs(node1["pointdsc"] - np.linalg.inv(
+        np.asarray(T, np.float64))).max())
+    # one registrar call traced
+    log_dir = os.path.join(tmp, "trace")
+    _build.reset_launches()
+    with profiling.trace(log_dir, annotate="multiway_registrar") as prof:
+        t0 = time.perf_counter()
+        reg(sample)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    names = {e.key for e in prof.key_averages()}
+    seen = {k: any(k in nm for nm in names) for k in TRACE_KERNELS}
+    out["trace"] = dict(files=os.listdir(log_dir), kernels=seen,
+                        launches={k: v for k, v in _build.launches.items()
+                                  if v},
+                        memory=profiling.device_memory_stats(dev),
+                        **trace_summary(prof, wall))
+    model32 = load_pointdsc(ckpt, device=dev, fused_attention=True,
+                            dtype=torch.float32)
+    T32, lab32 = PointDSCRegistrar(model32)(sample)
+    T_cpu, lab_cpu = PointDSCRegistrar(
+        copy.deepcopy(model32).to("cpu"))(sample)
+    del model32
+    out["first_pair"] = dict(
+        correspondences=len(sample["src_keypts"]),
+        cli_node_vs_registrar=link, link_tolerance=APPS_LINK_TOL,
+        f32_card_vs_cpu_max_trans_err=float(np.abs(T32 - T_cpu).max()),
+        f32_label_agreement=float((lab32 == lab_cpu).mean()))
+    print("apps multiway_cli: " + json.dumps(out), flush=True)
+    if link > APPS_LINK_TOL:
+        fail(f"multiway_cli: node 1 lies {link} from the card registrar's "
+             "transform on the pair it registers")
+    first = out["first_pair"]
+    if first["f32_card_vs_cpu_max_trans_err"] > 1e-3 or (
+            first["f32_label_agreement"] < 0.99):
+        fail("multiway_cli's pair in f32 through the kernels disagrees "
+             "with the plain versions on the CPU")
+    if not all(seen.values()) or len(out["trace"]["files"]) != 1:
+        kernels = sorted(nm[:80] for nm in names if any(
+            w in nm for w in ("compat", "nms", "seed", "hypothesis")))
+        fail(f"apps: the registrar's trace misses a kernel: {seen}; "
+             f"launched {out['trace']['launches']}; kernels it names "
+             f"{kernels}")
+    return out
+
+
+def apps_tools(dev, tmp):
+    """precompute_descriptors and build_kitti_pairs (FPFH and FCGF) on
+    phase 8's trees, numerics_study at its defaults."""
+    import os
+
+    from gmf_tpu_torch.tools import (build_kitti_pairs, numerics_study,
+                                     precompute_descriptors)
+    from gmf_tpu_torch.utils.checkpoint import save_checkpoint
+
+    fix = write_dgr_fixtures(os.path.join(tmp, "dgr_data"),
+                             np.random.RandomState(SEED + 60))
+    ckpt = {}
+    for kitti in (False, True):
+        ckpt[kitti] = save_checkpoint(
+            os.path.join(tmp, f"fcgf_{int(kitti)}"), dgr_nets(kitti)[0])
+    out = {}
+
+    def check(name, path, keys, width):
+        data = np.load(path)
+        for k in keys:
+            f = data[k]
+            norms = np.linalg.norm(f, axis=1)
+            if f.shape[1] != width or not np.isfinite(f).all() or not (
+                    np.abs(norms - 1) < 1e-3).mean() > 0.99:
+                fail(f"apps {name}: {k} of shape {f.shape}, not unit rows")
+        return {k: list(data[k].shape) for k in data.files}
+
+    for desc, extra in (("fpfh", []), ("fcgf", ["--checkpoint",
+                                                ckpt[False]])):
+        t0 = time.perf_counter()
+        written = precompute_descriptors.main(
+            ["--root", fix["threedmatch"], "--descriptor", desc, *extra])
+        seconds = time.perf_counter() - t0
+        if len(written) != 2:
+            fail(f"apps precompute_descriptors {desc}: wrote {written}")
+        out[f"precompute_{desc}"] = dict(
+            seconds=seconds, shapes=check(f"precompute {desc}", written[0],
+                                          ["feature"],
+                                          33 if desc == "fpfh" else 32))
+    for desc, extra in (("fpfh", []), ("fcgf", ["--fcgf-checkpoint",
+                                                ckpt[True]])):
+        t0 = time.perf_counter()
+        written = build_kitti_pairs.main(
+            ["--root", fix["kitti"], "--out", os.path.join(tmp, "kitti_pairs"),
+             "--split", "test", "--descriptor", desc, *extra])
+        seconds = time.perf_counter() - t0
+        if len(written) != 1:
+            fail(f"apps build_kitti_pairs {desc}: wrote {written}")
+        out[f"kitti_pairs_{desc}"] = dict(
+            seconds=seconds, shapes=check(
+                f"kitti pairs {desc}", written[0], ["features0", "features1"],
+                33 if desc == "fpfh" else 32))
+    study = numerics_study.main([])
+    out["numerics_study"] = study
+    if study["eig_median_cos"] < 0.999 or (
+            study["kabsch_median_rot_diff"] > 1e-4):
+        fail("apps numerics_study: power iteration or the quaternion Kabsch "
+             "off the library's")
+    print("apps tools: " + json.dumps(
+        {k: v for k, v in out.items() if k != "numerics_study"}), flush=True)
+    return out
+
+
+def apps_phase(dev, phase_done):
+    """Phase 11: the reconstruction apps and the tools on the card."""
+    import os
+    import tempfile
+
+    torch.set_num_threads(8)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ddir, depths, poses = write_rgbd_sequence(tmp, dev)
+        out["tsdf_card_vs_cpu"] = apps_tsdf_card_vs_cpu(dev, depths, poses)
+        root = os.path.join(tmp, "redwood")
+        out["make_fragments"], frags = apps_make_fragments(
+            dev, ddir, depths, poses,
+            os.path.join(root, APPS_SCENE, "fragments"))
+        out["make_fragments"]["odometry_trace"] = apps_odometry_trace(
+            dev, depths, tmp)
+        phase_done("apps_fragments")
+        out["multiway_cli"] = apps_multiway(dev, root, frags, poses, tmp)
+        phase_done("apps_multiway")
+        out["tools"] = apps_tools(dev, tmp)
+        phase_done("apps_tools")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the result JSON here")
@@ -5046,6 +5545,10 @@ def main():
     # 10. the model zoo, the converters, the classical baselines (no TPU
     # kernel on these paths either)
     paths["zoo_baselines"] = zoo_baselines_phase(dev, phase_done, card)
+
+    # 11. the reconstruction apps and the tools (the registrar multiway_cli
+    # serves is the main path's; no other kernel on these paths)
+    paths["apps"] = apps_phase(dev, phase_done)
     rows["nms_local_max"].update({
         f"lomatch_n{LOMATCH_BUCKET}_{k}": v
         for k, v in paths["eval"]["3dlomatch"]["nms"].items()

@@ -9,7 +9,9 @@ fallback). The port's machines need neither, so both are done here:
   what ``mpimg.imread`` returns for a PNG: float32 in [0, 1], [H, W] for
   gray and [H, W, 3 or 4] otherwise. As there (matplotlib reads through
   Pillow), gray+alpha comes back as RGBA and 16-bit colour as its high
-  byte over 255; 16-bit gray is over 65535.
+  byte over 255; 16-bit gray is over 65535. With ``raw=True`` it returns
+  the stored samples instead (uint8 or uint16, [H, W] for gray, [H, W,
+  samples a pixel] otherwise): a 16-bit depth frame in its own units.
 - ``resize_bilinear``: cv2's ``INTER_LINEAR``: half-pixel centres, edge
   samples clamped, no antialiasing. Float images as float32, uint8 images
   with cv2's 11-bit fixed-point weights, rounded, returned as float32 of
@@ -87,9 +89,10 @@ def _unfilter(raw: bytes, h: int, row_bytes: int, bpp: int) -> np.ndarray:
     return out
 
 
-def read_png(path: str) -> np.ndarray:
-    """Decode the PNG at ``path`` as ``mpimg.imread`` does (module
-    docstring). Raises ValueError on a file it does not decode."""
+def read_png(path: str, raw: bool = False) -> np.ndarray:
+    """Decode the PNG at ``path`` as ``mpimg.imread`` does, or with
+    ``raw`` as its stored samples (module docstring). Raises ValueError
+    on a file it does not decode."""
     with open(path, "rb") as f:
         blob = f.read()
     if blob[:8] != _PNG_SIGNATURE:
@@ -117,6 +120,10 @@ def read_png(path: str) -> np.ndarray:
     nbytes = depth // 8
     rows = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch * nbytes,
                      ch * nbytes).reshape(h, w, ch, nbytes)
+    if raw:
+        samples = (rows[..., 0].astype(np.uint16) << 8 | rows[..., 1]
+                   if depth == 16 else rows[..., 0])
+        return samples[..., 0] if ctype == 0 else samples
     if depth == 16 and ctype == 0:
         gray = rows[..., 0].astype(np.uint16) << 8 | rows[..., 1]
         return gray[..., 0].astype(np.float32) / np.float32(65535)

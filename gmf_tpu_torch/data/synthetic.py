@@ -86,3 +86,70 @@ class SyntheticCorrespondenceLoader:
 
     def __len__(self):
         return self.steps_per_epoch
+
+
+# -- a synthetic RGB-D room ---------------------------------------------------
+#
+# Not in gmf_tpu (its tests render a bumpy wall): a room of 6 x 3 x 5.5 m
+# (camera axes: x right, y down, z forward) holding boxes and spheres, seen
+# by a camera that drifts and turns slowly, as a hand-held Redwood/ICL-NUIM
+# sequence does, for the reconstruction apps' checks at full frame size.
+ROOM_LO = np.array([-3.0, -1.5, -2.5])
+ROOM_HI = np.array([3.0, 1.5, 3.0])
+ROOM_BOXES = (((-1.6, 0.6, 1.2), (-0.6, 1.5, 2.2)),
+              ((0.4, -0.2, 2.2), (1.4, 1.5, 3.0)),
+              ((1.8, 0.9, 0.2), (3.0, 1.5, 1.2)),
+              ((-3.0, -0.4, 0.5), (-2.4, 0.6, 1.6)))
+ROOM_SPHERES = (((-0.2, 0.9, 1.6), 0.35), ((1.9, -0.4, 2.6), 0.5),
+                ((-1.8, -0.9, 2.5), 0.4), ((0.9, 1.1, 0.9), 0.3))
+
+
+def room_pose(i: int) -> np.ndarray:
+    """Camera-to-world pose of frame ``i``: 1.5 cm a frame along x, 0.5 cm
+    along z, a yaw of 0.006 rad and a pitch swing of +-0.05 rad."""
+    yaw, pitch = 0.006 * i, 0.05 * np.sin(i / 7.0)
+    cy, sy, cp, sp = np.cos(yaw), np.sin(yaw), np.cos(pitch), np.sin(pitch)
+    R_yaw = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+    R_pitch = np.array([[1, 0, 0], [0, cp, -sp], [0, sp, cp]])
+    T = np.eye(4)
+    T[:3, :3] = R_yaw @ R_pitch
+    T[:3, 3] = [-0.6 + 0.015 * i, 0.0, -0.8 + 0.005 * i]
+    return T
+
+
+def render_room_depth(cam_to_world: np.ndarray, intrinsics: np.ndarray,
+                      hw, device="cpu") -> np.ndarray:
+    """z-depth [H, W] float32 metres of the room (walls, boxes, spheres)
+    from one camera pose, by exact ray casting in f64 on ``device``."""
+    import torch
+
+    H, W = hw
+    K = intrinsics
+
+    def t64(x):
+        return torch.as_tensor(np.asarray(x, np.float64), device=device)
+
+    v, u = torch.meshgrid(torch.arange(H, dtype=torch.float64, device=device),
+                          torch.arange(W, dtype=torch.float64, device=device),
+                          indexing="ij")
+    d = torch.stack([(u - K[0, 2]) / K[0, 0], (v - K[1, 2]) / K[1, 1],
+                     torch.ones_like(u)], -1) @ t64(cam_to_world[:3, :3]).T
+    o = t64(cam_to_world[:3, 3])
+    inv = 1.0 / d  # +-inf along an axis the ray does not move on
+    # the room's walls from inside: the nearest exit
+    t = torch.where(d > 0, (t64(ROOM_HI) - o) * inv,
+                    (t64(ROOM_LO) - o) * inv).amin(-1)
+    for lo, hi in ROOM_BOXES:
+        t1, t2 = (t64(lo) - o) * inv, (t64(hi) - o) * inv
+        near = torch.minimum(t1, t2).amax(-1)
+        far = torch.maximum(t1, t2).amin(-1)
+        t = torch.where((far >= near) & (near > 0), torch.minimum(t, near), t)
+    a = (d * d).sum(-1)
+    for c, r in ROOM_SPHERES:
+        oc = o - t64(c)
+        b = (d * oc).sum(-1)
+        disc = b * b - a * ((oc * oc).sum() - r * r)
+        hit = (-b - torch.sqrt(torch.clamp(disc, min=0.0))) / a
+        t = torch.where((disc > 0) & (hit > 0), torch.minimum(t, hit), t)
+    # the camera ray has z = 1: t is the z-depth
+    return t.to(torch.float32).cpu().numpy()

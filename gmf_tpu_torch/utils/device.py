@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -47,3 +47,23 @@ def timed_stage(seconds: Optional[Dict[str, float]], name: str, device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+
+
+def time_ms(fn: Callable[[], torch.Tensor], device, reps: int = 10) -> float:
+    """ms a call of ``fn`` after one warm-up: CUDA events on the card,
+    the host clock on the CPU."""
+    fn()
+    if device.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize(device)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize(device)
+        return start.elapsed_time(end) / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3

@@ -34,6 +34,7 @@ from gmf_tpu_torch.ops.fused_seed_solver import (fused_seed_transforms,
                                                  fused_seed_weights_plain)
 from gmf_tpu_torch.ops.fused_topk import KERNELS as KNN_KERNELS
 from gmf_tpu_torch.ops.fused_topk import seed_knn_topk, seed_knn_topk_plain
+from torch_apps_fixtures import apart_only_at_edges, edge_voxels
 
 pytestmark = pytest.mark.cuda
 
@@ -1276,3 +1277,64 @@ def test_zoo_baselines_phase(cuda):
     out = chip_smoke.zoo_baselines_phase(cuda, lambda name: None)
     assert set(out["baselines"]) >= {"SM", "PMC", "RANSAC", "GCRANSAC"}
     assert set(out["baseline_eval"]) == {"SM", "PMC", "RANSAC", "GCRANSAC"}
+
+
+# -- the reconstruction apps: the TSDF volume and make_fragments on the card
+# against the CPU, on the port's synthetic room (data/synthetic.py)
+# rendered at 160 x 120. A voxel whose projection lies within 1e-4 px of a
+# .5 pixel edge may gather the neighbouring pixel on one device
+# (tests/torch_apps_fixtures.py); elsewhere weights are equal and tsdf
+# within 1e-5 (the card divides by the truncation as a product with its
+# reciprocal).
+
+def _room(n, hw=(120, 160)):
+    from gmf_tpu_torch.apps.make_fragments import PRIMESENSE
+    from gmf_tpu_torch.data.synthetic import render_room_depth, room_pose
+
+    K = PRIMESENSE.copy()
+    K[:2] *= hw[1] / 640
+    poses = [room_pose(i) for i in range(n)]
+    return [render_room_depth(p, K, hw) for p in poses], poses, K
+
+
+def test_apps_tsdf_card_vs_cpu(cuda):
+    from gmf_tpu_torch.apps.tsdf import TSDFVolume
+
+    depths, poses, K = _room(3)
+    origin, voxel, D = np.array([-2.4, -1.5, -0.4], np.float32), 0.12, 32
+    vols = []
+    for dev in (cuda, "cpu"):
+        vol = TSDFVolume(origin, (D, D, D), voxel, device=dev)
+        for d, p in zip(depths, poses):
+            vol.integrate(d, K, p)
+        vols.append(vol)
+    assert vols[0].tsdf.is_cuda and vols[0].weight.is_cuda
+    ijk = np.stack(np.meshgrid(*[np.arange(D)] * 3, indexing="ij"), -1)
+    edge = edge_voxels(((ijk + 0.5) * voxel + origin).reshape(-1, 3),
+                        poses, K).reshape(D, D, D)
+    w, w_cpu = vols[0].weight.cpu().numpy(), vols[1].weight.numpy()
+    t, t_cpu = vols[0].tsdf.cpu().numpy(), vols[1].tsdf.numpy()
+    assert (w_cpu > 0).sum() > 1000
+    np.testing.assert_array_equal(w[~edge], w_cpu[~edge])
+    np.testing.assert_allclose(t[~edge], t_cpu[~edge], rtol=0, atol=1e-5)
+    apart_only_at_edges(vols[0].extract_point_cloud(),
+                         vols[1].extract_point_cloud(), poses, K)
+
+
+def test_apps_make_fragments_card_vs_cpu(cuda, tmp_path):
+    """6 frames in 2 fragments at 5 cm: node poses within 1e-4 (ICP in f32
+    on both), the fragment clouds apart only at pixel edges."""
+    from gmf_tpu_torch.apps.make_fragments import make_fragments
+
+    depths, _, K = _room(6)
+    kw = dict(n_frames_per_fragment=3, n_keyframes_per_n_frame=2,
+              voxel_size=0.05)
+    card = make_fragments(depths, K, str(tmp_path / "card"), device=cuda,
+                          **kw)
+    cpu = make_fragments(depths, K, str(tmp_path / "cpu"), device="cpu",
+                         **kw)
+    for a, b in zip(card, cpu):
+        for Pa, Pb in zip(a["pose"], b["pose"]):
+            np.testing.assert_allclose(Pa, Pb, rtol=0, atol=1e-4)
+        apart_only_at_edges(a["xyz"], b["xyz"], b["pose"], K)
+        assert len(a["xyz"]) > 1000

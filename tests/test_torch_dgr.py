@@ -314,36 +314,56 @@ def test_engine_refuses_what_is_not_ported():
 def _bin_flips_explained(pts, radius_n, radius_f):
     """Every SPFH bin that differs between the packages' own normals is on
     an edge (module docstring); returns (flips, pairs)."""
+    flips, _, valid, _ = _spfh_flips(pts, radius_n, radius_f)
+    return int(flips.sum()), int(valid.sum())
+
+
+@jax.jit
+def _jax_pair_bins(J, nj, ij):
+    """gmf_tpu's SPFH bins of each pair, computed under jit as its jitted
+    fpfh_features computes them (XLA may divide by a constant range as a
+    product with its reciprocal, which moves a value on an edge into the
+    other bin; eager ops would not show it)."""
+    N, k = ij.shape
+    f = jfpfh._pair_features(jnp.broadcast_to(J[:, None], (N, k, 3)),
+                             jnp.broadcast_to(nj[:, None], (N, k, 3)),
+                             J[ij], nj[ij])
+    return [jnp.clip(((v - lo) / (hi - lo) * 11).astype(jnp.int32), 0, 10)
+            for v, (lo, hi) in zip(f[:3], ((-1.0, 1.0), (-1.0, 1.0),
+                                           (-jnp.pi, jnp.pi)))]
+
+
+def _spfh_flips(pts, radius_n, radius_f):
+    """The SPFH bins that differ between the packages' own normals, each
+    asserted on an edge (module docstring): (flips [N], the count in each
+    point's SPFH; the port's feature neighbourhoods idx [N, k], valid
+    [N, k] and dist [N, k] as NumPy)."""
     P, J = _t(pts), jnp.asarray(pts)
     nt = fpfh.estimate_normals(P, radius_n, 30)
     nj = jfpfh.estimate_normals(J, radius_n, 30)
     np.testing.assert_allclose(nt.numpy(), np.asarray(nj), atol=1e-5)
-    idx, valid, _ = fpfh._radius_knn(P, radius_f, 100)
+    idx, valid, dist = fpfh._radius_knn(P, radius_f, 100)
     N, k = idx.shape
     ft = fpfh._pair_features(P[:, None].expand(N, k, 3),
                              nt[:, None].expand(N, k, 3), P[idx], nt[idx])
     ij = np.asarray(idx)
-    fj = jfpfh._pair_features(jnp.broadcast_to(J[:, None], (N, k, 3)),
-                              jnp.broadcast_to(nj[:, None], (N, k, 3)),
-                              J[ij], nj[ij])
+    bins_j = _jax_pair_bins(J, nj, jnp.asarray(ij))
     p2 = pts[ij] - pts[:, None]
     dh = p2 / np.linalg.norm(p2, axis=-1, keepdims=True)
     n1, n2 = np.asarray(nj)[:, None], np.asarray(nj)[ij]
     swap_tie = np.abs(np.abs((n1 * dh).sum(-1)) - np.abs((n2 * dh).sum(-1)))
     v = valid.numpy()
-    flips = 0
-    for a, b, (lo, hi) in zip(ft[:3], fj[:3], ((-1, 1), (-1, 1),
-                                               (-math.pi, math.pi))):
-        a, b = a.numpy(), np.asarray(b)
+    flips = np.zeros(N, np.int64)
+    for a, bb, (lo, hi) in zip(ft[:3], bins_j, fpfh.BIN_RANGES):
+        a = a.numpy()
         pos = (a - lo) / (hi - lo) * 11
         ba = np.clip(pos.astype(np.int32), 0, 10)
-        bb = np.clip(((b - lo) / (hi - lo) * 11).astype(np.int32), 0, 10)
-        diff = (ba != bb) & v
+        diff = (ba != np.asarray(bb)) & v
         on_edge = np.abs(pos - np.round(pos)) < 1e-4 * 11 / (hi - lo)
         branch_cut = (hi == math.pi) & (np.abs(np.abs(a) - math.pi) < 1e-4)
         assert np.all((on_edge | branch_cut | (swap_tie < 1e-5))[diff])
-        flips += int(diff.sum())
-    return flips, int(v.sum())
+        flips += diff.sum(1)
+    return flips, ij, v, dist.numpy()
 
 
 def test_fpfh_against_gmf_tpu_and_golden():

@@ -122,6 +122,28 @@ def test_no_jax_checks_cover_the_zoo_and_baselines(path):
         gmf_tpu_torch.__path__, "gmf_tpu_torch.")}
 
 
+# the reconstruction apps, the tools and the utilities of ROADMAP item 6's
+# first two entries, likewise
+APPS_AND_TOOLS = (
+    "apps/__init__.py", "apps/multiway.py", "apps/tsdf.py",
+    "apps/make_fragments.py", "apps/multiway_cli.py", "data/redwood.py",
+    "data/camera.py", "tools/analyze_stats.py", "tools/build_kitti_pairs.py",
+    "tools/numerics_study.py", "tools/precompute_descriptors.py",
+    "utils/logging_utils.py", "utils/profiling.py", "utils/timer.py")
+
+
+@pytest.mark.parametrize("path", APPS_AND_TOOLS)
+def test_no_jax_checks_cover_the_apps_and_tools(path):
+    assert (ROOT / "gmf_tpu_torch" / path) in set(
+        (ROOT / "gmf_tpu_torch").rglob("*.py"))
+    name = "gmf_tpu_torch." + path[:-3].replace("/", ".")
+    if name.endswith(".__init__"):
+        name = name[:-len(".__init__")]
+    assert name in {m.name for m in pkgutil.walk_packages(
+        gmf_tpu_torch.__path__, "gmf_tpu_torch.")}
+    assert (ROOT / "gmf_tpu" / path).exists()
+
+
 def test_wrappers_take_plain_version_only_on_cpu():
     x = torch.zeros(1, 4, 32, device="meta")
     kp = torch.zeros(1, 4, 3, device="meta")
