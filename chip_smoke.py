@@ -258,7 +258,32 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
     - precompute_descriptors (FPFH and FCGF) on phase 8's 3DMatch tree,
       build_kitti_pairs (FPFH and FCGF) on its KITTI sequence, and
       numerics_study at its defaults on the card.
-12. Print the seconds of each phase as it ends, a JSON line with every
+12. gmf_tpu_torch.parallel on the card (parallel_phase), no kernel row:
+    worlds of ranks spawned by parallel/launch.py, every check inside
+    one world, the one-rank references on rank 0 of it, on the same
+    card. Two ranks sharing the card (gloo; all-gathers and ring hops
+    staged through the host), at full width:
+    - the registrar over the mesh, 64 pairs x 5000 with the int8 cache,
+      against one rank: f32 modules within phase 5's limits (transform
+      1e-3, labels 99%) on every pair, bf16 modules (the bench default)
+      on the pairs where the same seed won (bf16_slice_check's rule);
+    - the ring model, f32, one pair of 20480 (test_3dlomatch --num-node
+      all's size): two ranks against a one-rank ring, 2e-4 on the
+      transform and 2e-3 on the confidence (tests/test_ring_model.py),
+      and its distance from the fused model printed beside;
+    - Trainer over the mesh, 16 x 1000, "auto", f32: the loss within
+      1e-4 relative of one rank's, and both steps inside phase 5's leaf
+      check against the f64 step (leaf_check);
+    - train_step_dp of 4 pairs at phase 9's scale: the loss within 1e-5
+      relative of one rank's, the updates within 2e-3 of each leaf's
+      update scale (tests/test_dgr_dp.py's limits).
+    A one-rank NCCL world runs the collectives and the bf16 request;
+    with two or more cards a NCCL world over min(count, 4) of them runs
+    every check. Each world prints its backend, ranks and staging, each
+    check every rank's launches. Then test_3dmatch --mesh and
+    test_3dlomatch --ring (--num-node all) on phase 7's trees: N = 1
+    here (launches asserted), and 2 with two cards.
+13. Print the seconds of each phase as it ends, a JSON line with every
     path's time per request or step, a JSON
     line with every kernel's launches, time, plain time, bound and error,
     and, as the last line, {"ok": true, "device": {...}}.
@@ -2103,6 +2128,11 @@ def cpu_reference_steps(model, batch, compat_cache):
     return runs
 
 
+# train_cpu_check's CPU steps of the "auto" training main path, which
+# phase 12's sharded step is held to as well
+CPU_RUNS = {}
+
+
 def leaf_tol(scale, cpu_err):
     """The bound on one parameter's gradient error against the f64 step,
     from its largest f64 entry and the farther f32 CPU step's error on it.
@@ -2133,14 +2163,26 @@ def compare_train_step(model, batch, cpu_runs):
     within 1e-6 of max(1, |p|). Returns the numbers, "ok" among them."""
     from gmf_tpu_torch.train.trainer import TrainConfig, Trainer
 
-    cfg = TrainConfig()
     p0 = {n: p.detach().double().cpu() for n, p in model.named_parameters()}
-    m_gpu = Trainer(model, cfg, [], [], steps_per_epoch=1).train_step(
-        batch, epoch=1)
+    m_gpu = Trainer(model, TrainConfig(), [], [],
+                    steps_per_epoch=1).train_step(batch, epoch=1)
+    return leaf_check(
+        {n: p.grad.double().cpu() for n, p in model.named_parameters()}, p0,
+        {n: p.detach().double().cpu() for n, p in model.named_parameters()},
+        m_gpu, cpu_runs)
+
+
+def leaf_check(gpu_grads, p0, p_new, m_gpu, cpu_runs):
+    """compare_train_step's bounds on a step the card took elsewhere: its
+    gradients, the parameters before and after (dicts by name, f64 on the
+    CPU) and its metrics, against ``cpu_runs``."""
+    from gmf_tpu_torch.train.trainer import TrainConfig
+
+    cfg = TrainConfig()
     _, m_ref, _ = cpu_runs["f64"]
     grads = {name: {n: p.grad.double().cpu() for n, p in m.named_parameters()}
-             for name, m in (("gpu", model),
-                             *((k, r[0]) for k, r in cpu_runs.items()))}
+             for name, m in ((k, r[0]) for k, r in cpu_runs.items())}
+    grads["gpu"] = gpu_grads
     leaves = []
     for n, want in grads["f64"].items():
         scale = want.abs().max().item()
@@ -2158,10 +2200,10 @@ def compare_train_step(model, batch, cpu_runs):
     loosest = max((leaf_tol(r[3], r[4]) / r[3], r[1])
                   for r in leaves if r[3] >= 1e-3 * top)
     adam_err = 0.0
-    for n, p in model.named_parameters():
+    for n, p in p_new.items():
         g = grads["gpu"][n] + cfg.weight_decay * p0[n]
         want = p0[n] - cfg.lr * g / (g.abs() + 1e-8)
-        adam_err = max(adam_err, ((p.detach().double().cpu() - want).abs()
+        adam_err = max(adam_err, ((p - want).abs()
                                   / p0[n].abs().clamp(min=1.0)).max().item())
     loss_err = abs(m_gpu["loss"] - m_ref["loss"]) / abs(m_ref["loss"])
     ok = bool(loss_err <= 1e-4 and worst[0] <= 1.0 and adam_err <= 1e-6
@@ -2197,6 +2239,10 @@ def train_cpu_check(dev, compat_cache, pairs=B_TRAIN, fused_attention=True,
                        num_layers=num_layers)
     batch = next(iter(gpu.train_loader))
     cpu_runs = cpu_reference_steps(gpu.model, batch, compat_cache)
+    if (compat_cache, pairs, fused_attention, num_layers) == (
+            "auto", B_TRAIN, True, 12):
+        # phase 12 holds the sharded step to the same f64 step
+        CPU_RUNS["auto"] = cpu_runs
     mode = (f"compat_cache={compat_cache}" if fused_attention
             else "dense attention") + f", {num_layers} layers"
     out = dict(compat_cache=compat_cache, fused_attention=fused_attention,
@@ -2207,7 +2253,7 @@ def train_cpu_check(dev, compat_cache, pairs=B_TRAIN, fused_attention=True,
     if not out["ok"]:
         fail(f"f32 train step ({mode}) through the kernels disagrees with "
              "the plain versions")
-    del gpu, cpu_runs
+    del gpu
     torch.cuda.empty_cache()
     return out
 
@@ -5366,6 +5412,461 @@ def apps_phase(dev, phase_done):
     return out
 
 
+# -- parallel/: worlds of ranks on the card (phase 12) ---------------------
+#
+# Every check runs on every rank of one spawned world
+# (gmf_tpu_torch/parallel/launch.py); the one-rank references run on rank
+# 0 of the same world, on the same card, with no collective. Limits:
+# the sharded registrar phase 5's (final_trans 1e-3, labels >= 0.99; bf16
+# on the pairs whose winning seed is the same, bf16_slice_check); the
+# ring model gmf_tpu's own against its single-device model
+# (tests/test_ring_model.py: 2e-4 on the transform, 2e-3 on the
+# confidence); the sharded train step the one-rank step's loss within
+# 1e-4 relative and phase 5's leaf rule against the f64 step
+# (leaf_check); train_step_dp gmf_tpu's (tests/test_dgr_dp.py: loss 1e-5
+# relative, updates 2e-3 of each leaf's update scale).
+PAR_RING_N = LOMATCH_BUCKET  # 1 x 20480: test_3dlomatch --num-node all
+PAR_RING_T_TOL, PAR_RING_CONF_TOL = 2e-4, 2e-3
+PAR_TRAIN_LOSS_RTOL = 1e-4
+PAR_DGR_LOSS_RTOL, PAR_DGR_UPDATE_TOL = 1e-5, 2e-3
+PAR_CHECKS = ("collectives", "registrar_bf16", "registrar_f32", "ring",
+              "train", "train_dp")
+PAR_REQUESTS = {}  # a rank's requests, made once for both dtypes
+
+
+def _par_sync_time(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def _par_launches():
+    from gmf_tpu_torch.ops import _build
+
+    return {k: v for k, v in _build.launches.items() if v}
+
+
+def _par_reset():
+    from gmf_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+
+
+def par_collectives(mesh, world):
+    """The world's own collectives once: an all-reduce on the card (NCCL
+    or gloo), an all-gather of rows and a ring hop (staged where the mesh
+    stages)."""
+    import torch.distributed as dist
+
+    from gmf_tpu_torch.parallel.collectives import all_gather_rows, ring_hop
+
+    x = torch.ones(4, device=mesh.device)
+    dist.all_reduce(x)
+    rows = all_gather_rows(torch.full((2, 3), float(mesh.rank),
+                                      device=mesh.device), mesh)
+    hopped = ring_hop(torch.full((5,), float(mesh.rank), device=mesh.device),
+                      mesh)
+    want_rows = torch.arange(world, device=mesh.device).repeat_interleave(2)
+    ok = (bool((x == world).all()) and bool((rows[:, 0] == want_rows).all())
+          and float(hopped[0]) == (mesh.rank - 1) % world)
+    if not ok:
+        raise AssertionError(f"collectives on rank {mesh.rank}: {x}, "
+                             f"{rows[:, 0]}, {hopped[0]}")
+    return dict(ok=ok)
+
+
+def par_registrar(mesh, dtype, one_rank):
+    """64 x 5000 with the int8 cache through the registrar over the mesh
+    (one warm-up request, one compared and timed); on rank 0 the same
+    model behind a one-rank registrar, likewise, and once more in
+    requests of a rank's share (64 / n_data pairs: the ranks' own GEMM
+    shapes, which cuBLAS may round otherwise than 64 pairs'). The winning
+    seed of every pair is recorded (winning_correspondences; its NMS
+    launch counts among the forward's)."""
+    from gmf_tpu_torch.eval.registration import PointDSCRegistrar
+
+    if "requests" not in PAR_REQUESTS:
+        PAR_REQUESTS["requests"] = make_requests(B_MAIN)
+    warm, req = PAR_REQUESTS["requests"][2], PAR_REQUESTS["requests"][0]
+    reg = make_registrar(mesh.device, dtype, "int8")
+    won = []
+    hook = winning_correspondences(reg.model, won)
+    sharded = PointDSCRegistrar(reg.model, mesh=mesh, buckets=(N,))
+    sharded.register_batch(warm)
+    won.clear()
+    _par_reset()
+    got, seconds = _par_sync_time(lambda: sharded.register_batch(req))
+    out = dict(seconds=seconds, launches=_par_launches(), won=list(won),
+               shards=sharded.model.compat_cache_shards)
+    if one_rank:
+        single = PointDSCRegistrar(reg.model, buckets=(N,))
+        single.register_batch(warm)
+        won.clear()
+        ref, out["one_rank_seconds"] = _par_sync_time(
+            lambda: single.register_batch(req))
+        out.update(results=got, ref=ref, ref_won=list(won))
+        won.clear()
+        per = len(req) // mesh.n_data
+        out["split"] = [r for i in range(0, len(req), per)
+                        for r in single.register_batch(req[i:i + per])]
+        out["split_won"] = list(won)
+    hook.remove()
+    return out
+
+
+def par_ring(mesh, one_rank):
+    """The full-width f32 model with ring attention over the mesh on one
+    pair of PAR_RING_N correspondences (a warm-up call, a timed one); on
+    rank 0 the same model on a one-rank ring and with the fused kernels
+    (the default modes: "auto" takes the int8 cache at 1 x 20480)."""
+    from gmf_tpu_torch.data.synthetic import make_correspondence_problem
+    from gmf_tpu_torch.models import PointDSC
+    from gmf_tpu_torch.parallel.mesh import Mesh
+
+    prob = make_correspondence_problem(
+        np.random.RandomState(SEED + 12), num_corr=PAR_RING_N,
+        inlier_ratio=0.4, image_hw=IMAGE_HW, batch=1)
+    args = [torch.as_tensor(prob[k]).to(mesh.device) for k in (
+        "corr_pos", "src_keypts", "tgt_keypts", "p_image", "q_image")]
+    model = PointDSC(num_layers=12, num_channels=128, k=40, ratio=0.1,
+                     dtype=torch.float32, device=mesh.device, seed=SEED)
+
+    def run(ring_mesh):
+        model.ring_mesh = ring_mesh
+        model(*args, testing=True)
+        _par_reset()
+        res, seconds = _par_sync_time(lambda: model(*args, testing=True))
+        return dict(final_trans=res["final_trans"].cpu().numpy(),
+                    confidence=res["confidence"].cpu().numpy(),
+                    seconds=seconds, launches=_par_launches(),
+                    peak_memory_bytes=torch.cuda.max_memory_allocated())
+
+    torch.cuda.reset_peak_memory_stats()
+    out = dict(ring=run(mesh))
+    if one_rank:
+        out["one_rank"] = run(Mesh(1, 1, [mesh.rank], mesh.rank, mesh.device,
+                                   mesh.backend))
+        out["fused"] = run(None)
+    return out
+
+
+def par_train(mesh, one_rank):
+    """The training main path (16 x 1000, "auto", f32, full width) through
+    Trainer over the mesh: the compared step, then a timed one; on rank 0
+    the same on one rank. Returns rank 0's gradients and parameters (f64
+    on the CPU) for leaf_check."""
+    from gmf_tpu_torch.data.synthetic import SyntheticCorrespondenceLoader
+    from gmf_tpu_torch.models import PointDSC
+    from gmf_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    batch = next(iter(SyntheticCorrespondenceLoader(
+        batch_size=B_TRAIN, num_corr=N_TRAIN, steps_per_epoch=1,
+        image_hw=IMAGE_HW, seed=SEED)))
+
+    def run(m):
+        model = PointDSC(num_layers=12, num_channels=128, k=40, ratio=0.1,
+                         sigma_d=0.10, compat_cache="auto",
+                         dtype=torch.float32, device=mesh.device, seed=SEED)
+        p0 = {n: p.detach().double().cpu()
+              for n, p in model.named_parameters()}
+        trainer = Trainer(model, TrainConfig(), [], [], steps_per_epoch=1,
+                          mesh=m)
+        caches = []
+        hook = model.encoder.register_forward_pre_hook(
+            lambda mod, a, kw: caches.append(
+                None if kw.get("compat_cache") is None
+                else str(kw["compat_cache"].dtype)), with_kwargs=True)
+        _par_reset()
+        metrics, seconds = _par_sync_time(
+            lambda: trainer.train_step(batch, epoch=1))
+        launches = _par_launches()
+        grads = {n: p.grad.double().cpu() for n, p in model.named_parameters()}
+        new = {n: p.detach().double().cpu()
+               for n, p in model.named_parameters()}
+        _, seconds2 = _par_sync_time(lambda: trainer.train_step(batch, 2))
+        hook.remove()
+        res = dict(metrics=metrics, seconds=seconds, timed_seconds=seconds2,
+                   launches=launches, caches=caches[:1])
+        if mesh.rank == 0:
+            res.update(grads=grads, p0=p0, new=new)
+        return res
+
+    out = dict(sharded=run(mesh))
+    if one_rank:
+        out["one_rank"] = run(None)
+    return out
+
+
+def par_train_dp(mesh, one_rank):
+    """train_step_dp of DGR_TRAIN_PAIRS pairs at phase 9's scale (its nets,
+    pairs and SGD) over the mesh; on rank 0 the same step on one rank,
+    and the comparison there (the inlier net is too large to send). As
+    tests/test_dgr_dp.py, without the Procrustes term: through arccos at
+    its clip the full loss's gradients are chaotic (a 2-rank step's
+    updates lay 2.1e-3 of a leaf's scale from one rank's, its loss equal
+    in every bit), its losses are not. The card sums the sparse
+    convolutions with atomics, in no fixed order, and ill-conditioned
+    leaves (the image encoder's, whose gradient is what is left after each
+    train-mode batch norm takes out a channel's mean; the fusion layers')
+    magnify that: the same 2-rank step lay 3.05e-3 and then 7.6e-3 of a
+    leaf's update scale from one rank's, the loss 8.5e-8 apart. So the
+    one-rank step runs twice, and each leaf's bound is gmf_tpu's 2e-3 of
+    its update scale or twice the two one-rank steps' own distance on it,
+    whichever is larger (phase 5's rule, leaf_tol), plus two f32 spacings
+    of the leaf's largest parameter (phase 9's rule: an update far below
+    a parameter is read to its spacing; measured, the worst leaf's
+    distance was twice the two one-rank steps' own, 2.95e-3 of its scale,
+    both whole spacings)."""
+    from gmf_tpu_torch.parallel.mesh import Mesh
+
+    spec = DGR_FULL["dgr_3dmatch"]
+    pairs = [dgr_train_pair(SEED + 70 + i, spec["side"], spec["points"],
+                            spec["voxel"]) for i in range(DGR_TRAIN_PAIRS)]
+    mods = dgr_modules(dgr_nets())
+    tr = dgr_trainer(mesh.device, mods, procrustes_loss_weight=0.0)
+    w0 = {n: w.detach().clone() for n, w in tr.inlier.named_parameters()}
+    _par_reset()
+    metrics, seconds = _par_sync_time(lambda: tr.train_step_dp(pairs, mesh))
+    out = dict(metrics=metrics, seconds=seconds)
+    if one_rank:
+        one = Mesh(1, 1, [mesh.rank], mesh.rank, mesh.device, mesh.backend)
+        t1 = dgr_trainer(mesh.device, mods, procrustes_loss_weight=0.0)
+        m1, out["one_rank_seconds"] = _par_sync_time(
+            lambda: t1.train_step_dp(pairs, one))
+        t1b = dgr_trainer(mesh.device, mods, procrustes_loss_weight=0.0)
+        m1b, _ = _par_sync_time(lambda: t1b.train_step_dp(pairs, one))
+        worst, moved = (0.0, "", 0.0, 0.0), 0.0
+        got = dict(tr.inlier.named_parameters())
+        again = dict(t1b.inlier.named_parameters())
+        for n, w in t1.inlier.named_parameters():
+            ue = w.detach() - w0[n]
+            ud = got[n].detach() - w0[n]
+            scale = float(ue.abs().max()) + 1e-8
+            noise = float((again[n].detach() - w0[n] - ue).abs().max())
+            err = float((ud - ue).abs().max())
+            spacing = float(w0[n].abs().max()) * torch.finfo(
+                torch.float32).eps
+            tol = max(PAR_DGR_UPDATE_TOL * scale, 2 * noise) + 2 * spacing
+            worst = max(worst, (err / tol, n, err / scale, noise / scale))
+            moved = max(moved, float(ud.abs().max()))
+        out.update(one_rank=m1, err_over_tol=worst[0], worst_leaf=worst[1],
+                   worst_err_over_scale=worst[2],
+                   worst_one_rank_spread_over_scale=worst[3],
+                   params_moved=moved,
+                   loss_rel_err=abs(metrics["loss"] - m1["loss"])
+                   / abs(m1["loss"]),
+                   one_rank_loss_spread=abs(m1b["loss"] - m1["loss"]))
+        if not (out["loss_rel_err"] <= PAR_DGR_LOSS_RTOL
+                and worst[0] <= 1.0 and moved > 0
+                and metrics["skipped"] == m1["skipped"] == 0.0):
+            raise AssertionError(f"train_step_dp over {mesh.n_data} ranks "
+                                 f"against one rank: {out}")
+    return out
+
+
+def parallel_world(rank, world, checks):
+    """Phase 12 on one rank: the checks named in ``checks`` (PAR_CHECKS),
+    each with its kernels' launches on this rank."""
+    from gmf_tpu_torch.ops import _build
+    from gmf_tpu_torch.parallel.mesh import make_mesh
+
+    _build.load()
+    torch.set_num_threads(max(1, 8 // world))
+    mesh = make_mesh()
+    one_rank = rank == 0 and world > 1
+    out = dict(rank=rank, backend=mesh.backend, staging=mesh.staging,
+               device=str(mesh.device))
+    steps = dict(
+        collectives=lambda: par_collectives(mesh, world),
+        registrar_bf16=lambda: par_registrar(mesh, torch.bfloat16, one_rank),
+        registrar_f32=lambda: par_registrar(mesh, torch.float32, one_rank),
+        ring=lambda: par_ring(mesh, one_rank),
+        train=lambda: par_train(mesh, one_rank),
+        train_dp=lambda: par_train_dp(mesh, one_rank))
+    for name in checks:
+        t0 = time.perf_counter()
+        out[name] = steps[name]()
+        out[name]["check_seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    return out
+
+
+def par_check_registrar(name, results, dtype):
+    """The sharded request (rank 0 returns the whole batch; each rank the
+    winners of its rows) against one rank on the same card: in requests
+    of a rank's share (the same GEMM shapes) under phase 5's rule, f32 on
+    every pair, bf16 on the pairs where the same seed won, at least half
+    of them (bf16_slice_check); and against the whole request of 64, the
+    same bounds on such pairs, their count reported (with bf16 modules
+    cuBLAS's rounding at 64 pairs may move a seed)."""
+    lead = results[0][name]
+    got = lead["results"]
+    won = [w for r in results for w in r[name]["won"]]
+    out = dict(pairs=len(got), ms=1e3 * lead["seconds"],
+               one_rank_ms=1e3 * lead["one_rank_seconds"],
+               shards=lead["shards"],
+               launches=[r[name]["launches"] for r in results])
+    for key, ref, ref_won in (("split", lead["split"], lead["split_won"]),
+                              ("whole", lead["ref"], lead["ref_won"])):
+        held = (list(range(len(ref))) if dtype == torch.float32 else
+                [i for i in range(len(ref)) if won[i] == ref_won[i]])
+        trans_err = max((float(np.abs(got[i][0] - ref[i][0]).max())
+                         for i in held), default=0.0)
+        agree = min((float((got[i][1] == ref[i][1]).mean()) for i in held),
+                    default=1.0)
+        out[key] = dict(held=len(held), max_trans_err=trans_err,
+                        min_label_agreement=agree)
+        if trans_err > 1e-3 or agree < 0.99:
+            print(f"phase 12 {name}: {json.dumps(out)}", flush=True)
+            fail(f"{name}: the sharded registrar disagrees with one rank "
+                 f"({key})")
+    print(f"phase 12 {name}: {json.dumps(out)}", flush=True)
+    if out["split"]["held"] < 0.5 * len(got):
+        fail(f"{name}: another seed won on more than half the pairs")
+    return out
+
+
+def par_check_ring(results):
+    lead = results[0]["ring"]
+    ring, one, fused = lead["ring"], lead["one_rank"], lead["fused"]
+    dt = float(np.abs(ring["final_trans"] - one["final_trans"]).max())
+    dc = float(np.abs(ring["confidence"] - one["confidence"]).max())
+    out = dict(n=PAR_RING_N, max_trans_err=dt, max_confidence_err=dc,
+               ms=1e3 * ring["seconds"], one_rank_ms=1e3 * one["seconds"],
+               fused_ms=1e3 * fused["seconds"],
+               fused_trans_dist=float(np.abs(
+                   ring["final_trans"] - fused["final_trans"]).max()),
+               fused_confidence_dist=float(np.abs(
+                   ring["confidence"] - fused["confidence"]).max()),
+               peak_memory_bytes=[r["ring"]["ring"]["peak_memory_bytes"]
+                                  for r in results],
+               launches=[r["ring"]["ring"]["launches"] for r in results],
+               fused_launches=fused["launches"])
+    print(f"phase 12 ring model 1 x {PAR_RING_N}, f32: {json.dumps(out)}",
+          flush=True)
+    if dt > PAR_RING_T_TOL or dc > PAR_RING_CONF_TOL:
+        fail("ring model over the ranks disagrees with the one-rank ring")
+    return out
+
+
+def par_check_train(results):
+    lead = results[0]["train"]
+    sh, one = lead["sharded"], lead["one_rank"]
+    loss_err = abs(sh["metrics"]["loss"] - one["metrics"]["loss"]) / abs(
+        one["metrics"]["loss"])
+    out = dict(loss=sh["metrics"]["loss"], one_rank_loss=one["metrics"][
+        "loss"], loss_rel_err=loss_err, caches=sh["caches"],
+        ms=1e3 * sh["timed_seconds"], one_rank_ms=1e3 * one["timed_seconds"],
+        launches=[r["train"]["sharded"]["launches"] for r in results])
+    runs = CPU_RUNS.get("auto")
+    if runs is None:
+        fail("phase 12 needs phase 5's f64 step of the training main path")
+    for name, r in (("sharded", sh), ("one_rank", one)):
+        chk = leaf_check(r["grads"], r["p0"], r["new"], r["metrics"], runs)
+        out[f"{name}_vs_f64"] = {k: v for k, v in chk.items()
+                                 if k not in ("cpu_step_seconds",)}
+        if not chk["ok"]:
+            fail(f"phase 12: the {name} train step fails the f64 leaf "
+                 f"check: {chk}")
+    print(f"phase 12 train step {B_TRAIN} x {N_TRAIN}, auto: "
+          f"{json.dumps(out)}", flush=True)
+    if loss_err > PAR_TRAIN_LOSS_RTOL:
+        fail("the sharded train step's loss is not the one-rank step's")
+    return out
+
+
+def par_cli_phase(dev, cards):
+    """test_3dmatch --mesh and test_3dlomatch --ring on phase 7's trees:
+    N = 1 here (an in-process one-rank mesh, launches counted), and 2
+    where there are two cards (the ranks are spawned: their launches are
+    theirs, none here)."""
+    import os
+    import tempfile
+
+    from gmf_tpu_torch.data.collate import BUCKETS, next_bucket
+    from gmf_tpu_torch.data.threedmatch import ThreeDMatchTest
+    from gmf_tpu_torch.eval import test_3dlomatch, test_3dmatch
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        fix = write_eval_fixtures(os.path.join(tmp, "data"))
+        ckpt = write_eval_checkpoint(dev, os.path.join(tmp, "ckpt"))
+        ds = ThreeDMatchTest(root=fix["root"], select_scene=fix["scene"])
+        buckets = [next_bucket(ds[i]["corr_pos"].shape[0], BUCKETS)
+                   for i in range(len(ds))]
+        forwards = sum(-(-buckets.count(b) // EVAL_BATCH)
+                       for b in set(buckets))
+        for n in (1, 2) if cards >= 2 else (1,):
+            out[f"3dmatch_mesh{n}"] = run_cli(
+                f"3dmatch_mesh{n}", test_3dmatch,
+                ["--root", fix["root"], "--checkpoint", ckpt, "--scenes",
+                 fix["scene"], "--out", os.path.join(tmp, f"m{n}"),
+                 "--batch", str(EVAL_BATCH), "--mesh", str(n)],
+                EVAL_PAIRS, _F32_CACHE if n == 1 else {}, forwards)
+            out[f"3dlomatch_ring{n}"] = run_cli(
+                f"3dlomatch_ring{n}", test_3dlomatch,
+                ["--root", fix["root"], "--pair-file", fix["pair_file"],
+                 "--checkpoint", ckpt, "--out", os.path.join(tmp, f"r{n}"),
+                 "--num-node", "all", "--ring", str(n)], 1,
+                _COMMON if n == 1 else {}, 1)
+    return out
+
+
+def parallel_phase(dev, phase_done):
+    """Phase 12: gmf_tpu_torch.parallel on the card. A world of two ranks
+    sharing the card (gloo, staged) runs every check, a one-rank NCCL
+    world the collectives and the bf16 request, and with two or more
+    cards a NCCL world over min(count, 4) of them every check; then the
+    CLIs with --mesh and --ring."""
+    from gmf_tpu_torch.parallel.launch import launch, world_layout
+
+    cards = torch.cuda.device_count()
+    worlds = [(2, PAR_CHECKS), (1, ("collectives", "registrar_bf16"))]
+    if cards >= 2:
+        worlds.append((min(cards, 4), PAR_CHECKS))
+    out = {}
+    for n, checks in worlds:
+        backend = world_layout(n, "cuda")[0]
+        name = f"{backend}_{n}rank" + ("s" if n > 1 else "")
+        t0 = time.perf_counter()
+        results = launch(parallel_world, n, checks, device="cuda",
+                         timeout=900)
+        res = dict(ranks=n, backend=results[0]["backend"],
+                   staging=results[0]["staging"], cards=cards,
+                   devices=[r["device"] for r in results],
+                   seconds=time.perf_counter() - t0,
+                   check_seconds={c: results[0][c]["check_seconds"]
+                                  for c in checks})
+        print(f"phase 12 world {name}: backend {res['backend']}, {n} "
+              f"rank(s) on {res['devices']}, staging through the host: "
+              f"{res['staging']}", flush=True)
+        if n > 1:
+            res["registrar_bf16"] = par_check_registrar(
+                "registrar_bf16", results, torch.bfloat16)
+            res["registrar_f32"] = par_check_registrar(
+                "registrar_f32", results, torch.float32)
+            res["ring"] = par_check_ring(results)
+            res["train"] = par_check_train(results)
+            dp = results[0]["train_dp"]
+            res["train_dp"] = {k: v for k, v in dp.items()}
+            print(f"phase 12 train_step_dp {DGR_TRAIN_PAIRS} pairs: "
+                  f"{json.dumps(res['train_dp'])}", flush=True)
+        else:
+            r = results[0]["registrar_bf16"]
+            res["registrar_bf16"] = dict(ms=1e3 * r["seconds"],
+                                         launches=r["launches"])
+            print(f"phase 12 one-rank {backend} request: "
+                  f"{json.dumps(res['registrar_bf16'])}", flush=True)
+        out[name] = res
+        phase_done(f"parallel_{name}")
+    out["cli"] = par_cli_phase(dev, cards)
+    phase_done("parallel_cli")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the result JSON here")
@@ -5553,6 +6054,9 @@ def main():
         f"lomatch_n{LOMATCH_BUCKET}_{k}": v
         for k, v in paths["eval"]["3dlomatch"]["nms"].items()
         if k not in ("tolerance", "shape")})
+
+    # 12. parallel/: worlds of ranks on the card, the --mesh/--ring CLIs
+    paths["parallel"] = parallel_phase(dev, phase_done)
 
     kernels = []
     for name in KERNELS:

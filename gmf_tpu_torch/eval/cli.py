@@ -1,24 +1,27 @@
 """What the evaluation command lines share: the model and dispatch flags,
-loading the model on the card (or, with ``--cpu``, the CPU), and saving
-the statistics.
+loading the model on the card (or, with ``--cpu``, the CPU), running over
+a world of ranks, and saving the statistics.
 
 The JAX command lines pick ``--fused`` and ``--bf16`` by backend; here
 both default to on for the card and off under ``--cpu``, and the model
 takes the resolved value of each (a checkpoint's recorded mode included).
-``--mesh`` is the reference's data-parallel sharding, which waits for
-``parallel/`` (ROADMAP queue 1 item 6): it stops the command by name.
+``--mesh N`` shards each batch over N ranks (``parallel/mesh.py``): a
+command started outside a world of N ranks starts one through
+``parallel/launch.py`` (N cards, or N CPU ranks under ``--cpu``) and
+runs itself on every rank; rank 0 alone logs and writes, and its result
+is the command's. Under ``torchrun`` (a world already joined through
+``launch.init_world``) it runs on the ranks it is given.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
+import logging
 import os
 
 import numpy as np
 import torch
-
-_NOT_PORTED = ("waits for the port of gmf_tpu/parallel/ (ROADMAP queue 1 "
-               "item 6) and is not ported yet")
 
 
 def add_device_arg(ap: argparse.ArgumentParser) -> None:
@@ -49,8 +52,8 @@ def add_model_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--batch", type=int, default=1,
                     help="pairs per batched forward (same-bucket pairs)")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="shard batches over an N-card mesh (not ported "
-                         "yet: refused)")
+                    help="shard batches over an N-card 'data' mesh (N CPU "
+                         "ranks under --cpu)")
     ap.add_argument("--inflight", type=int, default=1,
                     help="batched dispatches kept in flight (every result "
                          "is still fetched and scored)")
@@ -58,8 +61,63 @@ def add_model_args(ap: argparse.ArgumentParser) -> None:
                     help="prefetch pairs with N threads")
 
 
-def refuse(flag: str, why: str = _NOT_PORTED) -> None:
-    raise SystemExit(f"{flag} {why}")
+def _run_rank(rank, world, module, argv):
+    return importlib.import_module(module).main(argv)
+
+
+def in_world(module: str, argv, n: int, cpu: bool, flag: str = "--mesh"):
+    """Run ``module.main(argv)`` over a world of ``n`` ranks when this
+    process is not one of such a world: the launch's rank-0 result, or
+    None when the caller is to go on here (``n`` <= 1, or a world of
+    ``n`` ranks is already joined). ``n`` cards are needed on the card,
+    as gmf_tpu needs ``n`` devices."""
+    import sys
+
+    from gmf_tpu_torch.parallel.launch import launch
+    from gmf_tpu_torch.parallel.mesh import world_initialized
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if world_initialized():
+        import torch.distributed as dist
+
+        if dist.get_world_size() != n and n > 1:
+            raise SystemExit(f"{flag} {n} in a world of "
+                             f"{dist.get_world_size()} ranks")
+        return None
+    if n <= 1:
+        return None
+    if not cpu and torch.cuda.device_count() < n:
+        raise SystemExit(f"{flag} {n} needs {n} cards, have "
+                         f"{torch.cuda.device_count()}")
+    return launch(_run_rank, n, module, argv,
+                  device="cpu" if cpu else "cuda", timeout=24 * 3600.0)[0]
+
+
+def is_chief() -> bool:
+    """Whether this process logs and writes: rank 0, or no world."""
+    from gmf_tpu_torch.parallel.mesh import world_initialized
+
+    if not world_initialized():
+        return True
+    import torch.distributed as dist
+
+    return dist.get_rank() == 0
+
+
+def setup_logging(name: str) -> logging.Logger:
+    """The command's logger: INFO on rank 0, warnings elsewhere."""
+    logging.basicConfig(level=logging.INFO if is_chief() else
+                        logging.WARNING, format="%(message)s")
+    return logging.getLogger(name)
+
+
+def eval_mesh(args, device):
+    """The ``--mesh`` of an evaluation command (None without one)."""
+    if not args.mesh:
+        return None
+    from gmf_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(n_data=args.mesh, device=device)
 
 
 def load_eval_model(args, checkpoint: str, inlier_threshold: float = 0.10,
@@ -72,8 +130,6 @@ def load_eval_model(args, checkpoint: str, inlier_threshold: float = 0.10,
     from gmf_tpu_torch.utils.device import resolve_device
     from gmf_tpu_torch.utils.model_io import load_pointdsc
 
-    if args.mesh:
-        refuse("--mesh")
     device = resolve_device("cpu" if args.cpu else None)
     on_card = device.type == "cuda"
     fused = on_card if args.fused is None else args.fused
@@ -95,7 +151,9 @@ def load_eval_model(args, checkpoint: str, inlier_threshold: float = 0.10,
 
 
 def save_stats(out_dir: str, agg) -> str:
-    os.makedirs(out_dir, exist_ok=True)
+    """Write ``{out_dir}/all_stats.npy`` (rank 0 alone in a world)."""
     path = os.path.join(out_dir, "all_stats.npy")
-    np.save(path, agg["all_stats"])
+    if is_chief():
+        os.makedirs(out_dir, exist_ok=True)
+        np.save(path, agg["all_stats"])
     return path

@@ -12,7 +12,8 @@ Aggregation is the reference's: scene-level means with RE/TE averaged over
 *successful* pairs only, then scene-average and all-pair rollups
 (ref :156-194). ``model_time`` includes the card's work: the port's
 registrar returns host arrays, so each result read waits for the card
-before the clock stops.
+before the clock stops. Over a mesh every rank runs the same loop on the
+same pairs, so that the registrar's collectives meet in the same order.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """PointDSC registration service: bucketed, batched test-mode inference.
 
-Counterpart of ``gmf_tpu/eval/registration.py`` on one device. Each
+Counterpart of ``gmf_tpu/eval/registration.py``, on one device or over a
+mesh of ranks. Each
 request, of any number of pairs (the reference's bench sends 64), pads its
 pairs to one shared bucket and runs one batched forward on the model's
 device in the model's modes. Two kinds of pair:
@@ -24,12 +25,22 @@ the model's forward still syncs in its post-refinement loop (a read
 of the stopping rule every round, 24 syncs a request; PERF.md section 5),
 so dispatch returns only once the forward is through that loop, and the
 overlap of one request's device work with the host's handling of the
-last one that the JAX split buys is not there yet. The JAX registrar's
-mesh sharding is not ported (ROADMAP queue 1 item 6).
+last one that the JAX split buys is not there yet.
+
+With a ``mesh`` (``parallel/mesh.py``) every rank builds the registrar
+and makes the same calls on the same samples. A batch is padded to a
+multiple of the mesh's n_data with copies of sample 0, as gmf_tpu pads
+it; ``dispatch_batch`` runs this rank's rows inside
+``parallel.sharded`` (the model's batch-wide decisions and its cache
+gate taken over the whole batch, as gmf_tpu's sharded trace takes them)
+and ``fetch_batch`` all-gathers the rows and returns them in input
+order. A single precomputed pair (``__call__``) runs unsharded on every
+rank, as gmf_tpu's does.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -37,6 +48,8 @@ import torch
 
 from gmf_tpu_torch.data.collate import BUCKETS, next_bucket, pad_to_bucket
 from gmf_tpu_torch.data.correspondence import match_descriptors_device
+from gmf_tpu_torch.parallel.collectives import all_gather_rows
+from gmf_tpu_torch.parallel.mesh import replicate, sharded
 from gmf_tpu_torch.utils.lru import ByteLRU
 
 
@@ -123,20 +136,25 @@ class PointDSCRegistrar:
     subsampled). ``match_*``: the raw-descriptor path's inlier threshold
     for the ground-truth labels, mutual check and ``corr_pos`` encoding
     (the model's ``in_dim``). ``frag_cache``: a ``DeviceFragmentCache``
-    for raw pairs that carry fragment keys. ``mesh`` is the reference's
-    data-parallel sharding; any value but None raises
-    NotImplementedError.
+    for raw pairs that carry fragment keys. ``mesh``: shard batches over
+    its 'data' axis (module docstring); rank 0's weights are broadcast
+    once, and a model whose ``compat_cache_shards`` is 1 takes n_data
+    there (a shallow copy sharing the weights), as gmf_tpu's registrar
+    clones it.
     """
 
     def __init__(self, model, buckets: Sequence[int] = BUCKETS, mesh=None,
                  match_inlier_threshold: float = 0.10,
                  match_mutual: bool = True, match_in_dim: int = 6,
                  frag_cache: Optional[DeviceFragmentCache] = None):
+        if mesh is not None and mesh.n_data > 1 and getattr(
+                model, "compat_cache_shards", 0) == 1:
+            model = copy.copy(model)
+            model.compat_cache_shards = mesh.n_data
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh: the registrar's data-parallel sharding over a mesh "
-                "is ROADMAP queue 1 item 6 (gmf_tpu/parallel/), not ported "
-                "yet")
+            replicate(model, mesh)
+        self.mesh = mesh
+        self._n_data = 1 if mesh is None else mesh.n_data
         self.model = model.eval()
         self.buckets = tuple(buckets)
         self.match_inlier_threshold = match_inlier_threshold
@@ -167,9 +185,32 @@ class PointDSCRegistrar:
 
     def __call__(self, sample: Dict[str, np.ndarray]
                  ) -> Tuple[np.ndarray, np.ndarray]:
-        """One pair, either kind: (trans [4, 4], labels)."""
-        (trans, labels), = self.register_batch([sample])
+        """One pair, either kind: (trans [4, 4], labels). Over a mesh a
+        precomputed pair runs whole on every rank, a raw one sharded."""
+        (trans, labels), = self.fetch_batch(self._dispatch(
+            [sample], shard="corr_pos" not in sample))
         return trans, labels
+
+    def _rows(self, n: int, shard: bool) -> List[int]:
+        """The sample indices this rank runs for a batch of ``n``: all of
+        them, or its slice of them padded to a multiple of n_data with
+        copies of sample 0."""
+        if not shard or self._n_data == 1:
+            return list(range(n))
+        b = -(-n // self._n_data) * self._n_data
+        idx = list(range(n)) + [0] * (b - n)
+        per = b // self._n_data
+        at = self.mesh.index["data"] * per
+        return idx[at:at + per]
+
+    def _gather(self, x: torch.Tensor, shard: bool) -> torch.Tensor:
+        """Every rank's rows of ``x`` in batch order (bool rows travel as
+        bytes)."""
+        if not shard or self._n_data == 1:
+            return x
+        if x.dtype == torch.bool:
+            return all_gather_rows(x.to(torch.uint8), self.mesh).bool()
+        return all_gather_rows(x, self.mesh)
 
     def eval_bucket(self, samples: Sequence[Dict[str, np.ndarray]]):
         """The bucket a group of samples batches into: one size for
@@ -191,23 +232,30 @@ class PointDSCRegistrar:
 
     def dispatch_batch(self, samples: Sequence[Dict[str, np.ndarray]]):
         """Start one batched forward and return a handle for
-        ``fetch_batch`` (module docstring on what the split overlaps)."""
+        ``fetch_batch`` (module docstring on what the split overlaps;
+        over a mesh, this rank's rows)."""
+        return self._dispatch(samples, shard=True)
+
+    def _dispatch(self, samples, shard: bool):
         if not samples:
             return ("empty",)
         if "corr_pos" not in samples[0]:
-            return self._dispatch_batch_raw(samples)
+            return self._dispatch_batch_raw(samples, shard)
         bucket = self.eval_bucket(samples)
-        padded = [self._pad_one(s, bucket) for s in samples]
-        with torch.inference_mode():
+        rows = self._rows(len(samples), shard)
+        padded = [self._pad_one(samples[i], bucket) for i in rows]
+        mesh = self.mesh if shard else None
+        with torch.inference_mode(), sharded(mesh):
             out = self.model(
                 self._tensor(p["corr_pos"] for p in padded),
                 self._tensor(p["src_keypts"] for p in padded),
                 self._tensor(p["tgt_keypts"] for p in padded),
-                self._tensor(s["p_image"] for s in samples),
-                self._tensor(s["q_image"] for s in samples), testing=True,
+                self._tensor(samples[i]["p_image"] for i in rows),
+                self._tensor(samples[i]["q_image"] for i in rows),
+                testing=True,
                 corr_mask=self._tensor(p["corr_mask"] for p in padded))
         return ("corr", samples, bucket, out["final_trans"],
-                out["final_labels"])
+                out["final_labels"], shard)
 
     def fetch_batch(self, handle) -> List[Tuple[np.ndarray, np.ndarray]]:
         """Wait for a ``dispatch_batch`` handle and unpack per-pair
@@ -218,38 +266,43 @@ class PointDSCRegistrar:
             return []
         if kind == "raw":
             return self._fetch_batch_raw(handle)
-        _, samples, bucket, trans, labels = handle
-        trans, labels = trans.cpu().numpy(), labels.cpu().numpy()
+        _, samples, bucket, trans, labels, shard = handle
+        trans = self._gather(trans, shard).cpu().numpy()
+        labels = self._gather(labels, shard).cpu().numpy()
         return [(trans[i], labels[i][:min(s["corr_pos"].shape[0], bucket)])
                 for i, s in enumerate(samples)]
 
-    def _dispatch_batch_raw(self, samples: Sequence[Dict[str, np.ndarray]]):
+    def _dispatch_batch_raw(self, samples: Sequence[Dict[str, np.ndarray]],
+                            shard: bool = True):
         bs, bt = self.eval_bucket(samples)
         cache = self.frag_cache
         cached = cache is not None and all(
             "src_key" in s and "tgt_key" in s for s in samples)
+        mine = [samples[i] for i in self._rows(len(samples), shard)]
 
         def side(prefix, bucket):
-            """One side of the batch as a dict of [B, ...] tensors."""
+            """One side of this rank's rows as a dict of [B, ...]
+            tensors."""
             if not cached:
-                entries = [_fragment(s, prefix, bucket) for s in samples]
+                entries = [_fragment(s, prefix, bucket) for s in mine]
                 return {k: self._tensor(e[k] for e in entries)
                         for k in entries[0]}
             # each fragment's tensors cross to the device once
             entries = [cache.get((s[prefix + "_key"], bucket),
                                  lambda s=s: _fragment(s, prefix, bucket),
-                                 self.device) for s in samples]
+                                 self.device) for s in mine]
             return {k: torch.stack([e[k] for e in entries])
                     for k in entries[0]}
 
         src, tgt = side("src", bs), side("tgt", bt)
-        gt = self._tensor(s["gt_trans"] for s in samples)
-        return ("raw", samples, self._register_raw(src, tgt, gt))
+        gt = self._tensor(s["gt_trans"] for s in mine)
+        return ("raw", samples, self._register_raw(src, tgt, gt, shard),
+                shard)
 
-    def _register_raw(self, src, tgt, gt):
+    def _register_raw(self, src, tgt, gt, shard: bool = False):
         """Matching and the model in one call: (final_trans, final_labels,
         ground-truth labels > 0, corr_mask > 0, src_idx), on the device."""
-        with torch.inference_mode():
+        with torch.inference_mode(), sharded(self.mesh if shard else None):
             m = match_descriptors_device(
                 src["keypts"], tgt["keypts"], src["desc"], tgt["desc"], gt,
                 self.match_inlier_threshold, src["mask"], tgt["mask"],
@@ -262,9 +315,9 @@ class PointDSCRegistrar:
                 m["corr_mask"] > 0, m["src_idx"])
 
     def _fetch_batch_raw(self, handle) -> List[Tuple[np.ndarray, np.ndarray]]:
-        _, samples, res = handle
-        trans, pred, gt_labels, cmask, src_idx = (x.cpu().numpy()
-                                                  for x in res)
+        _, samples, res, shard = handle
+        trans, pred, gt_labels, cmask, src_idx = (
+            self._gather(x, shard).cpu().numpy() for x in res)
         out = []
         for row, s in enumerate(samples):
             valid = cmask[row]

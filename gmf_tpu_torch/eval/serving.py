@@ -23,6 +23,14 @@ requests into one bucket-padded forward:
 Results equal direct ``register_batch`` calls on the same pairs: batching
 changes when work is dispatched, not what is computed (pad rows are
 copies of a real pair and their results are dropped).
+
+Over a registrar with a mesh every rank builds the service. Rank 0 of
+the mesh takes the requests and runs the flushes; before each dispatch
+and each fetch it sends the command, with the flush's samples, to the
+other ranks (``broadcast_object_list``), whose service threads follow:
+they join the same sharded dispatch and the same fetch, and drop the
+results. ``close()`` on rank 0 stops them; ``close()`` on another rank
+waits for that.
 """
 
 from __future__ import annotations
@@ -56,13 +64,24 @@ class RegistrationService:
         self._q: "queue.Queue" = queue.Queue()
         self._stop = threading.Event()
         self._submit_lock = threading.Lock()  # serializes submit vs close
-        self._thread = threading.Thread(target=self._run, daemon=True)
+        mesh = getattr(registrar, "mesh", None)
+        self._mesh = mesh if mesh is not None and mesh.n_data > 1 else None
+        if self._mesh is not None and mesh.shape["model"] > 1:
+            raise ValueError("a service over a mesh takes a 'data' axis "
+                             "only (n_model = 1)")
+        self.follower = (self._mesh is not None
+                         and mesh.rank != mesh.ranks[0])
+        self._thread = threading.Thread(
+            target=self._follow if self.follower else self._run, daemon=True)
         self._thread.start()
 
     # -- client API ----------------------------------------------------------
 
     def submit(self, sample: Dict[str, np.ndarray]) -> "Future":
         """Enqueue one pair; the Future resolves to (trans, labels)."""
+        if self.follower:
+            raise RuntimeError("this rank follows rank 0's flushes; submit "
+                               "there")
         with self._submit_lock:
             # under the lock, the shutdown sentinel cannot slip between
             # the check and the put — nothing lands after it unprocessed
@@ -83,7 +102,10 @@ class RegistrationService:
         service itself, so that the forward runs on the collector thread:
         the card's math libraries keep a handle per thread (cuDNN's takes
         a tenth of a second to create), which the first real flush would
-        otherwise pay."""
+        otherwise pay. On a following rank it does nothing: the warm-up
+        flushes reach it from rank 0."""
+        if self.follower:
+            return
         for n in buckets:
             rng = np.random.RandomState(0)
             src = rng.rand(n, 3).astype(np.float32)
@@ -106,7 +128,7 @@ class RegistrationService:
         kernels, see warmup()). Pass a numeric ``timeout`` to bound
         the wait; if the collector is still draining when it expires, a
         ``TimeoutError`` is raised rather than silently abandoning
-        in-flight Futures."""
+        in-flight Futures. A following rank waits for rank 0's close."""
         with self._submit_lock:
             self._stop.set()
             self._q.put(None)  # wake the collector; last item ever queued
@@ -122,12 +144,60 @@ class RegistrationService:
     def __exit__(self, *exc):
         self.close()
 
+    # -- the ranks of a mesh -------------------------------------------------
+
+    def _bind_device(self):
+        """This thread's current card: the mesh's (the kernels launch on
+        the thread's device, NCCL's objects travel through it)."""
+        import torch
+
+        if self._mesh is not None and self._mesh.device.type == "cuda":
+            torch.cuda.set_device(self._mesh.device)
+
+    def _tell(self, command) -> None:
+        """Send a command to the following ranks (rank 0 only)."""
+        if self._mesh is None:
+            return
+        import torch.distributed as dist
+
+        dist.broadcast_object_list([command], src=self._mesh.ranks[0],
+                                   group=self._mesh.group("data"))
+
+    def _hear(self):
+        import torch.distributed as dist
+
+        box = [None]
+        dist.broadcast_object_list(box, src=self._mesh.ranks[0],
+                                   group=self._mesh.group("data"))
+        return box[0]
+
+    def _follow(self):
+        """A following rank: join each of rank 0's dispatches and fetches
+        in its order, until it stops."""
+        self._bind_device()
+        reg, pending = self.registrar, []
+        while True:
+            command = self._hear()
+            if command[0] == "dispatch":
+                try:
+                    pending.append(reg.dispatch_batch(command[1]))
+                except Exception:  # rank 0 failed the same dispatch
+                    pass
+            elif command[0] == "fetch":
+                try:
+                    reg.fetch_batch(pending.pop(0))
+                except Exception:  # and failed the same fetch
+                    pass
+            else:
+                return
+
     # -- collector -----------------------------------------------------------
 
     def _run(self):
         groups: Dict = {}      # bucket -> [(sample, fut, t_enqueue)]
         pending: List = []     # (group, handle)
         reg = self.registrar
+        self._bind_device()
 
         def dispatch(bucket):
             group = groups.pop(bucket, [])
@@ -141,6 +211,7 @@ class RegistrationService:
             samples += [dict(samples[0])
                         for _ in range(self.max_batch - len(samples))]
             try:
+                self._tell(("dispatch", samples))
                 handle = reg.dispatch_batch(samples)
             except Exception as e:  # propagate to the callers
                 for _, fut, _ in group:
@@ -153,6 +224,7 @@ class RegistrationService:
         def fetch_one():
             group, handle = pending.pop(0)
             try:
+                self._tell(("fetch",))
                 results = reg.fetch_batch(handle)
             except Exception as e:
                 for _, fut, _ in group:
@@ -186,6 +258,7 @@ class RegistrationService:
                 dispatch(b)
             while pending:
                 fetch_one()
+            self._tell(("stop",))
 
         try:
             while True:
@@ -246,4 +319,8 @@ class RegistrationService:
                         break
                     if late is not None and not late[1].done():
                         late[1].set_exception(e)
+            try:
+                self._tell(("stop",))
+            except Exception:
+                pass
             raise

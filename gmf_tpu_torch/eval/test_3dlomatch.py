@@ -10,15 +10,18 @@ pair file, 5000 keypoints a fragment by default. With ``--num-node all``
 a pair keeps every mutual match; past the largest bucket (12000) the
 registrar opens one of the next multiple of 4096, and past 16384 points a
 pair NMS runs its merge pass. The reference's output for its released
-FCGF weights: RR 33.69% (RE 3.64 deg, TE 11.12 cm). ``--ring`` (ring
-attention over a mesh) and ``--mesh`` wait for ``parallel/`` and stop by
-name.
+FCGF weights: RR 33.69% (RE 3.64 deg, TE 11.12 cm). ``--mesh N`` shards
+each batch over N ranks; ``--ring N`` runs every NonLocal layer as ring
+attention over N ranks (``parallel/ring_attention.py``), the tokens of a
+pair split over them, for megapairs whose attention outgrows one card:
+the buckets are then the multiples of N, with buckets past 12000 for
+``--num-node all``. The two exclude each other; both start a world of N
+ranks as ``eval/cli.py`` says.
 """
 
 from __future__ import annotations
 
 import argparse
-import logging
 
 
 def parse_args(argv=None):
@@ -32,8 +35,10 @@ def parse_args(argv=None):
     ap.add_argument("--te-thre", type=float, default=30.0)
     ap.add_argument("--out", default="eval_3dlomatch")
     ap.add_argument("--ring", type=int, default=0, metavar="N",
-                    help="ring attention over an N-card mesh (not ported "
-                         "yet: refused)")
+                    help="every NonLocal layer as ring attention over N "
+                         "cards (N CPU ranks under --cpu): the tokens of a "
+                         "pair split over them; buckets restricted to "
+                         "multiples of N. Excludes --mesh")
     ap.add_argument("--device-match", action="store_true",
                     help="build correspondences on the card in the "
                          "registrar's call")
@@ -48,13 +53,22 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(message)s")
-    log = logging.getLogger("lomatch")
+    from gmf_tpu_torch.eval.cli import (eval_mesh, in_world,
+                                        load_eval_model, save_stats,
+                                        setup_logging)
 
-    from gmf_tpu_torch.eval.cli import load_eval_model, refuse, save_stats
-
+    buckets = None
     if args.ring:
-        refuse("--ring")
+        if args.mesh:
+            raise SystemExit("--ring (SP over tokens) and --mesh (DP over "
+                             "pairs) are mutually exclusive")
+        buckets = ring_buckets(args.ring, args.num_node)
+    n = args.ring or args.mesh
+    res = in_world("gmf_tpu_torch.eval.test_3dlomatch", argv, n, args.cpu,
+                   flag="--ring" if args.ring else "--mesh")
+    if res is not None:
+        return res
+    log = setup_logging("lomatch")
 
     from gmf_tpu_torch.data.threedmatch import ThreeDLoMatchTest
     from gmf_tpu_torch.eval.harness import (aggregate_scenes, evaluate_pairs,
@@ -64,10 +78,17 @@ def main(argv=None):
     from gmf_tpu_torch.eval.solvers import make_register_fn
 
     model = load_eval_model(args, args.checkpoint)
+    if args.ring:
+        from gmf_tpu_torch.parallel.mesh import make_mesh
+
+        model.ring_mesh = make_mesh(n_data=args.ring, device=model.device)
     num_node = args.num_node if args.num_node == "all" else int(args.num_node)
     frag_cache = (DeviceFragmentCache(args.frag_cache_mb << 20)
                   if args.device_match and args.frag_cache_mb else None)
-    registrar = PointDSCRegistrar(model, frag_cache=frag_cache)
+    reg_kw = {} if buckets is None else {"buckets": buckets}
+    registrar = PointDSCRegistrar(model, frag_cache=frag_cache,
+                                  mesh=eval_mesh(args, model.device),
+                                  **reg_kw)
     register_fn = make_register_fn(registrar)
     ds = ThreeDLoMatchTest(root=args.root, pair_file=args.pair_file,
                            num_node=num_node, descriptor=args.descriptor,
@@ -79,6 +100,20 @@ def main(argv=None):
     log.info(format_report(agg))
     save_stats(args.out, agg)
     return agg
+
+
+def ring_buckets(n: int, num_node: str):
+    """The buckets of a ring of ``n``: those that divide by it, and for
+    ``num_node='all'`` the megapair buckets past 12000 that do
+    (gmf_tpu/eval/test_3dlomatch.py:120-128)."""
+    from gmf_tpu_torch.data.collate import BUCKETS
+
+    buckets = [b for b in BUCKETS if b % n == 0]
+    if num_node == "all":
+        buckets += [b for b in (16384, 32768, 65536, 131072) if b % n == 0]
+    if not buckets:
+        raise SystemExit(f"--ring {n}: no bucket divides by the ring")
+    return tuple(sorted(buckets))
 
 
 if __name__ == "__main__":

@@ -10,13 +10,13 @@ the 8-scene test split, 12-column statistics, scene and pair
 aggregation, the statistics saved to ``{out}/all_stats.npy``. The
 reference's output for its released FPFH weights: "All 1623 pairs, Mean
 Reg Recall=81.45%". ``--checkpoint`` is a port checkpoint directory or a
-reference torch ``state_dict`` (``utils/model_io.py``).
+reference torch ``state_dict`` (``utils/model_io.py``). ``--mesh N``
+shards each batch over N ranks (``eval/cli.py``).
 """
 
 from __future__ import annotations
 
 import argparse
-import logging
 
 
 def parse_args(argv=None):
@@ -53,11 +53,17 @@ def main(argv=None):
     """Run the evaluation; returns the aggregate (``harness.
     aggregate_scenes``)."""
     args = parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(message)s")
-    log = logging.getLogger("eval3dmatch")
+    from gmf_tpu_torch.eval.cli import (eval_mesh, in_world,
+                                        load_eval_model, save_stats,
+                                        setup_logging)
+
+    res = in_world("gmf_tpu_torch.eval.test_3dmatch", argv, args.mesh,
+                   args.cpu)
+    if res is not None:
+        return res
+    log = setup_logging("eval3dmatch")
 
     from gmf_tpu_torch.data.threedmatch import SCENE_LIST, ThreeDMatchTest
-    from gmf_tpu_torch.eval.cli import load_eval_model, save_stats
     from gmf_tpu_torch.eval.harness import (aggregate_scenes, evaluate_pairs,
                                             format_report)
     from gmf_tpu_torch.eval.registration import (DeviceFragmentCache,
@@ -70,7 +76,8 @@ def main(argv=None):
                   if args.device_match and args.frag_cache_mb else None)
     registrar = PointDSCRegistrar(
         model, match_inlier_threshold=args.inlier_threshold,
-        match_mutual=args.use_mutual, frag_cache=frag_cache)
+        match_mutual=args.use_mutual, frag_cache=frag_cache,
+        mesh=eval_mesh(args, model.device))
     register_fn = make_register_fn(registrar, solver=args.solver,
                                    use_icp=args.use_icp,
                                    inlier_threshold=args.inlier_threshold)

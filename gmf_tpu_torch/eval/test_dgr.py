@@ -11,8 +11,9 @@ GMF_DGR_fcgf/scripts/test_3dmatch.py / test_kitti.py): per pair
 scene index, used_safeguard] saved as ``dgr_stats.npy``. Checkpoints are
 the port's (``utils/model_io.py::load_dgr``). Runs on the card unless
 ``--cpu``. ``--shard-index/--shard-count`` take a strided slice of the
-pair list (default the whole list) and ``--merge-shards`` joins the
-shards' files. ``--srcdense-rowmode-min`` picks one of gmf_tpu's TPU
+pair list (default this rank's of the world, ``parallel.process_shard``:
+the whole list outside one) and ``--merge-shards`` joins the shards'
+files. ``--srcdense-rowmode-min`` picks one of gmf_tpu's TPU
 probe tiers for its on-device maps, whose maps are all the same; the
 port's device builder has one exact probe, so the flag is accepted,
 checked and logged, and changes nothing.
@@ -29,6 +30,8 @@ import re
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+from gmf_tpu_torch.parallel.mesh import process_shard, world_initialized
 
 
 def parse_args(argv=None):
@@ -64,10 +67,12 @@ def parse_args(argv=None):
     ap.add_argument("--frag-cache", type=int, default=256,
                     help="per-fragment feature-cache budget in MB (0 "
                          "disables); results are bit-identical either way")
-    ap.add_argument("--shard-index", type=int, default=0,
-                    help="this process' strided shard of the pair list")
-    ap.add_argument("--shard-count", type=int, default=1,
-                    help="total shard count")
+    ap.add_argument("--shard-index", type=int, default=None,
+                    help="this process' strided shard of the pair list "
+                         "(default: its rank in the world, else 0)")
+    ap.add_argument("--shard-count", type=int, default=None,
+                    help="total shard count (default: the world's size, "
+                         "else 1)")
     ap.add_argument("--merge-shards", action="store_true",
                     help="skip evaluation; merge OUT/dgr_stats_shard*.npy "
                          "and print the global summary")
@@ -81,12 +86,6 @@ def parse_args(argv=None):
 
     add_device_arg(ap)
     return ap.parse_args(argv)
-
-
-def process_shard(items, process_index: int = 0, process_count: int = 1):
-    """Strided per-process slice of a work list (a copy of
-    ``gmf_tpu/parallel/mesh.py::process_shard``)."""
-    return items[process_index::process_count]
 
 
 def _summary(stats) -> str:
@@ -255,6 +254,15 @@ class _Indexable:
 
 def main(argv=None):
     args = parse_args(argv)
+    import torch.distributed as dist
+
+    # DP over register() streams: each process takes a disjoint strided
+    # shard of the pair list (by default its rank of the world)
+    world = world_initialized()
+    if args.shard_index is None:
+        args.shard_index = dist.get_rank() if world else 0
+    if args.shard_count is None:
+        args.shard_count = dist.get_world_size() if world else 1
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     log = logging.getLogger("evaldgr")
     if args.srcdense_rowmode_min is not None:

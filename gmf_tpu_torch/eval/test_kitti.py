@@ -15,7 +15,6 @@ labels at 0.6 m. The reference's output for its released FCGF weights:
 from __future__ import annotations
 
 import argparse
-import logging
 
 
 def parse_args(argv=None):
@@ -46,11 +45,17 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(message)s")
-    log = logging.getLogger("evalkitti")
+    from gmf_tpu_torch.eval.cli import (eval_mesh, in_world,
+                                        load_eval_model, save_stats,
+                                        setup_logging)
+
+    res = in_world("gmf_tpu_torch.eval.test_kitti", argv, args.mesh,
+                   args.cpu)
+    if res is not None:
+        return res
+    log = setup_logging("evalkitti")
 
     from gmf_tpu_torch.data.kitti import KITTIDataset
-    from gmf_tpu_torch.eval.cli import load_eval_model, save_stats
     from gmf_tpu_torch.eval.harness import (aggregate_scenes, evaluate_pairs,
                                             format_report)
     from gmf_tpu_torch.eval.registration import PointDSCRegistrar
@@ -61,7 +66,7 @@ def main(argv=None):
         force=dict(inlier_threshold=1.2, sigma_d=1.2, nms_radius=1.2))
     registrar = PointDSCRegistrar(
         model, match_inlier_threshold=args.inlier_threshold,
-        match_mutual=args.use_mutual)
+        match_mutual=args.use_mutual, mesh=eval_mesh(args, model.device))
     register_fn = make_register_fn(registrar, solver=args.solver,
                                    use_icp=args.use_icp,
                                    inlier_threshold=1.2)

@@ -5,7 +5,9 @@ is the power iteration capped at ``num_iters`` with the reference's early
 exit. The convergence test is global over every block of the batch (one
 ``all``), so a converged block keeps iterating while any other block is
 still moving; per-block exits would be a different result. The test
-costs one host sync per round on the card. ``leading_eigenvector_fixed``
+costs one host sync per round on the card; in a batch sharded over a
+mesh (``parallel.sharded``) it is taken over every rank's blocks, as
+gmf_tpu's sharded trace takes it. ``leading_eigenvector_fixed``
 runs exactly ``num_iters`` rounds with no test; the two agree at
 convergence.
 """
@@ -13,6 +15,8 @@ convergence.
 from __future__ import annotations
 
 import torch
+
+from gmf_tpu_torch.parallel.collectives import batch_all
 
 
 def _safe_norm(v):
@@ -26,7 +30,8 @@ def leading_eigenvector(M, num_iters: int = 10, rtol: float = 1e-5,
     # large finite sentinel: the first round always runs
     v_last = torch.full_like(v, -1e30)
     for _ in range(num_iters):
-        if bool(((v - v_last).abs() <= atol + rtol * v_last.abs()).all()):
+        if batch_all(bool(
+                ((v - v_last).abs() <= atol + rtol * v_last.abs()).all())):
             break
         v_new = torch.matmul(M, v[..., None])[..., 0]
         v_new = v_new / (_safe_norm(v_new) + 1e-6)

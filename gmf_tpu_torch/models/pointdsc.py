@@ -1,8 +1,9 @@
 """PointDSC + GMF in PyTorch with CUDA kernels.
 
-Counterpart of ``gmf_tpu/models/pointdsc.py`` in every mode but the ring
-path: ``fused_attention`` on or off, every ``compat_cache``,
-``seed_solver``, ``knn_topk``, ``hypo_scoring`` and ``kabsch_method``.
+Counterpart of ``gmf_tpu/models/pointdsc.py`` in every mode:
+``fused_attention`` on or off, every ``compat_cache``, ``seed_solver``,
+``knn_topk``, ``hypo_scoring`` and ``kabsch_method``, and the ring path
+(``ring_mesh``).
 ``testing=True`` (eval):
 
 1. ResNet-34/8 image tokens of both frames, Fusion-1.
@@ -47,8 +48,18 @@ Module names are the reference's torch names, the ones
 ``gmf_tpu/utils/convert_torch.py::convert_pointdsc`` reads, so
 ``utils/bridge.py`` maps flax variables onto ``state_dict`` keys one to
 one. Modules run in ``dtype`` (bf16 on the card is fine); geometry from
-the normalised features on is f32. The reference's ring path
-(``ring_mesh``, gmf_tpu/parallel/) is not ported: ROADMAP queue 1 item 6.
+the normalised features on is f32.
+
+With ``ring_mesh`` (a ``parallel.Mesh``) every NonLocal layer runs
+``parallel/ring_attention.py``: the tokens of each pair split over the
+mesh's 'data' axis, one ring call a pair in f32, the result cast back;
+nothing of compat is built, and the seeds come from the NMS kernel, as
+in the reference. Every rank passes the whole batch and gets the whole
+result. Run inside ``parallel.sharded(mesh)`` (the registrar and the
+trainer over a mesh), each rank holds a slice of the batch: the batch
+norms, the eigen solver's early exit, the refinement's stopping rule and
+the compat-cache gate then see the global batch, as gmf_tpu's sharded
+trace does.
 """
 
 from __future__ import annotations
@@ -73,6 +84,7 @@ from gmf_tpu_torch.ops.fused_nms import pick_seeds_nms_fused
 from gmf_tpu_torch.ops.fused_scoring import seed_hypothesis_counts
 from gmf_tpu_torch.ops.fused_seed_solver import fused_seed_weights
 from gmf_tpu_torch.ops.fused_topk import MAX_K, seed_knn_topk
+from gmf_tpu_torch.parallel.collectives import batch_all, batch_rows
 from gmf_tpu_torch.utils.device import resolve_device
 
 
@@ -130,18 +142,33 @@ class NonLocalBlock(nn.Module):
 
     def forward(self, feat, image_feat, corr_mask, src_keypts, tgt_keypts,
                 compat_cache=None, build_cache: bool = False,
-                fused: bool = True, attention=None):
+                fused: bool = True, attention=None, ring_mesh=None):
         """feat [B, N, C], image_feat [B, T, C] -> [B, N, C].
 
-        ``fused``: the attention kernel; with ``build_cache`` it also
-        emits the int8 compat cache and the result is ``(out, cache)``;
-        with ``compat_cache`` it streams that cache instead of rebuilding
-        compat. Otherwise ``dense_compat_attention`` on ``attention``, the
-        dense [B, N, N] compat."""
+        ``ring_mesh``: ring attention over that mesh, one call a pair in
+        f32 (gmf_tpu/models/pointdsc.py:91-104). ``fused``: the attention
+        kernel; with ``build_cache`` it also emits the int8 compat cache
+        and the result is ``(out, cache)``; with ``compat_cache`` it
+        streams that cache instead of rebuilding compat. Otherwise
+        ``dense_compat_attention`` on ``attention``, the dense [B, N, N]
+        compat."""
         q, k, v = (self.projection_q(feat), self.projection_k(feat),
                    self.projection_v(feat))
         built = None
-        if not fused:
+        if ring_mesh is not None:
+            from gmf_tpu_torch.parallel.ring_attention import (
+                ring_compat_attention)
+
+            B, N, _ = feat.shape
+            mask = (torch.ones(B, N, device=feat.device) if corr_mask is None
+                    else corr_mask.float())
+            message = torch.stack([
+                ring_compat_attention(
+                    q[b].float(), k[b].float(), v[b].float(),
+                    src_keypts[b].float(), tgt_keypts[b].float(), mask[b],
+                    ring_mesh, sigma_d=self.sigma_d)
+                for b in range(B)]).to(feat.dtype)
+        elif not fused:
             message = dense_compat_attention(q, k, v, attention,
                                              corr_mask).to(feat.dtype)
         elif build_cache:
@@ -176,7 +203,7 @@ class NonLocalNet(nn.Module):
 
     def forward(self, corr_feat, p_image, q_image, corr_mask, src_keypts,
                 tgt_keypts, compat_cache=None, build_cache: bool = False,
-                fused: bool = True, attention=None):
+                fused: bool = True, attention=None, ring_mesh=None):
         """corr_feat [B, N, 6], images [B, H, W, 3] -> [B, N, C].
 
         ``fused`` (the attention kernels): ``compat_cache`` is a
@@ -184,7 +211,8 @@ class NonLocalNet(nn.Module):
         layer 0 builds the int8 cache while it attends and layers 1..
         stream it. The cache lives only inside this call, so its memory
         is free again for the seed stage. Not ``fused``: every layer
-        attends densely with ``attention``, the [B, N, N] compat."""
+        attends densely with ``attention``, the [B, N, N] compat.
+        ``ring_mesh``: every layer runs ring attention over it."""
         image_feat = self.fusion_layer_1(
             self.image_encoder.tokens(p_image),
             queries_encoder=self.image_encoder.tokens(q_image))
@@ -199,7 +227,7 @@ class NonLocalNet(nn.Module):
             else:
                 feat = block(feat, image_feat, corr_mask, src_keypts,
                              tgt_keypts, compat_cache=cache, fused=fused,
-                             attention=attention)
+                             attention=attention, ring_mesh=ring_mesh)
         return feat
 
 
@@ -208,10 +236,6 @@ SEED_SOLVER_MODES = ("auto", "xla", "fused")
 KNN_TOPK_MODES = ("auto", "fused", "exact", "values", "approx")
 HYPO_SCORING_MODES = ("auto", "fused", "dense")
 KABSCH_METHODS = ("quat", "svd")
-# what the modes the port lacks stand for in ROADMAP.md
-_RING_NOT_PORTED = ("is the reference's ring attention over a mesh "
-                    "(gmf_tpu/parallel/), ROADMAP queue 1 item 6, not "
-                    "ported yet")
 _CACHE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
                  "int8": torch.int8}
 
@@ -275,10 +299,16 @@ class PointDSC(nn.Module):
     N] residuals, the inlier indicator in the modules' dtype before its
     mean), "auto" = "fused", as on the reference's accelerator.
     ``kabsch_method``: "quat" | "svd", for the seed Kabsch and the
-    post-refinement. Unknown modes raise ValueError. ``ring_mesh`` and
-    ``compat_cache_shards`` are the reference's mesh settings; the port
-    has no mesh path, so any value but the default raises
-    NotImplementedError.
+    post-refinement. Unknown modes raise ValueError.
+    ``ring_mesh``: a ``parallel.Mesh``; every NonLocal layer then runs
+    ring attention over its 'data' axis (module docstring), which takes
+    the place of ``fused_attention`` and ``compat_cache``, and N must
+    divide by the ring. ``compat_cache_shards`` (>= 1): the 'data' ranks
+    a batch is split over when the model runs sharded, as gmf_tpu's: the
+    "auto" gate sizes the cache of ceil(B_global / compat_cache_shards)
+    pairs, B_global being the local batch times the ranks of the
+    ``parallel.sharded`` step in progress (the registrar and the trainer
+    over a mesh set it to n_data, so the gate sees one rank's share).
 
     ``device`` defaults to the card and raises without one unless
     ``device="cpu"``. Weights are drawn from a ``torch.Generator`` seeded
@@ -306,13 +336,13 @@ class PointDSC(nn.Module):
             if value not in modes:
                 raise ValueError(f"unknown {name} mode {value!r}; one of "
                                  f"{modes}")
-        if ring_mesh is not None:
-            raise NotImplementedError(f"ring_mesh {_RING_NOT_PORTED}")
-        if compat_cache_shards != 1:
-            raise NotImplementedError(
-                f"compat_cache_shards={compat_cache_shards}: the cache gate "
-                f"of a mesh-sharded batch {_RING_NOT_PORTED}")
+        if int(compat_cache_shards) != compat_cache_shards or \
+                compat_cache_shards < 1:
+            raise ValueError(f"compat_cache_shards={compat_cache_shards!r}: "
+                             "a count of 'data' ranks, at least 1")
         device = resolve_device(device)
+        self.ring_mesh = ring_mesh
+        self.compat_cache_shards = int(compat_cache_shards)
         self.compat_cache = compat_cache
         self.seed_solver = seed_solver
         self.fused_attention = bool(fused_attention)
@@ -396,7 +426,7 @@ class PointDSC(nn.Module):
         tgt = tgt_keypts.float()
         mask = None if corr_mask is None else corr_mask.float()
         src_dist = compat = None
-        if not self.fused_attention:
+        if self.ring_mesh is None and not self.fused_attention:
             src_dist, compat = self._dense_compat(src, tgt)
         feats = self._encode(corr_pos, src, tgt, p_image, q_image, mask,
                              testing, compat)
@@ -433,18 +463,20 @@ class PointDSC(nn.Module):
         """The encoder's output [B, N, C] in the modules' dtype (src, tgt
         f32; mask f32 or None): with this request's compat cache under
         ``fused_attention``, else with the dense compat ``compat`` (built
-        here when None)."""
+        here when None); under ``ring_mesh`` with neither."""
         cache, build_cache = None, False
-        if self.fused_attention:
+        ring = self.ring_mesh is not None
+        if self.fused_attention and not ring:
             with torch.no_grad():  # compat is data, as in the reference
                 cache, build_cache = self._build_compat_cache(src, tgt,
                                                               testing)
-        elif compat is None:
+        elif compat is None and not ring:
             compat = self._dense_compat(src, tgt)[1]
         return self.encoder(corr_pos.to(self.dtype), p_image.to(self.dtype),
                             q_image.to(self.dtype), mask, src, tgt,
                             compat_cache=cache, build_cache=build_cache,
-                            fused=self.fused_attention, attention=compat)
+                            fused=self.fused_attention and not ring,
+                            attention=compat, ring_mesh=self.ring_mesh)
 
     def _dense_compat(self, src, tgt):
         """The dense path's (src_dist, compat), [B, N, N] f32 each, without
@@ -474,7 +506,7 @@ class PointDSC(nn.Module):
             return None, False
         if self.compat_cache == "auto":
             dtype = (None if src.device.type == "cpu"
-                     else _auto_compat_cache_dtype(B, N))
+                     else self.auto_cache_dtype(B, N))
             if dtype is None:
                 return None, False
         else:
@@ -482,6 +514,15 @@ class PointDSC(nn.Module):
         if dtype == torch.int8 and testing:
             return None, True
         return build_compat_cache(src, tgt, self.sigma_d, dtype), False
+
+    def auto_cache_dtype(self, B: int, N: int):
+        """The card's "auto" cache type for a local batch of B pairs: the
+        gate of ceil(B_global / compat_cache_shards) pairs, B_global the
+        batch of the ``parallel.sharded`` step in progress (B outside
+        one), as gmf_tpu's trace, which sees the global batch, divides it
+        (gmf_tpu/models/pointdsc.py:526-531); never divided twice."""
+        share = -(-batch_rows(B) // self.compat_cache_shards)
+        return _auto_compat_cache_dtype(share, N)
 
     # The seed stage, one method a step, so that a caller can run each step
     # on its own inputs (chip_smoke.py compares the card's with the CPU's).
@@ -660,7 +701,8 @@ class PointDSC(nn.Module):
             if mask is not None:
                 inlier = inlier * mask
             num = inlier.sum(-1).int()
-            if not bool(((num - prev).abs() >= 1).any()):
+            # the batch's rule: a sharded batch stops when no rank's did
+            if batch_all(not bool(((num - prev).abs() >= 1).any())):
                 break
             w = inlier * (1.0 / (1.0 + (L2 / tau) ** 2))
             trans = rigid_transform_3d(src, tgt, w,

@@ -1,4 +1,4 @@
-"""WeightedProcrustesTrainer: DGR+GMF training on one device.
+"""WeightedProcrustesTrainer: DGR+GMF training, on one device or a mesh.
 
 Counterpart of ``gmf_tpu/train/dgr_trainer.py`` (reference:
 GMF_DGR_fcgf/core/trainer.py:38-699):
@@ -23,8 +23,13 @@ no compacted schedule, and neither does this one. The convolutions then
 run ``sparse_conv``, whose backward gathers again what its forward
 gathered, so that the backward of the 6-D net fits on the card. Each
 net's conv1 map takes the net's own kernel size, as the port's engine
-does (gmf_tpu's trainer takes the config's and clamps). The JAX trainer's
-data-parallel step (``train_step_dp``) waits for ROADMAP queue 1 item 6.
+does (gmf_tpu's trainer takes the config's and clamps).
+
+``train_step_dp(pairs, mesh)`` is gmf_tpu's data-parallel step: the pair
+group split over the mesh's 'data' axis, every pair's forward on the
+step-initial batch statistics, the weighted sums of gradients, metrics
+and statistics summed over the ranks in one buffer and divided by the
+total weight (module ``train_step_dp`` docstring).
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from gmf_tpu_torch.data.dgr_loader import find_correct_correspondence
 from gmf_tpu_torch.geometry.kabsch import kabsch_quat
 from gmf_tpu_torch.geometry.knn import nearest_neighbor
 from gmf_tpu_torch.models.dgr import inlier_input_features, se3_refine
+from gmf_tpu_torch.parallel.collectives import all_max
 from gmf_tpu_torch.sparse.device_maps import build_pyramid_arrays_device
 from gmf_tpu_torch.sparse.kernel_map import build_pyramid
 from gmf_tpu_torch.sparse.resunet import pyramid_to_arrays
@@ -295,10 +301,107 @@ class WeightedProcrustesTrainer:
         out["skipped"] = 0.0 if finite else 1.0
         return out
 
+    # the metrics of ``pair_loss``, in the order the ranks sum them
+    METRICS = ("loss", "rot_err_deg", "trans_err", "ws", "valid",
+               "inlier_loss", "success")
+
     def train_step_dp(self, pairs, mesh):
-        raise NotImplementedError(
-            "train_step_dp: data-parallel DGR training over a mesh of cards "
-            "waits for ROADMAP queue 1 item 6; train_step trains on one")
+        """One data-parallel update over ``mesh``'s 'data' axis, every
+        rank called with the same pairs (gmf_tpu/train/dgr_trainer.py:
+        275-421, the reference's iter_size accumulation as an SPMD batch).
+
+        The group is right-padded to a multiple of n_data with weight-0
+        copies of its last pair and split in contiguous slices; each rank
+        runs its slice's real pairs, all at one common bucket (the largest
+        any pair of the group needs). Every pair's forward starts from the
+        step-initial batch statistics. A pair's weight is 0 when its loss
+        is not finite, and a weight-0 pair adds an exact zero (not NaN *
+        0). The weighted sums of gradients, metrics and statistics and the
+        total weight are summed over the ranks in one buffer, then
+        divided by the total. Parameters and optimizer state change only
+        when every gradient is finite and the total is not 0; the
+        statistics are committed only when the total is not 0 and they
+        are finite. gmf_tpu pads each kernel map's kept-offset rows to
+        the group's largest so that the pairs stack into one batch; here
+        each pair runs on its own maps, and a sentinel row would add
+        exact zeros. Returns the mean metrics and ``skipped``."""
+        pairs = list(pairs)
+        n = mesh.n_data
+        weights = [1.0] * len(pairs)
+        while len(pairs) % n:
+            pairs.append(pairs[-1])
+            weights.append(0.0)
+        per = len(pairs) // n
+        mine = [j for j in range(mesh.index["data"] * per,
+                                 (mesh.index["data"] + 1) * per)
+                if weights[j] > 0]
+        raws = {j: self._prep_pair_raw(pairs[j]) for j in mine}
+        g = self.corr_cap_granule
+        cap = g
+        for r in raws.values():
+            cap = max(cap, -(-len(r["uniq"]) // g) * g,
+                      -(-len(r["pred_pairs"]) // g) * g)
+        cap = all_max(cap, mesh)
+        stats = [b for b in self.inlier.buffers() if b.is_floating_point()]
+        initial = [b.detach().clone() for b in stats]
+        grad_sum = [torch.zeros_like(w) for w in self.params]
+        stat_sum = [torch.zeros_like(b) for b in stats]
+        metric_sum = torch.zeros(len(self.METRICS), device=self.device)
+        total = torch.zeros(1, device=self.device)
+        for j in mine:
+            p = self._prep_pair_arrays(raws[j], cap)
+            with torch.no_grad():
+                for b, b0 in zip(stats, initial):
+                    b.copy_(b0)
+            with self._stage("forward_backward"):
+                loss, metrics = self.pair_loss(p)
+                grads = torch.autograd.grad(loss, self.params,
+                                            allow_unused=True)
+            if not bool(torch.isfinite(loss)):
+                continue  # weight 0: an exact zero (ref :259-262)
+            w = weights[j]
+            with torch.no_grad():
+                for acc, gr in zip(grad_sum, grads):
+                    if gr is not None:
+                        acc.add_(gr, alpha=w)
+                for acc, b in zip(stat_sum, stats):
+                    acc.add_(b, alpha=w)
+                metric_sum += w * torch.stack(
+                    [metrics[k].detach().float() for k in self.METRICS])
+                total += w
+        with self._stage("update"), torch.no_grad():
+            flat = torch.cat([a.reshape(-1) for a in grad_sum + stat_sum]
+                             + [metric_sum, total])
+            if n > 1:
+                import torch.distributed as dist
+
+                dist.all_reduce(flat, group=mesh.group("data"))
+            tot = float(flat[-1])
+            flat = flat / max(tot, 1e-9)
+            at, mean_grads, mean_stats = 0, [], []
+            for dst, src in ((mean_grads, grad_sum), (mean_stats, stat_sum)):
+                for a in src:
+                    dst.append(flat[at:at + a.numel()].view_as(a))
+                    at += a.numel()
+            metric_mean = flat[at:at + len(self.METRICS)].tolist()
+            finite = bool(torch.isfinite(flat[:sum(
+                a.numel() for a in grad_sum)]).all())
+            keep = finite and tot > 1e-8
+            if keep:
+                for w, gr in zip(self.params, mean_grads):
+                    w.grad = gr.clone()
+                for group in self.optimizer.param_groups:
+                    group["lr"] = self.learning_rate()
+                self.optimizer.step()
+                self.optimizer.zero_grad(set_to_none=True)
+                self.applied_steps += 1
+            stats_ok = tot > 1e-8 and all(
+                bool(torch.isfinite(b).all()) for b in mean_stats)
+            for b, b0, new in zip(stats, initial, mean_stats):
+                b.copy_(new if stats_ok else b0)
+        out = dict(zip(self.METRICS, metric_mean))
+        out["skipped"] = 0.0 if keep else 1.0
+        return out
 
     # -- validation ---------------------------------------------------------
 

@@ -7,6 +7,12 @@ recall and F1, and the balanced spectral-matching loss. Batched, mask
 aware, on the device. The DGR losses (GMF_DGR core/loss.py): the inlier
 net's BCE, plain and balanced, and ``high_dim_smooth_l1_loss`` (the SE(3)
 refinement's objective).
+
+In a step sharded over a mesh (``parallel.sharded``) each rank passes its
+slice of the batch, and the PointDSC losses divide by the global counts
+and means, as gmf_tpu's sharded step does: each rank's loss is then the
+global loss, whose gradient reaches only that rank's part
+(``parallel/collectives.py``), and the metrics are the global batch's.
 """
 
 from __future__ import annotations
@@ -14,8 +20,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from gmf_tpu_torch.geometry.metrics import precision_recall_f1
 from gmf_tpu_torch.geometry.se3 import decompose_trans, transform
+from gmf_tpu_torch.parallel.collectives import batch_mean, batch_sum
 
 
 def transformation_loss(trans, gt_trans, src_keypts, tgt_keypts, probs,
@@ -50,11 +56,11 @@ def transformation_loss(trans, gt_trans, src_keypts, tgt_keypts, probs,
     loss = torch.where(has_inlier, mse, torch.zeros_like(mse))
     success = (re < re_thresh) & (te < te_thresh)
     return {
-        "loss": loss.mean(),
-        "recall_pct": success.float().mean() * 100.0,
-        "re_deg": re.mean(),
-        "te_cm": te.mean(),
-        "rmse": rmse.mean(),
+        "loss": batch_mean(loss),
+        "recall_pct": batch_mean(success.float()) * 100.0,
+        "re_deg": batch_mean(re),
+        "te_cm": batch_mean(te),
+        "rmse": batch_mean(rmse),
     }
 
 
@@ -68,24 +74,29 @@ def classification_loss(pred, gt, mask=None):
     """
     gt = gt.to(pred.dtype)
     m = torch.ones_like(gt) if mask is None else mask.to(pred.dtype)
-    num_pos = F.relu((gt * m).sum() - 1.0) + 1.0
-    num_neg = F.relu(((1.0 - gt) * m).sum() - 1.0) + 1.0
+    gm = gt * m
+    gn = (1.0 - gt) * m
+    num_pos = F.relu(batch_sum(gm.sum()) - 1.0) + 1.0
+    num_neg = F.relu(batch_sum(gn.sum()) - 1.0) + 1.0
     per = -(num_neg / num_pos * gt * F.logsigmoid(pred)
             + (1.0 - gt) * F.logsigmoid(-pred))
-    loss = (per * m).sum() / m.sum()
+    loss = batch_sum((per * m).sum()) / batch_sum(m.sum())
 
-    pred_labels = (pred > 0).to(pred.dtype) * m
-    precision, recall, f1 = precision_recall_f1(
-        pred_labels.reshape(1, -1), (gt * m).reshape(1, -1))
-    gm = gt * m
-    logit_true = (pred * gm).sum() / torch.clamp(gm.sum(), min=1.0)
-    gn = (1 - gt) * m
-    logit_false = (pred * gn).sum() / torch.clamp(gn.sum(), min=1.0)
+    # precision, recall and F1 of the flattened labels (counts: exact)
+    pred_labels = (pred > 0).float() * m.float()
+    tp = batch_sum((pred_labels * gm.float()).sum())
+    precision = tp / (batch_sum(pred_labels.sum()) + 1e-8)
+    recall = tp / (batch_sum(gm.float().sum()) + 1e-8)
+    f1 = 2 * precision * recall / (precision + recall + 1e-8)
+    logit_true = batch_sum((pred * gm).sum()) / torch.clamp(
+        batch_sum(gm.sum()), min=1.0)
+    logit_false = batch_sum((pred * gn).sum()) / torch.clamp(
+        batch_sum(gn.sum()), min=1.0)
     return {
         "loss": loss,
-        "precision": precision[0],
-        "recall": recall[0],
-        "f1": f1[0],
+        "precision": precision,
+        "recall": recall,
+        "f1": f1,
         "logit_true": logit_true,
         "logit_false": logit_false,
     }
@@ -113,7 +124,7 @@ def spectral_matching_loss(M, gt_labels, mask=None):
         neg_M = neg_M * pair
     neg = (M ** 2 * neg_M).sum((-2, -1))
     nneg = F.relu(neg_M.sum((-2, -1)) - 1.0) + 1.0
-    return (0.5 * pos / npos + 0.5 * neg / nneg).mean()
+    return batch_mean(0.5 * pos / npos + 0.5 * neg / nneg)
 
 
 def _bce_with_logits(logits, labels):

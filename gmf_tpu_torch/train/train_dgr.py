@@ -16,8 +16,11 @@ It runs on the card unless ``--cpu`` is given. ``--fcgf-checkpoint`` and
 ``--resume`` read the port's checkpoints (``utils/checkpoint.py``); the
 epoch checkpoints hold the inlier net, with config ``{"dgr": ...,
 "descriptor": ...}``, and load through ``utils/model_io.py::load_dgr``
-beside the FCGF checkpoint. ``--mesh`` (data parallelism over cards)
-waits for ROADMAP queue 1 item 6 and is refused.
+beside the FCGF checkpoint. ``--mesh N`` trains data-parallel over N
+ranks (``WeightedProcrustesTrainer.train_step_dp``): started outside a
+world of N ranks, the command starts one (N cards, or N CPU ranks under
+``--cpu``, ``eval/cli.py::in_world``) and runs on every rank with the
+same pairs; rank 0 alone prints and writes.
 """
 
 from __future__ import annotations
@@ -55,8 +58,9 @@ def parse_args(argv=None):
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU through the plain versions")
     ap.add_argument("--mesh", type=int, default=0, metavar="N",
-                    help="data-parallel training over N cards (not ported "
-                         "yet: refused)")
+                    help="data-parallel training over N cards (N CPU ranks "
+                         "under --cpu): each step's pair group is split "
+                         "over the ranks and the gradients summed")
     ap.add_argument("--prefetch", type=int, default=0,
                     help="prefetch pair batches N-deep on a thread")
     ap.add_argument("--tiny", action="store_true")
@@ -76,10 +80,13 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.mesh:
-        from gmf_tpu_torch.eval.cli import refuse
+    from gmf_tpu_torch.eval.cli import in_world, is_chief
 
-        refuse("--mesh")
+    res = in_world("gmf_tpu_torch.train.train_dgr", argv, args.mesh,
+                   args.cpu)
+    if res is not None:
+        return res
+    chief = is_chief()
 
     import torch
 
@@ -104,9 +111,11 @@ def main(argv=None):
     save_dir = args.save_dir or os.path.join(
         "outputs", "snapshot",
         f"DGR_{args.dataset}_{time.strftime('%m%d%H%M')}")
-    os.makedirs(save_dir, exist_ok=True)
-    # source provenance next to the checkpoints (ref train_3DMatch.py:30-34)
-    snapshot_sources(save_dir, SOURCES)
+    if chief:
+        os.makedirs(save_dir, exist_ok=True)
+        # source provenance next to the checkpoints (ref
+        # train_3DMatch.py:30-34)
+        snapshot_sources(save_dir, SOURCES)
 
     torch.manual_seed(0)
     if args.tiny:
@@ -119,10 +128,12 @@ def main(argv=None):
     if args.fcgf_checkpoint:
         fcgf.load_state_dict(load_checkpoint(args.fcgf_checkpoint)[0],
                              strict=True)
-        print(f"loaded frozen FCGF from {args.fcgf_checkpoint}")
+        if chief:
+            print(f"loaded frozen FCGF from {args.fcgf_checkpoint}")
     if args.resume:
         inlier.load_state_dict(load_checkpoint(args.resume)[0], strict=True)
-        print(f"resumed inlier net from {args.resume}")
+        if chief:
+            print(f"resumed inlier net from {args.resume}")
 
     rng = np.random.RandomState(0)
     n_points = args.n_points or (300 if args.tiny else 2000)
@@ -142,6 +153,15 @@ def main(argv=None):
     trainer = WeightedProcrustesTrainer(
         fcgf, inlier, cfg, voxel_cap_granule=granule,
         corr_cap_granule=granule, descriptor=args.descriptor, device=device)
+    mesh = None
+    if args.mesh:
+        from gmf_tpu_torch.parallel.mesh import make_mesh, replicate
+
+        mesh = make_mesh(n_data=args.mesh, device=device)
+        replicate(trainer.inlier, mesh)
+        if chief:
+            print(f"DP training over a {args.mesh}-rank data mesh "
+                  f"({mesh.backend})", flush=True)
 
     if args.dataset == "synthetic":
         spe = args.steps_per_epoch or 2
@@ -167,6 +187,12 @@ def main(argv=None):
 
         def epoch_pairs():
             order = np.random.permutation(len(ds))
+            if mesh is not None:  # every rank takes rank 0's order
+                import torch.distributed as dist
+
+                box = [order]
+                dist.broadcast_object_list(box, src=0)
+                order = box[0]
             for step in range(spe):
                 idx = order[step * cfg.batch_size:(step + 1) * cfg.batch_size]
                 yield [ds[int(i)] for i in idx]
@@ -175,24 +201,28 @@ def main(argv=None):
     for epoch in range(cfg.max_epoch):
         sums, count = {}, 0
         for pairs in prefetch_iter(epoch_pairs(), args.prefetch):
-            m = trainer.train_step(pairs)
+            m = (trainer.train_step_dp(pairs, mesh) if mesh is not None
+                 else trainer.train_step(pairs))
             count += 1
             for k, v in m.items():
                 sums[k] = sums.get(k, 0.0) + v
         avg = {k: v / max(count, 1) for k, v in sums.items()}
+        succ = avg.get("success", 0.0)
+        if not chief:
+            continue
         print(f"epoch {epoch + 1}: " + " ".join(
             f"{k}={v:.4f}" for k, v in sorted(avg.items())), flush=True)
         save_checkpoint(
             os.path.join(save_dir, f"checkpoint_epoch_{epoch + 1}"),
             trainer.inlier_variables(),
             config={"dgr": cfg.__dict__, "descriptor": args.descriptor})
-        succ = avg.get("success", 0.0)
         if succ > best:
             best = succ
             save_checkpoint(os.path.join(save_dir, "best_val_checkpoint"),
                             trainer.inlier_variables(),
                             config={"dgr": cfg.__dict__})
-    print(f"done; snapshots in {save_dir}", flush=True)
+    if chief:
+        print(f"done; snapshots in {save_dir}", flush=True)
     return save_dir
 
 

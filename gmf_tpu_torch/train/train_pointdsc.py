@@ -17,7 +17,12 @@ It runs on the card unless ``--cpu`` is given. As the reference's
 (gmf_tpu/train/train_pointdsc.py:170-177), the model trains with the
 dense attention (``fused_attention=False``) unless ``--fused`` asks for
 the attention kernels; the checkpoints record which. ``--prefetch N``
-builds batches N ahead on a thread (``data/prefetch.py``).
+builds batches N ahead on a thread (``data/prefetch.py``). Started in a
+world of ranks (``torchrun``, joined by ``parallel/launch.py::
+init_world``), it trains data-parallel over all of them, as gmf_tpu's
+trainer takes every device by default: each rank draws its batches from
+its own strided share of the seeded permutation (``process_shard``) and
+trains on its slice of each, so a global batch holds disjoint pairs.
 """
 
 from __future__ import annotations
@@ -31,8 +36,9 @@ class BatchedLoader:
     """An indexable dataset as a shuffled, min-clip-collated batch
     iterator (the reference's DataLoader and collate_fn,
     datasets/dataloader.py:55-62), with gmf_tpu's draws: a permutation
-    from ``RandomState(seed + epoch)`` and the collate's subsampling from
-    the same state."""
+    from ``RandomState(seed + epoch)``, this process's strided share of it
+    (``parallel.process_shard``; the whole permutation outside a world)
+    and the collate's subsampling from the same state."""
 
     def __init__(self, dataset, batch_size: int, steps_per_epoch: int,
                  seed: int = 0):
@@ -46,10 +52,11 @@ class BatchedLoader:
         import numpy as np
 
         from gmf_tpu_torch.data.collate import min_clip_collate
+        from gmf_tpu_torch.parallel.mesh import process_shard
 
         rng = np.random.RandomState(self.seed + self._epoch)
         self._epoch += 1
-        order = rng.permutation(len(self.dataset))
+        order = process_shard(rng.permutation(len(self.dataset)))
         for step in range(self.steps_per_epoch):
             idx = [order[(step * self.batch_size + b) % len(order)]
                    for b in range(self.batch_size)]
@@ -193,9 +200,12 @@ def main(argv=None):
         weight_transformation=cfg.weight_transformation,
         transformation_loss_start_epoch=cfg.transformation_loss_start_epoch,
         re_thresh=cfg.re_thre, te_thresh=cfg.te_thre, save_dir=save_dir)
+    from gmf_tpu_torch.parallel.mesh import make_mesh, world_initialized
+
+    mesh = make_mesh(device=model.device) if world_initialized() else None
     trainer = Trainer(model, tcfg, train_loader, val_loader,
                       steps_per_epoch=len(train_loader),
-                      prefetch=args.prefetch)
+                      prefetch=args.prefetch, mesh=mesh)
     if args.pretrain:
         trainer.load(args.pretrain)
         print(f"loaded pretrain from {args.pretrain}", flush=True)

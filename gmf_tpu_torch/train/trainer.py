@@ -1,4 +1,4 @@
-"""PointDSC+GMF trainer on one card.
+"""PointDSC+GMF trainer, on one card or data-parallel over a mesh.
 
 Counterpart of ``gmf_tpu/train/trainer.py`` (reference:
 GMF_PointDSC/libs/trainer.py):
@@ -21,12 +21,23 @@ GMF_PointDSC/libs/trainer.py):
 
 Every parameter gets a gradient, zero where the loss does not reach it,
 so Adam and the weight decay move every parameter as optax moves them.
-The JAX trainer's mesh and data parallelism are not ported yet: this one
-runs on the model's device.
+
+Over a mesh (``Trainer(mesh=...)``, ``parallel/mesh.py``) every rank
+holds the same parameters (rank 0's, broadcast once) and takes the same
+global batch; a step is its slice of the batch, the forward inside
+``parallel.sharded`` (batch norms on the global statistics, losses
+normalised by the global counts), then the gradients summed over the
+'data' axis in one flat buffer: the global gradient, since each rank's
+loss is its part of the global one. A non-finite gradient on any rank
+makes the sum non-finite everywhere, so every rank skips together, and
+every rank applies the same Adam update. gmf_tpu's sharded step equals
+its single-device step (tests/test_parallel.py); so does this one. Rank
+0 alone prints and writes checkpoints.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 from typing import Dict, Optional
@@ -35,6 +46,7 @@ import numpy as np
 import torch
 
 from gmf_tpu_torch.data.prefetch import prefetch_iter
+from gmf_tpu_torch.parallel.mesh import replicate, shard_batch, sharded
 from gmf_tpu_torch.train.losses import (classification_loss,
                                         spectral_matching_loss,
                                         transformation_loss)
@@ -115,26 +127,37 @@ def floats(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
 
 
 def train_step(model, optimizer, cfg: TrainConfig, batch, epoch: int,
-               lr: float) -> Dict[str, float]:
+               lr: float, mesh=None) -> Dict[str, float]:
     """One step on a batch of tensors: forward in train mode, backward,
     and the Adam update at ``lr`` unless a gradient is not finite.
     Returns the metrics, ``skipped_step`` among them. The gradients stay
-    in the parameters' ``.grad``."""
+    in the parameters' ``.grad``. With a ``mesh``, ``batch`` is this
+    rank's slice of the global batch (module docstring)."""
     model.train()
     device = next(model.parameters()).device
     w_t = torch.tensor(cfg.weight_transformation
                        if epoch > cfg.transformation_loss_start_epoch
                        else 0.0, device=device)
-    loss, metrics = _forward_losses(model, batch, cfg, w_t)
-    optimizer.zero_grad(set_to_none=True)
-    loss.backward()
+    with sharded(mesh):
+        loss, metrics = _forward_losses(model, batch, cfg, w_t)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
     params = [p for group in optimizer.param_groups for p in group["params"]]
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    # one check over all gradients: a few launches, not five per tensor
-    finite = torch.isfinite(
-        torch.cat([p.grad.reshape(-1) for p in params])).all()
+    # one flat buffer: one check over all gradients (a few launches, not
+    # five per tensor) and, over a mesh, one all-reduce
+    flat = torch.cat([p.grad.reshape(-1) for p in params])
+    if mesh is not None and mesh.n_data > 1:
+        import torch.distributed as dist
+
+        dist.all_reduce(flat, group=mesh.group("data"))
+        at = 0
+        for p in params:
+            p.grad.copy_(flat[at:at + p.numel()].view_as(p))
+            at += p.numel()
+    finite = torch.isfinite(flat).all()
     applied = bool(finite)
     if applied:
         for group in optimizer.param_groups:
@@ -146,11 +169,13 @@ def train_step(model, optimizer, cfg: TrainConfig, batch, epoch: int,
 
 
 @torch.no_grad()
-def eval_step(model, cfg: TrainConfig, batch) -> Dict[str, float]:
+def eval_step(model, cfg: TrainConfig, batch, mesh=None) -> Dict[str, float]:
     """Validation step: the train branch with running batch-norm
-    statistics, the same losses, no update."""
+    statistics, the same losses, no update (over a mesh, on this rank's
+    slice, the metrics the global batch's)."""
     model.eval()
-    _, metrics = _forward_losses(model, batch, cfg, 0.0)
+    with sharded(mesh):
+        _, metrics = _forward_losses(model, batch, cfg, 0.0)
     del metrics["loss"]
     return floats(metrics)
 
@@ -163,10 +188,24 @@ class Trainer:
     loader's, which the learning-rate schedule counts in. ``prefetch > 0``
     builds that many batches ahead on a thread (``data/prefetch.py``), so
     that the host's batch construction overlaps the card's steps.
+
+    ``mesh``: data parallelism over its 'data' axis (module docstring);
+    every rank builds the trainer with the same model and loaders. As in
+    gmf_tpu, a model whose ``compat_cache_shards`` is 1 takes the mesh's
+    n_data there (a shallow copy sharing the parameters), so that the
+    "auto" cache gate sizes one rank's share of the batch.
     """
 
     def __init__(self, model, cfg: TrainConfig, train_loader, val_loader,
-                 steps_per_epoch: Optional[int] = None, prefetch: int = 0):
+                 steps_per_epoch: Optional[int] = None, prefetch: int = 0,
+                 mesh=None):
+        self.mesh = mesh
+        if mesh is not None and mesh.n_data > 1 and getattr(
+                model, "compat_cache_shards", 0) == 1:
+            model = copy.copy(model)
+            model.compat_cache_shards = mesh.n_data
+        if mesh is not None:
+            replicate(model, mesh)
         self.model = model
         self.cfg = cfg
         self.train_loader = train_loader
@@ -183,18 +222,31 @@ class Trainer:
     def device(self):
         return next(self.model.parameters()).device
 
+    @property
+    def is_chief(self) -> bool:
+        """Whether this process prints and writes (rank 0 of the mesh)."""
+        return self.mesh is None or self.mesh.rank == self.mesh.ranks[0]
+
+    def _local(self, batch) -> Dict[str, torch.Tensor]:
+        """A NumPy batch as f32 tensors on the device: over a mesh, this
+        rank's slice of it."""
+        if self.mesh is None:
+            return to_device(batch, self.device)
+        return shard_batch({k: np.asarray(v, np.float32)
+                            for k, v in batch.items()}, self.mesh)
+
     def train_step(self, batch, epoch: int) -> Dict[str, float]:
         """One step on a NumPy batch; counts it when it was applied."""
         metrics = train_step(
-            self.model, self.optimizer, self.cfg,
-            to_device(batch, self.device), epoch,
+            self.model, self.optimizer, self.cfg, self._local(batch), epoch,
             learning_rate(self.cfg, self.applied_steps,
-                          self.steps_per_epoch))
+                          self.steps_per_epoch), mesh=self.mesh)
         self.applied_steps += metrics["skipped_step"] == 0.0
         return metrics
 
     def eval_step(self, batch) -> Dict[str, float]:
-        return eval_step(self.model, self.cfg, to_device(batch, self.device))
+        return eval_step(self.model, self.cfg, self._local(batch),
+                         mesh=self.mesh)
 
     @staticmethod
     def _mean(rows):
@@ -221,9 +273,10 @@ class Trainer:
                                  self.train_epoch(epoch + 1)))
             res = self.evaluate()
             self.history.append(("eval", epoch + 1, res))
-            print(f"epoch {epoch + 1}: " + " ".join(
-                f"{k}={v:.4f}" for k, v in res.items()), flush=True)
-            if snapshot:
+            if self.is_chief:
+                print(f"epoch {epoch + 1}: " + " ".join(
+                    f"{k}={v:.4f}" for k, v in res.items()), flush=True)
+            if snapshot and self.is_chief:
                 if res["reg_recall"] > best_recall:
                     best_recall = res["reg_recall"]
                     self.save(os.path.join(self.cfg.save_dir, "model_best"))

@@ -1338,3 +1338,47 @@ def test_apps_make_fragments_card_vs_cpu(cuda, tmp_path):
             np.testing.assert_allclose(Pa, Pb, rtol=0, atol=1e-4)
         apart_only_at_edges(a["xyz"], b["xyz"], b["pose"], K)
         assert len(a["xyz"]) > 1000
+
+
+# -- parallel/: worlds of ranks on the card -----------------------------------
+
+def test_parallel_ring_and_registrar_on_card(cuda):
+    """A world of two ranks on the card (one card: gloo, all-gathers and
+    hops staged through the host; two or more: NCCL): the ring function
+    and its gradient against the one-rank ring on the CPU (1e-5 of each
+    result's largest entry), and the registrar's batched path with the
+    attention kernels (f32) against one rank on the card (1e-3 on the
+    transform, 99% of labels)."""
+    import torch_parallel_workers as w
+    from gmf_tpu_torch.parallel.launch import launch
+    from gmf_tpu_torch.parallel.mesh import Mesh
+    from gmf_tpu_torch.parallel.ring_attention import ring_compat_attention
+
+    model = PointDSC(device=cuda, **w.CARD_KW)
+    state = {k: v.cpu().numpy() for k, v in model.state_dict().items()}
+    results = launch(w.card_world, 2, dict(state=state), device="cuda",
+                     timeout=600)
+    one = Mesh(1, 1, [0], 0, "cpu", None)
+    want = PointDSCRegistrar(model, buckets=(w.BUCKET,)).register_batch(
+        w.corr_samples())
+    for res in results:
+        assert res["staging"] == (torch.cuda.device_count() < 2)
+        for masked, got in res["ring"].items():
+            q, k, v, s, t, m = (torch.tensor(x) for x in
+                                w.ring_inputs(masked))
+            for x in (q, k, v):
+                x.requires_grad_(True)
+            o = ring_compat_attention(q, k, v, s, t, m, one, sigma_d=0.3)
+            (o * o).sum().backward()
+            for key, ref in (("out", o), ("dq", q.grad), ("dk", k.grad),
+                             ("dv", v.grad)):
+                ref = ref.detach().numpy()
+                scale = np.abs(ref).max()
+                np.testing.assert_allclose(got[key] / scale, ref / scale,
+                                           atol=1e-5, err_msg=key)
+        agree = total = 0
+        for (t, l), (wt, wl) in zip(res["corr"], want):
+            np.testing.assert_allclose(t, wt, atol=1e-3)
+            agree += int((l == wl).sum())
+            total += l.size
+        assert agree >= 0.99 * total

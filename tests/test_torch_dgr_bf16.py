@@ -284,7 +284,7 @@ def test_train_dgr_cli(tmp_path):
     """train_dgr --tiny --cpu, 1 epoch of 1 step of 1 pair: the epoch and
     best checkpoints with their configs, the snapshot of the port's
     sources, a checkpoint that load_dgr reads into an engine that
-    registers a pair, and --mesh refused by its ROADMAP item."""
+    registers a pair, and --mesh 2 over two CPU ranks."""
     from gmf_tpu_torch.data.dgr_loader import make_dgr_pair
     from gmf_tpu_torch.eval.test_dgr import tiny_nets
 
@@ -317,6 +317,17 @@ def test_train_dgr_cli(tmp_path):
     assert res["trans"].shape == (4, 4) and np.isfinite(res["trans"]).all()
     for k, v in inlier.state_dict().items():
         assert torch.equal(v, state[k]), k
-    with pytest.raises(SystemExit, match="item 6"):
-        train_dgr.main(["--dataset", "synthetic", "--tiny", "--cpu",
-                        "--mesh", "2", "--save-dir", out])
+    # --mesh 2: the step's two pairs split over two CPU ranks (rank 0
+    # writes); --mesh above the cards stops by name, as gmf_tpu's
+    dp = str(tmp_path / "dp")
+    train_dgr.main(["--dataset", "synthetic", "--tiny", "--cpu",
+                    "--max-epoch", "1", "--steps-per-epoch", "1",
+                    "--batch-size", "2", "--save-dir", dp, "--mesh", "2",
+                    "--fcgf-checkpoint", fcgf_ckpt])
+    state, config = load_checkpoint(os.path.join(dp, "checkpoint_epoch_1"))
+    assert config["dgr"]["batch_size"] == 2
+    assert all(torch.isfinite(v).all() for v in state.values()
+               if v.is_floating_point())
+    with pytest.raises(SystemExit, match="--mesh 2 needs 2 cards"):
+        train_dgr.main(["--dataset", "synthetic", "--tiny", "--mesh", "2",
+                        "--save-dir", out])

@@ -334,7 +334,22 @@ def test_skips(world, fault, monkeypatch):
     assert_state(pt, jax_state(jt), "after a skipped step")
 
 
-def test_train_step_dp_refuses(world):
-    pt = port_trainer(world["fv"], world["iv"])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        pt.train_step_dp(world["pairs"], None)
+def test_train_step_dp_one_rank(world):
+    """train_step_dp of one pair on a one-rank mesh is gmf_tpu's
+    train_step of that pair (the data-parallel step's step-initial
+    statistics are the serial loop's for one pair): metrics, parameters
+    and statistics within this file's bounds (two SGD steps). The
+    multi-rank step: tests/test_torch_parallel.py."""
+    from gmf_tpu_torch.parallel.mesh import Mesh
+
+    one = Mesh(1, 1, [0], 0, "cpu", None)
+    kw = dict(lr=1e-2, optimizer="SGD")
+    jt = world["jax"].trainer(**kw)
+    pt = port_trainer(world["fv"], world["iv"], jt, **kw)
+    for _ in range(2):
+        jm = jt.train_step(world["pairs"][:1])
+        pm = pt.train_step_dp(world["pairs"][:1], one)
+        assert pm["skipped"] == jm["skipped"] == 0.0
+        assert_metrics(pm, jm)
+        assert_state(pt, jax_state(jt), "train_step_dp")
+    assert pt.applied_steps == 2

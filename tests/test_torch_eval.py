@@ -282,16 +282,32 @@ def test_3dmatch_batched_equals_serial(trees, tmp_path):
                                   serial["all_stats"][:, cols])
 
 
-@pytest.mark.parametrize("case,flag", [("3dmatch", "--mesh"),
-                                       ("kitti", "--mesh"),
-                                       ("3dlomatch", "--mesh"),
-                                       ("3dlomatch", "--ring")])
-def test_cli_refuses_mesh_and_ring_by_name(trees, tmp_path, case, flag):
+@pytest.mark.parametrize("case,flags,refusal", [
+    ("3dmatch", ["--cpu", "--mesh", "2"], None),
+    ("kitti", ["--mesh", "2"], "--mesh 2 needs 2 cards"),
+    ("3dlomatch", ["--cpu", "--mesh", "2", "--ring", "2"],
+     "mutually exclusive"),
+    ("3dlomatch", ["--cpu", "--ring", "2"], None),
+    ("3dlomatch", ["--cpu", "--ring", "7"], "no bucket divides"),
+])
+def test_cli_mesh_and_ring(trees, tmp_path, case, flags, refusal):
+    """--mesh 2 (batches of 2 sharded over 2 CPU ranks) and --ring 2 (the
+    ring model over 2 CPU ranks) give the one-rank statistics; the
+    refusals gmf_tpu keeps stop the command by name and write nothing:
+    N above the cards (here none), --ring with --mesh, a ring that no
+    bucket divides."""
     port, _, argv = _cli_args(trees, case)
-    with pytest.raises(SystemExit, match=re.escape(flag)):
-        port.main(argv + ["--checkpoint", trees["port_ckpt"], "--out",
-                          str(tmp_path), "--cpu", flag, "2"])
-    assert not os.path.exists(tmp_path / "all_stats.npy")
+    argv = argv + ["--checkpoint", trees["port_ckpt"], "--batch", "2"]
+    out = tmp_path / "n"
+    if refusal:
+        with pytest.raises(SystemExit, match=re.escape(refusal)):
+            port.main(argv + ["--out", str(out)] + flags)
+        assert not os.path.exists(out / "all_stats.npy")
+        return
+    one = port.main(argv + ["--out", str(tmp_path / "one"), "--cpu"])
+    many = port.main(argv + ["--out", str(out)] + flags)
+    np.testing.assert_array_equal(many["all_stats"], _stats(out))
+    _assert_stats_close(many["all_stats"], one["all_stats"])
 
 
 def test_recurrent_matches_jax(trees, tmp_path, caplog):

@@ -222,18 +222,60 @@ def test_dense_modes_resolve_as_the_reference(init):
     ("knn_topk", dict(knn_topk="pallas"), ValueError),
     ("hypo_scoring", dict(hypo_scoring="sparse"), ValueError),
     ("kabsch_method", dict(kabsch_method="umeyama"), ValueError),
-    ("ring_mesh", dict(ring_mesh=object()), NotImplementedError),
-    ("compat_cache_shards", dict(compat_cache_shards=4),
-     NotImplementedError),
-    ("mesh", None, NotImplementedError),
 ])
 def test_unknown_modes_fail_by_name(name, kw, error):
-    """Every mode the port does not know or lacks raises, naming it."""
+    """Every mode the port does not know raises, naming it."""
     with pytest.raises(error, match=name):
-        if kw is None:
-            PointDSCRegistrar(PointDSC(device="cpu", **KW), mesh=object())
-        else:
-            PointDSC(device="cpu", **kw, **KW)
+        PointDSC(device="cpu", **kw, **KW)
+
+
+@pytest.mark.parametrize("name", ["ring_mesh", "compat_cache_shards",
+                                  "mesh"])
+def test_mesh_settings(name):
+    """The reference's mesh settings work on a mesh of one rank, and
+    refuse what gmf_tpu refuses. ring_mesh: ring attention on a one-rank
+    ring gives the model's result (tests/test_ring_model.py's limits),
+    and N that does not divide the ring raises naming it.
+    compat_cache_shards: the "auto" gate sizes ceil(B / shards) pairs;
+    below 1 it raises. mesh: a registrar over a one-rank mesh gives the
+    one without."""
+    from gmf_tpu_torch.parallel.mesh import Mesh
+
+    one = Mesh(1, 1, [0], 0, "cpu", None)
+    corr, src, tgt, p_img, q_img, mask = map(torch.tensor, _problem())
+    model = PointDSC(device="cpu", **DENSE, **KW)
+    if name == "ring_mesh":
+        ring = PointDSC(device="cpu", ring_mesh=one, **DENSE, **KW)
+        ring.load_state_dict(model.state_dict())
+        args = (corr, src, tgt, p_img, q_img)
+        got = ring(*args, testing=True, corr_mask=mask)
+        want = model(*args, testing=True, corr_mask=mask)
+        np.testing.assert_allclose(got["final_trans"], want["final_trans"],
+                                   atol=2e-4)
+        np.testing.assert_allclose(got["confidence"], want["confidence"],
+                                   atol=2e-3)
+        ring.ring_mesh = Mesh(3, 1, [0, 1, 2], 0, "cpu", None)
+        with pytest.raises(ValueError, match="ring"):
+            ring(*args, testing=True, corr_mask=mask)
+    elif name == "compat_cache_shards":
+        from gmf_tpu_torch.models.pointdsc import _auto_compat_cache_dtype
+
+        four = PointDSC(device="cpu", compat_cache_shards=4, **KW)
+        assert four.auto_cache_dtype(256, 5000) is \
+            _auto_compat_cache_dtype(64, 5000) is torch.int8
+        assert model.auto_cache_dtype(256, 5000) is None
+        for bad in (0, -2, 1.5):
+            with pytest.raises(ValueError, match=name):
+                PointDSC(device="cpu", compat_cache_shards=bad, **KW)
+    else:
+        samples = [dict(corr_pos=corr[i].numpy(), src_keypts=src[i].numpy(),
+                        tgt_keypts=tgt[i].numpy(), p_image=p_img[i].numpy(),
+                        q_image=q_img[i].numpy()) for i in range(2)]
+        got = PointDSCRegistrar(model, mesh=one).register_batch(samples)
+        want = PointDSCRegistrar(model).register_batch(samples)
+        for (t, l), (wt, wl) in zip(got, want):
+            np.testing.assert_array_equal(t, wt)
+            np.testing.assert_array_equal(l, wl)
 
 
 @pytest.mark.parametrize("fused", [False, True])

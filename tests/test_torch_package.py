@@ -132,16 +132,51 @@ APPS_AND_TOOLS = (
     "utils/logging_utils.py", "utils/profiling.py", "utils/timer.py")
 
 
-@pytest.mark.parametrize("path", APPS_AND_TOOLS)
-def test_no_jax_checks_cover_the_apps_and_tools(path):
-    assert (ROOT / "gmf_tpu_torch" / path) in set(
-        (ROOT / "gmf_tpu_torch").rglob("*.py"))
+@functools.cache
+def _walked():
+    return {m.name for m in pkgutil.walk_packages(gmf_tpu_torch.__path__,
+                                                  "gmf_tpu_torch.")}
+
+
+def _reached(path: str) -> bool:
+    """Whether gmf_tpu_torch/<path> is in the import-statement glob and
+    the package walk of the no-JAX checks above."""
+    if (ROOT / "gmf_tpu_torch" / path) not in set(
+            (ROOT / "gmf_tpu_torch").rglob("*.py")):
+        return False
     name = "gmf_tpu_torch." + path[:-3].replace("/", ".")
     if name.endswith(".__init__"):
         name = name[:-len(".__init__")]
-    assert name in {m.name for m in pkgutil.walk_packages(
-        gmf_tpu_torch.__path__, "gmf_tpu_torch.")}
+    return name == "gmf_tpu_torch" or name in _walked()
+
+
+@pytest.mark.parametrize("path", APPS_AND_TOOLS)
+def test_no_jax_checks_cover_the_apps_and_tools(path):
+    assert _reached(path)
     assert (ROOT / "gmf_tpu" / path).exists()
+
+
+# gmf_tpu/parallel/, the last module slice, likewise
+PARALLEL = ("parallel/__init__.py", "parallel/mesh.py",
+            "parallel/ring_attention.py")
+
+
+@pytest.mark.parametrize("path", PARALLEL)
+def test_no_jax_checks_cover_parallel(path):
+    assert _reached(path)
+    assert (ROOT / "gmf_tpu" / path).exists()
+
+
+GMF_TPU_MODULES = sorted(str(p.relative_to(ROOT / "gmf_tpu"))
+                         for p in (ROOT / "gmf_tpu").rglob("*.py"))
+
+
+@pytest.mark.parametrize("path", GMF_TPU_MODULES)
+def test_every_gmf_tpu_module_has_its_counterpart(path):
+    """Module parity, the end of the port's first queue: every module of
+    gmf_tpu has its counterpart at the same path in gmf_tpu_torch, inside
+    the no-JAX checks."""
+    assert _reached(path), path
 
 
 def test_wrappers_take_plain_version_only_on_cpu():
