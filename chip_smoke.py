@@ -189,7 +189,16 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
      --use-icp on the card (finite rows), and --tiny --descriptor fpfh
      --use-icp on the card and with --cpu (success and safeguard flags
      equal, rre within 0.05 deg, rte within 1e-3 m); the tiny FCGF's
-     features on both devices within 1e-4.
+     features on both devices within 1e-4;
+   - the stage methods and the scatter modes at dgr_3dmatch's scale
+     (dgr_stages_and_scatter): register() with the inlier net on
+     scatter_mode "rowwise", whose inlier logits inlier_prediction and
+     whose descriptors descriptor_features must give in every bit; the
+     compacted inlier net on "rowwise" over 5 runs, equal in every bit
+     and to its plain version (an index_add_ a run of one offset's
+     tiles: gmf_tpu's tile order), and on "flat" within phase 8's weight
+     limit of it (1e-4 after the sigmoid); each mode's ms (the inlier_net stage, means of timed
+     calls in turns).
 9. DGR+GMF training (dgr_train_phase), phase 8's nets, no kernel row:
    - one SGD train_step of 2 pairs on the card and on the CPU at ~1,500
      voxels (the CPU on the card's 1-NN matches and labels, its own
@@ -283,7 +292,21 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
     check every rank's launches. Then test_3dmatch --mesh and
     test_3dlomatch --ring (--num-node all) on phase 7's trees: N = 1
     here (launches asserted), and 2 with two cards.
-13. Print the seconds of each phase as it ends, a JSON line with every
+13. The rest of gmf_tpu's public surface (surface_phase), no kernel row
+    but the seed solver's: every committed JPEG fixture
+    (tests/torch_fixtures/jpeg/) decoded by the native decoder equal in
+    every bit to its committed Pillow decode, the progressive one
+    refused by name, the 640 x 480 frame's decode timed on the card's
+    host (its SHA-256 equal to Pillow's); ThreeDMatchTest on a tiny tree
+    whose frames are those fixtures, each sample's images equal to
+    imageio.to_frame of the committed arrays; FusionLayer(depth=2,
+    latent_heads=8) and a 4-head dense NonLocalBlock on the card
+    against the CPU (1e-4 of the largest output: f32 with TF32 off,
+    summed in other orders); fused_seed_transforms(kabsch_method="svd")
+    on the card (kernel row 12's weights) against its plain version on
+    the card (rotation 5e-4, translation 5e-3, tests/test_torch_ops.py's
+    bounds).
+14. Print the seconds of each phase as it ends, a JSON line with every
     path's time per request or step, a JSON
     line with every kernel's launches, time, plain time, bound and error,
     and, as the last line, {"ok": true, "device": {...}}.
@@ -3890,6 +3913,120 @@ def dgr_full_size(dev, name, nets, host_too=False):
     return result
 
 
+# the scatter modes of the compacted 6-D convolution: timed inlier-net
+# calls a mode, in turns (flat, rowwise, rowwise, flat, ...), after a
+# warm-up of each
+DGR_SCATTER_TIMED = 4
+
+
+def dgr_stages_and_scatter(dev, nets):
+    """At dgr_3dmatch's scale on the card's default path (device maps,
+    compacted inlier convolutions), ICP off:
+
+    - register() with the inlier net on scatter_mode "rowwise": the
+      logits it fed the solve must equal inlier_prediction's on the same
+      6-D coordinates in every bit, and each cloud's descriptors
+      descriptor_features' (the fragment register() prepared);
+    - the compacted inlier net on "rowwise" over several runs, equal in
+      every bit, and to its plain version
+      (sparse_conv_compact_in_tile_order: gmf_tpu's tile order spelled
+      out, an index_add_ a run of one offset's tiles); on "flat" over
+      several runs (whether its atomic adds
+      gave the same bits is printed), within DGR_W_TOL of "rowwise"
+      after the sigmoid (phase 8's weight limit); each mode's ms, the
+      inlier_net stage's host-clock mean over DGR_SCATTER_TIMED calls a
+      mode in turns."""
+    from gmf_tpu_torch.sparse import conv
+    from gmf_tpu_torch.sparse.conv import set_scatter_mode
+
+    spec = DGR_FULL["dgr_3dmatch"]
+    xyz0, xyz1, p, q, _ = dgr_pair(SEED + 30, spec["side"], spec["points"])
+    eng = dgr_engine(dev, nets)
+    if not (eng.config.use_device_maps(dev)
+            and eng.config.use_compact_conv(dev)):
+        fail("dgr scatter modes: the card's default is not device maps and "
+             "compacted convolutions")
+    set_scatter_mode(eng.inlier, "rowwise")
+    seen, frags = {}, []
+    solve, prepare = eng._solve, eng.prepare_fragment
+
+    def spy_solve(uniq_logits, inverse, *a, **k):
+        seen["logits"] = uniq_logits[inverse].cpu().numpy()
+        return solve(uniq_logits, inverse, *a, **k)
+
+    def spy_prepare(xyz):
+        ent = prepare(xyz)
+        frags.append(ent)
+        return ent
+
+    eng._solve, eng.prepare_fragment = spy_solve, spy_prepare
+    res = eng.register(xyz0, xyz1, p, q)
+    eng._solve, eng.prepare_fragment = solve, prepare
+    n = len(res["weights"])
+    for i, ent in enumerate(frags):
+        got = eng.descriptor_features(ent["coords"], ent["pts"])
+        used = ent["F"][:len(ent["coords"])].cpu().numpy()
+        if not np.array_equal(got, used):
+            fail(f"dgr descriptor_features of cloud {i} differ from the "
+                 "features register() matched")
+    corr6d = np.concatenate([frags[0]["coords"],
+                             frags[1]["coords"][res["corres"][1]]], 1)
+    runs = {"rowwise": [eng.inlier_prediction(corr6d, p, q)]}
+    if not np.array_equal(runs["rowwise"][0], seen["logits"][:n]):
+        fail("dgr inlier_prediction differs from the logits register() "
+             "used")
+    fast = conv.sparse_conv_compact
+    conv.sparse_conv_compact = (
+        lambda *a, scatter_mode, **k:
+        conv.sparse_conv_compact_in_tile_order(*a, **k))
+    try:
+        ordered = eng.inlier_prediction(corr6d, p, q)
+    finally:
+        conv.sparse_conv_compact = fast
+    if not np.array_equal(ordered, runs["rowwise"][0]):
+        fail("dgr scatter_mode='rowwise' differs from its plain version "
+             "(sparse_conv_compact_in_tile_order, gmf_tpu's tile order) by "
+             f"{float(np.abs(ordered - runs['rowwise'][0]).max())}")
+    eng.stage_seconds = {}
+    ms = {"flat": [], "rowwise": []}
+    for mode in ["flat"] + ["flat", "rowwise", "rowwise", "flat"] * (
+            DGR_SCATTER_TIMED // 2):
+        set_scatter_mode(eng.inlier, mode)
+        eng.stage_seconds.clear()
+        logits = eng.inlier_prediction(corr6d, p, q)
+        runs.setdefault(mode, []).append(logits)
+        ms[mode].append(1e3 * eng.stage_seconds["inlier_net"])
+    ms["flat"] = ms["flat"][1:]  # the first call warmed up
+    eng.stage_seconds = None
+    rowwise, flat = runs["rowwise"], runs["flat"]
+    if not all(np.array_equal(r, rowwise[0]) for r in rowwise[1:]):
+        fail("dgr scatter_mode='rowwise': two runs of the compacted inlier "
+             "net differ")
+
+    def sigmoid(x):
+        return 1.0 / (1.0 + np.exp(-x.astype(np.float64)))
+
+    w_err = float(np.abs(sigmoid(flat[0]) - sigmoid(rowwise[0])).max())
+    row = dict(correspondences=n, unique_6d=len(np.unique(corr6d, axis=0)),
+               rowwise_runs_equal=len(rowwise),
+               rowwise_equal_to_tile_order=True,
+               flat_runs_all_equal=all(np.array_equal(f, flat[0])
+                                       for f in flat[1:]),
+               flat_vs_rowwise_logit_max_abs=float(np.abs(
+                   flat[0] - rowwise[0]).max()),
+               flat_vs_rowwise_weight_max_abs=w_err,
+               flat_ms=ms["flat"], rowwise_ms=ms["rowwise"],
+               flat_ms_mean=float(np.mean(ms["flat"])),
+               rowwise_ms_mean=float(np.mean(ms["rowwise"])),
+               stage_outputs_equal=dict(descriptor_features=len(frags),
+                                        inlier_prediction=True))
+    print("dgr stages and scatter modes: " + json.dumps(row), flush=True)
+    if not w_err <= DGR_W_TOL:
+        fail(f"dgr scatter modes: flat and rowwise weights differ by {w_err}"
+             f" > {DGR_W_TOL}")
+    return row
+
+
 def write_dgr_fixtures(root, rng):
     """A 3DMatch scene of two fragments (PLY, 480 x 640 PNG frames, a
     gt.log of both directions) and a KITTI sequence 08 of three frames
@@ -4062,6 +4199,8 @@ def dgr_phase(dev, phase_done):
                                        host_too=True)
     out["dgr_kitti"] = dgr_full_size(dev, "dgr_kitti", nets_kitti)
     phase_done("dgr_full_size")
+    out["stages_and_scatter"] = dgr_stages_and_scatter(dev, nets)
+    phase_done("dgr_scatter_modes")
     with tempfile.TemporaryDirectory() as tmp:
         out["cli"] = dgr_cli_phase(dev, tmp, nets, nets_kitti)
     phase_done("dgr_cli")
@@ -5867,6 +6006,223 @@ def parallel_phase(dev, phase_done):
     return out
 
 
+# -- the rest of gmf_tpu's public surface (phase 13) -------------------------
+#
+# The JPEG decoder on the committed fixtures (the card's machine has no
+# Pillow to write any), the 3DMatch dataset on JPEG frames, the fusion
+# layer's self-attention depth, the multi-head dense NonLocalBlock, and
+# the seed transforms by SVD after the seed-solver kernel.
+JPEG_TIMED = 20        # decodes of the 640 x 480 frame, after one
+SURFACE_TOL = 1e-4     # card against CPU, of the largest output (f32)
+SURFACE_N, SURFACE_TOKENS = 1000, 300
+
+
+def jpeg_fixture_dir():
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_fixtures", "jpeg")
+
+
+def surface_jpeg():
+    """Every fixture equal to its committed Pillow decode, the progressive
+    one refused by name, the 640 x 480 frame's bits (SHA-256) equal to
+    Pillow's and its decode timed from bytes in memory; returns the row
+    and the fixture names."""
+    import hashlib
+    import os
+
+    from gmf_tpu_torch.data import imageio
+
+    d = jpeg_fixture_dir()
+    names = sorted(f[:-4] for f in os.listdir(d) if f.endswith(".npy"))
+    if len(names) < 7:
+        fail(f"JPEG fixtures: {len(names)} arrays under {d}, expected 7")
+    t0 = time.perf_counter()
+    first = imageio.read_jpeg(os.path.join(d, names[0] + ".jpg"))
+    build_s = time.perf_counter() - t0  # the first call builds the decoder
+    del first
+    for name in names:
+        got = imageio.read_jpeg(os.path.join(d, name + ".jpg"))
+        want = np.load(os.path.join(d, name + ".npy"))
+        if got.shape != want.shape or not np.array_equal(got, want):
+            fail(f"JPEG fixture {name}: the decode differs from Pillow's")
+    try:
+        imageio.read_jpeg(os.path.join(d, "progressive.jpg"))
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        fail("JPEG fixture progressive.jpg was decoded, not refused")
+    if "progressive" not in refusal:
+        fail(f"JPEG progressive refusal does not name it: {refusal}")
+    with open(os.path.join(d, "frame_640x480.json")) as f:
+        want = json.load(f)
+    with open(os.path.join(d, "frame_640x480.jpg"), "rb") as f:
+        blob = f.read()
+    frame = imageio.decode_jpeg(blob, "frame_640x480.jpg")
+    if (list(frame.shape) != want["shape"] or hashlib.sha256(
+            frame.tobytes()).hexdigest() != want["sha256"]):
+        fail("JPEG frame_640x480: the decode differs from Pillow's")
+    ms = []
+    for _ in range(JPEG_TIMED):
+        t0 = time.perf_counter()
+        imageio.decode_jpeg(blob, "frame_640x480.jpg")
+        ms.append(1e3 * (time.perf_counter() - t0))
+    row = dict(fixtures_equal=len(names), progressive_refused=refusal,
+               frame_640x480_ms_mean=float(np.mean(ms)),
+               frame_640x480_ms_median=float(np.median(ms)),
+               frame_640x480_ms=ms, decoder_build_s=build_s)
+    print("jpeg: " + json.dumps(row), flush=True)
+    return row, names
+
+
+def surface_threedmatch(tmp, names):
+    """ThreeDMatchTest on a tiny tree whose frames are the JPEG fixtures
+    (one a fragment, 200 random points and 32-d descriptors each, pairs
+    of neighbouring fragments): each sample's p_image and q_image equal
+    to imageio.to_frame of its fragment's committed array."""
+    import os
+    import shutil
+
+    from gmf_tpu_torch.data import imageio
+    from gmf_tpu_torch.data.threedmatch import SCENE_LIST, ThreeDMatchTest
+
+    rng = np.random.RandomState(SEED + 40)
+    scene = SCENE_LIST[0]
+    seq = os.path.join(tmp, scene, "seq-01")
+    os.makedirs(seq)
+    d = jpeg_fixture_dir()
+    for f, name in enumerate(names):
+        base = os.path.join(seq, f"cloud_bin_{f}")
+        np.savez(base + "_fcgf.npz",
+                 xyz=rng.rand(200, 3).astype(np.float32),
+                 feature=_unit_rows(rng.randn(200, 32)))
+        shutil.copy(os.path.join(d, name + ".jpg"), base + "_0.jpg")
+    with open(os.path.join(tmp, scene, "gt.log"), "w") as f:
+        for i in range(len(names) - 1):
+            f.write(f"{i} {i + 1} {len(names)}\n")
+            f.write("\n".join(" ".join(f"{v:.1f}" for v in r)
+                              for r in np.eye(4)) + "\n")
+    ds = ThreeDMatchTest(tmp, select_scene=scene)
+    if len(ds) != len(names) - 1:
+        fail(f"3DMatch on JPEG frames: {len(ds)} pairs, expected "
+             f"{len(names) - 1}")
+    for idx in range(len(ds)):
+        sample = ds[idx]
+        ids = ds.keys[idx].split("@")[1].split("_")
+        for key, frag in zip(("p_image", "q_image"), ids):
+            want = imageio.to_frame(np.load(os.path.join(
+                d, names[int(frag)] + ".npy")), *ds.image_hw)
+            if not np.array_equal(sample[key], want):
+                fail(f"3DMatch on JPEG frames: pair {idx} {key} differs "
+                     "from the committed array's frame")
+    print(f"3dmatch on jpeg frames: {len(ds)} pairs, every image equal to "
+          "its committed array's", flush=True)
+    return dict(pairs=len(ds))
+
+
+def surface_card_vs_cpu(dev, name, module, args, kwargs):
+    """``module`` (CPU, eval mode) on the card and on the CPU: the largest
+    difference over the CPU's largest output, within SURFACE_TOL."""
+    card_mod = copy.deepcopy(module).to(dev)
+
+    def on(x):
+        return x.to(dev) if isinstance(x, torch.Tensor) else x
+
+    with torch.no_grad():
+        ref = module(*args, **kwargs)
+        got = card_mod(*(on(a) for a in args),
+                       **{k: on(v) for k, v in kwargs.items()})
+    err = float((got.cpu() - ref).abs().max() / ref.abs().max())
+    print(f"{name} card vs cpu: {err:.3e} of the largest output (limit "
+          f"{SURFACE_TOL})", flush=True)
+    if not (np.isfinite(err) and err <= SURFACE_TOL):
+        fail(f"{name}: card and CPU differ by {err} of the largest output")
+    return err
+
+
+def surface_modules(dev):
+    """FusionLayer(depth=2) and a 4-head dense NonLocalBlock at PointDSC's
+    width (128 channels, 1,000 correspondences, 300 image tokens, a
+    masked tail), and fused_seed_transforms(kabsch_method="svd") at the
+    serving shape (B x S seeds of k = 40) against its plain version."""
+    from gmf_tpu_torch.geometry.kabsch import rigid_transform_3d
+    from gmf_tpu_torch.models.pointdsc import NonLocalBlock
+    from gmf_tpu_torch.nn.fusion import FusionLayer
+    from gmf_tpu_torch.ops import _build, fused_seed_solver
+
+    gen = torch.Generator().manual_seed(SEED + 41)
+    torch.manual_seed(SEED + 41)
+    C, n, t = D, SURFACE_N, SURFACE_TOKENS
+    x = torch.randn(2, n, C, generator=gen)
+    tokens = torch.randn(2, t, C, generator=gen)
+    tok_mask = torch.ones(2, t)
+    tok_mask[1, 250:] = 0.0
+    out = {}
+    fusion = FusionLayer(dim=C, latent_dim=C, depth=2, cross_heads=1,
+                         cross_dim_head=C // 2, latent_heads=8,
+                         latent_dim_head=C // 2, pe=True).eval()
+    out["fusion_depth2"] = surface_card_vs_cpu(
+        dev, "FusionLayer(depth=2)", fusion, (tokens, x), dict(mask=tok_mask))
+    block = NonLocalBlock(C, num_heads=4).eval()
+    with torch.no_grad():
+        for m in block.modules():
+            if isinstance(m, torch.nn.BatchNorm1d):
+                m.running_mean.normal_(0.0, 0.5, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+    compat = torch.rand(2, n, n, generator=gen)
+    corr_mask = torch.ones(2, n)
+    corr_mask[1, 900:] = 0.0
+    out["nonlocal_4_heads"] = surface_card_vs_cpu(
+        dev, "NonLocalBlock(num_heads=4)", block, (x, tokens, corr_mask, None,
+                                              None),
+        dict(fused=False, attention=compat))
+
+    k = K1 - 1
+    feats = torch.randn(B, S, k, C, generator=gen, device="cpu")
+    feats = (feats / feats.norm(dim=-1, keepdim=True)).to(dev)
+    src = (3.0 * torch.rand(B, S, k, 3, generator=gen)).to(dev)
+    tgt = src + 0.02 * torch.randn(B, S, k, 3, generator=gen).to(dev)
+    _build.reset_launches()
+    got = fused_seed_solver.fused_seed_transforms(
+        feats, src, tgt, SEED_SIGMA, 0.10, kabsch_method="svd")
+    launched = _build.launches[fused_seed_solver.KERNEL]
+    w = fused_seed_solver.fused_seed_weights_plain(feats, src, tgt,
+                                                   SEED_SIGMA, 0.10)
+    ref = rigid_transform_3d(src.reshape(-1, k, 3), tgt.reshape(-1, k, 3),
+                             w.reshape(-1, k), method="svd").reshape(
+                                 B, S, 4, 4)
+    rot = float((got[..., :3, :3] - ref[..., :3, :3]).abs().max())
+    trn = float((got[..., :3, 3] - ref[..., :3, 3]).abs().max())
+    out["seed_transforms_svd"] = dict(shape=[B, S, k, C], launches=launched,
+                                      rotation_max_abs=rot,
+                                      translation_max_abs=trn)
+    print("fused_seed_transforms svd vs plain: " + json.dumps(
+        out["seed_transforms_svd"]), flush=True)
+    if launched != 1:
+        fail(f"fused_seed_transforms(kabsch_method='svd') launched the "
+             f"seed-solver kernel {launched} times, not once")
+    if not (rot <= 5e-4 and trn <= 5e-3):
+        fail("fused_seed_transforms(kabsch_method='svd') differs from its "
+             f"plain version: rotation {rot} (5e-4), translation {trn} "
+             "(5e-3)")
+    return out
+
+
+def surface_phase(dev, phase_done):
+    """Phase 13 (module docstring)."""
+    import tempfile
+
+    out = {}
+    out["jpeg"], names = surface_jpeg()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["threedmatch_jpeg"] = surface_threedmatch(tmp, names)
+    out["modules"] = surface_modules(dev)
+    torch.cuda.empty_cache()
+    phase_done("surface")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the result JSON here")
@@ -6032,6 +6388,7 @@ def main():
         dataset = name.split("_")[1]
         paths[name] = {**dgr[name], "cli": dgr["cli"][dataset]}
     paths["dgr_3dmatch"]["card_vs_cpu"] = dgr["card_vs_cpu"]
+    paths["dgr_3dmatch"]["stages_and_scatter"] = dgr["stages_and_scatter"]
     paths["dgr_3dmatch"]["tiny_cli_card_vs_cpu"] = {
         k: v for k, v in dgr["cli"].items() if k.startswith("tiny_")}
 
@@ -6057,6 +6414,10 @@ def main():
 
     # 12. parallel/: worlds of ranks on the card, the --mesh/--ring CLIs
     paths["parallel"] = parallel_phase(dev, phase_done)
+
+    # 13. the rest of gmf_tpu's public surface: JPEG frames, the fusion
+    # depth, multi-head NonLocal, the SVD seed transforms
+    paths["surface"] = surface_phase(dev, phase_done)
 
     kernels = []
     for name in KERNELS:

@@ -1,8 +1,9 @@
 """Image loading and preprocessing, with no imaging package.
 
 Counterpart of ``gmf_tpu/data/imageio.py``, which reads with
-``matplotlib.image.imread`` and resizes with ``cv2.resize`` (Pillow as its
-fallback). The port's machines need neither, so both are done here:
+``matplotlib.image.imread`` (through Pillow) and resizes with
+``cv2.resize`` (Pillow as its fallback). The port imports neither, and
+the card's machine has neither, so all three are done here:
 
 - ``read_png``: a PNG decoder on ``zlib`` and numpy (8- and 16-bit gray,
   gray+alpha, RGB and RGBA; filter types 0-4; not interlaced) returning
@@ -17,18 +18,33 @@ fallback). The port's machines need neither, so both are done here:
   with cv2's 11-bit fixed-point weights, rounded, returned as float32 of
   the codes (0-255), which is what the reference's ``_resize`` returns
   for uint8 input.
+- ``read_jpeg``: a baseline JPEG decoder in C++ (``cpp/jpeg/``, built
+  by ``utils/native.py`` at first use into the git-ignored
+  ``gmf_tpu_torch/ops/build/``, called through ctypes) returning what
+  ``mpimg.imread`` returns for a JPEG, which is Pillow's
+  ``np.asarray(Image.open(path))``: uint8 [H, W, 3], or [H, W] for gray,
+  equal in every bit (libjpeg's ISLOW IDCT, fancy upsampling and
+  YCbCr->RGB tables). 8-bit sequential Huffman frames (SOF0/SOF1), 1 or
+  3 components, sampling factors up to 2 x 2, restart intervals, any
+  size. Progressive, arithmetic, lossless, 12-bit, CMYK and untransformed
+  RGB files raise ValueError naming the file and what it uses; a failed
+  build raises RuntimeError.
 - ``process_image`` (resize / clip / padding) and ``load_image`` (read,
   gray to RGB, alpha dropped, resize to (aim_H, aim_W)) as the
-  reference's. A JPEG frame is read through Pillow where it is
-  importable; otherwise ``load_image`` raises ImportError naming it.
+  reference's: ``.png`` through ``read_png``, anything else (``.jpg``,
+  ``.jpeg``) through ``read_jpeg``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
+import threading
 import zlib
 
 import numpy as np
+
+from gmf_tpu_torch.utils.native import REPO, build_library
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples a pixel
@@ -218,23 +234,59 @@ def process_image(image, aim_H: int = 120, aim_W: int = 160,
     raise ValueError(mode)
 
 
-def _read_jpeg(path: str) -> np.ndarray:
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise ImportError(
-            f"{path}: reading a JPEG frame needs Pillow, which is not "
-            "installed (the port decodes PNG itself)") from e
-    with Image.open(path) as im:
-        return np.asarray(im)
+_JPEG_SOURCE = REPO / "cpp" / "jpeg" / "jpeg_decode.cpp"
+_JPEG_LIB = None
+_JPEG_LOCK = threading.Lock()
 
 
-def load_image(path: str, aim_H: int = 120, aim_W: int = 160) -> np.ndarray:
-    """Read + resize, returning [aim_H, aim_W, 3] float32 in [0, 1]."""
-    if path.lower().endswith(".png"):
-        img = read_png(path)
-    else:
-        img = _read_jpeg(path)
+def _jpeg_lib():
+    """The native decoder, built on first use."""
+    global _JPEG_LIB
+    with _JPEG_LOCK:
+        if _JPEG_LIB is None:
+            so = build_library(_JPEG_SOURCE, "libgmfjpeg",
+                               "the native JPEG decoder")
+            lib = ctypes.cdll.LoadLibrary(str(so))
+            for fn in (lib.gmf_jpeg_info, lib.gmf_jpeg_decode):
+                fn.restype = ctypes.c_int
+            lib.gmf_jpeg_info.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t,
+                ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, ctypes.c_int]
+            lib.gmf_jpeg_decode.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
+                ctypes.c_size_t, ctypes.c_char_p, ctypes.c_int]
+            _JPEG_LIB = lib
+        return _JPEG_LIB
+
+
+def decode_jpeg(blob: bytes, name: str = "<bytes>") -> np.ndarray:
+    """The JPEG file held in ``blob`` as ``read_jpeg`` returns it; a file
+    it does not decode raises ValueError naming ``name``."""
+    lib = _jpeg_lib()
+    err = ctypes.create_string_buffer(256)
+    dims = (ctypes.c_int * 3)()
+    if lib.gmf_jpeg_info(blob, len(blob), dims, err, len(err)) != 0:
+        raise ValueError(f"{name}: {err.value.decode()}")
+    h, w, c = dims
+    out = np.empty((h, w, 3) if c == 3 else (h, w), np.uint8)
+    if lib.gmf_jpeg_decode(blob, len(blob), out.ctypes.data, out.nbytes,
+                           err, len(err)) != 0:
+        raise ValueError(f"{name}: {err.value.decode()}")
+    return out
+
+
+def read_jpeg(path: str) -> np.ndarray:
+    """Decode the JPEG at ``path`` as ``mpimg.imread`` does (module
+    docstring); raises ValueError naming the file on what it does not
+    decode."""
+    with open(path, "rb") as f:
+        return decode_jpeg(f.read(), path)
+
+
+def to_frame(img: np.ndarray, aim_H: int = 120, aim_W: int = 160
+             ) -> np.ndarray:
+    """What ``load_image`` makes of a decoded image: uint8 codes over 255,
+    gray to RGB, alpha dropped, resized to [aim_H, aim_W, 3] float32."""
     if img.dtype == np.uint8:
         img = img.astype(np.float32) / 255.0
     if img.ndim == 2:
@@ -244,3 +296,10 @@ def load_image(path: str, aim_H: int = 120, aim_W: int = 160) -> np.ndarray:
     if img.shape[0] != aim_H or img.shape[1] != aim_W:
         img = process_image(img, aim_H, aim_W)
     return img.astype(np.float32)
+
+
+def load_image(path: str, aim_H: int = 120, aim_W: int = 160) -> np.ndarray:
+    """Read + resize, returning [aim_H, aim_W, 3] float32 in [0, 1]."""
+    if path.lower().endswith(".png"):
+        return to_frame(read_png(path), aim_H, aim_W)
+    return to_frame(read_jpeg(path), aim_H, aim_W)

@@ -33,6 +33,18 @@ def decompose_trans(trans):
     return trans[..., :3, :3], trans[..., :3, 3:4]
 
 
+def concatenate(trans1, trans2):
+    """Compose two SE(3) transforms, ``trans1 o trans2`` ([..., 4, 4])."""
+    return torch.matmul(trans1, trans2)
+
+
+def inverse(trans):
+    """Closed-form SE(3) inverse (R^T, -R^T t) of [..., 4, 4]."""
+    R, t = decompose_trans(trans)
+    Rt = R.transpose(-1, -2)
+    return integrate_trans(Rt, -torch.matmul(Rt, t))
+
+
 def random_rotation_matrix(num_axis, augment_rotation, rng=None):
     """Random rotation about 1 or 3 axes scaled by augment_rotation
     (host-side NumPy, same draws as gmf_tpu.geometry.se3)."""

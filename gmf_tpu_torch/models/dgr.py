@@ -25,7 +25,7 @@ gmf_tpu's bf16 nets compute with checkpointed f32 weights
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -177,6 +177,9 @@ class DGRConfig:
     voxel_cap_granule: int = 4096
     corr_cap_granule: int = 2048
     nn_chunk: int = 2048
+    # the frames' size, as gmf_tpu's config records it; the loaders carry
+    # the size they resize to (``eval/test_dgr.py`` reads the dataset's)
+    image_hw: Tuple[int, int] = (120, 160)
     descriptor: str = "fcgf"   # 'fpfh': GMF_DGR_fpfh's variant (:173-198)
     # the default nets' compute type, "float32" or "bfloat16": bf16 nets
     # keep f32 parameters and run the image encoder, both fusion layers,
@@ -338,6 +341,15 @@ class DeepGlobalRegistration:
             feats = torch.ones(cap0, 1, device=self.device)
             return self.fcgf(feats, arrays), arrays["mask_0"]
 
+    def descriptor_features(self, coords: np.ndarray, pts=None
+                            ) -> np.ndarray:
+        """The descriptors of one voxelized cloud that ``register``
+        matches: FCGF of ``coords``, or FPFH of ``pts`` (its voxelized
+        points) when ``descriptor="fpfh"`` (ref :187-195, :173-198)."""
+        if self.config.descriptor == "fpfh":
+            return self.fpfh_features(pts).cpu().numpy()
+        return self.fcgf_features(coords)
+
     def fcgf_features(self, coords: np.ndarray) -> np.ndarray:
         """FCGF descriptors of one voxelized cloud (ref :187-195)."""
         out, _ = self._fcgf_features_device(coords)
@@ -388,6 +400,16 @@ class DeepGlobalRegistration:
                                  q_image=self._tensor(q_image))
         return logits[:, 0], inverse
 
+    def inlier_prediction(self, corr_coords6d: np.ndarray, p_image,
+                          q_image, corr_feats=None) -> np.ndarray:
+        """The 6-D inlier net with image fusion (ref :248-260) as
+        ``register`` runs it: corr_coords6d [N, 6] int voxel coords (src
+        ++ tgt), corr_feats optional [N, C] inputs; returns the
+        per-correspondence logits [N]."""
+        uniq_logits, inverse = self._inlier_logits_device(
+            corr_coords6d, p_image, q_image, corr_feats=corr_feats)
+        return uniq_logits.cpu().numpy()[inverse]
+
     def safeguard_indices(self, n: int, seed: int = 0) -> torch.Tensor:
         """The safeguard's hypotheses [total, 4]: drawn on the CPU from a
         seeded generator, so every device draws the same ones."""
@@ -437,6 +459,13 @@ class DeepGlobalRegistration:
         """Drop every cached fragment and zero the hit counter."""
         if self._frag_cache is not None:
             self._frag_cache.reset()
+
+    def seed_fragment(self, xyz: np.ndarray, key) -> None:
+        """Prepare one fragment and keep it in the fragment cache under
+        ``key`` (an eval's steady state, where an earlier pair already
+        cached it)."""
+        with torch.no_grad():
+            self._fragment_entry(np.asarray(xyz), key)
 
     def _fragment_entry(self, xyz: np.ndarray, key) -> Dict:
         if key is None or self._frag_cache is None:

@@ -103,10 +103,12 @@ def _product_f64(a, b):
     return torch.matmul(a.double(), b.double()).float()
 
 
-def dense_compat_attention(q, k, v, compat, mask=None):
+def dense_compat_attention(q, k, v, compat, mask=None, num_heads: int = 1):
     """The reference's unfused attention (gmf_tpu/models/pointdsc.py:
-    142-157), one head: logits q k^T / sqrt(C) times the dense compat
-    [B, N, N], masked keys at -1e9, softmax, then weight @ v.
+    142-157): logits q k^T / sqrt(C / num_heads) times the dense compat
+    [B, N, N] (the same for every head), masked keys at -1e9, softmax,
+    then weight @ v; ``num_heads`` splits the C channels into heads as
+    gmf_tpu's ``NonLocalBlock(num_heads=)``.
 
     The reference's dtype promotions: the f32 compat promotes bf16 logits,
     so the softmax runs in f32 and the message [B, N, C] is f32 (the
@@ -115,22 +117,39 @@ def dense_compat_attention(q, k, v, compat, mask=None):
     they are the library's, whose f32 sums lie far inside the bf16
     rounding the message then takes. Autograd gives the backward, its
     products in f64 where the forward's are."""
+    B, N, C = q.shape
+    if num_heads > 1:
+        q, k, v = (t.reshape(B, N, num_heads, C // num_heads).transpose(1, 2)
+                   for t in (q, k, v))
+        compat = compat[:, None]
     product = _product_f64 if q.dtype == torch.float32 else torch.matmul
     logits = product(q, k.transpose(-1, -2)) / q.shape[-1] ** 0.5
     logits = compat * logits
     if mask is not None:
-        logits = logits.masked_fill(mask[:, None, :] <= 0, -1e9)
+        keys = mask.reshape(B, *[1] * (logits.dim() - 2), N)
+        logits = logits.masked_fill(keys <= 0, -1e9)
     weight = torch.softmax(logits, dim=-1)
-    return product(weight, v.to(weight.dtype))
+    out = product(weight, v.to(weight.dtype))
+    if num_heads > 1:
+        out = out.transpose(1, 2).reshape(B, N, C)
+    return out
 
 
 class NonLocalBlock(nn.Module):
-    """Compat-modulated self-attention, message MLP, Fusion-2 injection."""
+    """Compat-modulated self-attention, message MLP, Fusion-2 injection.
+    ``num_heads`` > 1 splits the dense path's attention into heads
+    (gmf_tpu's option); the fused and ring paths take one head, the
+    reference's, and refuse more, as gmf_tpu's do."""
 
-    def __init__(self, num_channels: int = 128, sigma_d: float = 0.10):
+    def __init__(self, num_channels: int = 128, sigma_d: float = 0.10,
+                 num_heads: int = 1):
         super().__init__()
         C = num_channels
+        if num_heads < 1 or C % num_heads:
+            raise ValueError(f"num_heads={num_heads} does not divide the "
+                             f"{C} channels")
         self.sigma_d = sigma_d
+        self.num_heads = num_heads
         self.projection_q = nn.Linear(C, C)
         self.projection_k = nn.Linear(C, C)
         self.projection_v = nn.Linear(C, C)
@@ -155,6 +174,11 @@ class NonLocalBlock(nn.Module):
         q, k, v = (self.projection_q(feat), self.projection_k(feat),
                    self.projection_v(feat))
         built = None
+        if self.num_heads > 1 and (fused or ring_mesh is not None):
+            raise ValueError(
+                f"num_heads={self.num_heads}: the fused and ring attention "
+                "paths take one head (the reference's); use "
+                "fused_attention=False")
         if ring_mesh is not None:
             from gmf_tpu_torch.parallel.ring_attention import (
                 ring_compat_attention)
@@ -169,8 +193,9 @@ class NonLocalBlock(nn.Module):
                     ring_mesh, sigma_d=self.sigma_d)
                 for b in range(B)]).to(feat.dtype)
         elif not fused:
-            message = dense_compat_attention(q, k, v, attention,
-                                             corr_mask).to(feat.dtype)
+            message = dense_compat_attention(
+                q, k, v, attention, corr_mask,
+                num_heads=self.num_heads).to(feat.dtype)
         elif build_cache:
             message, built = compat_flash_attention_build(
                 q, k, v, src_keypts, tgt_keypts, mask=corr_mask,

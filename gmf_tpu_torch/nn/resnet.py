@@ -12,6 +12,8 @@ running statistics (``nn/norm.py``); convolutions and batch norms take a
 
 from __future__ import annotations
 
+from typing import Sequence
+
 from torch import nn
 
 from gmf_tpu_torch.nn.compute import Conv2d
@@ -43,10 +45,11 @@ class BasicBlock(nn.Module):
 
 
 class ResNet(nn.Module):
-    """conv1/bn1/relu -> maxpool -> layer1 (3 blocks, w ch) -> layer2
-    (4 blocks, 2w ch, /2): ResNet-34 up to layer2."""
+    """conv1/bn1/relu -> maxpool -> layer1 (``layers[0]`` blocks, w ch) ->
+    layer2 (``layers[1]`` blocks, 2w ch, /2): ResNet-34 up to layer2 with
+    the default (3, 4)."""
 
-    def __init__(self, base_width: int = 64):
+    def __init__(self, layers: Sequence[int] = (3, 4), base_width: int = 64):
         super().__init__()
         w = base_width
         self.conv1 = Conv2d(3, w, 7, stride=2, padding=3, bias=False)
@@ -54,11 +57,11 @@ class ResNet(nn.Module):
         self.relu = nn.ReLU()
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         self.layer1 = nn.Sequential(
-            *[BasicBlock(w, w) for _ in range(3)])
+            *[BasicBlock(w, w) for _ in range(layers[0])])
         self.layer2 = nn.Sequential(*[
             BasicBlock(w if i == 0 else 2 * w, 2 * w,
                        stride=2 if i == 0 else 1, downsample=(i == 0))
-            for i in range(4)])
+            for i in range(layers[1])])
 
     def forward(self, x):
         """NCHW in, NCHW out."""

@@ -108,14 +108,15 @@ def fused_seed_weights(knn_features, src_knn, tgt_knn, sigma,
 
 
 def fused_seed_transforms(knn_features, src_knn, tgt_knn, sigma,
-                          sigma_d: float, num_iters: int = 10):
+                          sigma_d: float, num_iters: int = 10,
+                          kabsch_method: str = "quat"):
     """Seed transforms from gathered neighbourhoods: ``fused_seed_weights``
-    then the weighted Horn-quaternion Kabsch. [B, S, k, .] -> [B, S, 4, 4]
-    f32."""
+    (the kernel on the card) then the weighted Kabsch, Horn quaternions
+    ("quat") or the SVD ("svd"). [B, S, k, .] -> [B, S, 4, 4] f32."""
     w = fused_seed_weights(knn_features, src_knn, tgt_knn, sigma, sigma_d,
                            num_iters=num_iters)
     lead = w.shape[:-1]
     k = w.shape[-1]
     return rigid_transform_3d(
         src_knn.float().reshape(-1, k, 3), tgt_knn.float().reshape(-1, k, 3),
-        w.reshape(-1, k)).reshape(*lead, 4, 4)
+        w.reshape(-1, k), method=kabsch_method).reshape(*lead, 4, 4)

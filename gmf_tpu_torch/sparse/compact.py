@@ -145,22 +145,35 @@ def _compact_map(nbr, counts, cap_in: int, cap_out: int, with_up: bool,
     return (sched, up) if with_up else sched
 
 
-def build_compact_schedules(jobs, tile: int = TILE):
-    """Schedules of several maps.
+def build_compact_schedule(nbr, counts: np.ndarray, cap_in: int,
+                           cap_out: int, tile: int = TILE,
+                           with_transpose: bool = False,
+                           dense_frac: float = 0.5):
+    """The two-tier schedule of one map.
 
     Args:
-      jobs: (nbr [K, M] on the device, counts [K] host, cap_in, cap_out,
-        with_transpose, dense_frac) a map; nbr's sentinel is cap_in.
+      nbr: [K, M] map on the device, sentinel cap_in.
+      counts: [K] host per-offset hit counts.
+      cap_in / cap_out: the input and output capacities (sentinels).
+      with_transpose: also return the up schedule (the same pairs, in
+        and out swapped).
 
-    Returns a list matching ``jobs``: sched, or (sched, up_sched) where
-    with_transpose is set. sched = {"dense": (rows [Kd, M], kept [Kd]) or
-    None, "groups": ((in_idx [Nt, T], out_idx [Nt, T], kept [Nt]),) or
-    ()}, every array on nbr's device; kept ids index the whole offset
-    axis. The up schedule's dense rows are [Kd, cap_in], sentinel
-    cap_out.
+    Returns sched = {"dense": (rows [Kd, M], kept [Kd]) or None,
+    "groups": ((in_idx [Nt, T], out_idx [Nt, T], kept [Nt]),) or ()},
+    every array on nbr's device, kept ids indexing the whole offset
+    axis; or (sched, up_sched) with ``with_transpose``, the up
+    schedule's dense rows [Kd, cap_in] with sentinel cap_out.
     """
-    return [_compact_map(nbr, counts, int(cap_in), int(cap_out),
-                         bool(with_transpose), dense_frac, tile)
+    return _compact_map(nbr, counts, int(cap_in), int(cap_out),
+                        bool(with_transpose), dense_frac, tile)
+
+
+def build_compact_schedules(jobs, tile: int = TILE):
+    """``build_compact_schedule`` of several maps: ``jobs`` holds (nbr,
+    counts, cap_in, cap_out, with_transpose, dense_frac) a map; returns a
+    list matching it."""
+    return [build_compact_schedule(nbr, counts, cap_in, cap_out, tile,
+                                   with_transpose, dense_frac)
             for nbr, counts, cap_in, cap_out, with_transpose, dense_frac
             in jobs]
 

@@ -13,7 +13,10 @@ computed 32 offsets at a time: one gather of the chunk's rows as
 weights added into an f32 accumulator; its backward gathers each chunk
 again rather than keeping it (``_SparseConv``). ``sparse_conv_compact``
 runs the same sum over a compacted schedule (``sparse/compact.py``), the
-6-D inlier net's convolution wherever the maps are built on the device. The
+6-D inlier net's convolution wherever the maps are built on the device,
+its tiles added in gmf_tpu's two scatter modes: "flat" (``index_add_``,
+atomic on the card, the last bits vary run to run) and "rowwise" (each
+row's terms added in tile order, the same bits every run). The
 gmf_tpu package computes both in plain ``jnp`` (no Pallas kernel), and so
 does the port in plain PyTorch.
 
@@ -113,8 +116,41 @@ def sparse_conv(x, weights, nbr, chunk: int = 32):
     return _SparseConv.apply(x, weights, nbr, chunk)
 
 
+SCATTER_MODES = ("flat", "rowwise")
+
+
+def _dense_tier(x, weights, schedule, out_rows: int):
+    """The output accumulator [out_rows + 1, Cout] f32 (the last row the
+    trash row) holding the dense tier's sum."""
+    acc = torch.zeros(out_rows + 1, weights.shape[2], dtype=torch.float32,
+                      device=x.device)
+    if schedule["dense"] is not None:
+        nbr, kept = schedule["dense"]
+        acc[:out_rows] += sparse_conv(x, weights.index_select(0, kept.long()),
+                                      nbr).float()
+    return acc
+
+
+def _tile_steps(x, weights, schedule, row_budget: int):
+    """Each step of tiles, ``row_budget // T`` of them, gathered [c, T,
+    Cin] and multiplied by their [c, Cin, Cout] weights: (output rows
+    [c * T], products [c * T, Cout] f32, kept ids [c])."""
+    cout = weights.shape[2]
+    for in_idx, out_idx, kept in schedule["groups"]:
+        nt, tile = in_idx.shape
+        step = max(1, row_budget // max(tile, 1))
+        for t0 in range(0, nt, step):
+            ii = in_idx[t0:t0 + step].long()
+            w = weights.index_select(0, kept[t0:t0 + step].long()).float()
+            g = x.index_select(0, ii.reshape(-1)).view(*ii.shape, -1)
+            yield (out_idx[t0:t0 + step].reshape(-1).long(),
+                   torch.bmm(g.float(), w).view(-1, cout),
+                   kept[t0:t0 + step])
+
+
 def sparse_conv_compact(x, weights, schedule, out_rows: int,
-                        row_budget: int = 1 << 16):
+                        row_budget: int = 1 << 16,
+                        scatter_mode: str = "flat"):
     """Two-tier compacted sparse convolution (``sparse/compact.py``).
 
     Args:
@@ -125,30 +161,73 @@ def sparse_conv_compact(x, weights, schedule, out_rows: int,
       out_rows: M, the output capacity; a padded tile slot writes to the
         trash row ``out_rows``, which is dropped.
       row_budget: gathered rows a step (tiles * T).
+      scatter_mode: how the tiles' products are added into the output:
+        "flat" (the default): ``index_add_``, on the card an atomic add
+          whose order varies from run to run in the last bits.
+        "rowwise": each step's terms added by rank (``_add_by_rank``):
+          a call adds at most once into each real row, so every row
+          takes its terms in tile order, gmf_tpu's tile-by-tile order,
+          and the card returns the same bits run to run; a launch a rank
+          (the most terms a row takes in a step) and one host read a
+          step.
 
     Returns [M, Cout] in x's dtype, accumulated in f32: the dense tier by
-    ``sparse_conv``, each step of tiles as a gather of [c, T, Cin], a
-    batched product with its [c, Cin, Cout] weights and an ``index_add_``
-    of the [c * T, Cout] products (on the card an atomic add, whose order
-    varies from run to run in the last bits). Plain autograd
-    differentiates it.
+    ``sparse_conv`` first, then each step of tiles as a gather of [c, T,
+    Cin], a batched product with its [c, Cin, Cout] weights and the
+    scatter of the [c * T, Cout] products. Plain autograd differentiates
+    it.
     """
-    cout = weights.shape[2]
-    acc = torch.zeros(out_rows + 1, cout, dtype=torch.float32,
-                      device=x.device)
-    if schedule["dense"] is not None:
-        nbr, kept = schedule["dense"]
-        acc[:out_rows] += sparse_conv(x, weights.index_select(0, kept.long()),
-                                      nbr).float()
-    for in_idx, out_idx, kept in schedule["groups"]:
-        nt, tile = in_idx.shape
-        step = max(1, row_budget // max(tile, 1))
-        for t0 in range(0, nt, step):
-            ii, oo = in_idx[t0:t0 + step].long(), out_idx[t0:t0 + step]
-            w = weights.index_select(0, kept[t0:t0 + step].long()).float()
-            g = x.index_select(0, ii.reshape(-1)).view(*ii.shape, -1)
-            z = torch.bmm(g.float(), w)                  # [c, T, Cout]
-            acc.index_add_(0, oo.reshape(-1).long(), z.view(-1, cout))
+    if scatter_mode not in SCATTER_MODES:
+        raise ValueError(f"scatter_mode must be one of {SCATTER_MODES}, "
+                         f"not {scatter_mode!r}")
+    acc = _dense_tier(x, weights, schedule, out_rows)
+    for rows, z, _ in _tile_steps(x, weights, schedule, row_budget):
+        if scatter_mode == "rowwise":
+            _add_by_rank(acc, rows, z, trash=out_rows)
+        else:
+            acc.index_add_(0, rows, z)
+    return acc[:out_rows].to(x.dtype)
+
+
+def _add_by_rank(acc, rows, z, trash: int):
+    """acc[rows] += z with each row's terms added in their order in
+    ``rows``: the slots sorted stably by row, each slot's rank among its
+    row's, then one ``index_add_`` per rank (the j-th term of every row at
+    once), so no call adds twice into a real row and the card's atomics
+    have nothing to order. The trash row's slots all go with rank 0. One
+    host read a call (the count of each rank)."""
+    rows_s, perm = torch.sort(rows, stable=True)
+    pos = torch.arange(rows.shape[0], device=rows.device)
+    first = torch.ones_like(rows_s, dtype=torch.bool)
+    first[1:] = rows_s[1:] != rows_s[:-1]
+    start = torch.cummax(torch.where(first, pos, 0), 0).values
+    rank = torch.where(rows_s == trash, 0, pos - start)
+    rank, order = torch.sort(rank, stable=True)
+    rows_r, z_r = rows_s[order], z[perm[order]]
+    s0 = 0
+    for count in torch.bincount(rank).tolist():
+        acc.index_add_(0, rows_r[s0:s0 + count], z_r[s0:s0 + count])
+        s0 += count
+
+
+def sparse_conv_compact_in_tile_order(x, weights, schedule, out_rows: int,
+                                      row_budget: int = 1 << 16):
+    """The plain version of ``sparse_conv_compact(scatter_mode="rowwise")``:
+    the same products, each run of tiles of one kept offset added by an
+    ``index_add_`` of its own. A kernel map is one to one per offset, so
+    such a call adds at most once into each real row, and every row takes
+    its terms in tile order on any device, atomics or not; a launch or
+    more a run (at the 6-D inlier net's scale ~45x the net's time on the
+    card)."""
+    acc = _dense_tier(x, weights, schedule, out_rows)
+    for rows, z, kept in _tile_steps(x, weights, schedule, row_budget):
+        tile = rows.shape[0] // kept.shape[0]
+        t0 = 0
+        for run in torch.unique_consecutive(
+                kept, return_counts=True)[1].tolist():
+            sl = slice(t0 * tile, (t0 + run) * tile)
+            acc.index_add_(0, rows[sl], z[sl])
+            t0 += run
     return acc[:out_rows].to(x.dtype)
 
 
@@ -159,11 +238,16 @@ class SparseConv(nn.Module):
     6-D); a pruned kernel map covers a subset, and ``kept`` (int32 [K'])
     selects the weight rows it applies. Offsets padded into ``kept`` come
     with all-sentinel map rows, so they add zero whatever weight they
-    alias. No bias: the reference's k > 1 convolutions have none.
+    alias. ``use_bias`` adds a bias (zeros at init); the reference's k > 1
+    convolutions have none. ``scatter_mode`` is how a compacted
+    schedule's tiles are added (``sparse_conv_compact``), "flat" unless
+    ``set_scatter_mode`` sets it across a net.
     """
 
+    scatter_mode: str = "flat"
+
     def __init__(self, in_channels: int, out_channels: int,
-                 num_offsets: int):
+                 num_offsets: int, use_bias: bool = False):
         super().__init__()
         self.kernel = nn.Parameter(
             torch.empty(num_offsets, in_channels, out_channels))
@@ -171,17 +255,35 @@ class SparseConv(nn.Module):
         # variance_scaling(1/3, "fan_in", "uniform"))
         bound = 1.0 / math.sqrt(num_offsets * in_channels)
         nn.init.uniform_(self.kernel, -bound, bound)
+        self.bias = (nn.Parameter(torch.zeros(out_channels)) if use_bias
+                     else None)
 
     def forward(self, x_with_sentinel, nbr, kept=None, out_rows=None):
         """nbr: a dense [K', M] map (with ``kept`` kernel rows), or a
         compacted schedule dict, when ``out_rows`` gives M."""
+        dtype = x_with_sentinel.dtype
         if isinstance(nbr, dict):
-            return sparse_conv_compact(
-                x_with_sentinel, self.kernel.to(x_with_sentinel.dtype), nbr,
-                out_rows)
-        w = self.kernel if kept is None else self.kernel.index_select(
-            0, kept)
-        return sparse_conv(x_with_sentinel, w.to(x_with_sentinel.dtype), nbr)
+            out = sparse_conv_compact(
+                x_with_sentinel, self.kernel.to(dtype), nbr, out_rows,
+                scatter_mode=self.scatter_mode)
+        else:
+            w = self.kernel if kept is None else self.kernel.index_select(
+                0, kept)
+            out = sparse_conv(x_with_sentinel, w.to(dtype), nbr)
+        return out if self.bias is None else out + self.bias.to(dtype)
+
+
+def set_scatter_mode(module: nn.Module, mode: str) -> nn.Module:
+    """Set ``scatter_mode`` on every ``SparseConv`` in ``module`` (e.g.
+    "rowwise" on the 6-D inlier net for the same bits run to run on the
+    card); returns ``module``."""
+    if mode not in SCATTER_MODES:
+        raise ValueError(f"scatter_mode must be one of {SCATTER_MODES}, "
+                         f"not {mode!r}")
+    for m in module.modules():
+        if isinstance(m, SparseConv):
+            m.scatter_mode = mode
+    return module
 
 
 class PointwiseConv(nn.Module):
@@ -217,13 +319,18 @@ class MaskedBatchNorm(nn.Module):
     In train mode it normalises with the masked batch mean and biased
     variance over n = sum(mask) + 1e-6 rows, which the gradient flows
     through, and updates the running statistics as flax does:
-    ``0.9 * running + 0.1 * batch``, the biased variance included. In
-    eval mode it reads the running statistics.
+    ``momentum * running + (1 - momentum) * batch`` (0.9, flax's), the
+    biased variance included. In eval mode it reads the running
+    statistics. ``eps`` is the same as ``epsilon`` (gmf_tpu's name) and
+    takes precedence when given.
     """
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    def __init__(self, channels: int, momentum: float = MOMENTUM,
+                 epsilon: float = 1e-5, eps: Optional[float] = None):
         super().__init__()
-        self.bn = nn.BatchNorm1d(channels, eps=eps)
+        self.momentum = momentum
+        self.bn = nn.BatchNorm1d(channels,
+                                 eps=epsilon if eps is None else eps)
 
     def forward(self, x, mask):
         """x: [cap, C]; mask: [cap] validity."""
@@ -233,11 +340,12 @@ class MaskedBatchNorm(nn.Module):
             n = m.sum() + 1e-6
             mean = (x * m).sum(0) / n
             var = (((x - mean) ** 2) * m).sum(0) / n
+            mom = self.momentum
             with torch.no_grad():
                 for running, batch in ((bn.running_mean, mean),
                                        (bn.running_var, var)):
-                    running.copy_(MOMENTUM * running
-                                  + (1 - MOMENTUM) * batch.to(running.dtype))
+                    running.copy_(mom * running
+                                  + (1 - mom) * batch.to(running.dtype))
         else:
             mean, var = bn.running_mean, bn.running_var
         y = (x - mean) * torch.rsqrt(var + bn.eps) * bn.weight + bn.bias
@@ -247,11 +355,12 @@ class MaskedBatchNorm(nn.Module):
 class MaskedInstanceNorm(nn.Module):
     """Per-channel normalization over the valid voxels of one instance,
     non-affine (ME's MinkowskiInstanceNorm in the reference's 'INBN'
-    norm, always followed by an affine batch norm there)."""
+    norm, always followed by an affine batch norm there). ``eps`` is the
+    same as ``epsilon`` and takes precedence when given."""
 
-    def __init__(self, eps: float = 1e-5):
+    def __init__(self, epsilon: float = 1e-5, eps: Optional[float] = None):
         super().__init__()
-        self.eps = eps
+        self.eps = epsilon if eps is None else eps
 
     def forward(self, x, mask):
         """x: [cap, C]; mask: [cap] validity."""

@@ -143,6 +143,7 @@ def _prune(nbr, kept, sentinel):
 
 def build_kernel_map(in_coords: np.ndarray, out_coords: np.ndarray,
                      offsets: np.ndarray, prune_empty: bool = False,
+                     in_valid: Optional[int] = None,
                      builder: str = "native"):
     """Dense per-offset neighbour table.
 
@@ -151,18 +152,20 @@ def build_kernel_map(in_coords: np.ndarray, out_coords: np.ndarray,
       out_coords: [M, D] int output voxel coords.
       offsets:    [K, D] int kernel offsets (in input-lattice units).
       prune_empty: drop offsets with zero matches (6-D essential).
+      in_valid: the sentinel, where it is not N (an input capacity past
+        the valid rows).
       builder: "native" (the C++ hash builder) or "numpy" (module
         docstring); any other name raises.
 
     Returns:
-      (nbr [K', M] int32 with sentinel N, kept_offsets [K'] int32 indices
-      into the original offset list).
+      (nbr [K', M] int32 with sentinel N (or ``in_valid``), kept_offsets
+      [K'] int32 indices into the original offset list).
     """
     if builder not in BUILDERS:
         raise ValueError(f"unknown kernel-map builder {builder!r}; "
                          f"expected one of {BUILDERS}")
     N = len(in_coords)
-    sentinel = N
+    sentinel = N if in_valid is None else int(in_valid)
     K = len(offsets)
     kept = np.arange(K, dtype=np.int32)
     if len(in_coords) == 0 or len(out_coords) == 0:
@@ -170,6 +173,8 @@ def build_kernel_map(in_coords: np.ndarray, out_coords: np.ndarray,
     BUILDS[builder] += 1
     if builder == "native":
         nbr = _native_kernel_map(in_coords, out_coords, offsets)
+        if sentinel != N:  # the native builder's sentinel is N
+            nbr[nbr == N] = sentinel
     else:
         nbr = _numpy_kernel_map(in_coords, out_coords, offsets, sentinel)
     if prune_empty:

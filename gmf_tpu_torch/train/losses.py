@@ -64,22 +64,30 @@ def transformation_loss(trans, gt_trans, src_keypts, tgt_keypts, probs,
     }
 
 
-def classification_loss(pred, gt, mask=None):
-    """Balanced BCE-with-logits on the inlier logits, and precision,
-    recall and F1 of ``pred > 0``.
+def classification_loss(pred, gt, balanced: bool = True, weight=None,
+                        mask=None):
+    """BCE-with-logits on the inlier logits, and precision, recall and F1
+    of ``pred > 0``.
 
-    The positive class weight is #neg / #pos with the reference's
-    relu(x - 1) + 1 floors on both counts. Returns dict(loss, precision,
+    ``balanced`` (the default): the positive class weight is #neg / #pos
+    with the reference's relu(x - 1) + 1 floors on both counts. Otherwise
+    the plain BCE, each entry times ``weight`` where one is given (which
+    then takes precedence, as in gmf_tpu). Returns dict(loss, precision,
     recall, f1, logit_true, logit_false).
     """
     gt = gt.to(pred.dtype)
     m = torch.ones_like(gt) if mask is None else mask.to(pred.dtype)
     gm = gt * m
     gn = (1.0 - gt) * m
-    num_pos = F.relu(batch_sum(gm.sum()) - 1.0) + 1.0
-    num_neg = F.relu(batch_sum(gn.sum()) - 1.0) + 1.0
-    per = -(num_neg / num_pos * gt * F.logsigmoid(pred)
-            + (1.0 - gt) * F.logsigmoid(-pred))
+    if weight is not None:
+        per = _bce_with_logits(pred, gt) * weight
+    elif not balanced:
+        per = _bce_with_logits(pred, gt)
+    else:
+        num_pos = F.relu(batch_sum(gm.sum()) - 1.0) + 1.0
+        num_neg = F.relu(batch_sum(gn.sum()) - 1.0) + 1.0
+        per = -(num_neg / num_pos * gt * F.logsigmoid(pred)
+                + (1.0 - gt) * F.logsigmoid(-pred))
     loss = batch_sum((per * m).sum()) / batch_sum(m.sum())
 
     # precision, recall and F1 of the flattened labels (counts: exact)
@@ -102,26 +110,29 @@ def classification_loss(pred, gt, mask=None):
     }
 
 
-def spectral_matching_loss(M, gt_labels, mask=None):
-    """Balanced MSE between the feature-similarity matrix M [B, N, N] and
-    the ground-truth inlier outer product (zero diagonal).
+def spectral_matching_loss(M, gt_labels, balanced: bool = True, mask=None):
+    """MSE between the feature-similarity matrix M [B, N, N] and the
+    ground-truth inlier outer product (zero diagonal).
 
-    The negative term's denominator counts the diagonal cells, as the
-    reference's does (libs/loss.py:133-134): M's diagonal is zero, so only
-    the count changes.
+    ``balanced`` (the default): half the mean over the positive cells and
+    half over the negative ones, whose denominator counts the diagonal
+    cells as the reference's does (libs/loss.py:133-134; M's diagonal is
+    zero, so only the count changes). Otherwise the plain mean over every
+    (unmasked) cell, the reference's ``MSELoss`` (libs/loss.py:137).
     """
     gt = gt_labels.to(M.dtype)
     N = gt.shape[-1]
     gt_M = gt[:, None, :] * gt[:, :, None]
     gt_M = gt_M * (1.0 - torch.eye(N, dtype=M.dtype, device=M.device))
-    if mask is not None:
-        pair = mask[:, None, :] * mask[:, :, None]
-        gt_M = gt_M * pair
+    pair = (torch.ones_like(gt_M) if mask is None
+            else mask[:, None, :] * mask[:, :, None])
+    gt_M = gt_M * pair
+    if not balanced:
+        return (batch_sum((((M - gt_M) ** 2) * pair).sum())
+                / batch_sum(pair.sum()))
     pos = ((M - 1.0) ** 2 * gt_M).sum((-2, -1))
     npos = F.relu(gt_M.sum((-2, -1)) - 1.0) + 1.0
-    neg_M = 1.0 - gt_M
-    if mask is not None:
-        neg_M = neg_M * pair
+    neg_M = (1.0 - gt_M) * pair
     neg = (M ** 2 * neg_M).sum((-2, -1))
     nneg = F.relu(neg_M.sum((-2, -1)) - 1.0) + 1.0
     return batch_mean(0.5 * pos / npos + 0.5 * neg / nneg)

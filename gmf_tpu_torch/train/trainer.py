@@ -51,6 +51,7 @@ from gmf_tpu_torch.train.losses import (classification_loss,
                                         spectral_matching_loss,
                                         transformation_loss)
 from gmf_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from gmf_tpu_torch.utils.logging_utils import MetricsLogger
 
 
 @dataclasses.dataclass
@@ -198,7 +199,7 @@ class Trainer:
 
     def __init__(self, model, cfg: TrainConfig, train_loader, val_loader,
                  steps_per_epoch: Optional[int] = None, prefetch: int = 0,
-                 mesh=None):
+                 mesh=None, tboard_dir: Optional[str] = None):
         self.mesh = mesh
         if mesh is not None and mesh.n_data > 1 and getattr(
                 model, "compat_cache_shards", 0) == 1:
@@ -217,6 +218,9 @@ class Trainer:
         self.optimizer = make_optimizer(model, cfg)
         self.applied_steps = 0
         self.history = []
+        # gmf_tpu's metrics log (utils/logging_utils.py): "Val" and
+        # "Train" rows by epoch, in tboard_dir; nothing without one
+        self.logger = MetricsLogger(tboard_dir if self.is_chief else None)
 
     @property
     def device(self):
@@ -267,12 +271,16 @@ class Trainer:
 
     def train(self, snapshot: bool = True):
         best_recall = -1.0
-        self.history.append(("eval", 0, self.evaluate()))
+        res = self.evaluate()
+        self.history.append(("eval", 0, res))
+        self.logger.log(res, 0, "Val")
         for epoch in range(self.cfg.max_epoch):
-            self.history.append(("train", epoch + 1,
-                                 self.train_epoch(epoch + 1)))
+            train_res = self.train_epoch(epoch + 1)
+            self.history.append(("train", epoch + 1, train_res))
+            self.logger.log(train_res, epoch + 1, "Train")
             res = self.evaluate()
             self.history.append(("eval", epoch + 1, res))
+            self.logger.log(res, epoch + 1, "Val")
             if self.is_chief:
                 print(f"epoch {epoch + 1}: " + " ".join(
                     f"{k}={v:.4f}" for k, v in res.items()), flush=True)

@@ -76,9 +76,11 @@ def _ln(sd, name, p):
 def _resnet_trunk(sd, prefix, p, s):
     _conv2d(sd, f"{prefix}conv1", p["conv1"])
     _bn(sd, f"{prefix}bn1", p["bn1"], s["bn1"])
-    for stage, blocks in (("layer1", 3), ("layer2", 4)):
-        for i in range(blocks):
+    for stage in ("layer1", "layer2"):
+        i = 0
+        while f"{stage}_{i}" in p:
             src, dst = f"{stage}_{i}", f"{prefix}{stage}.{i}"
+            i += 1
             bp, bs = p[src], s[src]
             _conv2d(sd, f"{dst}.conv1", bp["conv1"])
             _bn(sd, f"{dst}.bn1", bp["bn1"], bs["bn1"])
@@ -98,7 +100,9 @@ def image_encoder_to_state_dict(p, s, prefix: str = "") -> Dict[str, Any]:
 
 
 def fusion_layer_to_state_dict(p, prefix: str = "") -> Dict[str, Any]:
-    """FusionLayer params (depth 0) -> state_dict."""
+    """FusionLayer params -> state_dict; the ``depth`` self-attention
+    layers (flax ``self_norm_i``, ``self_attn_i``, ``self_ff_norm_i``,
+    ``self_ff_i``) become the reference's ``layers.i.{0,1}``."""
     sd: Dict[str, Any] = {}
     if "cpe" in p:
         _depthwise_conv1d(sd, f"{prefix}cpe.proj_q", p["cpe"]["proj_q"])
@@ -112,6 +116,31 @@ def fusion_layer_to_state_dict(p, prefix: str = "") -> Dict[str, Any]:
     _ln(sd, f"{cab}.1.norm", p["cross_ff_norm"])
     _dense(sd, f"{cab}.1.fn.net.0", p["cross_ff"]["proj_in"])
     _dense(sd, f"{cab}.1.fn.net.2", p["cross_ff"]["proj_out"])
+    i = 0
+    while f"self_attn_{i}" in p:
+        lay = f"{prefix}layers.{i}"
+        _ln(sd, f"{lay}.0.norm", p[f"self_norm_{i}"])
+        for name in ("to_q", "to_kv", "to_out"):
+            _dense(sd, f"{lay}.0.fn.{name}", p[f"self_attn_{i}"][name])
+        _ln(sd, f"{lay}.1.norm", p[f"self_ff_norm_{i}"])
+        _dense(sd, f"{lay}.1.fn.net.0", p[f"self_ff_{i}"]["proj_in"])
+        _dense(sd, f"{lay}.1.fn.net.2", p[f"self_ff_{i}"]["proj_out"])
+        i += 1
+    return sd
+
+
+def nonlocal_block_to_state_dict(p, s, prefix: str = "") -> Dict[str, Any]:
+    """NonLocalBlock params and batch_stats -> state_dict."""
+    sd: Dict[str, Any] = {}
+    for name in ("projection_q", "projection_k", "projection_v"):
+        _dense(sd, f"{prefix}{name}", p[name])
+    _dense(sd, f"{prefix}fc_message.0", p["fc_message_0"])
+    _bn(sd, f"{prefix}fc_message.1", p["fc_message_bn0"], s["fc_message_bn0"])
+    _dense(sd, f"{prefix}fc_message.3", p["fc_message_1"])
+    _bn(sd, f"{prefix}fc_message.4", p["fc_message_bn1"], s["fc_message_bn1"])
+    _dense(sd, f"{prefix}fc_message.6", p["fc_message_2"])
+    sd.update(fusion_layer_to_state_dict(p["fusion_layer_2"],
+                                         f"{prefix}fusion_layer_2."))
     return sd
 
 
@@ -130,19 +159,9 @@ def flax_to_state_dict(variables, num_layers: int) -> Dict[str, Any]:
         pcn = f"encoder.blocks.PointCN_layer_{i}"
         _dense(sd, f"{pcn}.0", ep[f"PointCN_layer_{i}"])
         _bn(sd, f"{pcn}.1", ep[f"PointCN_bn_{i}"], es[f"PointCN_bn_{i}"])
-        nl = f"encoder.blocks.NonLocal_layer_{i}"
-        bp, bs = ep[f"NonLocal_layer_{i}"], es[f"NonLocal_layer_{i}"]
-        for name in ("projection_q", "projection_k", "projection_v"):
-            _dense(sd, f"{nl}.{name}", bp[name])
-        _dense(sd, f"{nl}.fc_message.0", bp["fc_message_0"])
-        _bn(sd, f"{nl}.fc_message.1", bp["fc_message_bn0"],
-            bs["fc_message_bn0"])
-        _dense(sd, f"{nl}.fc_message.3", bp["fc_message_1"])
-        _bn(sd, f"{nl}.fc_message.4", bp["fc_message_bn1"],
-            bs["fc_message_bn1"])
-        _dense(sd, f"{nl}.fc_message.6", bp["fc_message_2"])
-        sd.update(fusion_layer_to_state_dict(bp["fusion_layer_2"],
-                                             f"{nl}.fusion_layer_2."))
+        sd.update(nonlocal_block_to_state_dict(
+            ep[f"NonLocal_layer_{i}"], es[f"NonLocal_layer_{i}"],
+            f"encoder.blocks.NonLocal_layer_{i}."))
     _dense(sd, "classification.0", p["classification_0"])
     _dense(sd, "classification.2", p["classification_1"])
     _dense(sd, "classification.4", p["classification_2"])

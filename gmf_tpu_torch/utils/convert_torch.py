@@ -5,6 +5,8 @@ torch ``state_dict`` checkpoints (PointDSC's ``model_best.pkl``, OANet's);
 the port's modules carry the reference's torch names, so a conversion
 only drops the k=1 ``Conv1d`` weights' trailing axis and ignores the keys
 the port's model has not (``utils/model_io.py::reference_state_dict``).
+``convert_resnet_trunk``, ``convert_image_encoder`` and
+``convert_fusion_layer`` convert one part each, as gmf_tpu's do.
 
     python -m gmf_tpu_torch.utils.convert_torch --input model_best.pkl \\
         --out ckpt_dir [--model pointdsc|oanet] [--num-layers N]
@@ -23,6 +25,8 @@ from typing import Dict
 import torch
 
 from gmf_tpu_torch.models.oanet import OANet
+from gmf_tpu_torch.nn.fusion import FusionLayer
+from gmf_tpu_torch.nn.resnet import ResNet
 from gmf_tpu_torch.models.pointdsc import PointDSC
 from gmf_tpu_torch.utils.checkpoint import save_checkpoint
 from gmf_tpu_torch.utils.model_io import oanet_config, reference_state_dict
@@ -37,6 +41,51 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     if isinstance(obj, dict) and "state_dict" in obj:
         obj = obj["state_dict"]
     return {k: torch.as_tensor(v) for k, v in obj.items()}
+
+
+def _view(sd: Dict[str, torch.Tensor], prefix: str
+          ) -> Dict[str, torch.Tensor]:
+    """The entries of ``sd`` under ``prefix``, the prefix dropped."""
+    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
+def convert_resnet_trunk(sd: Dict[str, torch.Tensor], prefix: str = ""
+                         ) -> Dict[str, torch.Tensor]:
+    """conv1/bn1/layer1/layer2 of a torchvision ResNet-34 under ``prefix``
+    as the state_dict of the port's ``ResNet`` (layers (3, 4)); layer3,
+    layer4 and fc are left out."""
+    part = _view(sd, prefix)
+    model = ResNet(base_width=int(part["conv1.weight"].shape[0]))
+    return reference_state_dict(model, part)
+
+
+def convert_image_encoder(sd: Dict[str, torch.Tensor], prefix: str
+                          ) -> Dict[str, torch.Tensor]:
+    """The reference's image encoder (``<prefix>backbone.<resnet>``) as
+    the state_dict of the port's ``ImageEncoder``."""
+    return {f"backbone.{k}": v for k, v in convert_resnet_trunk(
+        sd, f"{prefix}backbone.").items()}
+
+
+def convert_fusion_layer(sd: Dict[str, torch.Tensor], prefix: str,
+                         pe: bool, depth: int = 0
+                         ) -> Dict[str, torch.Tensor]:
+    """One reference FusionLayer/PerceiverIO block under ``prefix`` (with
+    LCPE when ``pe``, and ``depth`` self-attention layers) as the state_dict
+    of the port's ``FusionLayer``, its widths from the shapes."""
+    part = _view(sd, prefix)
+    cab = "cross_attend_blocks.0."
+    latent_dim = int(part[cab + "norm.weight"].shape[0])
+    dim = int(part[cab + "norm_context.weight"].shape[0])
+    out_dim = int(part[cab + "fn.to_out.weight"].shape[0])
+    model = FusionLayer(
+        dim=dim, latent_dim=latent_dim, depth=depth, cross_heads=1,
+        cross_dim_head=int(part[cab + "fn.to_q.weight"].shape[0]),
+        latent_heads=1,
+        latent_dim_head=(int(part["layers.0.0.fn.to_q.weight"].shape[0])
+                         if depth else 1),
+        pe=pe, out_to_context_dim=out_dim == dim)
+    return reference_state_dict(model, part)
 
 
 def convert_oanet(sd: Dict[str, torch.Tensor], num_layers: int = 6

@@ -59,6 +59,16 @@ def library_path() -> Path:
     return _LIB_PATH
 
 
+def native_available() -> bool:
+    """True when the native solver is built or builds here (a compiler
+    that fails returns False; ``gcransac_rigid`` would raise)."""
+    try:
+        _lib()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def gcransac_rigid(src: np.ndarray, tgt: np.ndarray, threshold: float,
                    conf: float = 0.99999999,
                    spatial_coherence_weight: float = 0.1,

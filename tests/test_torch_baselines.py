@@ -126,6 +126,18 @@ def test_gcransac_library_matches_gmf_tpu(n, ratio, seed):
     assert gcransac.library_path().parent == native.BUILD_DIR
 
 
+def test_gcransac_native_available(tmp_path, monkeypatch):
+    """True here as gmf_tpu's; False, not an error, when the source does
+    not build."""
+    assert gcransac.native_available() is jax_gcransac.native_available()
+    assert gcransac.native_available() is True
+    bad = tmp_path / "gcransac_rigid.cpp"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(gcransac, "SOURCE", bad)
+    monkeypatch.setattr(gcransac, "_LIB", None)
+    assert gcransac.native_available() is False
+
+
 @pytest.mark.parametrize("method,atol_r,atol_t", [
     ("SM", 0.05, 0.05), ("PMC", 0.02, 0.03), ("RANSAC", 0.02, 0.03),
     ("GCRANSAC", 0.02, 0.03)])

@@ -1138,6 +1138,41 @@ def test_dgr_compact_conv_card(cuda):
                                    err_msg=name)
 
 
+def test_dgr_compact_conv_rowwise_card(cuda):
+    """scatter_mode="rowwise" on the card: two runs equal in every bit and
+    equal to its plain version (an index_add_ a run of one offset's
+    tiles, tile order), and within 1e-5 of "flat", over each 6-D map of
+    a pyramid built there."""
+    from gmf_tpu_torch.sparse.conv import (append_sentinel,
+                                           sparse_conv_compact,
+                                           sparse_conv_compact_in_tile_order)
+    from gmf_tpu_torch.sparse.device_maps import build_pyramid_arrays_device
+
+    c = _dgr_coords(6, 3000, 6)
+    cmp = build_pyramid_arrays_device(c, 4, device=cuda, compact_conv=True,
+                                      conv1_kernel_size=3, granule=1024,
+                                      compact_dense_frac=0.25)
+    r = np.random.RandomState(5)
+    w = torch.tensor(r.randn(729, 16, 24).astype(np.float32), device=cuda)
+    for name, l_in, l_out in (("self_0", 0, 0), ("down_0", 0, 1),
+                              ("up_0", 1, 0), ("self_2", 2, 2)):
+        x = append_sentinel(torch.tensor(r.randn(
+            cmp[f"mask_{l_in}"].shape[0], 16).astype(np.float32),
+            device=cuda))
+        sched, rows = cmp[name.replace("_", "_cmp_")], \
+            cmp[f"mask_{l_out}"].shape[0]
+        a, b = (sparse_conv_compact(x, w, sched, rows,
+                                    scatter_mode="rowwise")
+                for _ in range(2))
+        plain = sparse_conv_compact_in_tile_order(x, w, sched, rows)
+        flat = sparse_conv_compact(x, w, sched, rows)
+        assert torch.equal(a, b), name
+        assert torch.equal(a, plain), name
+        np.testing.assert_allclose(a.cpu().numpy(), flat.cpu().numpy(),
+                                   atol=1e-5 * flat.abs().max().item(),
+                                   err_msg=name)
+
+
 @pytest.mark.parametrize("dim", [3, 6])
 def test_dgr_sparse_conv_backward_card_vs_cpu(cuda, dim):
     """sparse_conv's backward (the chunks gathered again; dx by an

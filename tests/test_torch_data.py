@@ -15,9 +15,12 @@ Sample arrays are equal, but for two kinds held to 1e-6:
   in SIMD lanes apart from its scalar tail).
 """
 
+import io
 import random
+import shutil
 import threading
 import time
+from pathlib import Path
 
 import matplotlib.image as mpimg
 import numpy as np
@@ -137,8 +140,19 @@ def test_load_image_matches_jax(tmp_path, ext):
 
 
 def test_jpeg_without_pillow_names_the_file(tmp_path, monkeypatch):
+    """With Pillow unimportable a JPEG frame still loads (the port decodes
+    it itself, as Pillow does), and a file the decoder refuses raises
+    naming the file."""
     import builtins
 
+    rng = np.random.RandomState(3)
+    good = str(tmp_path / "frame_0.jpg")
+    Image.fromarray((_smooth(rng, 30, 44, 3) * 255).astype(np.uint8)).save(
+        good)
+    ref = jax_imageio.load_image(good)
+    bad = str(tmp_path / "frame_1.jpg")
+    Image.fromarray((_smooth(rng, 30, 44, 3) * 255).astype(np.uint8)).save(
+        bad, progressive=True)
     real_import = builtins.__import__
 
     def no_pil(name, *a, **k):
@@ -147,8 +161,131 @@ def test_jpeg_without_pillow_names_the_file(tmp_path, monkeypatch):
         return real_import(name, *a, **k)
 
     monkeypatch.setattr(builtins, "__import__", no_pil)
-    with pytest.raises(ImportError, match="frame_0.jpg"):
-        imageio.load_image(str(tmp_path / "frame_0.jpg"))
+    # the resize to 120 x 160 within 1e-6 of cv2's (module docstring)
+    np.testing.assert_allclose(imageio.load_image(good), ref, rtol=0,
+                               atol=1e-6)
+    with pytest.raises(ValueError, match="frame_1.jpg.*progressive"):
+        imageio.load_image(bad)
+
+
+# -- the JPEG decoder against Pillow ---------------------------------------
+
+JPEG_FIXTURES = Path(__file__).resolve().parent / "torch_fixtures" / "jpeg"
+
+
+def _jpeg_frame(rng, h, w, gray):
+    img = (_smooth(rng, h, w, 3) * 255 + rng.randint(-30, 31, (h, w, 3)))
+    im = Image.fromarray(img.clip(0, 255).astype(np.uint8))
+    return im.convert("L") if gray else im
+
+
+# (height, width, gray, Pillow save arguments): every subsampling at low,
+# middle and top quality, gray, optimised Huffman tables, restart
+# intervals of one MCU and more, sizes off the MCU grid down to one pixel
+JPEG_CASES = {
+    "420_q10": (48, 64, False, dict(quality=10, subsampling=2)),
+    "420_q75": (48, 64, False, dict(quality=75, subsampling=2)),
+    "420_q100": (48, 64, False, dict(quality=100, subsampling=2)),
+    "422_q50": (48, 64, False, dict(quality=50, subsampling=1)),
+    "422_q95": (37, 53, False, dict(quality=95, subsampling=1)),
+    "444_q30": (48, 64, False, dict(quality=30, subsampling=0)),
+    "444_q100": (29, 31, False, dict(quality=100, subsampling=0)),
+    "gray_q60": (48, 64, True, dict(quality=60)),
+    "gray_odd_rst": (33, 70, True, dict(quality=85,
+                                        restart_marker_blocks=1)),
+    "420_optimized": (48, 64, False, dict(quality=70, subsampling=2,
+                                          optimize=True)),
+    "420_rst1": (40, 56, False, dict(quality=80, subsampling=2,
+                                     restart_marker_blocks=1)),
+    "422_rst3_optimized": (40, 56, False, dict(
+        quality=80, subsampling=1, restart_marker_blocks=3, optimize=True)),
+    "420_161x121": (121, 161, False, dict(quality=85, subsampling=2)),
+    "420_17x9": (9, 17, False, dict(quality=90, subsampling=2)),
+    "420_2x3": (3, 2, False, dict(quality=90, subsampling=2)),
+    "422_5x2": (2, 5, False, dict(quality=90, subsampling=1)),
+    "444_1x1": (1, 1, False, dict(quality=90, subsampling=0)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(JPEG_CASES))
+def test_jpeg_matches_pillow(tmp_path, case):
+    """Every bit of the decode equals Pillow's (libjpeg-turbo's)."""
+    h, w, gray, kw = JPEG_CASES[case]
+    path = str(tmp_path / f"{case}.jpg")
+    _jpeg_frame(np.random.RandomState(len(case)), h, w, gray).save(
+        path, "JPEG", **kw)
+    ref = np.asarray(Image.open(path))
+    got = imageio.read_jpeg(path)
+    assert got.dtype == ref.dtype == np.uint8 and got.shape == ref.shape
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, mpimg.imread(path))
+
+
+@pytest.mark.parametrize("name", sorted(
+    p.stem for p in JPEG_FIXTURES.glob("*.npy")) + ["frame_640x480"])
+def test_jpeg_fixtures_still_match_pillow(name):
+    """The committed fixtures that chip_smoke.py decodes on the card: each
+    array (the 640 x 480 frame's SHA-256) is still Pillow's decode of its
+    file, and the port's too."""
+    import hashlib
+    import json
+
+    path = JPEG_FIXTURES / f"{name}.jpg"
+    pil, got = np.asarray(Image.open(path)), imageio.read_jpeg(str(path))
+    if name == "frame_640x480":
+        want = json.loads((JPEG_FIXTURES / f"{name}.json").read_text())
+        for a in (pil, got):
+            assert list(a.shape) == want["shape"]
+            assert hashlib.sha256(a.tobytes()).hexdigest() == want["sha256"]
+        return
+    arr = np.load(JPEG_FIXTURES / f"{name}.npy")
+    np.testing.assert_array_equal(pil, arr)
+    np.testing.assert_array_equal(got, arr)
+
+
+def _patched(blob: bytes, marker: int, offset: int, value: int) -> bytes:
+    """blob with the byte ``offset`` past the first ``marker`` set."""
+    i = blob.index(bytes([0xFF, marker]))
+    out = bytearray(blob)
+    out[i + offset] = value
+    return bytes(out)
+
+
+def _refused(kind):
+    rng = np.random.RandomState(4)
+    buf = io.BytesIO()
+    im = _jpeg_frame(rng, 24, 32, False)
+    if kind == "progressive":
+        im.save(buf, "JPEG", progressive=True)
+        return buf.getvalue(), "progressive"
+    if kind == "cmyk":
+        im.convert("CMYK").save(buf, "JPEG")
+        return buf.getvalue(), "CMYK"
+    if kind == "adobe_rgb":
+        im.save(buf, "JPEG", keep_rgb=True)
+        return buf.getvalue(), "Adobe transform 0"
+    im.save(buf, "JPEG")
+    blob = buf.getvalue()
+    if kind == "arithmetic":  # SOF0 -> SOF9
+        return _patched(blob, 0xC0, 1, 0xC9), "arithmetic"
+    if kind == "12bit":       # SOF0's precision byte
+        return _patched(blob, 0xC0, 4, 12), "12-bit"
+    if kind == "truncated":  # cut in the headers, and in the scan
+        return blob[:len(blob) // 4], "truncated"
+    if kind == "truncated_scan":
+        return blob[:len(blob) - 40], "truncated"
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind", ["progressive", "cmyk", "adobe_rgb",
+                                  "arithmetic", "12bit", "truncated",
+                                  "truncated_scan"])
+def test_jpeg_refusals_name_the_feature(kind):
+    blob, what = _refused(kind)
+    with pytest.raises(ValueError, match=f"frame.jpg: .*{what}"):
+        imageio.decode_jpeg(blob, "frame.jpg")
+    with pytest.raises(ValueError, match="progressive"):
+        imageio.read_jpeg(str(JPEG_FIXTURES / "progressive.jpg"))
 
 
 # -- datasets ---------------------------------------------------------------
@@ -216,6 +353,30 @@ def test_scene_list_and_gt_log(tree):
 def test_threedmatch_test_matches_jax(tree, kw):
     args = dict(root=tree["root"], select_scene=tree["scene"], **kw)
     _compare(lambda: ThreeDMatchTest(**args), lambda: JaxTest(**args))
+
+
+@pytest.fixture(scope="module")
+def jpeg_tree(tree, tmp_path_factory):
+    """The fixture tree with every frame a JPEG (3DMatch's ``*_0.jpg``):
+    fragment 2's gray, the others 4:2:0 colour."""
+    root = str(tmp_path_factory.mktemp("threedmatch_jpeg") / "root")
+    shutil.copytree(tree["root"], root)
+    for png in sorted(Path(root).rglob("*_0.png")):
+        gray = png.name.startswith("cloud_bin_2")
+        Image.open(png).convert("L" if gray else "RGB").save(
+            png.with_suffix(".jpg"), "JPEG", quality=85)
+        png.unlink()
+    return {**tree, "root": root}
+
+
+def test_threedmatch_jpeg_frames_match_jax(jpeg_tree):
+    """3DMatch's real frames are JPEG: the datasets read them as gmf_tpu's
+    do through mpimg (Pillow), the resize within 1e-6 (module
+    docstring)."""
+    args = dict(root=jpeg_tree["root"], select_scene=jpeg_tree["scene"])
+    assert not list(Path(args["root"]).rglob("*_0.png"))
+    _compare(lambda: ThreeDMatchTest(**args), lambda: JaxTest(**args),
+             seeds=(0,))
 
 
 @pytest.mark.parametrize("kw", [dict(num_node="all"), dict(num_node=120),

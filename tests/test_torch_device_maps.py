@@ -32,8 +32,10 @@ from gmf_tpu.sparse.resunet import SparseResUNet2 as JaxNet
 from gmf_tpu.sparse.resunet import pyramid_to_arrays as jax_arrays
 from gmf_tpu_torch.models import dgr
 from gmf_tpu_torch.sparse import compact, kernel_map
-from gmf_tpu_torch.sparse.conv import (append_sentinel, sparse_conv,
-                                       sparse_conv_compact)
+from gmf_tpu_torch.sparse.conv import (SparseConv, append_sentinel,
+                                       set_scatter_mode, sparse_conv,
+                                       sparse_conv_compact,
+                                       sparse_conv_compact_in_tile_order)
 from gmf_tpu_torch.sparse.device_maps import (build_pyramid_arrays_device,
                                               device_kernel_map)
 from gmf_tpu_torch.sparse.kernel_map import (build_kernel_map, build_pyramid,
@@ -230,6 +232,81 @@ def test_sparse_conv_compact(direction, frac):
     px, pw = torch.autograd.grad((plain * g).sum(), (xd, wd))
     _close(gx.numpy(), px.numpy(), 1e-5)
     _close(gw.numpy(), pw.numpy(), 1e-5)
+
+
+@pytest.mark.parametrize("with_transpose", [False, True])
+def test_build_compact_schedule_one_map(with_transpose):
+    """The one-map form equals gmf_tpu's ``build_compact_schedule`` in
+    every bit, and the list form's entry for the same job."""
+    rng = np.random.RandomState(12)
+    K, Mc, Mf = 27, 80, 100
+    nbr = _random_map(rng, K, Mc, Mf, density=0.5)
+    counts = (nbr != Mf).sum(1)
+    got = compact.build_compact_schedule(torch.tensor(nbr), counts, Mf, Mc,
+                                         with_transpose=with_transpose,
+                                         dense_frac=0.25)
+    _assert_same(got, jcompact.build_compact_schedule(
+        nbr, counts, Mf, Mc, with_transpose=with_transpose,
+        dense_frac=0.25))
+    _assert_same(got, jcompact.build_compact_schedules(
+        [(nbr, counts, Mf, Mc, with_transpose, 0.25)])[0])
+
+
+def test_compact_scatter_modes_against_gmf_tpu():
+    """Both scatter modes of both packages on one compacted schedule of a
+    small 6-D cloud (the port's device pyramid, whose schedules equal
+    gmf_tpu's): the port's "rowwise" within 1e-5 of gmf_tpu's "rowwise"
+    relative to the largest entry, "flat" likewise, and the modes within
+    1e-5 of each other. "rowwise" equals its plain version (an
+    index_add_ a run of one offset's tiles, gmf_tpu's tile order) in
+    every bit, at the default row budget and at one tile a step. An
+    unknown mode raises."""
+    c = _coords(7, 6, 150, 5)
+    arrays = build_pyramid_arrays_device(c, 4, granule=64, compact_conv=True,
+                                         compact_dense_frac=0.25,
+                                         device="cpu")
+    sched = arrays["self_cmp_0"]
+    in_idx, out_idx, kept = sched["groups"][0]
+    assert sched["dense"] is not None
+    runs = torch.unique_consecutive(kept, return_counts=True)[1]
+    assert len(runs) > 4 and int(runs.max()) > 1  # offsets of many tiles
+    rows = arrays["mask_0"].shape[0]
+    rng = np.random.RandomState(13)
+    cin, cout = 5, 7
+    x = rng.randn(rows, cin).astype(np.float32)
+    w = rng.randn(3 ** 6, cin, cout).astype(np.float32)
+    jsched = {"dense": tuple(jnp.asarray(a.numpy())
+                             for a in sched["dense"]),
+              "groups": tuple(tuple(jnp.asarray(a.numpy()) for a in g)
+                              for g in sched["groups"])}
+    xs = append_sentinel(torch.tensor(x))
+    got, want = {}, {}
+    for mode in ("flat", "rowwise"):
+        got[mode] = sparse_conv_compact(xs, torch.tensor(w), sched, rows,
+                                        scatter_mode=mode).numpy()
+        want[mode] = np.asarray(jconv.sparse_conv_compact(
+            jconv.append_sentinel(jnp.asarray(x)), jnp.asarray(w), jsched,
+            rows, scatter_mode=mode))
+        _close(got[mode], want[mode], 1e-5)
+    _close(got["rowwise"], got["flat"], 1e-5)
+    for budget in (1 << 16, in_idx.shape[1]):
+        fast = sparse_conv_compact(xs, torch.tensor(w), sched, rows,
+                                   row_budget=budget, scatter_mode="rowwise")
+        plain = sparse_conv_compact_in_tile_order(
+            xs, torch.tensor(w), sched, rows, row_budget=budget)
+        np.testing.assert_array_equal(fast.numpy(), plain.numpy())
+    # the module's mode, set across a net by set_scatter_mode
+    mod = SparseConv(cin, cout, 3 ** 6)
+    with torch.no_grad():
+        mod.kernel.copy_(torch.tensor(w))
+        assert set_scatter_mode(mod, "rowwise").scatter_mode == "rowwise"
+        np.testing.assert_array_equal(mod(xs, sched, None, rows).numpy(),
+                                      got["rowwise"])
+    for bad in (lambda: sparse_conv_compact(xs, torch.tensor(w), sched, rows,
+                                            scatter_mode="sorted"),
+                lambda: set_scatter_mode(mod, "sorted")):
+        with pytest.raises(ValueError, match="scatter_mode"):
+            bad()
 
 
 def _jax_net(kw, feats, arrays, images, seed=0):

@@ -290,6 +290,82 @@ def test_frag_cache_bit_identical_with_hits(weights, pair):
     assert cached.frag_cache_hits == 0
 
 
+@pytest.mark.parametrize("descriptor", ["fcgf", "fpfh"])
+def test_stage_methods_match_gmf_tpu_and_register(weights, pair, descriptor,
+                                                  monkeypatch):
+    """descriptor_features and inlier_prediction against gmf_tpu's (FCGF
+    features and the logits within 1e-4 of their largest entry, the
+    whole nets' bound; FPFH is ops/fpfh.py's, held to gmf_tpu by the
+    FPFH tests below, whose bin flips this planar pair shows on many
+    rows), and each equal in every bit to what the port's register()
+    uses."""
+    je, te = _engines(weights, descriptor=descriptor,
+                      safeguard_min_weight=0.0, safeguard_min_frac=0.0)
+    xyz0, xyz1, p, q = pair
+    seen = {}
+    solve = te._solve
+
+    def spy(uniq_logits, inverse, *a, **k):
+        seen["logits"] = uniq_logits[inverse].cpu().numpy()
+        return solve(uniq_logits, inverse, *a, **k)
+
+    monkeypatch.setattr(te, "_solve", spy)
+    out = te.register(xyz0, xyz1, p, q)
+    n = len(out["corres"][0])
+    frags = []
+    for xyz in (xyz0, xyz1):
+        coords, sel = te.preprocess(xyz)
+        pts = np.asarray(xyz)[sel]
+        got = te.descriptor_features(coords, pts)
+        ref = np.asarray(je.descriptor_features(coords, pts))
+        used = te.prepare_fragment(xyz)["F"][:len(coords)].cpu().numpy()
+        np.testing.assert_array_equal(got, used)
+        assert got.shape == ref.shape
+        if descriptor == "fcgf":
+            np.testing.assert_allclose(got, ref, rtol=0,
+                                       atol=1e-4 * np.abs(ref).max())
+        else:  # gmf_tpu's FPFH and its bin flips: the FPFH tests below
+            vs = te.config.voxel_size
+            np.testing.assert_array_equal(got, fpfh.compute_fpfh(
+                _t(pts), normal_radius=2 * vs, feature_radius=5 * vs).numpy())
+        frags.append(coords)
+    corr6d = np.concatenate([frags[0], frags[1][out["corres"][1]]], axis=1)
+    got = te.inlier_prediction(corr6d, p, q)
+    ref = np.asarray(je.inlier_prediction(corr6d, p, q))
+    assert got.shape == (n,)
+    np.testing.assert_array_equal(got, seen["logits"][:n])
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=1e-4 * np.abs(ref).max())
+
+
+def test_seed_fragment_fills_the_cache(weights, pair):
+    """seed_fragment caches a fragment as gmf_tpu's does: the next
+    register() of both keys hits twice, bit-identical to no cache."""
+    fkw, ikw, (fv, iv) = weights
+    _, plain = _engines(weights)
+    kw = dict(voxel_size=0.1, voxel_cap_granule=256, corr_cap_granule=256,
+              safeguard_ransac_iters=1024)
+    cached = dgr.DeepGlobalRegistration(
+        sparse_resunet_to_state_dict(fv), sparse_resunet_to_state_dict(iv),
+        dgr.DGRConfig(**kw), fcgf_model=SparseResUNet2(**fkw),
+        inlier_model=SparseResUNet2(**ikw), fcgf_dim=8,
+        frag_cache_bytes=64 << 20, device="cpu")
+    jcached = jdgr.DeepGlobalRegistration(
+        fv, iv, jdgr.DGRConfig(**kw), fcgf_model=JaxNet(**fkw),
+        inlier_model=JaxNet(**ikw), fcgf_dim=8, frag_cache_bytes=64 << 20)
+    xyz0, xyz1, p, q = pair
+    for eng in (cached, jcached):
+        eng.seed_fragment(xyz0, "A")
+        eng.seed_fragment(xyz1, "B")
+        assert eng.frag_cache_hits == 0
+    got = cached.register(xyz0, xyz1, p, q, cache_key0="A", cache_key1="B")
+    jcached.register(xyz0, xyz1, p, q, cache_key0="A", cache_key1="B")
+    assert cached.frag_cache_hits == jcached.frag_cache_hits == 2
+    want = plain.register(xyz0, xyz1, p, q)
+    for key in ("trans", "weights"):
+        np.testing.assert_array_equal(got[key], want[key])
+
+
 def test_engine_refuses_what_is_not_ported():
     """Every engine setting is ported now: bf16 nets
     (tests/test_torch_dgr_bf16.py), the device maps and the compacted

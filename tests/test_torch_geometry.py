@@ -194,3 +194,79 @@ def test_leading_eigenvector_fixed_gradient_matches_jax_grad(rng):
     (spectral.leading_eigenvector_fixed(m, 10) * _t(proj)).sum().backward()
     np.testing.assert_allclose(m.grad.numpy(), ref,
                                atol=1e-5 * np.abs(ref).max())
+
+
+# -- gmf_tpu/geometry/metrics.py and se3's composition, held to 1e-5 as
+# above (the same f32 formulas; the acos of a cosine near 1 magnifies its
+# last bit, so the angles are compared at 1e-3 deg)
+
+def _near_trans(rng, T, scale):
+    """T perturbed by a small rotation and translation (a registration
+    close to the truth, as the success test sees)."""
+    D = _random_trans(rng, len(T))
+    for b in range(len(T)):
+        D[b, :3, :3] = jse3.random_rotation_matrix(3, scale, rng)
+        D[b, :3, 3] = scale * rng.randn(3)
+    return np.einsum("bij,bjk->bik", D, T).astype(np.float32)
+
+
+@pytest.mark.parametrize("fn", ["concatenate", "inverse"])
+def test_se3_compose_and_inverse(rng, fn):
+    T1, T2 = _random_trans(rng, 6), _random_trans(rng, 6)
+    args = (T1, T2) if fn == "concatenate" else (T1,)
+    got = getattr(se3, fn)(*map(_t, args)).numpy()
+    np.testing.assert_allclose(got, np.asarray(getattr(jse3, fn)(*args)),
+                               atol=ATOL)
+
+
+def test_registration_metrics(rng):
+    from gmf_tpu.geometry import metrics as jmetrics
+    from gmf_tpu_torch.geometry import metrics
+
+    T = _random_trans(rng, 16)
+    P = _near_trans(rng, T, 0.01)
+    ok, re, te = metrics.registration_success(_t(P), _t(T), 3.0, 0.02)
+    jok, jre, jte = jmetrics.registration_success(P, T, 3.0, 0.02)
+    assert 0 < int(np.sum(jok)) < 16
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(jok))
+    np.testing.assert_allclose(re.numpy(), np.asarray(jre), atol=1e-3)
+    np.testing.assert_allclose(te.numpy(), np.asarray(jte), atol=ATOL)
+    np.testing.assert_allclose(
+        metrics.rotation_error_deg(_t(P[:, :3, :3]), _t(T[:, :3, :3])),
+        np.asarray(jmetrics.rotation_error_deg(P[:, :3, :3], T[:, :3, :3])),
+        atol=1e-3)
+    np.testing.assert_allclose(
+        metrics.translation_error(_t(P[:, :3, 3:]), _t(T[:, :3, 3:])),
+        np.asarray(jmetrics.translation_error(P[:, :3, 3:], T[:, :3, 3:])),
+        atol=ATOL)
+    xyz0 = rng.rand(16, 30, 3).astype(np.float32) * 2
+    xyz1 = (xyz0 + 0.05 * rng.randn(16, 30, 3)).astype(np.float32)
+    w = rng.rand(16, 30).astype(np.float32)
+    for kw in (dict(), dict(max_dist=0.5)):
+        for weight in (None, w):
+            np.testing.assert_allclose(
+                metrics.corr_dist(_t(T), _t(xyz0), _t(xyz1),
+                                  None if weight is None else _t(weight),
+                                  **kw).numpy(),
+                np.asarray(jmetrics.corr_dist(T, xyz0, xyz1, weight, **kw)),
+                atol=ATOL)
+    pred = rng.rand(4, 50) > 0.5
+    gt = rng.rand(4, 50) > 0.4
+    mask = rng.rand(4, 50) > 0.3
+    for m in (None, mask):
+        got = metrics.precision_recall_f1(
+            torch.from_numpy(pred), torch.from_numpy(gt),
+            None if m is None else torch.from_numpy(m))
+        ref = jmetrics.precision_recall_f1(pred, gt, m)
+        for a, b in zip(got, ref):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6)
+
+
+def test_geometry_exports_as_gmf_tpu():
+    import gmf_tpu.geometry as jgeometry
+    import gmf_tpu_torch.geometry as geometry
+
+    public = {n for n in dir(jgeometry) if not n.startswith("_")
+              and callable(getattr(jgeometry, n))}
+    assert public - set(dir(geometry)) == set()
+    assert geometry.inverse is se3.inverse

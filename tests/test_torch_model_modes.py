@@ -278,6 +278,47 @@ def test_mesh_settings(name):
             np.testing.assert_array_equal(l, wl)
 
 
+def test_nonlocal_block_heads_match_jax():
+    """NonLocalBlock(num_heads=4) on the dense path against gmf_tpu's
+    (bridged weights, eval mode, a masked pair): 1e-5 of the largest
+    output; the fused and ring paths refuse more than one head."""
+    from gmf_tpu.models.pointdsc import NonLocalBlock as JaxBlock
+    from gmf_tpu_torch.models.pointdsc import NonLocalBlock
+    from gmf_tpu_torch.utils.bridge import nonlocal_block_to_state_dict
+
+    rng = np.random.RandomState(21)
+    B, N, C, T = 2, 37, 16, 12
+    feat = rng.randn(B, N, C).astype(np.float32)
+    image = rng.randn(B, T, C).astype(np.float32)
+    compat = rng.rand(B, N, N).astype(np.float32)
+    mask = np.ones((B, N), np.float32)
+    mask[1, 30:] = 0.0
+    jm = JaxBlock(num_channels=C, num_heads=4)
+    v = jax.jit(jm.init)(jax.random.PRNGKey(3), jnp.asarray(feat),
+                         jnp.asarray(compat), jnp.asarray(image))
+    stats = jax.tree.map(lambda a: np.asarray(a) + 0.5 * rng.rand(
+        *np.shape(a)).astype(np.float32), v["batch_stats"])
+    v = {"params": jax.tree.map(np.asarray, v["params"]),
+         "batch_stats": stats}
+    ref = np.asarray(jm.apply(v, jnp.asarray(feat), jnp.asarray(compat),
+                              jnp.asarray(image),
+                              corr_mask=jnp.asarray(mask)))
+    block = NonLocalBlock(C, num_heads=4).eval()
+    block.load_state_dict(nonlocal_block_to_state_dict(
+        v["params"], v["batch_stats"]), strict=True)
+    with torch.no_grad():
+        got = block(torch.tensor(feat), torch.tensor(image),
+                    torch.tensor(mask), None, None, fused=False,
+                    attention=torch.tensor(compat)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+    with pytest.raises(ValueError, match="one head"):
+        block(torch.tensor(feat), torch.tensor(image), None, None, None,
+              fused=True)
+    with pytest.raises(ValueError, match="does not divide"):
+        NonLocalBlock(C, num_heads=3)
+
+
 @pytest.mark.parametrize("fused", [False, True])
 def test_train_cli_records_attention_mode(tmp_path, fused):
     """train_pointdsc trains dense without --fused, as the reference's,

@@ -15,6 +15,7 @@ from gmf_tpu.nn.fusion import FusionLayer as JaxFusionLayer
 from gmf_tpu.nn.resnet import ImageEncoder as JaxImageEncoder
 from gmf_tpu_torch.nn.fusion import FusionLayer
 from gmf_tpu_torch.nn.resnet import ImageEncoder
+from gmf_tpu_torch.utils import bridge
 from gmf_tpu_torch.utils.bridge import (fusion_layer_to_state_dict,
                                         image_encoder_to_state_dict)
 
@@ -52,6 +53,81 @@ def test_fusion_layer(rng, pe):
     with torch.no_grad():
         got = tm(torch.tensor(data), queries_encoder=torch.tensor(x))
     _close(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("pe,masked", [(False, False), (True, True)])
+def test_fusion_layer_depth(rng, pe, masked):
+    """FusionLayer(depth=2) with multi-head self-attention, and a key
+    mask on the cross-attention, through the bridge (1e-4 of the largest
+    output, as above)."""
+    C, L, Nq, Nk = 16, 24, 29, 12
+    x = rng.randn(2, Nq, L).astype(np.float32)
+    data = rng.randn(2, Nk, C).astype(np.float32)
+    mask = None
+    if masked:
+        mask = np.ones((2, Nk), np.float32)
+        mask[1, 7:] = 0.0
+    kw = dict(dim=C, latent_dim=L, depth=2, cross_heads=2, latent_heads=4,
+              cross_dim_head=8, latent_dim_head=6, pe=pe,
+              out_to_context_dim=False)
+    jm = JaxFusionLayer(**kw)
+    params = _perturb(jm.init(jax.random.PRNGKey(0), jnp.asarray(data),
+                              queries_encoder=jnp.asarray(x))["params"], rng)
+    assert "self_attn_1" in params and "self_ff_norm_1" in params
+    ref = jm.apply({"params": params}, jnp.asarray(data),
+                   queries_encoder=jnp.asarray(x),
+                   mask=None if mask is None else jnp.asarray(mask))
+    tm = FusionLayer(**kw)
+    tm.load_state_dict(fusion_layer_to_state_dict(params), strict=True)
+    with torch.no_grad():
+        got = tm(torch.tensor(data), queries_encoder=torch.tensor(x),
+                 mask=None if mask is None else torch.tensor(mask))
+    _close(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("part", ["gelu_exact", "feed_forward_mult",
+                                  "conv_pos_enc_k"])
+def test_fusion_parts(rng, part):
+    """gelu_exact, FeedForward(mult=) and ConvPosEnc(k=) against
+    gmf_tpu's (1e-4 of the largest output; gelu to 1e-6)."""
+    from gmf_tpu.nn import fusion as jfusion
+    from gmf_tpu_torch.nn import fusion
+
+    x = rng.randn(2, 11, 8).astype(np.float32)
+    if part == "gelu_exact":
+        np.testing.assert_allclose(fusion.gelu_exact(torch.tensor(x)),
+                                   np.asarray(jfusion.gelu_exact(x)),
+                                   atol=1e-6)
+        return
+    if part == "feed_forward_mult":
+        jm = jfusion.FeedForward(dim=8, mult=2)
+        p = _perturb(jm.init(jax.random.PRNGKey(2), jnp.asarray(x))[
+            "params"], rng)
+        ref = jm.apply({"params": p}, jnp.asarray(x))
+        tm = fusion.FeedForward(8, mult=2)
+        sd = {}
+        bridge._dense(sd, "net.0", p["proj_in"])
+        bridge._dense(sd, "net.2", p["proj_out"])
+        tm.load_state_dict(sd, strict=True)
+        with torch.no_grad():
+            got = tm(torch.tensor(x))
+        _close(got.numpy(), ref)
+        return
+    c = rng.randn(2, 9, 5).astype(np.float32)
+    for k in (3, 4, 5):
+        jm = jfusion.ConvPosEnc(dim_q=8, dim_content=5, k=k)
+        p = _perturb(jm.init(jax.random.PRNGKey(3), jnp.asarray(x),
+                             jnp.asarray(c))["params"], rng)
+        ref = jm.apply({"params": p}, jnp.asarray(x), jnp.asarray(c))
+        tm = fusion.ConvPosEnc(8, 5, k=k)
+        sd = {}
+        bridge._depthwise_conv1d(sd, "proj_q", p["proj_q"])
+        bridge._depthwise_conv1d(sd, "proj_content", p["proj_content"])
+        tm.load_state_dict(sd, strict=True)
+        with torch.no_grad():
+            got = tm(torch.tensor(x), torch.tensor(c))
+        for a, b in zip(got, ref):
+            _close(a.numpy(), b)
 
 
 def test_image_encoder_tokens(rng):

@@ -316,6 +316,24 @@ def test_fused_seed_solver_matches_pallas_interpret(rng, S, k, C):
         np.testing.assert_array_equal(Tg[:, 3], ref_T[:, 3])
 
 
+def test_fused_seed_transforms_svd_matches_pallas_interpret(rng):
+    """kabsch_method="svd" after the same weights, against gmf_tpu's in
+    interpret mode with the bounds above; it also agrees with "quat" to
+    the same bounds."""
+    feats, src, tgt = _seed_problem(rng, 1, 13, 16, 32)
+    got = fused_seed_transforms(_t(feats), _t(src), _t(tgt), 1.2, 0.10,
+                                kabsch_method="svd")[0].numpy()
+    quat = fused_seed_transforms(_t(feats), _t(src), _t(tgt), 1.2,
+                                 0.10)[0].numpy()
+    a = [jnp.asarray(x[0]) for x in (feats, src, tgt)]
+    ref = np.asarray(jsolver.fused_seed_transforms(
+        *a, 1.2, 0.10, interpret=True, kabsch_method="svd"))
+    for want in (ref, quat):
+        np.testing.assert_allclose(got[:, :3, :3], want[:, :3, :3], atol=5e-4)
+        np.testing.assert_allclose(got[:, :3, 3], want[:, :3, 3], atol=5e-3)
+    np.testing.assert_array_equal(got[:, 3], ref[:, 3])
+
+
 def test_nms_local_max_matches_pallas_interpret(rng):
     B, N = 2, 300
     pts = (rng.rand(B, N, 3) * 2).astype(np.float32)

@@ -10,6 +10,7 @@ compute with the same operations (indices, masks, labels, matched rows)
 must be equal.
 """
 
+import importlib
 import re
 
 import jax
@@ -34,10 +35,12 @@ from gmf_tpu_torch.data.correspondence import (build_correspondences,
                                                match_descriptors_device)
 from gmf_tpu_torch.eval.registration import (DeviceFragmentCache,
                                              PointDSCRegistrar)
-from gmf_tpu_torch.geometry import knn
 from gmf_tpu_torch.models import PointDSC
 from gmf_tpu_torch.train.trainer import TrainConfig, Trainer
 from gmf_tpu_torch.utils.bridge import flax_to_state_dict
+
+# the module: the package exports its function knn, as gmf_tpu's does
+knn = importlib.import_module("gmf_tpu_torch.geometry.knn")
 from gmf_tpu_torch.utils.lru import ByteLRU
 from gmf_tpu_torch.utils.model_io import load_pointdsc
 from test_torch_model import KW, _problem

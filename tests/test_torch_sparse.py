@@ -187,6 +187,77 @@ def test_masked_norms():
     _close(got_in.numpy(), ref_in, 1e-5)
 
 
+@pytest.mark.parametrize("builder", ["native", "numpy"])
+@pytest.mark.parametrize("prune", [False, True])
+def test_build_kernel_map_in_valid(builder, prune):
+    """``in_valid`` (the sentinel of a padded input capacity) gives
+    gmf_tpu's arrays in every bit, from either builder."""
+    from gmf_tpu.sparse.kernel_map import build_kernel_map as jax_map
+
+    c = _coords(4, 3, 60, 6)
+    out = c[::2]
+    off = kernel_map.hypercube_offsets(3, 3)
+    cap = len(c) + 9
+    nbr, kept = build_kernel_map(c, out, off, prune_empty=prune,
+                                 in_valid=cap, builder=builder)
+    jnbr, jkept = jax_map(c, out, off, prune_empty=prune, in_valid=cap)
+    np.testing.assert_array_equal(nbr, jnbr)
+    np.testing.assert_array_equal(kept, jkept)
+    assert (nbr == cap).any() and not (nbr == len(c)).any()
+
+
+def test_conv_bias_and_norm_parameters():
+    """SparseConv(use_bias=True), MaskedBatchNorm(momentum=, epsilon=) in
+    train mode and MaskedInstanceNorm(epsilon=) against gmf_tpu's, 1e-5
+    of the largest entry (1e-6 for the running statistics); ``eps``, the
+    port's earlier name, is the same setting."""
+    r = np.random.RandomState(5)
+    c = _coords(1, 3, 120, 8)
+    pyr = build_pyramid(c, 4, conv1_kernel_size=3, granule=256)
+    arrays = pyramid_to_arrays(pyr, "cpu")
+    nbr, kept = arrays["self_map_0"], arrays["self_kept_0"]
+    x = r.randn(pyr.levels[0].cap, 6).astype(np.float32)
+    w = r.randn(27, 6, 4).astype(np.float32)
+    b = r.randn(4).astype(np.float32)
+    ref = jconv.SparseConv(4, 27, use_bias=True).apply(
+        {"params": {"kernel": w, "bias": b}},
+        jconv.append_sentinel(jnp.asarray(x)), jnp.asarray(nbr.numpy()),
+        jnp.asarray(kept.numpy()))
+    mod = SparseConv(6, 4, 27, use_bias=True)
+    assert set(mod.state_dict()) == {"kernel", "bias"}
+    mod.load_state_dict({"kernel": torch.tensor(w), "bias": torch.tensor(b)})
+    with torch.no_grad():
+        got = mod(append_sentinel(torch.tensor(x)), nbr, kept)
+    _close(got.numpy(), ref, 1e-5)
+
+    x = r.randn(40, 6).astype(np.float32)
+    mask = (np.arange(40) < 31).astype(np.float32)
+    v = {"params": {"scale": r.rand(6).astype(np.float32) + 0.5,
+                    "bias": r.randn(6).astype(np.float32)},
+         "batch_stats": {"mean": r.randn(6).astype(np.float32),
+                         "var": r.rand(6).astype(np.float32) + 0.5}}
+    jbn = jconv.MaskedBatchNorm(momentum=0.7, epsilon=1e-2)
+    ref, new = jbn.apply(v, jnp.asarray(x), jnp.asarray(mask), train=True,
+                         mutable=["batch_stats"])
+    for bn in (MaskedBatchNorm(6, momentum=0.7, epsilon=1e-2),
+               MaskedBatchNorm(6, momentum=0.7, eps=1e-2)):
+        with torch.no_grad():
+            bn.bn.weight.copy_(torch.from_numpy(v["params"]["scale"]))
+            bn.bn.bias.copy_(torch.from_numpy(v["params"]["bias"]))
+            bn.bn.running_mean.copy_(
+                torch.from_numpy(v["batch_stats"]["mean"]))
+            bn.bn.running_var.copy_(torch.from_numpy(v["batch_stats"]["var"]))
+            got = bn.train()(torch.from_numpy(x), torch.from_numpy(mask))
+        _close(got.numpy(), ref, 1e-5)
+        _close(bn.bn.running_mean.numpy(), new["batch_stats"]["mean"], 1e-6)
+        _close(bn.bn.running_var.numpy(), new["batch_stats"]["var"], 1e-6)
+    ref_in = jconv.MaskedInstanceNorm(epsilon=0.5).apply(
+        {}, jnp.asarray(x), jnp.asarray(mask))
+    for norm in (MaskedInstanceNorm(epsilon=0.5), MaskedInstanceNorm(eps=0.5)):
+        got_in = norm(torch.from_numpy(x), torch.from_numpy(mask))
+        _close(got_in.numpy(), ref_in, 1e-5)
+
+
 @pytest.mark.parametrize("module", ["attention", "fusion_pe"])
 def test_dgr_attention_maps_to_query_width(module):
     """out_to_context_dim=False: 24-wide queries into 16-wide context."""

@@ -83,6 +83,43 @@ def test_losses_match_jax(masked):
                                        rtol=1e-5, atol=1e-6, err_msg=k)
 
 
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("mode", ["unbalanced", "weighted"])
+def test_unbalanced_and_weighted_losses_match_jax(mode, masked):
+    """classification_loss(balanced=False), its per-entry ``weight`` and
+    spectral_matching_loss(balanced=False), to f32 rounding (1e-5
+    relative)."""
+    x = _loss_inputs(3, masked)
+    m_j = None if x["mask"] is None else jnp.asarray(x["mask"])
+    m_t = None if x["mask"] is None else torch.tensor(x["mask"])
+    w = np.random.RandomState(7).rand(*x["logits"].shape).astype(np.float32)
+    kw_j = dict(balanced=False)
+    kw_t = dict(balanced=False)
+    if mode == "weighted":
+        kw_j["weight"], kw_t["weight"] = jnp.asarray(w), torch.tensor(w)
+    ref = jlosses.classification_loss(jnp.asarray(x["logits"]),
+                                      jnp.asarray(x["labels"]), mask=m_j,
+                                      **kw_j)
+    got = losses.classification_loss(torch.tensor(x["logits"]),
+                                     torch.tensor(x["labels"]), mask=m_t,
+                                     **kw_t)
+    ref["sm"] = jlosses.spectral_matching_loss(
+        jnp.asarray(x["M"]), jnp.asarray(x["labels"]), balanced=False,
+        mask=m_j)
+    got["sm"] = losses.spectral_matching_loss(
+        torch.tensor(x["M"]), torch.tensor(x["labels"]), balanced=False,
+        mask=m_t)
+    if mode == "weighted":  # the weights reach the loss
+        balanced = losses.classification_loss(torch.tensor(x["logits"]),
+                                              torch.tensor(x["labels"]),
+                                              mask=m_t)["loss"]
+        assert abs(float(got["loss"]) - float(balanced)) > 1e-3
+    assert set(ref) == set(got)
+    for k in ref:
+        np.testing.assert_allclose(float(got[k]), float(ref[k]), rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
+
+
 def test_min_clip_collate_matches_jax():
     from gmf_tpu.data.collate import min_clip_collate as jax_collate
 
@@ -106,6 +143,39 @@ def test_synthetic_loader_matches_jax():
     for got, ref in zip(SyntheticCorrespondenceLoader(**kw), J(**kw)):
         for k in ref:
             np.testing.assert_array_equal(got[k], ref[k])
+
+
+def test_trainer_logs_to_tboard_dir(tmp_path):
+    """Trainer(tboard_dir=) writes gmf_tpu's metrics log: the same rows
+    (prefix, step and every metric) that gmf_tpu's MetricsLogger writes
+    for the same history, "Val" 0, "Train" 1, "Val" 1; without a
+    directory nothing is written."""
+    import json
+
+    from gmf_tpu.utils.logging_utils import MetricsLogger as JaxLogger
+
+    model = PointDSC(num_layers=1, num_channels=16, k=10, device="cpu")
+    loader = SyntheticCorrespondenceLoader(batch_size=2, num_corr=60,
+                                           steps_per_epoch=1,
+                                           image_hw=(16, 16))
+    cfg = TrainConfig(max_epoch=1, save_dir=str(tmp_path / "snap"))
+    history = Trainer(model, cfg, loader, loader,
+                      tboard_dir=str(tmp_path / "tb")).train(snapshot=False)
+    ref = JaxLogger(str(tmp_path / "ref"), use_tensorboard=False)
+    for kind, step, res in history:
+        ref.log(res, step, "Val" if kind == "eval" else "Train")
+    ref.close()
+
+    def rows(d):
+        with open(tmp_path / d / "metrics.jsonl") as f:
+            return [{k: v for k, v in json.loads(line).items()
+                     if k != "time"} for line in f]
+
+    got = rows("tb")
+    assert [(r["prefix"], r["step"]) for r in got] == [
+        ("Val", 0), ("Train", 1), ("Val", 1)]
+    assert got == rows("ref")
+    assert not (tmp_path / "snap").exists()
 
 
 def test_trainer_snapshots_and_load(tmp_path):

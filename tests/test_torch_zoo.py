@@ -377,6 +377,69 @@ def test_convert_sparse_resunet_equals_gmf_tpu(fusion):
                                   sd["conv1.kernel"][perm])
 
 
+def _reference_part(module, prefix, seed):
+    """A reference state_dict of one part: ``module``'s names and shapes
+    under ``prefix``, random values (positive running variances, no
+    batches tracked), plus a key of another part."""
+    r = np.random.RandomState(seed)
+    sd = {"other.weight": torch.zeros(3)}
+    for k, v in module.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            sd[prefix + k] = torch.zeros_like(v)
+            continue
+        x = 0.5 + r.rand(*v.shape) if k.endswith("running_var") else \
+            r.randn(*v.shape)
+        sd[prefix + k] = torch.tensor(x, dtype=torch.float32)
+    return sd
+
+
+@pytest.mark.parametrize("part", ["resnet_trunk", "image_encoder",
+                                  "fusion_layer", "fusion_layer_pe_depth"])
+def test_convert_part_equals_gmf_tpu(part):
+    """Each part's converter equals gmf_tpu's followed by the bridge, in
+    every bit, and loads into the port's module strictly."""
+    from gmf_tpu_torch.nn.fusion import FusionLayer
+    from gmf_tpu_torch.nn.resnet import ImageEncoder, ResNet
+    from gmf_tpu_torch.utils import bridge
+
+    if part == "resnet_trunk":
+        module, prefix = ResNet(base_width=8), "resnet."
+        sd = _reference_part(module, prefix, 1)
+        # torchvision's later stages, which the trunk leaves out
+        sd[prefix + "layer3.0.conv1.weight"] = torch.zeros(2, 2, 3, 3)
+        got = convert_torch.convert_resnet_trunk(sd, prefix)
+        p, s = jct.convert_resnet_trunk(
+            {k: v.numpy() for k, v in sd.items()}, prefix)
+        want = {}
+        bridge._resnet_trunk(want, "", p, s)
+    elif part == "image_encoder":
+        module, prefix = ImageEncoder(base_width=8), "encoder.image_encoder."
+        sd = _reference_part(module, prefix, 2)
+        got = convert_torch.convert_image_encoder(sd, prefix)
+        p, s = jct.convert_image_encoder(
+            {k: v.numpy() for k, v in sd.items()}, prefix)
+        want = bridge.image_encoder_to_state_dict(p, s)
+    else:
+        pe = part.endswith("depth")
+        depth = 2 if pe else 0
+        module = FusionLayer(dim=12, latent_dim=20, depth=depth,
+                             cross_heads=2, cross_dim_head=5, latent_heads=3,
+                             latent_dim_head=4, pe=pe,
+                             out_to_context_dim=not pe)
+        prefix = "encoder.fusion_layer_1."
+        sd = _reference_part(module, prefix, 3)
+        got = convert_torch.convert_fusion_layer(sd, prefix, pe=pe,
+                                                 depth=depth)
+        want = bridge.fusion_layer_to_state_dict(jct.convert_fusion_layer(
+            {k: v.numpy() for k, v in sd.items()}, prefix, pe=pe,
+            depth=depth))
+    assert set(got) == set(want), set(got) ^ set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), want[k].numpy(),
+                                      err_msg=k)
+    module.load_state_dict(got, strict=True)
+
+
 def test_convert_cli_round_trip_and_print(oanet_pair, tmp_path, capsys):
     """The convert CLI writes an OANet directory that load_oanet reads
     back to the converter's weights and load_pointdsc refuses; a PointDSC
