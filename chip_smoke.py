@@ -306,7 +306,31 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
     on the card (kernel row 12's weights) against its plain version on
     the card (rotation 5e-4, translation 5e-3, tests/test_torch_ops.py's
     bounds).
-14. Print the seconds of each phase as it ends, a JSON line with every
+14. gmf_tpu's checkpoints on the card (checkpoint_phase), no kernel row
+    but the registrar's: the checkpoints gmf_tpu's own writers laid out
+    (tests/torch_fixtures/gmf_checkpoints/: Trainer.save's and
+    convert_torch's layouts of one small PointDSC, convert_torch's OANet,
+    a bare FCGF tree, a train_dgr inlier snapshot), each read by the
+    port's msgpack reader and converted, its bytes and read and convert
+    ms printed beside the card; held to the outputs gmf_tpu computed from
+    them on the CPU (reference.npz):
+    - load_pointdsc of both PointDSC layouts into the registrar, f32
+      modules through the kernels, with the f32 cache (standalone cache,
+      cached attention) and with the int8 cache and the fused seed
+      solver (build+attend, cached attention, fused_seed_weights), NMS,
+      kNN and counts each run: the transforms within 1e-3 and the labels
+      on 99% (phase 5's limits), the launches asserted;
+    - load_oanet's logits within 1e-5 of the largest;
+    - test_3dmatch --checkpoint on phase 7's 3DMatch scene (its digest
+      equal to the one gmf_tpu ran on) with --no-bf16 --batch 4: its
+      statistics against gmf_tpu's test_3dmatch (success, inlier counts
+      equal; RE 0.1 deg, TE 0.2 cm; precision, recall, F1 0.01), the
+      launches asserted;
+    - load_dgr of the FCGF and inlier trees into the DGR engine,
+      register() against gmf_tpu's (phase 8's limits);
+    - a state.orbax directory and a truncated state.msgpack refused by
+      name.
+15. Print the seconds of each phase as it ends, a JSON line with every
     path's time per request or step, a JSON
     line with every kernel's launches, time, plain time, bound and error,
     and, as the last line, {"ok": true, "device": {...}}.
@@ -2981,16 +3005,14 @@ def _fragment(rng, world, desc, n, noise=0.1):
             pose)
 
 
-def write_eval_fixtures(root):
-    """The 3DMatch scene (SCENE_LIST[0]; overlap files naming the first
-    scene of the train and val splits over its fragments), the KITTI
-    pairs and the 3DLoMatch pair; returns their paths."""
+def write_3dmatch_scene(root, rng):
+    """Phase 7's 3DMatch scene (SCENE_LIST[0]: EVAL_FRAGMENTS fragments,
+    their frames, a gt.log of EVAL_PAIRS pairs) under ``root``, drawn from
+    ``rng``; returns (scene, pairs)."""
     import os
-    import pickle
 
     from gmf_tpu_torch.data import threedmatch
 
-    rng = np.random.RandomState(SEED + 7)
     scene = threedmatch.SCENE_LIST[0]
     seq = os.path.join(root, scene, "seq-01")
     os.makedirs(seq)
@@ -3012,6 +3034,39 @@ def write_eval_fixtures(root):
             T_ts = np.linalg.inv(np.linalg.inv(poses[j]) @ poses[i])
             f.write("\n".join(" ".join(f"{v:.10f}" for v in row)
                               for row in T_ts) + "\n")
+    return scene, pairs
+
+
+def scene_digest(root, scene):
+    """SHA-256 of a scene write_3dmatch_scene wrote: each fragment's
+    keypoints and descriptors, in order, then gt.log (the frames come
+    from the same draw)."""
+    import glob
+    import hashlib
+    import os
+
+    h = hashlib.sha256()
+    seq = os.path.join(root, scene, "seq-01")
+    for f in range(len(glob.glob(os.path.join(seq, "cloud_bin_*_fcgf.npz")))):
+        with np.load(os.path.join(seq, f"cloud_bin_{f}_fcgf.npz")) as z:
+            for key in ("xyz", "feature"):
+                h.update(np.ascontiguousarray(z[key]).tobytes())
+    with open(os.path.join(root, scene, "gt.log"), "rb") as f:
+        h.update(f.read())
+    return h.hexdigest()
+
+
+def write_eval_fixtures(root):
+    """The 3DMatch scene (write_3dmatch_scene; overlap files naming the
+    first scene of the train and val splits over its fragments), the
+    KITTI pairs and the 3DLoMatch pair; returns their paths."""
+    import os
+    import pickle
+
+    from gmf_tpu_torch.data import threedmatch
+
+    rng = np.random.RandomState(SEED + 7)
+    scene, pairs = write_3dmatch_scene(root, rng)
     overlap = os.path.join(root, "overlap")
     os.makedirs(overlap)
     splits = os.path.join(os.path.dirname(threedmatch.__file__), "splits")
@@ -6223,6 +6278,313 @@ def surface_phase(dev, phase_done):
     return out
 
 
+# -- gmf_tpu's checkpoints on the card (phase 14) -----------------------------
+#
+# Checkpoints gmf_tpu wrote (tests/torch_fixtures/gmf_checkpoints/, its
+# make_fixtures.py: Trainer.save's and convert_torch's layouts of one small
+# PointDSC, convert_torch's OANet, a bare FCGF tree and a train_dgr inlier
+# snapshot), read and converted on the card's machine, which has no JAX,
+# flax or msgpack, and held to the outputs gmf_tpu computed from them on
+# the CPU (reference.npz). PointDSC: phase 5's limits; the CLI's statistics
+# as tests/test_torch_eval.py holds them (RE 0.1 deg and TE 0.2 cm, from
+# the 1e-3 on the transform); DGR: phase 8's.
+CKPT_FIXTURES = ("pointdsc_trainer", "pointdsc_converted", "oanet", "fcgf",
+                 "inlier")
+CKPT_TRANS_TOL, CKPT_LABELS = 1e-3, 0.99
+CKPT_OANET_TOL = 1e-5  # of the largest logit (tests/test_torch_zoo.py)
+CKPT_DGR_TOL = 1e-4    # weights and T (phase 8)
+CKPT_CLI_BATCH = 4
+# the registrar's kernel modes on the PointDSC checkpoints (f32 modules),
+# and the launches a forward of a 2-layer model makes in each
+CKPT_MODES = {
+    "f32_cache": (dict(compat_cache="f32"),
+                  {"build_compat_cache": 1,
+                   "compat_flash_attention_cached": 2}),
+    "int8_fused_solver": (dict(compat_cache="int8", seed_solver="fused"),
+                          {"compat_flash_attention_build": 1,
+                           "compat_flash_attention_cached": 1,
+                           "fused_seed_weights": 1}),
+}
+_CKPT_SEED_STAGE = {"nms_local_max": 1, KNN_KERNELS[torch.float32]: 1,
+                    "seed_hypothesis_counts": 1}
+
+
+def ckpt_fixture_dir():
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_fixtures", "gmf_checkpoints")
+
+
+def ckpt_launches():
+    from gmf_tpu_torch.ops import _build
+
+    return {k: _build.launches[k] for k in KERNELS if _build.launches[k]}
+
+
+def ckpt_read(fix, meta, card):
+    """Each fixture read (load_checkpoint: the msgpack reader) and
+    converted (tree_to_state_dict: the bridges) on the card's host, one
+    line each beside the card."""
+    import os
+
+    from gmf_tpu_torch.utils.checkpoint import load_checkpoint
+    from gmf_tpu_torch.utils.model_io import tree_to_state_dict
+
+    rows = {}
+    for name in CKPT_FIXTURES:
+        path = os.path.join(fix, name)
+        t0 = time.perf_counter()
+        tree, config = load_checkpoint(path)
+        t1 = time.perf_counter()
+        arch = {"oanet": "oanet", "fcgf": "SparseResUNet2",
+                "inlier": "SparseResUNet2"}.get(name, "pointdsc")
+        layers = meta["oanet" if arch == "oanet" else "pointdsc"][
+            "num_layers"]
+        sd = tree_to_state_dict(tree, arch, layers)
+        t2 = time.perf_counter()
+        rows[name] = dict(
+            bytes=os.path.getsize(os.path.join(path, "state.msgpack")),
+            tensors=len(sd), values=sum(t.numel() for t in sd.values()),
+            read_ms=1e3 * (t1 - t0), convert_ms=1e3 * (t2 - t1),
+            config_keys=sorted(config or {}))
+        print(f"checkpoint {name}: {rows[name]['bytes']} bytes, read "
+              f"{rows[name]['read_ms']:.2f} ms, convert "
+              f"{rows[name]['convert_ms']:.2f} ms, {len(sd)} tensors "
+              f"({card})", flush=True)
+    return rows
+
+
+def ckpt_samples(ref):
+    out = []
+    for b, n in enumerate(ref["reg_n"]):
+        s = {k: ref[f"reg_{k}"][b] for k in ("p_image", "q_image",
+                                              "gt_trans")}
+        for k in ("corr_pos", "src_keypts", "tgt_keypts", "labels"):
+            s[k] = ref[f"reg_{k}"][b][:n]
+        out.append(s)
+    return out
+
+
+def ckpt_registrar(dev, fix, meta, ref):
+    """load_pointdsc of each PointDSC fixture into the registrar on the
+    card in each of CKPT_MODES (f32 modules), against gmf_tpu's
+    transforms and labels; launches counted per run and asserted."""
+    import os
+
+    from gmf_tpu_torch.eval.registration import PointDSCRegistrar
+    from gmf_tpu_torch.ops import _build
+    from gmf_tpu_torch.utils.model_io import load_pointdsc
+
+    samples, rows = ckpt_samples(ref), {}
+    for name in ("pointdsc_trainer", "pointdsc_converted"):
+        for mode, (kw, per_forward) in CKPT_MODES.items():
+            model = load_pointdsc(os.path.join(fix, name), device=dev,
+                                  fused_attention=True, dtype=torch.float32,
+                                  **kw)
+            reg = PointDSCRegistrar(model, buckets=(meta["reg_bucket"],))
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            res = reg.register_batch(samples)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = ckpt_launches()
+            want = {**_CKPT_SEED_STAGE, **per_forward}
+            if launches != want:
+                fail(f"checkpoint {name} ({mode}): launches {launches}, "
+                     f"expected {want}")
+            trans_err = max(float(np.abs(t - r).max()) for (t, _), r in zip(
+                res, ref[f"reg_{name}_trans"]))
+            agree = min(float((np.asarray(lab) == r[:len(lab)]).mean())
+                        for (_, lab), r in zip(res, ref[f"reg_{name}_labels"]))
+            rows[f"{name}_{mode}"] = dict(
+                pairs=len(samples), max_trans_err=trans_err,
+                min_label_agreement=agree, seconds=seconds,
+                launches=launches)
+            print(f"checkpoint {name} ({mode}) on the card against gmf_tpu: "
+                  + json.dumps(rows[f"{name}_{mode}"]), flush=True)
+            if trans_err > CKPT_TRANS_TOL or agree < CKPT_LABELS:
+                fail(f"checkpoint {name} ({mode}): the card's registrar "
+                     "disagrees with gmf_tpu's outputs")
+            del model, reg
+    return rows
+
+
+def ckpt_oanet(dev, fix, ref):
+    """load_oanet of gmf_tpu's OANet on the card: its logits."""
+    import os
+
+    from gmf_tpu_torch.utils.model_io import load_oanet
+
+    net = load_oanet(os.path.join(fix, "oanet"), device=dev)
+    with torch.no_grad():
+        got = net(torch.from_numpy(ref["reg_corr_pos"][[0, 2]]).to(dev),
+                  return_logits=True).cpu().numpy()
+    want = ref["oanet_logits"]
+    err = float(np.abs(got - want).max())
+    row = dict(max_abs_err=err, largest=float(np.abs(want).max()),
+               training=net.training)
+    print("checkpoint oanet on the card against gmf_tpu: " + json.dumps(row),
+          flush=True)
+    if net.training or err > CKPT_OANET_TOL * row["largest"]:
+        fail("checkpoint oanet: the card's logits disagree with gmf_tpu's")
+    return row
+
+
+def ckpt_cli(fix, meta, ref, tmp):
+    """test_3dmatch --checkpoint pointdsc_trainer on phase 7's 3DMatch
+    scene (written anew, its digest equal to the one gmf_tpu ran on), f32
+    modules through the kernels, against gmf_tpu's statistics."""
+    import os
+
+    from gmf_tpu_torch.eval import test_3dmatch
+    from gmf_tpu_torch.ops import _build
+
+    root = os.path.join(tmp, "data")
+    scene, _ = write_3dmatch_scene(root, np.random.RandomState(SEED + 7))
+    if scene_digest(root, scene) != meta["cli_scene_sha256"]:
+        fail("checkpoint CLI: phase 7's scene is not the one gmf_tpu's "
+             "statistics were computed on")
+    argv = ["--root", root, "--checkpoint",
+            os.path.join(fix, "pointdsc_trainer"), "--scenes", scene,
+            "--out", os.path.join(tmp, "e3dm"), "--no-bf16", "--batch",
+            str(CKPT_CLI_BATCH)]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    got = test_3dmatch.main(argv)["all_stats"]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ckpt_launches()
+    want_stats = ref["cli_all_stats"]
+    forwards = -(-len(want_stats) // CKPT_CLI_BATCH)
+    want = {k: v * forwards for k, v in {
+        **_CKPT_SEED_STAGE, **CKPT_MODES["f32_cache"][1]}.items()}
+    if launches != want:
+        fail(f"checkpoint CLI: launches {launches}, expected {want}")
+    if got.shape != want_stats.shape:
+        fail(f"checkpoint CLI: all_stats of shape {got.shape}, gmf_tpu's "
+             f"{want_stats.shape}")
+    d = np.abs(got - want_stats)
+    row = dict(argv=argv[4:], pairs=len(got), seconds=seconds,
+               launches=launches, recall=float(got[:, 0].mean()),
+               max_re_diff_deg=float(d[:, 1].max()),
+               max_te_diff_cm=float(d[:, 2].max()),
+               max_prf_diff=float(d[:, 6:9].max()))
+    print("checkpoint test_3dmatch on the card against gmf_tpu: "
+          + json.dumps(row), flush=True)
+    if (not np.array_equal(got[:, [0, 3, 4, 11]], want_stats[:, [0, 3, 4, 11]])
+            or row["max_re_diff_deg"] > 0.1 or row["max_te_diff_cm"] > 0.2
+            or row["max_prf_diff"] > 0.01):
+        fail("checkpoint CLI: the card's statistics disagree with "
+             "gmf_tpu's")
+    return row
+
+
+def ckpt_dgr(dev, fix, meta, ref):
+    """load_dgr of gmf_tpu's FCGF tree and inlier snapshot into the DGR
+    engine on the card (its default path: device maps, compacted
+    convolutions), register() against gmf_tpu's (phase 8's limits)."""
+    import os
+
+    from gmf_tpu_torch.models import dgr
+    from gmf_tpu_torch.sparse.resunet import SparseResUNet2
+    from gmf_tpu_torch.utils.model_io import load_dgr
+
+    eng = dgr.DeepGlobalRegistration(
+        *load_dgr(os.path.join(fix, "fcgf"), os.path.join(fix, "inlier")),
+        dgr.DGRConfig(**meta["dgr_engine"]),
+        fcgf_model=SparseResUNet2(**meta["fcgf"]),
+        inlier_model=SparseResUNet2(**meta["inlier"]),
+        fcgf_dim=meta["dgr_fcgf_dim"], device=dev)
+    args = (ref["dgr_pcd0"], ref["dgr_pcd1"], ref["dgr_p_image"],
+            ref["dgr_q_image"])
+    eng.register(*args)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.register(*args)
+    torch.cuda.synchronize()
+    row = dict(
+        ms=1e3 * (time.perf_counter() - t0),
+        corres=len(res["corres"][0]),
+        corres_equal=bool(np.array_equal(res["corres"][0], ref["dgr_idx0"])
+                          and np.array_equal(res["corres"][1],
+                                             ref["dgr_idx1"])),
+        used_safeguard=bool(res["used_safeguard"]),
+        max_weight_err=float(np.abs(np.asarray(res["weights"])
+                                    - ref["dgr_weights"]).max()),
+        max_trans_err=float(np.abs(np.asarray(res["trans"])
+                                   - ref["dgr_trans"]).max()))
+    print("checkpoint DGR register on the card against gmf_tpu: "
+          + json.dumps(row), flush=True)
+    if (not row["corres_equal"]
+            or row["used_safeguard"] != bool(ref["dgr_used_safeguard"])
+            or row["max_weight_err"] > CKPT_DGR_TOL
+            or row["max_trans_err"] > CKPT_DGR_TOL):
+        fail("checkpoint DGR: the card's registration disagrees with "
+             "gmf_tpu's")
+    return row
+
+
+def ckpt_refusals(fix, tmp):
+    """state.orbax and a truncated state.msgpack raise ValueError naming
+    them; any other outcome fails the script."""
+    import os
+    import shutil
+
+    from gmf_tpu_torch.utils.checkpoint import load_checkpoint
+
+    orbax = os.path.join(tmp, "orbax")
+    os.makedirs(os.path.join(orbax, "state.orbax"))
+    cut = os.path.join(tmp, "cut")
+    shutil.copytree(os.path.join(fix, "fcgf"), cut)
+    with open(os.path.join(cut, "state.msgpack"), "r+b") as f:
+        f.truncate(os.path.getsize(f.name) - 100)
+    out = {}
+    for name, path, words in (("orbax", orbax, ("state.orbax", "OCDBT")),
+                              ("truncated", cut, ("state.msgpack",
+                                                  "buffer ends"))):
+        try:
+            load_checkpoint(path)
+        except ValueError as e:
+            if not all(w in str(e) for w in words):
+                fail(f"checkpoint {name}: refused without naming {words}: "
+                     f"{e}")
+            out[name] = str(e)[:200]
+            print(f"checkpoint {name} refused: {out[name]}", flush=True)
+            continue
+        fail(f"checkpoint {name}: loaded where it must be refused")
+    return out
+
+
+def checkpoint_phase(dev, phase_done, card):
+    """Phase 14: gmf_tpu's checkpoints on the card (the block above)."""
+    import os
+    import tempfile
+
+    fix = ckpt_fixture_dir()
+    with open(os.path.join(fix, "meta.json")) as f:
+        meta = json.load(f)
+    ref = dict(np.load(os.path.join(fix, "reference.npz")))
+    t0 = time.perf_counter()
+    out = dict(read=ckpt_read(fix, meta, card),
+               registrar=ckpt_registrar(dev, fix, meta, ref),
+               oanet=ckpt_oanet(dev, fix, ref))
+    with tempfile.TemporaryDirectory() as tmp:
+        out["test_3dmatch"] = ckpt_cli(fix, meta, ref, tmp)
+        out["dgr"] = ckpt_dgr(dev, fix, meta, ref)
+        out["refusals"] = ckpt_refusals(fix, tmp)
+    kernels = collections.Counter()
+    for row in (*out["registrar"].values(), out["test_3dmatch"]):
+        kernels.update(row["launches"])
+    out["kernels"] = dict(kernels)
+    out["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    phase_done("checkpoints")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the result JSON here")
@@ -6418,6 +6780,11 @@ def main():
     # 13. the rest of gmf_tpu's public surface: JPEG frames, the fusion
     # depth, multi-head NonLocal, the SVD seed transforms
     paths["surface"] = surface_phase(dev, phase_done)
+
+    # 14. gmf_tpu's checkpoints: its writers' layouts read and converted
+    # without JAX, held to gmf_tpu's outputs on the registrar's kernels,
+    # test_3dmatch and DGR's register
+    paths["checkpoints"] = checkpoint_phase(dev, phase_done, card)
 
     kernels = []
     for name in KERNELS:

@@ -9,8 +9,8 @@ GMF_PointDSC/evaluation/test_3DMatch.py:120-277): the per-scene loop over
 the 8-scene test split, 12-column statistics, scene and pair
 aggregation, the statistics saved to ``{out}/all_stats.npy``. The
 reference's output for its released FPFH weights: "All 1623 pairs, Mean
-Reg Recall=81.45%". ``--checkpoint`` is a port checkpoint directory or a
-reference torch ``state_dict`` (``utils/model_io.py``). ``--mesh N``
+Reg Recall=81.45%". ``--checkpoint`` is a port or ``gmf_tpu`` checkpoint
+directory or a reference torch ``state_dict`` (``utils/model_io.py``). ``--mesh N``
 shards each batch over N ranks (``eval/cli.py``).
 """
 
@@ -23,7 +23,8 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", required=True)
     ap.add_argument("--checkpoint", required=True,
-                    help="port checkpoint dir or reference torch .pkl/.pth")
+                    help="port or gmf_tpu checkpoint dir or reference "
+                    "torch .pkl/.pth")
     ap.add_argument("--descriptor", default="fcgf", choices=["fcgf", "fpfh"])
     ap.add_argument("--num-node", default="all")
     ap.add_argument("--use-mutual", action="store_true", default=True)

@@ -9,7 +9,7 @@ GMF_DGR_fcgf/scripts/test_3dmatch.py / test_kitti.py): per pair
 ``register(xyz0, xyz1, p_image, q_image)``, success by RTE/RRE (3DMatch
 0.3 m / 15 deg, KITTI 0.6 m / 5 deg), per-pair rows [success, rre, rte,
 scene index, used_safeguard] saved as ``dgr_stats.npy``. Checkpoints are
-the port's (``utils/model_io.py::load_dgr``). Runs on the card unless
+the port's or ``gmf_tpu``'s (``utils/model_io.py::load_dgr``). Runs on the card unless
 ``--cpu``. ``--shard-index/--shard-count`` take a strided slice of the
 pair list (default this rank's of the world, ``parallel.process_shard``:
 the whole list outside one) and ``--merge-shards`` joins the shards'

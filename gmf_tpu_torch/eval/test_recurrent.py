@@ -5,7 +5,8 @@
 
 Counterpart of ``gmf_tpu/eval/test_recurrent.py`` (reference:
 GMF_PointDSC/evaluation/test_3DMatch_recurrent.py:230-284): evaluate each
-checkpoint (a port checkpoint directory or a reference ``.pkl``) of the
+checkpoint (a port or ``gmf_tpu`` checkpoint directory or a reference
+``.pkl``) of the
 directory in its own recorded modes, log its recall and the best. An
 entry that does not load as a checkpoint is logged and skipped. Runs on
 the card unless ``--cpu``.

@@ -6,7 +6,8 @@ process_kitti): one npz per pair {xyz0, xyz1, features0, features1,
 p_image, q_image, gt_trans} under ``<out>/{descriptor}_{split}/``, the
 layout ``data/kitti.py`` reads. Pairs come from the port's
 ``KITTINMPairDataset`` (its GT refined by ICP on the device); FPFH or
-FCGF (conv1 5, KITTI's, on device kernel maps, a port checkpoint) run on
+FCGF (conv1 5, KITTI's, on device kernel maps, a port or ``gmf_tpu``
+checkpoint) run on
 the card unless ``--cpu``.
 
 Usage:

@@ -7,7 +7,7 @@ device (the card unless ``--cpu``), save {xyz, feature} npz next to the
 cloud so that the PointDSC loaders (``data/threedmatch.py``) read them.
 FPFH is ``ops/fpfh.compute_fpfh``; FCGF is the port's ``FCGFNet`` (conv1
 7, 3DMatch's) on kernel maps built on the device
-(``sparse/device_maps.py``) with a port checkpoint.
+(``sparse/device_maps.py``) with a port or ``gmf_tpu`` checkpoint.
 
 Usage:
   python -m gmf_tpu_torch.tools.precompute_descriptors --root /data/3dmatch \\
@@ -31,8 +31,8 @@ from gmf_tpu_torch.ops.fpfh import compute_fpfh
 from gmf_tpu_torch.sparse.device_maps import build_pyramid_arrays_device
 from gmf_tpu_torch.sparse.resunet import FCGFNet
 from gmf_tpu_torch.sparse.voxelize import sparse_quantize
-from gmf_tpu_torch.utils.checkpoint import load_checkpoint
 from gmf_tpu_torch.utils.device import resolve_device
+from gmf_tpu_torch.utils.model_io import load_state
 
 
 def extract_fpfh(xyz: np.ndarray, voxel_size: float, device=None):
@@ -47,11 +47,12 @@ def extract_fpfh(xyz: np.ndarray, voxel_size: float, device=None):
 
 
 def load_fcgf(path: str, conv1_kernel_size: int, device=None):
-    """A port FCGF checkpoint as an ``FCGFNet`` in eval mode on
-    ``device``."""
-    state, _ = load_checkpoint(path)
+    """An FCGF checkpoint, the port's or ``gmf_tpu``'s
+    (``utils/model_io.py::load_state``), as an ``FCGFNet`` in eval mode
+    on ``device``."""
+    state, _ = load_state(path, "sparse")
     model = FCGFNet(conv1_kernel_size=conv1_kernel_size)
-    model.load_state_dict(state)
+    model.load_state_dict(state, strict=True)
     return model.to(resolve_device(device)).eval()
 
 

@@ -13,7 +13,8 @@ best one.
         --cpu --max-epoch 1 --steps-per-epoch 1 --save-dir /tmp/dgr
 
 It runs on the card unless ``--cpu`` is given. ``--fcgf-checkpoint`` and
-``--resume`` read the port's checkpoints (``utils/checkpoint.py``); the
+``--resume`` read the port's checkpoints (``utils/checkpoint.py``) and
+``gmf_tpu``'s (``utils/model_io.py::load_state``); the
 epoch checkpoints hold the inlier net, with config ``{"dgr": ...,
 "descriptor": ...}``, and load through ``utils/model_io.py::load_dgr``
 beside the FCGF checkpoint. ``--mesh N`` trains data-parallel over N
@@ -96,10 +97,10 @@ def main(argv=None):
     from gmf_tpu_torch.eval.test_dgr import tiny_nets
     from gmf_tpu_torch.sparse.resunet import FCGFNet, GMFInlierNet
     from gmf_tpu_torch.train.dgr_trainer import WeightedProcrustesTrainer
-    from gmf_tpu_torch.utils.checkpoint import (load_checkpoint,
-                                                save_checkpoint,
+    from gmf_tpu_torch.utils.checkpoint import (save_checkpoint,
                                                 snapshot_sources)
     from gmf_tpu_torch.utils.device import resolve_device
+    from gmf_tpu_torch.utils.model_io import load_state
 
     device = resolve_device("cpu" if args.cpu else None)
     cfg = dgr_kitti() if args.dataset == "kitti" else dgr_3dmatch()
@@ -126,12 +127,13 @@ def main(argv=None):
         inlier = GMFInlierNet(conv1_kernel_size=cfg.inlier_conv1_kernel_size)
         granule, image_hw = 2048, (120, 160)
     if args.fcgf_checkpoint:
-        fcgf.load_state_dict(load_checkpoint(args.fcgf_checkpoint)[0],
+        fcgf.load_state_dict(load_state(args.fcgf_checkpoint, "sparse")[0],
                              strict=True)
         if chief:
             print(f"loaded frozen FCGF from {args.fcgf_checkpoint}")
     if args.resume:
-        inlier.load_state_dict(load_checkpoint(args.resume)[0], strict=True)
+        inlier.load_state_dict(load_state(args.resume, "sparse")[0],
+                               strict=True)
         if chief:
             print(f"resumed inlier net from {args.resume}")
 

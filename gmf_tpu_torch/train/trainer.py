@@ -50,8 +50,9 @@ from gmf_tpu_torch.parallel.mesh import replicate, shard_batch, sharded
 from gmf_tpu_torch.train.losses import (classification_loss,
                                         spectral_matching_loss,
                                         transformation_loss)
-from gmf_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from gmf_tpu_torch.utils.checkpoint import save_checkpoint
 from gmf_tpu_torch.utils.logging_utils import MetricsLogger
+from gmf_tpu_torch.utils.model_io import load_state
 
 
 @dataclasses.dataclass
@@ -302,5 +303,9 @@ class Trainer:
         save_checkpoint(path, self.model.state_dict(), config=config)
 
     def load(self, path: str):
-        state, _ = load_checkpoint(path)
+        """The model's weights from a checkpoint directory, the port's or
+        ``gmf_tpu``'s (its ``params`` and ``batch_stats``, as its own
+        ``Trainer.load`` reads them)."""
+        state, _ = load_state(path, "pointdsc",
+                              self.model.config["num_layers"])
         self.model.load_state_dict(state, strict=True)

@@ -1,11 +1,19 @@
-"""Loading a PointDSC or OANet model from either checkpoint format, and
-the DGR engine's two nets from the port's checkpoints (``load_dgr``).
+"""Loading a PointDSC or OANet model from any checkpoint format, and
+the DGR engine's two nets (``load_dgr``).
 
 Counterpart of ``gmf_tpu/utils/model_io.py``, with the reference's
 contract that evaluation reads the model's settings from the checkpoint:
 
 - a directory: the port's own checkpoint (``utils/checkpoint.py``), whose
   ``config.json`` holds the settings it was trained with under "model";
+- a directory ``gmf_tpu`` wrote (``state.msgpack``): its variables tree,
+  converted by ``load_state`` to the port's ``state_dict`` with the
+  bridges of ``utils/bridge.py``, for each layout ``gmf_tpu`` writes:
+  ``Trainer.save`` (config "model" without "arch"), the ``convert_torch``
+  command ("arch" pointdsc or oanet), ``train_dgr``'s snapshots (config
+  ``{"dgr", "descriptor"}``) and a bare variables tree (no config). Its
+  settings are read as ``gmf_tpu``'s ``load_pointdsc`` reads them
+  (``gmf_pointdsc_kwargs``);
 - a ``.pkl``/``.pth`` file: a reference torch ``state_dict`` (or a dict
   holding one under "state_dict"), read directly. The port's module names
   are the reference's torch names, so no key is renamed. The one
@@ -25,14 +33,29 @@ from __future__ import annotations
 
 import inspect
 import os
-from typing import Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from gmf_tpu_torch.models import PointDSC
 from gmf_tpu_torch.models.oanet import OANet
-from gmf_tpu_torch.utils.checkpoint import load_checkpoint
+from gmf_tpu_torch.models.registry import MODELS
+from gmf_tpu_torch.utils.bridge import (flax_to_state_dict,
+                                        oanet_to_state_dict,
+                                        sparse_resunet_to_state_dict,
+                                        sparse_zoo_to_state_dict)
+from gmf_tpu_torch.utils.checkpoint import is_gmf_tree, load_checkpoint
 from gmf_tpu_torch.utils.device import resolve_device
+
+# gmf_tpu's PointDSC fields that its load_pointdsc takes from a
+# checkpoint's config "model" (all but parent, name, dtype; ring_mesh is
+# never recorded), and its defaults where the port's differ
+GMF_POINTDSC_FIELDS = (
+    "in_dim", "num_layers", "num_channels", "num_iterations", "ratio",
+    "inlier_threshold", "sigma_d", "k", "nms_radius", "kabsch_method",
+    "fused_attention", "compat_cache", "compat_cache_shards", "knn_topk",
+    "hypo_scoring", "seed_solver")
+GMF_POINTDSC_DEFAULTS = {"fused_attention": False}
 
 
 def _state_dict_file(path: str) -> Dict[str, torch.Tensor]:
@@ -61,13 +84,148 @@ def reference_state_dict(model, sd: Dict[str, torch.Tensor]
     return out
 
 
+def gmf_pointdsc_kwargs(config: Optional[Dict], **fallback) -> Dict:
+    """The port's ``PointDSC`` keywords for the model ``gmf_tpu``'s
+    ``load_pointdsc`` builds from a ``gmf_tpu`` checkpoint's config: its
+    "model" fields that ``gmf_tpu``'s PointDSC has (``fallback``, the
+    loader's keyword settings, where there is no "model"), over
+    ``gmf_tpu``'s defaults where they differ from the port's
+    (``fused_attention=False``: the dense path). ``dtype`` is never read
+    from it, as ``gmf_tpu`` never does: the model is f32 unless the
+    caller asks otherwise."""
+    model = (config or {}).get("model")
+    kw = ({k: v for k, v in model.items() if k in GMF_POINTDSC_FIELDS}
+          if model else dict(fallback))
+    return {**GMF_POINTDSC_DEFAULTS, **kw}
+
+
+class _Reads(dict):
+    """A dict node of a ``gmf_tpu`` tree that records the paths of the
+    leaves read through it, and names the path of a key it lacks."""
+
+    def __init__(self, node, path, read):
+        super().__init__(node)
+        self._path, self._read = path, read
+
+    def __getitem__(self, key):
+        path = f"{self._path}/{key}" if self._path else str(key)
+        if key not in self:
+            raise KeyError(path)
+        value = super().__getitem__(key)
+        if isinstance(value, dict):
+            return _Reads(value, path, self._read)
+        self._read.add(path)
+        return value
+
+    def get(self, key, default=None):
+        return self[key] if key in self else default
+
+    def items(self):
+        return [(k, self[k]) for k in self]
+
+
+def _leaves(tree, path=""):
+    for key, value in tree.items():
+        sub = f"{path}/{key}" if path else str(key)
+        if isinstance(value, dict):
+            yield from _leaves(value, sub)
+        else:
+            yield sub
+
+
+def _as_numpy(tree):
+    """The tree with its torch leaves (``bfloat16``, which NumPy lacks) as
+    f32 NumPy, for the bridges; every other leaf as it is."""
+    if isinstance(tree, dict):
+        return {k: _as_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.float().numpy()
+    return tree
+
+
+def tree_to_state_dict(tree: Dict, arch: str,
+                       num_layers: Optional[int] = None) -> Dict[str, Any]:
+    """``gmf_tpu``'s variables tree (``params`` and ``batch_stats``) as
+    the port's ``state_dict`` of ``arch``: "pointdsc" and "oanet" (which
+    need ``num_layers``), "SparseResUNet2" (the FCGF and 6-D inlier nets)
+    or a name of the registry's sparse nets (``models/registry.py``).
+    Raises ``ValueError`` naming the tree's paths that the bridge looked
+    for and did not find, or that it left unread."""
+    family = arch.lower()
+    if family == "pointdsc":
+        convert = lambda v: flax_to_state_dict(v, num_layers)  # noqa: E731
+    elif family == "oanet":
+        convert = lambda v: oanet_to_state_dict(v, num_layers)  # noqa: E731
+    elif arch == "SparseResUNet2" or arch.startswith("ResUNet"):
+        convert = sparse_resunet_to_state_dict
+    elif arch in MODELS:
+        convert = sparse_zoo_to_state_dict
+    else:
+        raise ValueError(f"no converter for a gmf_tpu tree of arch {arch!r}")
+    variables = {k: _as_numpy(tree[k]) for k in ("params", "batch_stats")
+                 if k in tree}
+    read = set()
+    try:
+        sd = convert(_Reads(variables, "", read))
+    except KeyError as e:
+        raise ValueError(f"the gmf_tpu tree is not a {arch} one: it has no "
+                         f"{e.args[0]}") from None
+    unread = sorted(set(_leaves(variables)) - read)
+    if unread:
+        raise ValueError(
+            f"the gmf_tpu tree holds {len(unread)} arrays that a {arch}"
+            + (f" of {num_layers} layers" if num_layers else "")
+            + f" does not have: {', '.join(unread[:8])}"
+            + (", ..." if len(unread) > 8 else ""))
+    return sd
+
+
+def _convert(path, tree, arch, num_layers=None):
+    """``tree_to_state_dict``, its errors naming the checkpoint."""
+    try:
+        return tree_to_state_dict(tree, arch, num_layers)
+    except ValueError as e:
+        raise ValueError(f"checkpoint at {path}: {e}") from None
+
+
+def _sparse_arch(config) -> str:
+    """The arch of a sparse net's checkpoint: the registry's name its
+    config records, else ``SparseResUNet2`` (FCGF, the inlier net)."""
+    arch = _arch(config)
+    if arch is None:
+        return "SparseResUNet2"
+    if arch not in MODELS or arch in ("PointDSC", "OANet"):
+        raise ValueError(f"the checkpoint holds arch={arch!r}, not a "
+                         "sparse net's state")
+    return arch
+
+
+def load_state(path: str, arch: str, num_layers: Optional[int] = None
+               ) -> Tuple[Dict[str, Any], Optional[Dict]]:
+    """(the port's ``state_dict`` on the CPU, config or None) of the
+    checkpoint directory ``path``: the port's own as it is, ``gmf_tpu``'s
+    converted for ``arch`` (``tree_to_state_dict``; "sparse": the arch
+    its config names among the registry's sparse nets, else
+    ``SparseResUNet2``). For "pointdsc" and "oanet", ``num_layers``
+    defaults to the config's "model" one."""
+    state, config = load_checkpoint(path)
+    if not is_gmf_tree(state):
+        return state, config
+    if arch == "sparse":
+        arch = _sparse_arch(config)
+    if num_layers is None:
+        num_layers = ((config or {}).get("model") or {}).get("num_layers")
+    return _convert(path, state, arch, num_layers), config
+
+
 def load_pointdsc(path: str, inlier_threshold: float = 0.10,
                   num_layers: int = 12, num_channels: int = 128,
                   **model_kw):
     """A ``PointDSC`` with the weights at ``path`` (module docstring).
 
     From a directory the model's settings are the checkpoint's (the
-    keyword arguments above serve only a checkpoint without them); from a
+    keyword arguments above serve only a checkpoint without them; a
+    ``gmf_tpu`` checkpoint's are read by ``gmf_pointdsc_kwargs``); from a
     torch file they are these. ``model_kw`` goes to ``PointDSC`` on top
     of them: ``device`` (default the card), ``dtype``, or any mode.
     """
@@ -79,7 +237,10 @@ def load_pointdsc(path: str, inlier_threshold: float = 0.10,
         if arch not in (None, "pointdsc", "PointDSC"):
             raise ValueError(f"checkpoint at {path} holds arch={arch!r}, "
                              "not a PointDSC state")
-        if config and "model" in config:
+        if is_gmf_tree(state):
+            kw = gmf_pointdsc_kwargs(config, **kw)
+            state = _convert(path, state, "pointdsc", kw["num_layers"])
+        elif config and "model" in config:
             valid = inspect.signature(PointDSC).parameters
             kw = {k: v for k, v in config["model"].items() if k in valid}
         model = PointDSC(**{**kw, **model_kw})
@@ -108,10 +269,13 @@ def oanet_config(sd: Dict[str, torch.Tensor], num_layers: int = 6) -> Dict:
 def load_oanet(path: str, num_layers: int = 6, device=None,
                dtype: torch.dtype = torch.float32) -> OANet:
     """An ``OANet`` with the weights at ``path``, on ``device`` (default
-    the card): a port checkpoint directory whose config says ``arch:
-    oanet`` (``utils/convert_torch.py`` writes one), or a reference torch
-    ``state_dict`` file, whose shapes give the settings (``num_layers``
-    they do not)."""
+    the card), in eval mode (batch norms on their running statistics, as
+    ``gmf_tpu``'s OANet applies by default): a checkpoint directory whose
+    config says ``arch: oanet`` (the port's or ``gmf_tpu``'s
+    ``convert_torch`` command writes one; ``gmf_tpu``'s records only
+    ``num_layers``, and the tree's shapes give the rest), or a reference
+    torch ``state_dict`` file, whose shapes give the settings
+    (``num_layers`` they do not)."""
     dev = resolve_device(device)
     if os.path.isdir(path):
         state, config = load_checkpoint(path)
@@ -120,18 +284,24 @@ def load_oanet(path: str, num_layers: int = 6, device=None,
                              f"arch={_arch(config)!r}, not an OANet state")
         valid = inspect.signature(OANet).parameters
         kw = {k: v for k, v in config["model"].items() if k in valid}
+        if is_gmf_tree(state):
+            n = kw.get("num_layers", num_layers)
+            state = _convert(path, state, "oanet", n)
+            kw = {**oanet_config(state, n), **kw}
         model = OANet(**kw, dtype=dtype)
     else:
         sd = _state_dict_file(path)
         model = OANet(**oanet_config(sd, num_layers), dtype=dtype)
         state = reference_state_dict(model, sd)
     model.load_state_dict(state, strict=True)
-    return model.to(dev)
+    return model.to(dev).eval()
 
 
 def load_dgr(fcgf_path: str, inlier_path: str
              ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """The state dicts of the FCGF and inlier nets (``sparse/resunet.py``)
-    from two port checkpoint directories (``utils/checkpoint.py``), on the
-    CPU, for ``DeepGlobalRegistration`` (which loads them strictly)."""
-    return load_checkpoint(fcgf_path)[0], load_checkpoint(inlier_path)[0]
+    from two checkpoint directories, the port's or ``gmf_tpu``'s
+    (``load_state``), on the CPU, for ``DeepGlobalRegistration`` (which
+    loads them strictly)."""
+    return (load_state(fcgf_path, "sparse")[0],
+            load_state(inlier_path, "sparse")[0])

@@ -22,7 +22,8 @@ from gmf_tpu_torch.tools import bench_flash_variants
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gmf_tpu", "PIL")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gmf_tpu", "PIL", "msgpack",
+             "orbax")
 
 
 def test_importing_the_port_loads_no_jax():
