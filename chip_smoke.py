@@ -330,7 +330,26 @@ from gmf_tpu_torch/ops/csrc on the way. Phases, any failure exits non-zero:
       register() against gmf_tpu's (phase 8's limits);
     - a state.orbax directory and a truncated state.msgpack refused by
       name.
-15. Print the seconds of each phase as it ends, a JSON line with every
+15. Models trained on the card go back to gmf_tpu (writeback_phase), no
+    kernel row but the training and the registrar's:
+    - the full-width PointDSC after two Trainer.train_steps at 16 x 1000
+      ("auto": the f32 cache; rows 4, 6-8, 10 f32 and 11 launched as
+      asserted), written by Trainer.save(..., "gmf") as gmf_tpu's
+      trainer writes it (~21.7 MB of state.msgpack; the write ms, the
+      bytes and the read-and-convert ms printed beside the card), read
+      back by load_pointdsc and serving phase 4's first 8-pair request
+      with the int8 cache and the fused seed solver (build+attend, cached,
+      solver, NMS, kNN, counts asserted): transforms and labels equal in
+      every bit to the model in memory;
+    - each committed gmf_tpu fixture read, converted and written back by
+      the port (state_dict_to_tree, msgpack_serialize): its bytes;
+    - python -m gmf_tpu_torch.examples.demo_registration at full width on
+      that checkpoint: the synthetic pair prints SUCCESS (launches
+      asserted);
+    - gmf_tpu_torch.tools.train_eval_synthetic at 1 epoch of 1 step a
+      training on the card: gmf_tpu checkpoints written, loaded and
+      evaluated, the script's lines printed.
+16. Print the seconds of each phase as it ends, a JSON line with every
     path's time per request or step, a JSON
     line with every kernel's launches, time, plain time, bound and error,
     and, as the last line, {"ok": true, "device": {...}}.
@@ -6585,6 +6604,216 @@ def checkpoint_phase(dev, phase_done, card):
     return out
 
 
+# -- writing gmf_tpu's checkpoints (phase 15) ---------------------------------
+#
+# A model trained on the card goes back to gmf_tpu: the full-width PointDSC
+# after WB_STEPS training steps of phase 4's "auto" configuration (16 x 1000,
+# f32) written by Trainer.save(..., "gmf") as gmf_tpu's trainer writes it
+# (~21.7 MB of state.msgpack), read back by load_pointdsc and served on phase
+# 4's first 8-pair request with the int8 cache and the fused seed solver,
+# every bit equal to the model in memory; the writer against gmf_tpu's own
+# bytes (each committed fixture read, converted and written back, byte for
+# byte); the registration demo at full width on that checkpoint; the
+# train -> checkpoint -> eval loop at its smallest cut.
+WB_STEPS = 2
+# the demo's forward: the checkpoint's "auto" cache (f32 on the card at one
+# pair of at most 1000), 12 layers
+WB_DEMO_PER_FORWARD = {"build_compat_cache": 1,
+                       "compat_flash_attention_cached": 12,
+                       **_CKPT_SEED_STAGE}
+
+
+def wb_full_width(dev, tmp, card, request):
+    """Train, write, read, serve (the block above); launches asserted for
+    the steps and for the served request."""
+    import os
+
+    from gmf_tpu_torch.eval.registration import PointDSCRegistrar
+    from gmf_tpu_torch.models import PointDSC
+    from gmf_tpu_torch.ops import _build
+    from gmf_tpu_torch.utils.model_io import load_pointdsc
+
+    trainer = make_trainer(dev, "auto", steps=WB_STEPS)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    for batch in trainer.train_loader:
+        m = trainer.train_step(batch, epoch=1)
+        if m["skipped_step"] != 0.0 or not math.isfinite(m["loss"]):
+            fail(f"writeback: a training step was skipped or not finite: {m}")
+    torch.cuda.synchronize()
+    launches = ckpt_launches()
+    want = {k: v * WB_STEPS for k, v in _CACHED_STEP.items()}
+    if launches != want:
+        fail(f"writeback training: launches {launches}, expected {want}")
+    path = os.path.join(tmp, "model_best")
+    t0 = time.perf_counter()
+    trainer.save(path, "gmf")
+    write_ms = 1e3 * (time.perf_counter() - t0)
+    nbytes = os.path.getsize(os.path.join(path, "state.msgpack"))
+    if os.path.exists(os.path.join(path, "state.pt")):
+        fail("writeback: Trainer.save(..., 'gmf') wrote state.pt")
+    serve = dict(compat_cache="int8", seed_solver="fused")
+    t0 = time.perf_counter()
+    disk = load_pointdsc(path, device=dev, **serve)
+    torch.cuda.synchronize()
+    read_ms = 1e3 * (time.perf_counter() - t0)
+    memory = PointDSC(**{**trainer.model.config, **serve},
+                      dtype=torch.float32, device=dev)
+    memory.load_state_dict(trainer.model.state_dict())
+    del trainer
+    results, runs = {}, {}
+    for name, model in (("memory", memory), ("disk", disk)):
+        reg = PointDSCRegistrar(model, buckets=(N,))
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        results[name] = reg.register_batch(request)
+        torch.cuda.synchronize()
+        runs[name] = dict(seconds=time.perf_counter() - t0,
+                          launches=ckpt_launches())
+    want = {**_CKPT_SEED_STAGE, **CKPT_MODES["int8_fused_solver"][1],
+            "compat_flash_attention_cached": 11}
+    for name, run in runs.items():
+        if run["launches"] != want:
+            fail(f"writeback serve ({name}): launches {run['launches']}, "
+                 f"expected {want}")
+    equal = all(np.array_equal(tm, td) and np.array_equal(lm, ld)
+                for (tm, lm), (td, ld) in zip(results["memory"],
+                                              results["disk"]))
+    ok = sum(rot_err_deg(t, s["gt_trans"]) < 15.0 and np.linalg.norm(
+        t[:3, 3] - s["gt_trans"][:3, 3]) < 0.30
+        for (t, _), s in zip(results["disk"], request))
+    row = dict(steps=WB_STEPS, state_msgpack_bytes=nbytes,
+               write_ms=write_ms, read_and_convert_ms=read_ms,
+               serve_pairs=len(request), serve=runs,
+               transforms_and_labels_equal=equal, recall=f"{ok}/"
+               f"{len(request)}", train_launches=launches)
+    print("writeback full width: " + json.dumps(row) + f" ({card})",
+          flush=True)
+    if not equal:
+        fail("writeback: the model read back from gmf_tpu's format serves "
+             "other transforms or labels than the model in memory")
+    return row, path
+
+
+def wb_fixtures(card):
+    """Each committed fixture read, converted to the port's state_dict,
+    back to gmf_tpu's tree and written: the committed bytes."""
+    import os
+
+    from gmf_tpu_torch.utils.checkpoint import load_checkpoint
+    from gmf_tpu_torch.utils.flax_msgpack import msgpack_serialize
+    from gmf_tpu_torch.utils.model_io import (state_dict_to_tree,
+                                              tree_to_state_dict)
+
+    fix = ckpt_fixture_dir()
+    with open(os.path.join(fix, "meta.json")) as f:
+        meta = json.load(f)
+    rows = {}
+    for name in CKPT_FIXTURES:
+        tree, _ = load_checkpoint(os.path.join(fix, name))
+        arch = {"oanet": "oanet", "fcgf": "SparseResUNet2",
+                "inlier": "SparseResUNet2"}.get(name, "pointdsc")
+        layers = meta["oanet" if arch == "oanet" else "pointdsc"][
+            "num_layers"]
+        sd = tree_to_state_dict(tree, arch, layers)
+        t0 = time.perf_counter()
+        data = msgpack_serialize(state_dict_to_tree(sd, arch, layers))
+        ms = 1e3 * (time.perf_counter() - t0)
+        with open(os.path.join(fix, name, "state.msgpack"), "rb") as f:
+            want = f.read()
+        rows[name] = dict(bytes=len(data), equal=data == want,
+                          to_tree_and_write_ms=ms)
+        print(f"writeback fixture {name}: " + json.dumps(rows[name])
+              + f" ({card})", flush=True)
+        if data != want:
+            fail(f"writeback fixture {name}: the port's bytes are not "
+                 "gmf_tpu's")
+    return rows
+
+
+def wb_demo(path):
+    """python -m gmf_tpu_torch.examples.demo_registration --checkpoint
+    PATH: full width on the card, the synthetic pair registered."""
+    import io
+    from contextlib import redirect_stdout
+
+    from gmf_tpu_torch.examples import demo_registration
+    from gmf_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with redirect_stdout(io.StringIO()) as out:
+        trans, labels, re, te = demo_registration.main(["--checkpoint",
+                                                        path])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ckpt_launches()
+    text = out.getvalue()
+    print(text, end="", flush=True)
+    verdict = [line for line in text.splitlines() if "vs ground truth" in line]
+    row = dict(seconds=seconds, re_deg=re, te_m=te, launches=launches,
+               inliers=int(labels.sum()), correspondences=len(labels))
+    print("writeback demo: " + json.dumps(row), flush=True)
+    if launches != WB_DEMO_PER_FORWARD:
+        fail(f"writeback demo: launches {launches}, expected "
+             f"{WB_DEMO_PER_FORWARD}")
+    if not verdict or not all(w in verdict[0] for w in ("RE=", "TE=",
+                                                        "SUCCESS")):
+        fail("writeback demo: the synthetic pair did not print SUCCESS")
+    return row
+
+
+def wb_loop(tmp):
+    """gmf_tpu_torch.tools.train_eval_synthetic on the card at 1 epoch of 1
+    step a training: gmf_tpu checkpoints written, loaded, evaluated."""
+    import os
+
+    from gmf_tpu_torch.tools import train_eval_synthetic
+
+    t0 = time.perf_counter()
+    res = train_eval_synthetic.main(["--max-epoch", "1", "--steps-per-epoch",
+                                     "1", "--save-dir", tmp])
+    seconds = time.perf_counter() - t0
+    p, d = res["pointdsc"], res["dgr"]
+    written = [os.path.join(p["save_dir"], "model_best", "state.msgpack"),
+               os.path.join(d["save_dir"], "best_val_checkpoint",
+                            "state.msgpack")]
+    row = dict(seconds=seconds, pointdsc={k: v for k, v in p.items()
+                                          if k != "save_dir"},
+               dgr={k: d[k] for k in ("train_s", "untrained", "trained")})
+    print("writeback loop: " + json.dumps(row, default=float), flush=True)
+    if not all(os.path.exists(w) for w in written):
+        fail(f"writeback loop: missing {written}")
+    if p["recall"] < 0.75 or not math.isfinite(p["bce_trained"]):
+        fail(f"writeback loop: PointDSC recall {p['recall']}, BCE "
+             f"{p['bce_trained']}")
+    if not all(math.isfinite(d[k]["rte"]) for k in ("untrained", "trained")):
+        fail("writeback loop: DGR validation not finite")
+    return row
+
+
+def writeback_phase(dev, phase_done, card):
+    """Phase 15: models trained on the card go back to gmf_tpu (the block
+    above)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {}
+        out["full_width"], path = wb_full_width(dev, tmp, card,
+                                                make_requests(B)[0])
+        torch.cuda.empty_cache()
+        out["fixtures"] = wb_fixtures(card)
+        out["demo"] = wb_demo(path)
+        out["loop"] = wb_loop(tmp)
+    out["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    phase_done("writeback")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the result JSON here")
@@ -6785,6 +7014,11 @@ def main():
     # without JAX, held to gmf_tpu's outputs on the registrar's kernels,
     # test_3dmatch and DGR's register
     paths["checkpoints"] = checkpoint_phase(dev, phase_done, card)
+
+    # 15. models trained on the card go back to gmf_tpu: gmf_tpu's format
+    # written, read back and served, the writer's bytes against gmf_tpu's,
+    # the demo at full width and the train -> checkpoint -> eval loop
+    paths["writeback"] = writeback_phase(dev, phase_done, card)
 
     kernels = []
     for name in KERNELS:

@@ -17,11 +17,13 @@ It runs on the card unless ``--cpu`` is given. ``--fcgf-checkpoint`` and
 ``gmf_tpu``'s (``utils/model_io.py::load_state``); the
 epoch checkpoints hold the inlier net, with config ``{"dgr": ...,
 "descriptor": ...}``, and load through ``utils/model_io.py::load_dgr``
-beside the FCGF checkpoint. ``--mesh N`` trains data-parallel over N
-ranks (``WeightedProcrustesTrainer.train_step_dp``): started outside a
-world of N ranks, the command starts one (N cards, or N CPU ranks under
-``--cpu``, ``eval/cli.py::in_world``) and runs on every rank with the
-same pairs; rank 0 alone prints and writes.
+beside the FCGF checkpoint; ``--checkpoint-format gmf`` writes them as
+``gmf_tpu``'s ``train_dgr`` does (the inlier net's ``{params,
+batch_stats}`` tree in ``state.msgpack``). ``--mesh N`` trains
+data-parallel over N ranks (``WeightedProcrustesTrainer.train_step_dp``):
+started outside a world of N ranks, the command starts one (N cards, or
+N CPU ranks under ``--cpu``, ``eval/cli.py::in_world``) and runs on
+every rank with the same pairs; rank 0 alone prints and writes.
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ import os
 import time
 
 import numpy as np
+
+from gmf_tpu_torch.utils.checkpoint import CHECKPOINT_FORMATS
 
 SOURCES = [
     "gmf_tpu_torch.models.dgr", "gmf_tpu_torch.sparse.resunet",
@@ -72,6 +76,10 @@ def parse_args(argv=None):
                          "constant offset (data/dgr_loader.make_dgr_pair)")
     ap.add_argument("--overlap", type=float, default=0.7,
                     help="synthetic pair overlap fraction")
+    ap.add_argument("--checkpoint-format", choices=CHECKPOINT_FORMATS,
+                    default="pt",
+                    help="pt: the port's state.pt; gmf: gmf_tpu's "
+                         "state.msgpack of the inlier net's tree")
     ap.add_argument("--cloud", choices=["uniform", "surface"],
                     default="uniform",
                     help="synthetic pair geometry: 'surface' (heightfield) "
@@ -98,9 +106,18 @@ def main(argv=None):
     from gmf_tpu_torch.sparse.resunet import FCGFNet, GMFInlierNet
     from gmf_tpu_torch.train.dgr_trainer import WeightedProcrustesTrainer
     from gmf_tpu_torch.utils.checkpoint import (save_checkpoint,
+                                                save_gmf_checkpoint,
                                                 snapshot_sources)
     from gmf_tpu_torch.utils.device import resolve_device
-    from gmf_tpu_torch.utils.model_io import load_state
+    from gmf_tpu_torch.utils.model_io import load_state, state_dict_to_tree
+
+    def save(path, config):
+        sd = trainer.inlier_variables()
+        if args.checkpoint_format == "gmf":
+            save_gmf_checkpoint(path, state_dict_to_tree(
+                sd, "SparseResUNet2"), config=config)
+        else:
+            save_checkpoint(path, sd, config=config)
 
     device = resolve_device("cpu" if args.cpu else None)
     cfg = dgr_kitti() if args.dataset == "kitti" else dgr_3dmatch()
@@ -214,15 +231,12 @@ def main(argv=None):
             continue
         print(f"epoch {epoch + 1}: " + " ".join(
             f"{k}={v:.4f}" for k, v in sorted(avg.items())), flush=True)
-        save_checkpoint(
-            os.path.join(save_dir, f"checkpoint_epoch_{epoch + 1}"),
-            trainer.inlier_variables(),
-            config={"dgr": cfg.__dict__, "descriptor": args.descriptor})
+        save(os.path.join(save_dir, f"checkpoint_epoch_{epoch + 1}"),
+             {"dgr": cfg.__dict__, "descriptor": args.descriptor})
         if succ > best:
             best = succ
-            save_checkpoint(os.path.join(save_dir, "best_val_checkpoint"),
-                            trainer.inlier_variables(),
-                            config={"dgr": cfg.__dict__})
+            save(os.path.join(save_dir, "best_val_checkpoint"),
+                 {"dgr": cfg.__dict__})
     if chief:
         print(f"done; snapshots in {save_dir}", flush=True)
     return save_dir

@@ -17,7 +17,9 @@ It runs on the card unless ``--cpu`` is given. As the reference's
 (gmf_tpu/train/train_pointdsc.py:170-177), the model trains with the
 dense attention (``fused_attention=False``) unless ``--fused`` asks for
 the attention kernels; the checkpoints record which. ``--prefetch N``
-builds batches N ahead on a thread (``data/prefetch.py``). Started in a
+builds batches N ahead on a thread (``data/prefetch.py``).
+``--checkpoint-format gmf`` writes the snapshots as ``gmf_tpu``'s trainer
+writes them (``Trainer.save``), for ``gmf_tpu`` to load. Started in a
 world of ranks (``torchrun``, joined by ``parallel/launch.py::
 init_world``), it trains data-parallel over all of them, as gmf_tpu's
 trainer takes every device by default: each rank draws its batches from
@@ -30,6 +32,8 @@ from __future__ import annotations
 import argparse
 import os
 import time
+
+from gmf_tpu_torch.utils.checkpoint import CHECKPOINT_FORMATS
 
 
 class BatchedLoader:
@@ -101,6 +105,10 @@ def parse_args(argv=None):
     ap.add_argument("--fused", action="store_true",
                     help="train through the attention kernels (fused "
                          "attention) instead of the dense attention")
+    ap.add_argument("--checkpoint-format", choices=CHECKPOINT_FORMATS,
+                    default="pt",
+                    help="pt: the port's state.pt; gmf: gmf_tpu's "
+                         "state.msgpack, as its trainer writes it")
     return ap.parse_args(argv)
 
 
@@ -210,7 +218,8 @@ def main(argv=None):
         trainer.load(args.pretrain)
         print(f"loaded pretrain from {args.pretrain}", flush=True)
 
-    history = trainer.train(snapshot=True)
+    history = trainer.train(snapshot=True,
+                            checkpoint_format=args.checkpoint_format)
     final = [h for h in history if h[0] == "eval"][-1][2]
     print(f"final eval: recall={final['reg_recall']:.2f}% "
           f"class_loss={final['class_loss']:.4f}", flush=True)

@@ -50,9 +50,12 @@ from gmf_tpu_torch.parallel.mesh import replicate, shard_batch, sharded
 from gmf_tpu_torch.train.losses import (classification_loss,
                                         spectral_matching_loss,
                                         transformation_loss)
-from gmf_tpu_torch.utils.checkpoint import save_checkpoint
+from gmf_tpu_torch.utils.checkpoint import (CHECKPOINT_FORMATS,
+                                            save_checkpoint,
+                                            save_gmf_checkpoint)
 from gmf_tpu_torch.utils.logging_utils import MetricsLogger
-from gmf_tpu_torch.utils.model_io import load_state
+from gmf_tpu_torch.utils.model_io import (GMF_POINTDSC_FIELDS, load_state,
+                                          state_dict_to_tree)
 
 
 @dataclasses.dataclass
@@ -270,7 +273,9 @@ class Trainer:
         return self._mean(self.eval_step(b)
                           for b in self._batches(self.val_loader))
 
-    def train(self, snapshot: bool = True):
+    def train(self, snapshot: bool = True, checkpoint_format: str = "pt"):
+        """Eval at epoch 0, then per epoch training, eval and (with
+        ``snapshot``) checkpoints in ``checkpoint_format`` (``save``)."""
         best_recall = -1.0
         res = self.evaluate()
         self.history.append(("eval", 0, res))
@@ -288,19 +293,36 @@ class Trainer:
             if snapshot and self.is_chief:
                 if res["reg_recall"] > best_recall:
                     best_recall = res["reg_recall"]
-                    self.save(os.path.join(self.cfg.save_dir, "model_best"))
+                    self.save(os.path.join(self.cfg.save_dir, "model_best"),
+                              checkpoint_format)
                 self.save(os.path.join(
                     self.cfg.save_dir,
-                    f"model_{epoch + 1}_recall_{res['reg_recall']:.2f}"))
+                    f"model_{epoch + 1}_recall_{res['reg_recall']:.2f}"),
+                    checkpoint_format)
         return self.history
 
-    def save(self, path: str):
+    def save(self, path: str, checkpoint_format: str = "pt"):
         """Snapshot the model's state and the config, the model's
         settings included, so evaluation can rebuild the network from the
-        checkpoint alone."""
+        checkpoint alone. "pt": the port's ``state.pt`` and the port's
+        settings; "gmf": what ``gmf_tpu``'s ``Trainer.save`` writes, its
+        ``{params, batch_stats}`` tree in ``state.msgpack`` and, under
+        "model", the ``PointDSC`` fields it records, from which its
+        ``load_pointdsc`` builds a model of the same settings."""
         config = dataclasses.asdict(self.cfg)
-        config["model"] = dict(self.model.config)
-        save_checkpoint(path, self.model.state_dict(), config=config)
+        if checkpoint_format == "pt":
+            config["model"] = dict(self.model.config)
+            save_checkpoint(path, self.model.state_dict(), config=config)
+        elif checkpoint_format == "gmf":
+            model = {**self.model.config,
+                     "compat_cache_shards": self.model.compat_cache_shards}
+            config["model"] = {f: model[f] for f in GMF_POINTDSC_FIELDS}
+            save_gmf_checkpoint(path, state_dict_to_tree(
+                self.model.state_dict(), "pointdsc",
+                self.model.config["num_layers"]), config=config)
+        else:
+            raise ValueError(f"checkpoint_format={checkpoint_format!r}: "
+                             f"one of {CHECKPOINT_FORMATS}")
 
     def load(self, path: str):
         """The model's weights from a checkpoint directory, the port's or

@@ -14,6 +14,11 @@ holds, which ``utils/model_io.py::load_state`` converts to a model's
 ``state_dict``. ``state.orbax`` (``gmf_tpu``'s ``save_checkpoint_orbax``)
 is refused by name: it is an OCDBT key-value store that only
 tensorstore reads, which the card's machine lacks.
+
+``save_gmf_checkpoint`` writes such a directory the way ``gmf_tpu``'s
+``save_checkpoint`` does, byte for byte: ``state.msgpack`` of the tree
+(``utils/model_io.py::state_dict_to_tree`` makes one from a model) and
+the same ``config.json``; ``gmf_tpu`` loads what it writes.
 """
 
 from __future__ import annotations
@@ -24,13 +29,23 @@ import os
 import shutil
 from typing import Any, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from gmf_tpu_torch.utils.flax_msgpack import read_msgpack
+from gmf_tpu_torch.utils.flax_msgpack import read_msgpack, write_msgpack
 
+# what the writers that have a gmf_tpu counterpart can write: the port's
+# state.pt, or gmf_tpu's state.msgpack
+CHECKPOINT_FORMATS = ("pt", "gmf")
 ORBAX_CONVERSION = ("from gmf_tpu.utils.checkpoint import load_checkpoint, "
                     "save_checkpoint; state, config = load_checkpoint(p); "
                     "save_checkpoint(p, state, config)")
+
+
+def _write_config(path: str, config: Optional[Dict[str, Any]]):
+    if config is not None:
+        with open(os.path.join(path, "config.json"), "w") as f:
+            json.dump(config, f, indent=2, default=str)
 
 
 def save_checkpoint(path: str, state_dict: Dict[str, torch.Tensor],
@@ -39,9 +54,31 @@ def save_checkpoint(path: str, state_dict: Dict[str, torch.Tensor],
     os.makedirs(path, exist_ok=True)
     torch.save({k: v.detach().cpu() for k, v in state_dict.items()},
                os.path.join(path, "state.pt"))
-    if config is not None:
-        with open(os.path.join(path, "config.json"), "w") as f:
-            json.dump(config, f, indent=2, default=str)
+    _write_config(path, config)
+    return path
+
+
+def _as_arrays(tree):
+    """``jax.tree.map(np.asarray, tree)``: every leaf but None an array
+    (a tensor stays one: the writer copies it to the host)."""
+    if isinstance(tree, dict):
+        return {k: _as_arrays(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_as_arrays(v) for v in tree)
+    if tree is None or isinstance(tree, torch.Tensor):
+        return tree
+    return np.asarray(tree)
+
+
+def save_gmf_checkpoint(path: str, tree: Dict[str, Any],
+                        config: Optional[Dict[str, Any]] = None) -> str:
+    """Write ``tree`` (and ``config``) to the directory ``path`` as
+    ``gmf_tpu``'s ``save_checkpoint`` writes them: ``state.msgpack``
+    (flax's msgpack of the tree, every leaf an array) and ``config.json``
+    (``json.dump(config, indent=2, default=str)``)."""
+    os.makedirs(path, exist_ok=True)
+    write_msgpack(os.path.join(path, "state.msgpack"), _as_arrays(tree))
+    _write_config(path, config)
     return path
 
 

@@ -9,12 +9,14 @@ the port's model has not (``utils/model_io.py::reference_state_dict``).
 ``convert_fusion_layer`` convert one part each, as gmf_tpu's do.
 
     python -m gmf_tpu_torch.utils.convert_torch --input model_best.pkl \\
-        --out ckpt_dir [--model pointdsc|oanet] [--num-layers N]
+        --out ckpt_dir [--model pointdsc|oanet] [--num-layers N] \\
+        [--checkpoint-format pt|gmf]
 
 writes a port checkpoint directory (``utils/checkpoint.py``) whose
 ``config.json`` records the source and ``arch`` as gmf_tpu's converter
 does: ``load_pointdsc`` reads a PointDSC one and refuses an OANet one,
-``load_oanet`` the other way round.
+``load_oanet`` the other way round. ``--checkpoint-format gmf`` writes
+the directory gmf_tpu's converter writes, byte for byte.
 """
 
 from __future__ import annotations
@@ -28,8 +30,11 @@ from gmf_tpu_torch.models.oanet import OANet
 from gmf_tpu_torch.nn.fusion import FusionLayer
 from gmf_tpu_torch.nn.resnet import ResNet
 from gmf_tpu_torch.models.pointdsc import PointDSC
-from gmf_tpu_torch.utils.checkpoint import save_checkpoint
-from gmf_tpu_torch.utils.model_io import oanet_config, reference_state_dict
+from gmf_tpu_torch.utils.checkpoint import (CHECKPOINT_FORMATS,
+                                            save_checkpoint,
+                                            save_gmf_checkpoint)
+from gmf_tpu_torch.utils.model_io import (oanet_config, reference_state_dict,
+                                          state_dict_to_tree)
 
 
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
@@ -115,9 +120,15 @@ def main(argv=None):
     ap.add_argument("--model", choices=["pointdsc", "oanet"],
                     default="pointdsc")
     ap.add_argument("--num-layers", type=int, default=None)
+    ap.add_argument("--checkpoint-format", choices=CHECKPOINT_FORMATS,
+                    default="pt",
+                    help="pt: the port's state.pt; gmf: gmf_tpu's "
+                         "state.msgpack and config, as its converter "
+                         "writes them")
     args = ap.parse_args(argv)
 
     sd = load_torch_state_dict(args.input)
+    gmf = args.checkpoint_format == "gmf"
     if args.model == "pointdsc":
         n = args.num_layers or 12
         state = convert_pointdsc(sd, num_layers=n)
@@ -127,10 +138,16 @@ def main(argv=None):
     else:
         n = args.num_layers or 6
         state = convert_oanet(sd, num_layers=n)
-        # 'arch' keeps load_pointdsc from reading this as PointDSC's
+        # 'arch' keeps load_pointdsc from reading this as PointDSC's;
+        # gmf_tpu records only the depth, its loader reads the shapes
         cfg = {"converted_from": args.input, "arch": "oanet",
-               "model": {"arch": "oanet", **oanet_config(sd, n)}}
-    save_checkpoint(args.out, state, config=cfg)
+               "model": {"arch": "oanet", **({"num_layers": n} if gmf
+                                             else oanet_config(sd, n))}}
+    if gmf:
+        save_gmf_checkpoint(args.out, state_dict_to_tree(
+            state, args.model, n), config=cfg)
+    else:
+        save_checkpoint(args.out, state, config=cfg)
     print(f"converted {args.input} -> {args.out}")
     return args.out
 

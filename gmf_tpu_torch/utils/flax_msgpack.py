@@ -1,4 +1,4 @@
-"""A reader of flax's msgpack serialisation, in plain Python and NumPy.
+"""flax's msgpack serialisation, read and written in plain Python and NumPy.
 
 ``gmf_tpu``'s checkpoints (``state.msgpack``, written by its
 ``utils/checkpoint.py::save_checkpoint``) are
@@ -26,6 +26,28 @@ Anything else (a type byte msgpack does not define, an ext code flax does
 not write, an ndarray payload that does not hold its shape, bytes left
 after the object, a buffer that ends inside one) raises ``ValueError``
 naming what was found and its byte offset; no partial tree is returned.
+
+``msgpack_serialize`` writes the bytes ``flax.serialization.
+msgpack_serialize`` writes (``msgpack.packb(..., strict_types=True)``
+after ``jax.tree_util``'s copy of the tree), so that ``gmf_tpu`` reads
+what the port writes:
+
+- dict keys in sorted order, as ``jax.tree_util`` rebuilds a dict; None,
+  bool, int, float (64-bit), str, bin (``bytes``, ``bytearray``,
+  ``memoryview``) each in msgpack's smallest encoding, str and bin apart
+  (``use_bin_type=True``); a list as an array. A tuple is an array too:
+  flax's strict packer refuses tuples, so a tree holding one is written
+  here and not by flax;
+- a NumPy array or a torch tensor (copied to the host) as ext 1 of
+  ``(shape, dtype name, C-order bytes)``, a ``torch.bfloat16`` tensor
+  with the name ``bfloat16`` over its bits; a NumPy scalar as ext 3 (its
+  0-d array), a Python complex as ext 2 (``(real, imag)``);
+- an array over ``MAX_CHUNK_SIZE`` bytes that is the tree or a value of
+  a dict reached through dicts only, as flax's chunked form.
+
+Any other leaf (a subclass of these types among them, as the strict
+packer refuses it) raises ``TypeError``, an int outside 64 bits
+``ValueError``, each naming the leaf's path.
 """
 
 from __future__ import annotations
@@ -37,6 +59,7 @@ import numpy as np
 import torch
 
 CHUNKED = "__msgpack_chunked_array__"
+MAX_CHUNK_SIZE = 2 ** 30  # flax's: an array above it is written in chunks
 EXT_NDARRAY, EXT_COMPLEX, EXT_NPSCALAR = 1, 2, 3
 
 # type byte -> (struct format of the fixed-size value or length, its size)
@@ -237,3 +260,181 @@ def read_msgpack(path: str) -> Any:
         return msgpack_restore(data)
     except ValueError as e:
         raise ValueError(f"{path}: {e}") from None
+
+
+# -- the writer ---------------------------------------------------------------
+
+def _put_head(out: list, n: int, fix: int, fix_max: int, wide: tuple):
+    """The header of a str, bin, array or map of ``n``: its fix form while
+    ``n <= fix_max`` (``fix`` None: none), else the first of ``wide``'s
+    (type byte, struct format, limit) that holds it."""
+    if fix is not None and n <= fix_max:
+        out.append(bytes([fix | n]))
+        return
+    for byte, fmt, limit in wide:
+        if n <= limit:
+            out.append(bytes([byte]) + struct.pack(fmt, n))
+            return
+    raise ValueError(f"{n} items or bytes: more than msgpack holds")
+
+
+_B8, _B16, _B32 = 0xff, 0xffff, 0xffffffff
+_STR_HEAD = ((0xd9, ">B", _B8), (0xda, ">H", _B16), (0xdb, ">I", _B32))
+_BIN_HEAD = ((0xc4, ">B", _B8), (0xc5, ">H", _B16), (0xc6, ">I", _B32))
+_ARRAY_HEAD = ((0xdc, ">H", _B16), (0xdd, ">I", _B32))
+_MAP_HEAD = ((0xde, ">H", _B16), (0xdf, ">I", _B32))
+_EXT_HEAD = ((0xc7, ">B", _B8), (0xc8, ">H", _B16), (0xc9, ">I", _B32))
+_FIXEXT_HEAD = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+# (lowest, highest, type byte, struct format) in msgpack's order
+_INTS = ((0, 0x7f, None, ">B"), (-0x20, -1, None, ">b"),
+         (0x80, 0xff, 0xcc, ">B"), (-0x80, -1, 0xd0, ">b"),
+         (0x100, 0xffff, 0xcd, ">H"), (-0x8000, -1, 0xd1, ">h"),
+         (0x10000, 0xffffffff, 0xce, ">I"), (-0x80000000, -1, 0xd2, ">i"),
+         (0x100000000, 2 ** 64 - 1, 0xcf, ">Q"), (-2 ** 63, -1, 0xd3, ">q"))
+
+
+def _put_int(out: list, v: int, path: str):
+    for lo, hi, byte, fmt in _INTS:
+        if lo <= v <= hi:
+            out.append((b"" if byte is None else bytes([byte]))
+                       + struct.pack(fmt, v))
+            return
+    raise ValueError(f"{path}: the int {v} does not fit 64 bits")
+
+
+def _put_str(out: list, v: str):
+    data = v.encode("utf-8")
+    _put_head(out, len(data), 0xa0, 31, _STR_HEAD)
+    out.append(data)
+
+
+def _put_bin(out: list, data):
+    data = bytes(data)
+    _put_head(out, len(data), None, 0, _BIN_HEAD)
+    out.append(data)
+
+
+def _host_array(x, path: str):
+    """(a NumPy array of the leaf's bytes, its dtype name): a tensor
+    copied to the host, bf16 as its uint16 bits; structured and object
+    dtypes raise TypeError."""
+    if isinstance(x, torch.Tensor):
+        t = x.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.contiguous().view(torch.int16).numpy(), "bfloat16"
+        try:
+            x = t.numpy()
+        except TypeError:
+            raise TypeError(f"{path}: a tensor of {t.dtype}, which NumPy "
+                            "does not hold") from None
+    if x.dtype.hasobject or x.dtype.fields:
+        raise TypeError(f"{path}: an array of dtype {x.dtype}, neither "
+                        "plain nor supported by flax")
+    return x, x.dtype.name
+
+
+def _put_ext(out: list, code: int, payload: list):
+    n = sum(len(p) for p in payload)
+    if n in _FIXEXT_HEAD:
+        out.append(bytes([_FIXEXT_HEAD[n]]))
+    else:
+        _put_head(out, n, None, 0, _EXT_HEAD)
+    out.append(struct.pack(">b", code))
+    out.extend(payload)
+
+
+def _put_ndarray(out: list, arr, name: str, code: int = EXT_NDARRAY):
+    """flax's ``_ndarray_to_bytes`` in an ext: ``packb((shape, dtype
+    name, bytes), use_bin_type=True)``."""
+    payload = []
+    _put_head(payload, 3, 0x90, 15, _ARRAY_HEAD)
+    _put_head(payload, arr.ndim, 0x90, 15, _ARRAY_HEAD)
+    for d in arr.shape:
+        _put_int(payload, int(d), "shape")
+    _put_str(payload, name)
+    _put_bin(payload, arr.tobytes("C"))
+    _put_ext(out, code, payload)
+
+
+def _put_chunked(out: list, arr, name: str):
+    """flax's ``_chunk``: {CHUNKED: True, "shape": {"0": ...}, "chunks":
+    {"0": ...}}, in that order, of the flattened array."""
+    size = max(1, int(MAX_CHUNK_SIZE / arr.dtype.itemsize))
+    flat = arr.reshape(-1)
+    chunks = [flat[i:i + size] for i in range(0, flat.size, size)]
+    _put_head(out, 3, 0x80, 15, _MAP_HEAD)
+    _put_str(out, CHUNKED)
+    out.append(b"\xc3")
+    _put_str(out, "shape")
+    _put_head(out, arr.ndim, 0x80, 15, _MAP_HEAD)
+    for i, d in enumerate(arr.shape):
+        _put_str(out, str(i))
+        _put_int(out, int(d), "shape")
+    _put_str(out, "chunks")
+    _put_head(out, len(chunks), 0x80, 15, _MAP_HEAD)
+    for i, c in enumerate(chunks):
+        _put_str(out, str(i))
+        _put_ndarray(out, c, name)
+
+
+def _pack(out: list, obj, path: str, chunkable: bool):
+    kind = type(obj)
+    if obj is None:
+        out.append(b"\xc0")
+    elif kind is bool:
+        out.append(b"\xc3" if obj else b"\xc2")
+    elif kind is int:
+        _put_int(out, obj, path)
+    elif kind in (bytes, bytearray, memoryview):
+        _put_bin(out, obj)
+    elif kind is str:
+        _put_str(out, obj)
+    elif kind is float:
+        out.append(b"\xcb" + struct.pack(">d", obj))
+    elif kind is dict:
+        try:
+            keys = sorted(obj)
+        except TypeError:
+            raise TypeError(f"{path}: dict keys of types that do not "
+                            "sort together") from None
+        _put_head(out, len(keys), 0x80, 15, _MAP_HEAD)
+        for key in keys:
+            sub = f"{path}/{key}"
+            _pack(out, key, f"{sub} (the key)", False)
+            _pack(out, obj[key], sub, chunkable)
+    elif kind in (list, tuple):
+        _put_head(out, len(obj), 0x90, 15, _ARRAY_HEAD)
+        for i, item in enumerate(obj):
+            _pack(out, item, f"{path}[{i}]", False)
+    elif isinstance(obj, (np.ndarray, torch.Tensor)):
+        arr, name = _host_array(obj, path)
+        if chunkable and arr.size * arr.dtype.itemsize > MAX_CHUNK_SIZE:
+            _put_chunked(out, arr, name)
+        else:
+            _put_ndarray(out, arr, name)
+    elif isinstance(obj, np.generic):
+        arr, name = _host_array(np.asarray(obj), path)
+        _put_ndarray(out, arr, name, EXT_NPSCALAR)
+    elif kind is complex:
+        _put_ext(out, EXT_COMPLEX, [b"\x92\xcb" + struct.pack(">d", obj.real)
+                                + b"\xcb" + struct.pack(">d", obj.imag)])
+    else:
+        raise TypeError(f"{path}: a leaf of type {kind.__module__}."
+                        f"{kind.__qualname__}, which flax's msgpack does not "
+                        "write")
+
+
+def msgpack_serialize(tree: Any) -> bytes:
+    """``flax.serialization.msgpack_serialize(tree)``'s bytes (module
+    docstring); ``tree`` is left as it is."""
+    out: list = []
+    _pack(out, tree, "state", True)
+    return b"".join(out)
+
+
+def write_msgpack(path: str, tree: Any) -> str:
+    """Write ``msgpack_serialize(tree)`` to the file ``path``."""
+    data = msgpack_serialize(tree)
+    with open(path, "wb") as f:
+        f.write(data)
+    return path

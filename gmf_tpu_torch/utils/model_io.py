@@ -40,10 +40,8 @@ import torch
 from gmf_tpu_torch.models import PointDSC
 from gmf_tpu_torch.models.oanet import OANet
 from gmf_tpu_torch.models.registry import MODELS
-from gmf_tpu_torch.utils.bridge import (flax_to_state_dict,
-                                        oanet_to_state_dict,
-                                        sparse_resunet_to_state_dict,
-                                        sparse_zoo_to_state_dict)
+from gmf_tpu_torch.utils.bridge import (TORCH_ONLY, get_leaf, leaf_rows,
+                                        rows_to_state_dict, rows_to_tree)
 from gmf_tpu_torch.utils.checkpoint import is_gmf_tree, load_checkpoint
 from gmf_tpu_torch.utils.device import resolve_device
 
@@ -99,31 +97,6 @@ def gmf_pointdsc_kwargs(config: Optional[Dict], **fallback) -> Dict:
     return {**GMF_POINTDSC_DEFAULTS, **kw}
 
 
-class _Reads(dict):
-    """A dict node of a ``gmf_tpu`` tree that records the paths of the
-    leaves read through it, and names the path of a key it lacks."""
-
-    def __init__(self, node, path, read):
-        super().__init__(node)
-        self._path, self._read = path, read
-
-    def __getitem__(self, key):
-        path = f"{self._path}/{key}" if self._path else str(key)
-        if key not in self:
-            raise KeyError(path)
-        value = super().__getitem__(key)
-        if isinstance(value, dict):
-            return _Reads(value, path, self._read)
-        self._read.add(path)
-        return value
-
-    def get(self, key, default=None):
-        return self[key] if key in self else default
-
-    def items(self):
-        return [(k, self[k]) for k in self]
-
-
 def _leaves(tree, path=""):
     for key, value in tree.items():
         sub = f"{path}/{key}" if path else str(key)
@@ -143,6 +116,21 @@ def _as_numpy(tree):
     return tree
 
 
+def _family(arch: str) -> str:
+    """The bridge family (``bridge.leaf_rows``) of a net's arch name."""
+    if arch.lower() in ("pointdsc", "oanet"):
+        return arch.lower()
+    if arch == "SparseResUNet2" or arch.startswith("ResUNet"):
+        return "resunet"
+    if arch in MODELS:
+        return "pyramid" if arch.startswith("PyramidNet") else "zoo"
+    raise ValueError(f"no converter for a gmf_tpu tree of arch {arch!r}")
+
+
+def _of(arch, num_layers):
+    return f"a {arch}" + (f" of {num_layers} layers" if num_layers else "")
+
+
 def tree_to_state_dict(tree: Dict, arch: str,
                        num_layers: Optional[int] = None) -> Dict[str, Any]:
     """``gmf_tpu``'s variables tree (``params`` and ``batch_stats``) as
@@ -151,33 +139,50 @@ def tree_to_state_dict(tree: Dict, arch: str,
     or a name of the registry's sparse nets (``models/registry.py``).
     Raises ``ValueError`` naming the tree's paths that the bridge looked
     for and did not find, or that it left unread."""
-    family = arch.lower()
-    if family == "pointdsc":
-        convert = lambda v: flax_to_state_dict(v, num_layers)  # noqa: E731
-    elif family == "oanet":
-        convert = lambda v: oanet_to_state_dict(v, num_layers)  # noqa: E731
-    elif arch == "SparseResUNet2" or arch.startswith("ResUNet"):
-        convert = sparse_resunet_to_state_dict
-    elif arch in MODELS:
-        convert = sparse_zoo_to_state_dict
-    else:
-        raise ValueError(f"no converter for a gmf_tpu tree of arch {arch!r}")
+    family = _family(arch)
     variables = {k: _as_numpy(tree[k]) for k in ("params", "batch_stats")
                  if k in tree}
-    read = set()
-    try:
-        sd = convert(_Reads(variables, "", read))
-    except KeyError as e:
-        raise ValueError(f"the gmf_tpu tree is not a {arch} one: it has no "
-                         f"{e.args[0]}") from None
-    unread = sorted(set(_leaves(variables)) - read)
+    rows = leaf_rows(family, num_layers, tree=variables)
+    for path, _, _ in rows:
+        if path is not None:
+            try:
+                get_leaf(variables, path)
+            except KeyError as e:
+                raise ValueError(f"the gmf_tpu tree is not a {arch} one: it "
+                                 f"has no {e.args[0]}") from None
+    unread = sorted(set(_leaves(variables))
+                    - {"/".join(p) for p, _, _ in rows if p is not None})
     if unread:
         raise ValueError(
-            f"the gmf_tpu tree holds {len(unread)} arrays that a {arch}"
-            + (f" of {num_layers} layers" if num_layers else "")
-            + f" does not have: {', '.join(unread[:8])}"
+            f"the gmf_tpu tree holds {len(unread)} arrays that "
+            f"{_of(arch, num_layers)} does not have: {', '.join(unread[:8])}"
             + (", ..." if len(unread) > 8 else ""))
-    return sd
+    return rows_to_state_dict(rows, variables)
+
+
+def state_dict_to_tree(sd: Dict[str, torch.Tensor], arch: str,
+                       num_layers: Optional[int] = None) -> Dict[str, Any]:
+    """The inverse of ``tree_to_state_dict``: the port's ``state_dict`` of
+    ``arch`` as ``gmf_tpu``'s ``{"params", "batch_stats"}`` tree of f32
+    NumPy arrays, the tree its ``init`` makes. Raises ``ValueError``
+    naming every entry of ``sd`` that the tree leaves out, or the first
+    that the tree needs and ``sd`` lacks; the torch-only batch-norm
+    counters (``bridge.TORCH_ONLY``) are the one exception, neither needed
+    nor carried."""
+    rows = leaf_rows(_family(arch), num_layers, sd=sd)
+    for path, name, _ in rows:
+        if path is not None and name not in sd:
+            raise ValueError(f"the state_dict is not that of "
+                             f"{_of(arch, num_layers)}: it has no {name!r}")
+    used = {name for _, name, _ in rows}
+    left = sorted(k for k in sd if k not in used
+                  and k.rsplit(".", 1)[-1] != TORCH_ONLY)
+    if left:
+        raise ValueError(
+            f"the state_dict holds {len(left)} entries that "
+            f"{_of(arch, num_layers)} in gmf_tpu does not have: "
+            + ", ".join(left))
+    return rows_to_tree(rows, sd)
 
 
 def _convert(path, tree, arch, num_layers=None):

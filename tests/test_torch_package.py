@@ -169,6 +169,20 @@ def test_no_jax_checks_cover_parallel(path):
     assert (ROOT / "gmf_tpu" / path).exists()
 
 
+# writing gmf_tpu's checkpoints, the demo and the train-eval loop (not
+# counterparts of a gmf_tpu module, but of examples/ and scripts/),
+# likewise
+WRITEBACK = ("utils/flax_msgpack.py", "utils/bridge.py",
+             "utils/checkpoint.py", "utils/model_io.py",
+             "examples/__init__.py", "examples/demo_registration.py",
+             "tools/train_eval_synthetic.py")
+
+
+@pytest.mark.parametrize("path", WRITEBACK)
+def test_no_jax_checks_cover_the_writeback(path):
+    assert _reached(path)
+
+
 GMF_TPU_MODULES = sorted(str(p.relative_to(ROOT / "gmf_tpu"))
                          for p in (ROOT / "gmf_tpu").rglob("*.py"))
 
@@ -272,7 +286,8 @@ NOT_PORTED = {
     "sparse/device_maps.plan_split_probe": _TPU_GATHER,
     "utils/checkpoint.save_checkpoint_orbax": (
         "orbax, JAX's checkpointer: the port writes torch checkpoints "
-        "with save_checkpoint"),
+        "with save_checkpoint and gmf_tpu's state.msgpack with "
+        "save_gmf_checkpoint"),
     "train/trainer.TrainState": _FUNCTIONAL,
     "train/trainer.TrainState.tree": _FUNCTIONAL,
     "train/trainer.make_train_step": _FUNCTIONAL,
